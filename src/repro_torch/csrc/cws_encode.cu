@@ -1,0 +1,253 @@
+// Fused CWS encode kernels for Hopper (sm_90a): x (n, D) nonneg ->
+// embedding-bag indices (n, k) int32, or b-bit codes packed into
+// (n, ceil(k*b/32)) uint32 words.
+//
+// Replaces the four Pallas TPU encode kernels of src/repro/kernels/cws_hash.py:
+//   cws_encode_launch             <- cws_encode_pallas            (stored params)
+//   cws_encode_rng_launch         <- cws_encode_rng_pallas        (regenerated params)
+//   cws_encode_packed_launch      <- cws_encode_packed_pallas     (stored, packed emit)
+//   cws_encode_rng_packed_launch  <- cws_encode_rng_packed_pallas (regenerated, packed)
+// One device body, templated on <Regen, Packed, TrackT>, plays the part of
+// the TPU kernels' shared _accum_loop and _encode_emit.
+//
+// What bounds it on this card: operations, not bytes.  Each (row, d, hash)
+// with x > 0 costs one IEEE division plus about eight fp32 operations, and
+// in regen mode each (d, hash) needs three threefry-2x32 evaluations,
+// four log1p and one log (this kernel repeats them once per block of BN
+// rows); the bytes are 4·n·D in (plus 12·D·k of parameters in stored
+// mode) and 4·n·k or n·k·b/8 out.
+//
+// What the design does about it: one thread per (row, hash) pair, a block
+// of BN rows x BK hashes walking D in chunks of BD.  The block stages
+// log x for its rows and the (BD, BK) parameter tile in shared memory
+// once per chunk (regenerated there cooperatively in regen mode), so a
+// parameter is loaded or regenerated once per BN rows instead of once per
+// row, and each x entry's log is taken once per block instead of once per
+// hash.  The running (best log a, best d, best t) stay in registers; a
+// warp is one row of 32 hashes, so the mask on zero entries is uniform
+// across the warp.  Ragged edges are masked by bounds, never padded.
+//
+// Bit-exactness with the reference (integers must match exactly): build
+// WITHOUT --use_fast_math and WITH --fmad=false; the arithmetic below also
+// spells out round-to-nearest IEEE division, multiply and add, in the
+// reference's order.  logf / log1pf / floorf, not the __logf intrinsics.
+// Ties go to the lowest d (strict < over ascending d).
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int BK = 32;   // hashes per block (threadIdx.x): one warp
+constexpr int BN = 16;   // rows per block (threadIdx.y)
+constexpr int BD = 64;   // dimensions per shared-memory chunk
+constexpr int THREADS = BK * BN;
+
+constexpr uint32_t STREAM_R = 0x243F6A89u;
+constexpr uint32_t STREAM_C = 0x85A308D3u;
+constexpr uint32_t STREAM_BETA = 0x13198A2Fu;
+constexpr uint32_t THREEFRY_PARITY = 0x1BD11BDAu;
+
+__device__ __forceinline__ uint32_t rotl(uint32_t v, int r) {
+  return (v << r) | (v >> (32 - r));
+}
+
+// Threefry-2x32, 20 rounds (repro/core/regen.py:threefry2x32).
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ THREEFRY_PARITY};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl(x1, rot[i % 2][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+}
+
+// Top 24 bits -> fp32 uniform in [0, 1), exact.
+__device__ __forceinline__ float uniform24(uint32_t bits) {
+  return __fmul_rn(__uint2float_rn(bits >> 8), 5.9604644775390625e-08f);
+}
+
+__device__ __forceinline__ float exp1(float u) { return -log1pf(-u); }
+
+// (r, log c, beta) at global coordinate (d, h) (repro/core/regen.py:regen_tile).
+__device__ __forceinline__ void regen_param(uint32_t k0, uint32_t k1,
+                                            uint32_t d, uint32_t h, float& r,
+                                            float& lc, float& be) {
+  uint32_t u0 = d, u1 = h;
+  threefry2x32(k0, k1 ^ STREAM_R, u0, u1);
+  r = fmaxf(__fadd_rn(exp1(uniform24(u0)), exp1(uniform24(u1))), 1e-12f);
+  u0 = d;
+  u1 = h;
+  threefry2x32(k0, k1 ^ STREAM_C, u0, u1);
+  const float c = __fadd_rn(exp1(uniform24(u0)), exp1(uniform24(u1)));
+  lc = logf(fmaxf(c, 1e-38f));
+  u0 = d;
+  u1 = h;
+  threefry2x32(k0, k1 ^ STREAM_BETA, u0, u1);
+  be = uniform24(u0);
+}
+
+template <bool Regen, bool Packed, bool TrackT>
+__global__ void __launch_bounds__(THREADS)
+cws_encode_kernel(const float* __restrict__ x, const float* __restrict__ r_g,
+                  const float* __restrict__ lc_g,
+                  const float* __restrict__ be_g, uint32_t k0, uint32_t k1,
+                  int n, int d, int k, int b_i, int b_t,
+                  void* __restrict__ out, int out_cols) {
+  __shared__ float s_lu[BN][BD];
+  __shared__ float s_r[BD][BK];
+  __shared__ float s_lc[BD][BK];
+  __shared__ float s_be[BD][BK];
+  __shared__ int s_code[Packed ? BN : 1][Packed ? BK : 1];
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * BK + tx;
+  const int h0 = blockIdx.x * BK, row0 = blockIdx.y * BN;
+  const int row = row0 + ty, h = h0 + tx;
+
+  float best_a = INFINITY;
+  int best_i = -1;
+  float best_t = 0.0f;
+
+  for (int d0 = 0; d0 < d; d0 += BD) {
+    for (int e = tid; e < BN * BD; e += THREADS) {
+      const int rr = e / BD, dd = e % BD;
+      const int gr = row0 + rr, gd = d0 + dd;
+      float lu = -INFINITY;
+      if (gr < n && gd < d) {
+        const float v = x[static_cast<size_t>(gr) * d + gd];
+        if (v > 0.0f) lu = logf(fmaxf(v, 1e-38f));
+      }
+      s_lu[rr][dd] = lu;
+    }
+    for (int e = tid; e < BD * BK; e += THREADS) {
+      const int dd = e / BK, hh = e % BK;
+      const int gd = d0 + dd, gh = h0 + hh;
+      float r = 1.0f, lc = 0.0f, be = 0.0f;
+      if (gd < d && gh < k) {
+        if (Regen) {
+          regen_param(k0, k1, static_cast<uint32_t>(gd),
+                      static_cast<uint32_t>(gh), r, lc, be);
+        } else {
+          const size_t o = static_cast<size_t>(gd) * k + gh;
+          r = r_g[o];
+          lc = lc_g[o];
+          be = be_g[o];
+        }
+      }
+      s_r[dd][hh] = r;
+      s_lc[dd][hh] = lc;
+      s_be[dd][hh] = be;
+    }
+    __syncthreads();
+
+    const int dn = min(BD, d - d0);
+    for (int dd = 0; dd < dn; ++dd) {
+      const float lu = s_lu[ty][dd];
+      if (!isfinite(lu)) continue;   // zero, NaN or inf entry: never wins
+      const float r = s_r[dd][tx], lc = s_lc[dd][tx], be = s_be[dd][tx];
+      // tt = floor(lu / r + be); la = lc - r * (tt - be + 1)
+      const float tt = floorf(__fadd_rn(__fdiv_rn(lu, r), be));
+      const float la =
+          __fsub_rn(lc, __fmul_rn(r, __fadd_rn(__fsub_rn(tt, be), 1.0f)));
+      if (la < best_a) {
+        best_a = la;
+        best_i = d0 + dd;
+        if (TrackT) best_t = tt;
+      }
+    }
+    __syncthreads();
+  }
+
+  // Emit: b-bit code, sentinel -> bucket 0 (repro/kernels/cws_hash.py:_encode_emit).
+  int code = b_i ? (best_i & ((1 << b_i) - 1)) : best_i;
+  if (TrackT) {
+    const float t = fminf(fmaxf(best_t, -1073741824.0f), 1073741824.0f);
+    code = code * (1 << b_t) + (static_cast<int>(t) & ((1 << b_t) - 1));
+  }
+  if (best_i < 0) code = 0;
+
+  if (Packed) {
+    const int b = b_i + b_t, cpw = 32 / b;
+    s_code[ty][tx] = h < k ? code : 0;   // pad hash columns pack as zero
+    __syncthreads();
+    if (row < n && tx % cpw == 0) {
+      uint32_t word = 0;
+      for (int c = 0; c < cpw; ++c)
+        word |= static_cast<uint32_t>(s_code[ty][tx + c]) << (c * b);
+      const int w = (h0 + tx) / cpw;
+      if (w < out_cols)
+        static_cast<uint32_t*>(out)[static_cast<size_t>(row) * out_cols + w] =
+            word;
+    }
+  } else if (row < n && h < k) {
+    static_cast<int32_t*>(out)[static_cast<size_t>(row) * out_cols + h] =
+        h * (1 << (b_i + b_t)) + code;
+  }
+}
+
+template <bool Regen, bool Packed>
+cudaError_t launch(const float* x, const float* r, const float* lc,
+                   const float* be, uint32_t k0, uint32_t k1, int n, int d,
+                   int k, int b_i, int b_t, void* out, int out_cols,
+                   cudaStream_t stream) {
+  if (n <= 0 || k <= 0) return cudaSuccess;
+  const dim3 grid((k + BK - 1) / BK, (n + BN - 1) / BN);
+  const dim3 block(BK, BN);
+  if (b_t > 0)
+    cws_encode_kernel<Regen, Packed, true><<<grid, block, 0, stream>>>(
+        x, r, lc, be, k0, k1, n, d, k, b_i, b_t, out, out_cols);
+  else
+    cws_encode_kernel<Regen, Packed, false><<<grid, block, 0, stream>>>(
+        x, r, lc, be, k0, k1, n, d, k, b_i, b_t, out, out_cols);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Row 2 of the TPU kernel table: stored params -> (n, k) int32 indices.
+int cws_encode_launch(const float* x, const float* r, const float* lc,
+                      const float* be, int n, int d, int k, int b_i, int b_t,
+                      int32_t* out, cudaStream_t stream) {
+  return launch<false, false>(x, r, lc, be, 0u, 0u, n, d, k, b_i, b_t, out,
+                              k, stream);
+}
+
+// Row 1: regenerated params -> (n, k) int32 indices.
+int cws_encode_rng_launch(const float* x, uint32_t k0, uint32_t k1, int n,
+                          int d, int k, int b_i, int b_t, int32_t* out,
+                          cudaStream_t stream) {
+  return launch<true, false>(x, nullptr, nullptr, nullptr, k0, k1, n, d, k,
+                             b_i, b_t, out, k, stream);
+}
+
+// Row 4: stored params -> (n, words) packed uint32.
+int cws_encode_packed_launch(const float* x, const float* r, const float* lc,
+                             const float* be, int n, int d, int k, int b_i,
+                             int b_t, uint32_t* out, int words,
+                             cudaStream_t stream) {
+  return launch<false, true>(x, r, lc, be, 0u, 0u, n, d, k, b_i, b_t, out,
+                             words, stream);
+}
+
+// Row 3: regenerated params -> (n, words) packed uint32.
+int cws_encode_rng_packed_launch(const float* x, uint32_t k0, uint32_t k1,
+                                 int n, int d, int k, int b_i, int b_t,
+                                 uint32_t* out, int words,
+                                 cudaStream_t stream) {
+  return launch<true, true>(x, nullptr, nullptr, nullptr, k0, k1, n, d, k,
+                            b_i, b_t, out, words, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,27 @@
+"""Device choice for the port's entry points: CUDA unless told otherwise."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card: raise when there is none rather than run
+    quietly on the CPU.  An explicit device is taken as given, and a CUDA
+    device without a card raises too.  A CUDA device comes back with its
+    index, so that it compares equal to the device tensors report."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "the plain PyTorch path on the CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but CUDA is not "
+                               f"available")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device

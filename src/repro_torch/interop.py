@@ -1,0 +1,43 @@
+"""Carry the JAX package's parameters and state into the port.
+
+The reference hands its arrays over as numpy (``np.asarray`` of any JAX
+array); these functions turn them into the port's types on a given
+device.  The served-model bundle (``repro_torch.serving.bundle``) is the
+same hand-over on disk.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.cws import CWSParams
+from repro_torch.core.linear_model import LinearParams
+from repro_torch.core.regen import key_words as _key_words
+from repro_torch.device import resolve_device
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, np.float32, copy=True), device=device)
+
+
+def linear_params(w, b, *, device=None) -> LinearParams:
+    """Reference ``LinearParams`` (w (F, C), b (C,)) -> the port's."""
+    device = resolve_device(device)
+    return LinearParams(_tensor(w, device), _tensor(b, device))
+
+
+def cws_params(r, log_c, beta, *, device=None) -> CWSParams:
+    """Reference ``CWSParams`` matrices (D, k) -> the port's."""
+    device = resolve_device(device)
+    return CWSParams(_tensor(r, device), _tensor(log_c, device),
+                     _tensor(beta, device))
+
+
+def key_words(words) -> Tuple[int, int]:
+    """Reference key words (``uint32[2]``, e.g. ``np.asarray(pipe.
+    _key_words)`` or ``jax.random.key_data(key)``) -> the port's key
+    words: two Python ints, which the kernels take as scalars, so they
+    live on no device."""
+    return _key_words(np.asarray(words, np.uint32))

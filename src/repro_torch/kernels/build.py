@@ -1,0 +1,100 @@
+"""Build the CUDA sources with nvcc and load them with ctypes.
+
+Each source under ``repro_torch/csrc/`` compiles on first use into a shared
+library with a plain C interface, under ``build/kernels/`` at the root of
+the checkout, named by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one loads at once.  Nothing here runs at
+import time: a machine without ``nvcc`` imports the package and uses the
+plain PyTorch paths on CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+# No --use_fast_math, and no fused multiply-add: the encode kernels must
+# round each division, product and sum as the reference does.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+class BuiltLibrary:
+    """A loaded kernel library with the compiler's report of its build."""
+
+    def __init__(self, lib: ctypes.CDLL, path: pathlib.Path, log: str,
+                 seconds: float):
+        self.lib = lib
+        self.path = path
+        self.log = log            # nvcc's -Xptxas -v output ("" if cached)
+        self.seconds = seconds    # build wall time (0 if cached)
+
+
+def build(source: str) -> BuiltLibrary:
+    """Compile ``csrc/<source>`` unless a library for this exact source
+    and flag set is already built; load it either way."""
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes() +
+                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{src.stem}-{digest}.so"
+    log, seconds = "", 0.0
+    if not out.exists():
+        t0 = time.perf_counter()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                                   str(src)], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
+                                   f"{proc.stderr}")
+            os.replace(tmp, out)   # atomic: concurrent builders never see
+        finally:                   # a half-written library
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        log = proc.stdout + proc.stderr
+        seconds = time.perf_counter() - t0
+    return BuiltLibrary(ctypes.CDLL(str(out)), out, log, seconds)
+
+
+@functools.lru_cache(maxsize=None)
+def cws_encode_library() -> BuiltLibrary:
+    """The encode kernels' library with every launcher's ctypes signature
+    declared (pointers and the stream as c_void_p, so none is cut to 32
+    bits; key words as c_uint32)."""
+    built = build("cws_encode.cu")
+    lib = built.lib
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    signatures = {
+        "cws_encode_launch": (p, p, p, p, i, i, i, i, i, p, p),
+        "cws_encode_rng_launch": (p, u, u, i, i, i, i, i, p, p),
+        "cws_encode_packed_launch": (p, p, p, p, i, i, i, i, i, p, i, p),
+        "cws_encode_rng_packed_launch": (p, u, u, i, i, i, i, i, p, i, p),
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return built

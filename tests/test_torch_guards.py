@@ -1,0 +1,123 @@
+"""Guards on the port's boundaries.
+
+  * no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
+    ``jax`` or anything of ``repro`` (an AST scan, and an import of every
+    module in a subprocess where both are blocked);
+  * an entry point given no device raises when CUDA is absent, instead of
+    running quietly on the CPU;
+  * the CPU path runs the plain versions and leaves the kernel launch
+    counters at 0, and a CUDA launcher given a CPU tensor raises rather
+    than falling back.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import interop
+from repro_torch.core.cws import CWSParams
+from repro_torch.kernels import cws_hash, ops, registry
+from repro_torch.pipeline import FeaturePipeline, FeatureSpec
+from repro_torch.serving import ServingService, load_bundle, save_bundle
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def _forbidden(mod):
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_with_jax_and_repro_blocked():
+    modules = sorted(
+        "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    code = (
+        "import sys, importlib\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok', len(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def _tiny_bundle(tmp_path):
+    spec = FeatureSpec(num_hashes=8, b_i=2)
+    pipe = FeaturePipeline.create_regen(np.array([1, 2], np.uint32), 6, spec,
+                                        device="cpu")
+    params = interop.linear_params(np.ones((pipe.num_features, 2)),
+                                   np.zeros(2), device="cpu")
+    save_bundle(tmp_path / "model", params, pipe)
+    return tmp_path / "model", spec
+
+
+def test_entry_points_without_device_raise_when_cuda_absent(tmp_path,
+                                                            monkeypatch):
+    path, spec = _tiny_bundle(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FeaturePipeline.create_regen(np.array([1, 2], np.uint32), 6, spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_bundle(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingService.from_bundle(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.linear_params(np.ones((3, 2)), np.zeros(2))
+    with pytest.raises(RuntimeError, match="not available"):
+        load_bundle(path, device="cuda")
+
+
+def test_cpu_path_runs_plain_versions_and_no_kernel(tmp_path):
+    cws_hash.reset_launches()
+    path, _ = _tiny_bundle(tmp_path)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.abs(rng.standard_normal((5, 6)))
+                         .astype(np.float32))
+    params = CWSParams(*(torch.rand(6, 8) + 0.5 for _ in range(3)))
+    ops.cws_encode(x, params, b_i=2)
+    ops.cws_encode_packed(x, params, b_i=2)
+    ops.cws_encode_rng(x, (1, 2), 8, b_i=2)
+    ops.cws_encode_rng_packed(x, (1, 2), 8, b_i=2)
+    with ServingService.from_bundle(path, device="cpu") as svc:
+        svc.score(x.numpy())
+    assert cws_hash.LAUNCHES == dict.fromkeys(cws_hash.LAUNCHES, 0)
+
+
+def test_cuda_launcher_refuses_cpu_tensors():
+    x = torch.rand(3, 6)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cws_hash.cws_encode_rng_cuda(x, (1, 2), 8, b_i=2)
+    assert registry.resolve("cws_encode", torch.device("cpu")) is \
+        cws_hash.cws_encode_plain
+    assert registry.resolve("cws_encode_rng", torch.device("cuda", 0)) is \
+        cws_hash.cws_encode_rng_cuda
+    assert registry.family("cws_encode_rng_packed") == "cws_rng_packed"
