@@ -5,15 +5,24 @@
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
-  1. device   - require CUDA; print the card's name and power limit;
-  2. build    - nvcc-build the encode kernels from ``src/repro_torch/csrc``
-                and print the compiler's per-kernel registers, shared
-                memory and spills;
-  3. parity   - each of the four encode kernels against its plain PyTorch
-                version on the card, exactly (integer outputs), at the
-                serving shapes, at ragged shapes with all-zero rows for
-                b_t in {0, 2} and packed b in {1, 2, 4, 8}, and in one wide
-                launch at D = 65,536;
+  1. device   - require CUDA; print the card's name and power limit, and
+                the lane issue rate the bounds use (SMs x 128 lanes x the
+                maximum SM clock, read from the card);
+  2. build    - nvcc-build the CWS kernels and the min-sum Gram kernel from
+                ``src/repro_torch/csrc``, one nvcc per source, started
+                together, and print the compiler's per-kernel registers,
+                shared memory and spills;
+  3. parity   - each of the six CWS kernels against its plain PyTorch
+                version on the card, exactly (integer outputs): the four
+                encodes at the serving shapes, at ragged shapes with
+                all-zero rows for b_t in {0, 2} and packed b in
+                {1, 2, 4, 8}, and in one wide launch at D = 65,536; the
+                raw (i*, t*) hashes at the serving shapes, ragged with
+                all-zero rows, the estimator's (2, 2000, 1024), a row
+                pushing t* to the +-2^30 clip, and 512 x 65,536 x 1024;
+                the min-sum kernel (``min_sum``, ``minmax_gram``) at
+                ragged, block-edge, suite and long-D shapes within the
+                bound its fp32 sums allow;
   4. slice    - the serving path at the paper configuration's full width
                 (D = 256, k = 1024, 10 classes): four bundles (regen,
                 stored, regen+packed b = 8, stored+packed b = 4), each
@@ -23,16 +32,33 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the features of every served batch are held exactly, and
                 served logits within a tolerance, against offline
                 ``pipe.features(x)`` and ``bag_logits`` of them;
-  5. times    - each kernel and its plain version timed with CUDA events
-                at (512, 256, 1024) and (512, 65,536, 1024), beside the
-                least time the card could take for the same work.
+  5. kernel machine - Table 1 on the "template" suite at full size (1,200
+                train / 800 test rows, D = 256, 6 classes): the four
+                Grams through ``GRAM_FNS`` and ``best_accuracy_over_C``
+                over C in 0.01 ... 1000 with 20 sweeps, then the staged
+                hash pass of Figs 7-8 (stored parameters, k = 1024) whose
+                full-scheme collision estimates are held against the
+                min-max Gram; min-max accuracy must reach linear's and
+                agree with the plain path on the CPU within 0.5 pp;
+  6. estimator - Figs 4-5 at 2^16-document word pairs (HONG-KONG,
+                CREDIT-CARD): K from the min-sum kernel, 300 Monte-Carlo
+                reps of ``pipe.with_key(key).hashes(x)`` at k = 1024, and
+                the full / 0-bit / 1-bit bias and MSE at k in
+                {1, 4, ..., 1024} with the benchmark's own assertions; K at
+                4,096 documents against the JAX package's stored values;
+  7. times    - each kernel and its plain version timed with CUDA events,
+                beside the least time the card could take for the same
+                work and, for the Gram, ``torch.cdist(p=1)`` as a yardstick.
 
-The line before the last is ``nvidia-smi``'s name and power limit, the
-one before it a JSON summary of every kernel; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Phases 4-6 are the main paths: each zeroes the launch counters just
+before it and reads them just after, and fails if a kernel it runs was
+never launched.  The line before the last is ``nvidia-smi``'s name and
+power limit, the one before it a JSON summary of every kernel; the last
+line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import pathlib
@@ -54,23 +80,43 @@ WIDE_DIM = 65536          # the widest D in the reference's block table
 REQUESTS, MAX_ROWS = 200, 48
 DEVICE = "cuda"
 
-# Published H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s device memory,
-# 67 TFLOP/s fp32 outside the tensor cores.  Integer and transcendental
-# operations are counted at the fp32 rate, one each, and only the work the
-# function needs: no kernel can take less time than this bound.
+# Table 1 (benchmarks/table1_kernel_svm.py) and Figs 4-5
+# (benchmarks/fig45_cws_mse.py) as the reference's benchmarks run them.
+TABLE1_KERNELS = ("linear", "min-max", "n-min-max", "intersection")
+C_GRID = (0.01, 0.1, 1.0, 10.0, 100.0, 1000.0)
+SWEEPS = 20
+EST_ROWS = 64             # test rows whose hashed estimates are checked
+PAIRS = ("HONG-KONG", "CREDIT-CARD")
+N_DOCS, SUPPORT_CAP, REPS = 2 ** 16, 2000, 300
+KS = (1, 4, 16, 64, 256, 1024)
+FIG45_JSON = ROOT / "benchmarks" / "results" / "fig45_cws_mse.json"
+GRAM_TIMING = ((1200, 1200, 256), (12000, 12000, 784))
+
+# Published H100 SXM memory rate (NVIDIA data sheet).  Operations are
+# counted at the lane issue rate read from the card (``lane_rate``): one
+# fp32, integer, compare or transcendental step per lane per cycle, and
+# only the work the function needs, so no kernel can take less time.
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+LANES_PER_SM = 128
 THREEFRY_OPS = 117        # 20 rounds of add/rotate/xor + key injections
+U32 = 2.0 ** -24          # fp32 unit roundoff
 
 KERNELS = {
-    # name: (replaces, regen, packed)
-    "cws_encode_rng": ("src/repro/kernels/cws_hash.py:431", True, False),
-    "cws_encode": ("src/repro/kernels/cws_hash.py:246", False, False),
+    # name: (replaces, regen, emit)
+    "cws_encode_rng": ("src/repro/kernels/cws_hash.py:431", True, "index"),
+    "cws_encode": ("src/repro/kernels/cws_hash.py:246", False, "index"),
     "cws_encode_rng_packed": ("src/repro/kernels/cws_hash.py:534", True,
-                              True),
-    "cws_encode_packed": ("src/repro/kernels/cws_hash.py:488", False, True),
+                              "packed"),
+    "cws_encode_packed": ("src/repro/kernels/cws_hash.py:488", False,
+                          "packed"),
+    "cws_hash": ("src/repro/kernels/cws_hash.py:213", False, "raw"),
+    "cws_hash_rng": ("src/repro/kernels/cws_hash.py:395", True, "raw"),
 }
+ENCODES = [k for k, v in KERNELS.items() if v[2] != "raw"]
+RAW = [k for k, v in KERNELS.items() if v[2] == "raw"]
 SOURCE = "src/repro_torch/csrc/cws_encode.cu"
+GRAM = ("min_sum", "src/repro/kernels/minmax_gram.py:66",
+        "src/repro_torch/csrc/minmax_gram.cu")
 
 
 def sparse_rows(rng, n, d, density=0.3, zero_rows=()):
@@ -93,20 +139,37 @@ def stored_params(rng, d, k, device):
     return CWSParams(to(r), to(np.log(c)), to(beta))
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
+def nvidia_smi(query: str = "name,power.limit", units=True) -> str:
+    fmt = "--format=csv,noheader" + ("" if units else ",nounits")
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", fmt],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
     return out.stdout.strip().splitlines()[0]
 
 
-class KernelCase:
-    """One kernel's CUDA launcher and plain version on fixed inputs."""
+def lane_rate():
+    """(operations/s, SMs, MHz): one operation per lane per cycle, on
+    every SM, at the card's maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm", units=False))
+    return sms * LANES_PER_SM * mhz * 1e6, sms, mhz
 
-    def __init__(self, name, x, b_i, b_t, params=None, key=None, k=None):
+
+def bound(nbytes, ops, peak_ops):
+    """(least ms, what bounds it) for ``nbytes`` moved and ``ops`` done."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / peak_ops
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+class KernelCase:
+    """One CWS kernel's CUDA launcher and plain version on fixed inputs."""
+
+    def __init__(self, name, x, b_i=0, b_t=0, params=None, key=None,
+                 k=None):
         from repro_torch.kernels import cws_hash as K
         self.name, self.x, self.b_i, self.b_t = name, x, b_i, b_t
-        _, self.regen, self.packed = KERNELS[name]
+        _, self.regen, self.emit = KERNELS[name]
         state = (key, k) if self.regen else (params,)
         self.args = (x,) + state
         self.cuda = getattr(K, name + "_cuda")
@@ -114,36 +177,42 @@ class KernelCase:
         self.k = k if self.regen else params.num_hashes
 
     def run(self, fn):
+        if self.emit == "raw":        # (i*, t*) stacked: (2, n, k)
+            return torch.stack(fn(*self.args))
         out = fn(*self.args, b_i=self.b_i, b_t=self.b_t)
-        return out.view(torch.int32) if self.packed else out
+        return out.view(torch.int32) if self.emit == "packed" else out
 
     def compare(self):
+        """([mismatches per output], max |difference|): one output, or
+        i* and t* for the raw hashes."""
         got, want = self.run(self.cuda), self.run(self.plain)
         torch.cuda.synchronize()
         if got.shape != want.shape:
             raise AssertionError(f"{self.name}: shape {tuple(got.shape)} "
                                  f"!= plain {tuple(want.shape)}")
-        if self.packed:   # packed words compare as the same 32 bits
+        if self.emit == "packed":   # packed words compare as the same bits
             diff = got.to(torch.int64) & 0xFFFFFFFF
             diff = (diff - (want.to(torch.int64) & 0xFFFFFFFF)).abs()
         else:
             diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
-        return int((diff != 0).sum()), int(diff.max()) if diff.numel() else 0
+        parts = diff if self.emit == "raw" else diff[None]
+        bad = [int((p != 0).sum()) for p in parts]
+        return bad, int(diff.max()) if diff.numel() else 0
 
-    def bound_ms(self):
+    def bound_ms(self, peak_ops):
         n, d = self.x.shape
         k = self.k
-        out_bytes = (n * math.ceil(k * (self.b_i + self.b_t) / 32) * 4
-                     if self.packed else 4 * n * k)
+        if self.emit == "packed":
+            out_bytes = n * math.ceil(k * (self.b_i + self.b_t) / 32) * 4
+        else:
+            out_bytes = (8 if self.emit == "raw" else 4) * n * k
         nbytes = 4 * n * d + out_bytes + (0 if self.regen else 12 * d * k)
         # one IEEE division + ~8 fp32 operations per (row, d, hash) with
         # x > 0 (zero entries skip the update)
         ops = int((self.x > 0).sum()) * k * 9
         if self.regen:   # 3 threefry + 4 log1p + 1 log per (d, hash)
             ops += d * k * (3 * THREEFRY_OPS + 5)
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S
-        return (max(t_bytes, t_ops) * 1e3,
-                "bytes" if t_bytes >= t_ops else "operations")
+        return bound(nbytes, ops, peak_ops)
 
 
 def time_ms(fn, reps, warmup=2):
@@ -160,30 +229,55 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def clip_case(rng, dev):
+    """A stored-parameter case whose t* lands on the +-2^30 clip: tiny r
+    on two thirds of the hashes, entries of 1e25-1e30 in row 0 and of
+    1e-30-1e-25 in row 1 (|log u / r| ~ 6e9), row 2 all zero."""
+    from repro_torch.core.cws import CWSParams
+    d, k = 40, 96
+    r = np.full((d, k), 1e-8, np.float32)
+    r[:, ::3] = rng.uniform(0.5, 2.0, (d, k // 3)).astype(np.float32)
+    log_c = rng.standard_normal((d, k)).astype(np.float32)
+    beta = rng.random((d, k), dtype=np.float32)
+    x = np.zeros((3, d), np.float32)
+    x[0, ::2] = 10.0 ** rng.uniform(25, 30, d // 2)
+    x[1, 1::2] = 10.0 ** -rng.uniform(25, 30, d // 2)
+    to = lambda a: torch.from_numpy(a).to(dev)
+    return to(x), CWSParams(to(r), to(log_c), to(beta))
+
+
 def phase_parity(dev, results):
     from repro_torch.kernels.cws_hash import LAUNCHES
     rng = np.random.default_rng(11)
     key = tuple(int(w) for w in rng.integers(0, 2 ** 32, 2, dtype=np.uint64))
 
-    def check(name, n, d, k, b_i, b_t, zero_rows=()):
-        x = torch.from_numpy(sparse_rows(rng, n, d, zero_rows=zero_rows)
-                             ).to(dev)
-        params = None if KERNELS[name][1] else stored_params(rng, d, k, dev)
+    def check(name, n, d, k, b_i=0, b_t=0, zero_rows=(), x=None,
+              params=None):
+        if x is None:
+            x = torch.from_numpy(sparse_rows(rng, n, d, zero_rows=zero_rows)
+                                 ).to(dev)
+        if params is None and not KERNELS[name][1]:
+            params = stored_params(rng, d, k, dev)
         case = KernelCase(name, x, b_i, b_t, params=params, key=key, k=k)
         bad, err = case.compare()
         r = results[name]
         r["checked"] += 1
-        r["mismatches"] += bad
+        r["mismatches"] += sum(bad)
+        if len(bad) == 2:
+            r["mismatches_i"] += bad[0]
+            r["mismatches_t"] += bad[1]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if bad:
+        if sum(bad):
             raise AssertionError(f"{name} (n={n}, D={d}, k={k}, b_i={b_i}, "
                                  f"b_t={b_t}): {bad} outputs differ from "
                                  f"the plain version")
+        return case
 
-    for name, (_, _, packed) in KERNELS.items():
+    ragged = dict(n=37, d=300, k=70, zero_rows=(0, 5, 36))
+    for name in ENCODES:
+        packed = KERNELS[name][2] == "packed"
         for n in BUCKETS:
             check(name, n, DIM, NUM_HASHES, B_I, 0)
-        ragged = dict(n=37, d=300, k=70, zero_rows=(0, 5, 36))
         if packed:
             for b in (1, 2, 4, 8):
                 check(name, b_i=b, b_t=0, **ragged)
@@ -198,6 +292,94 @@ def phase_parity(dev, results):
               f"{BUCKETS} at D={DIM} k={NUM_HASHES}; ragged 37x300x70 with "
               f"zero rows; 512x{WIDE_DIM}x{NUM_HASHES}); mismatches "
               f"{r['mismatches']}; launches {LAUNCHES[name]}")
+
+    x_clip, p_clip = clip_case(rng, dev)
+    for name in RAW:
+        for n in BUCKETS:
+            check(name, n, DIM, NUM_HASHES)
+        check(name, **ragged)
+        check(name, 2, SUPPORT_CAP, NUM_HASHES)
+        if name == "cws_hash":
+            case = check(name, 3, x_clip.shape[1], p_clip.num_hashes,
+                         x=x_clip, params=p_clip)
+            t_star = case.run(case.cuda)[1]
+            if not ((t_star[0] == 2 ** 30).any() and
+                    (t_star[1] == -2 ** 30).any()):
+                raise AssertionError("cws_hash: the clip row never reached "
+                                     "t* = +-2^30")
+            clip = "t* clipped to +-2^30 in rows 0 and 1"
+        else:   # regenerated r cannot be made tiny: extreme entries only
+            x = torch.from_numpy(np.array(
+                [[3e38, 0.0, 1.2e-38] * 20, [0.0, 1e30, 1e-30] * 20],
+                np.float32)).to(dev)
+            check(name, 2, 60, 96, x=x)
+            clip = "rows of 3e38 and 1.2e-38 entries"
+        check(name, 512, WIDE_DIM, NUM_HASHES)
+        r = results[name]
+        print(f"parity {name}: {r['checked']} shapes (serving n in "
+              f"{BUCKETS} at D={DIM} k={NUM_HASHES}; ragged 37x300x70 with "
+              f"zero rows; 2x{SUPPORT_CAP}x{NUM_HASHES}; {clip}; "
+              f"512x{WIDE_DIM}x{NUM_HASHES}); mismatches i* "
+              f"{r['mismatches_i']} t* {r['mismatches_t']}; launches "
+              f"{LAUNCHES[name]}")
+
+
+def gram_rows(rng, n, d, zero_rows=()):
+    """Sparse heavy-tailed nonnegative rows, as the suites have."""
+    x = sparse_rows(rng, n, d, density=0.4, zero_rows=zero_rows)
+    return x * np.exp(rng.standard_normal((n, d))).astype(np.float32)
+
+
+def gram_worst(x, y):
+    """Worst ratio of |cuda - plain| to its bound, for S and for K.  All
+    terms are nonnegative and two recursive fp32 sums of D terms in other
+    orders differ by at most ~2·D·2^-24·S, so |S_cuda - S_plain| <=
+    2·D·2^-24·S_plain + 1e-30; K = S / (sum x + sum y - S) then has a
+    relative bound of 4·D·2^-24."""
+    from repro_torch.kernels import minmax_gram as G
+    d = x.shape[1]
+    s_cuda, s_plain = G.min_sum_cuda(x, y), G.min_sum_plain(x, y)
+    k_cuda, k_plain = G.minmax_gram_cuda(x, y), G.minmax_gram_plain(x, y)
+    torch.cuda.synchronize()
+    for got, want in ((s_cuda, s_plain), (k_cuda, k_plain)):
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"min_sum (D={d}): shape "
+                                 f"{tuple(got.shape)} or non-finite values")
+    ds = (s_cuda.double() - s_plain.double()).abs()
+    dk = (k_cuda.double() - k_plain.double()).abs()
+    ratio_s = float((ds / (2 * d * U32 * s_plain.double() + 1e-30)).max())
+    ratio_k = float((dk / (4 * d * U32 * k_plain.double().abs() + 1e-30)
+                     ).max())
+    return ratio_s, ratio_k, float(ds.max())
+
+
+def phase_gram_parity(dev, results):
+    from repro_torch.kernels.minmax_gram import LAUNCHES
+    rng = np.random.default_rng(12)
+    shapes = ([((37, 29, 300), (0, 17), (5,))] +
+              [((m, n, d), (), ()) for m in (63, 64, 65)
+               for n in (63, 64, 65) for d in (63, 64, 65)] +
+              [((800, 1200, 256), (), ()), ((64, 64, WIDE_DIM), (), ())])
+    r = results[GRAM[0]]
+    worst = (0.0, 0.0)
+    for (m, n, d), zx, zy in shapes:
+        x = torch.from_numpy(gram_rows(rng, m, d, zx)).to(dev)
+        y = torch.from_numpy(gram_rows(rng, n, d, zy)).to(dev)
+        ratio_s, ratio_k, err = gram_worst(x, y)
+        r["checked"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        worst = (max(worst[0], ratio_s), max(worst[1], ratio_k))
+        if ratio_s > 1 or ratio_k > 1:
+            raise AssertionError(f"min_sum ({m}, {n}, {d}): |cuda - plain| "
+                                 f"at {ratio_s:.3g} (S) / {ratio_k:.3g} (K) "
+                                 f"of the bound")
+    r["worst_ratio_S"], r["worst_ratio_K"] = worst
+    print(f"parity min_sum / minmax_gram: {r['checked']} shapes (ragged "
+          f"37x29x300 with zero rows; 63/64/65 in each dimension; "
+          f"800x1200x256; 64x64x{WIDE_DIM}); worst |cuda - plain| / bound "
+          f"{worst[0]:.4g} (S, bound 2·D·2^-24·S) and {worst[1]:.4g} (K, "
+          f"bound 4·D·2^-24·K); max |dS| {r['max_abs_err']:.4g}; launches "
+          f"{LAUNCHES['min_sum']}")
 
 
 def make_bundles(bundle_root):
@@ -303,7 +485,7 @@ def phase_slice(card, results):
             stats = svc.stats()
         served[mode] = (kernel, xs, outs, wall, stats, batches)
     launches = dict(K.LAUNCHES)
-    for name in KERNELS:
+    for name in ENCODES:
         results[name]["launches"] = launches[name]
 
     for mode, (kernel, xs, outs, wall, stats, batches) in served.items():
@@ -353,13 +535,223 @@ def phase_slice(card, results):
     shutil.rmtree(bundle_root, ignore_errors=True)
 
 
-def phase_times(dev, results):
+def reset_all_launches():
+    from repro_torch.kernels import cws_hash, minmax_gram
+    cws_hash.reset_launches()
+    minmax_gram.reset_launches()
+
+
+def read_launches():
+    from repro_torch.kernels import cws_hash, minmax_gram
+    return {**cws_hash.LAUNCHES, **minmax_gram.LAUNCHES}
+
+
+def require_launched(phase, launches, names):
+    for name in names:
+        if launches[name] == 0:
+            raise AssertionError(f"{phase}: kernel {name} was never "
+                                 f"launched on the main path")
+
+
+def phase_kernel_machine(dev, card, results):
+    """Table 1's exact-kernel SVM on the template suite, then the staged
+    hash pass of Figs 7-8 on the same rows."""
+    from repro_torch.core import (GRAM_FNS, collision_estimate,
+                                  full_collision_estimate)
+    from repro_torch.core.kernel_svm import best_accuracy_over_C
+    from repro_torch.data.synthetic import CLASSIFICATION_SUITES
+    from repro_torch.pipeline import FeaturePipeline, FeatureSpec
+    ds = CLASSIFICATION_SUITES["template"]()
+    xtr, xte = (torch.from_numpy(a).to(dev) for a in (ds.x_train, ds.x_test))
+    ytr, yte = (torch.from_numpy(a).to(dev) for a in (ds.y_train, ds.y_test))
+
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    accs, secs = {}, {}
+    for name in TABLE1_KERNELS:
+        t1 = time.perf_counter()
+        ktr, kte = GRAM_FNS[name](xtr, xtr), GRAM_FNS[name](xte, xtr)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        accs[name], _ = best_accuracy_over_C(
+            ktr, kte, ytr, yte, n_classes=ds.n_classes, Cs=C_GRID,
+            sweeps=SWEEPS)
+        secs[name] = (t2 - t1, time.perf_counter() - t2)
+        if name == "min-max":
+            k_est = kte[:EST_ROWS]
+    pipe = FeaturePipeline.create(
+        torch.Generator(device=dev).manual_seed(2015), ds.x_train.shape[1],
+        FeatureSpec(NUM_HASHES, b_i=0))
+    i_tr, t_tr = pipe.hashes(xtr)
+    i_te, t_te = pipe.hashes(xte[:EST_ROWS])
+    est_full = full_collision_estimate(i_te[:, None], t_te[:, None],
+                                       i_tr[None], t_tr[None])
+    est_0bit = collision_estimate(i_te[:, None], i_tr[None])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    require_launched("kernel machine", launches, ("min_sum", "cws_hash"))
+
+    if accs["min-max"] < accs["linear"]:
+        raise AssertionError(f"min-max accuracy {accs['min-max']} below "
+                             f"linear {accs['linear']}")
+    # the same run of the min-max column through the plain path on the CPU
+    xtr_c, xte_c = xtr.cpu(), xte.cpu()
+    acc_cpu, _ = best_accuracy_over_C(
+        GRAM_FNS["min-max"](xtr_c, xtr_c), GRAM_FNS["min-max"](xte_c, xtr_c),
+        ytr.cpu(), yte.cpu(), n_classes=ds.n_classes, Cs=C_GRID,
+        sweeps=SWEEPS)
+    gap_pp = 100 * abs(accs["min-max"] - acc_cpu)
+    if gap_pp > 0.5:
+        raise AssertionError(f"min-max accuracy {accs['min-max']} on the "
+                             f"card vs {acc_cpu} on the CPU plain path")
+    # the full scheme's collision rate estimates K_MM without bias, with
+    # the binomial spread sqrt(K (1 - K) / k) over 64 x 1,200 pairs
+    err = (est_full - k_est).double()
+    theory = float((k_est * (1 - k_est) / NUM_HASHES).double().mean().sqrt())
+    bias_full, rmse_full = float(err.mean()), float(err.pow(2).mean().sqrt())
+    bias_0bit = float((est_0bit - k_est).double().mean())
+    if abs(bias_full) > 0.003 or rmse_full > 1.3 * theory:
+        raise AssertionError(f"hashed estimate of K_MM: bias {bias_full}, "
+                             f"rmse {rmse_full} vs binomial {theory}")
+    results["kernel_machine"] = {
+        "accuracy": accs, "accuracy_min_max_cpu": acc_cpu, "wall_s": wall,
+        "gram_s": {k: v[0] for k, v in secs.items()},
+        "dual_cd_s": {k: v[1] for k, v in secs.items()},
+        "launches": {k: launches[k] for k in ("min_sum", "cws_hash")},
+        "est_bias_full": bias_full, "est_rmse_full": rmse_full,
+        "est_rmse_binomial": theory, "est_bias_0bit": bias_0bit}
+    for name in ("min_sum", "cws_hash"):
+        results[name]["launches"] += launches[name]
+    print(f"slice kernel machine [{card}]: template suite "
+          f"{tuple(ds.x_train.shape)} train / {tuple(ds.x_test.shape)} test, "
+          f"{ds.n_classes} classes; best accuracy over C "
+          + ", ".join(f"{k} {100 * v:.2f}%" for k, v in accs.items())
+          + f"; min-max on the CPU plain path {100 * acc_cpu:.2f}% "
+          f"(gap {gap_pp:.3f} pp); Gram s "
+          + ", ".join(f"{k} {v[0]:.4f}" for k, v in secs.items())
+          + "; dual CD s (6 C x 6 classes, 20 sweeps x 1,200 coordinates) "
+          + ", ".join(f"{k} {v[1]:.3f}" for k, v in secs.items())
+          + f"; hashed K_MM (k={NUM_HASHES}, {EST_ROWS}x{xtr.shape[0]} "
+          f"pairs) full scheme bias {bias_full:.3g} rmse {rmse_full:.4g} "
+          f"(binomial {theory:.4g}), 0-bit bias {bias_0bit:.3g}; phase "
+          f"{wall:.3f} s; launches min_sum {launches['min_sum']}, "
+          f"cws_hash {launches['cws_hash']}")
+
+
+def compacted_pair(pair, n_docs):
+    """A word pair restricted to its union support, capped at 2,000
+    coordinates as ``benchmarks/fig45_cws_mse.py`` does: (2, D) float32."""
+    from repro_torch.data.synthetic import word_pair
+    u, v = word_pair(pair, n_docs=n_docs)
+    support = np.flatnonzero((u > 0) | (v > 0))
+    if len(support) > SUPPORT_CAP:
+        support = np.random.default_rng(0).choice(support, SUPPORT_CAP,
+                                                  replace=False)
+    return np.stack([u[support], v[support]])
+
+
+def pair_k(x, dev):
+    """K_MM of the two rows of x through the min-sum kernel."""
+    from repro_torch.core.kernels import minmax_gram
+    xd = torch.from_numpy(x).to(dev)
+    return float(minmax_gram(xd[:1], xd[1:])[0, 0])
+
+
+def phase_estimator(dev, card, results):
+    """Figs 4-5: Monte-Carlo bias and MSE of the full, 0-bit and 1-bit
+    estimators of K_MM against K (1 - K) / k."""
+    from repro_torch.core import collision_estimate, full_collision_estimate
+    from repro_torch.pipeline import FeaturePipeline, FeatureSpec
+    rng = np.random.default_rng(45)
+    kmax = max(KS)
+    rows = {}
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pair in PAIRS:
+        x = compacted_pair(pair, N_DOCS)
+        k_true = pair_k(x, dev)
+        xd = torch.from_numpy(x).to(dev)
+        keys = rng.integers(0, 2 ** 32, (REPS, 2),
+                            dtype=np.uint64).astype(np.uint32)
+        pipe = FeaturePipeline.create_regen(keys[0], x.shape[1],
+                                            FeatureSpec(kmax, b_i=1),
+                                            device=dev)
+        i_all = torch.empty((REPS, 2, kmax), dtype=torch.int32, device=dev)
+        t_all = torch.empty_like(i_all)
+        for r, key in enumerate(keys):
+            i_all[r], t_all[r] = pipe.with_key(key).hashes(xd)
+        row = {"K": k_true, "D": x.shape[1], "ks": {}}
+        for k in KS:
+            iu, iv = i_all[:, 0, :k], i_all[:, 1, :k]
+            tu, tv = t_all[:, 0, :k], t_all[:, 1, :k]
+            ests = {"full": full_collision_estimate(iu, tu, iv, tv),
+                    "0bit": collision_estimate(iu, iv),
+                    "1bit": full_collision_estimate(iu, tu & 1, iv, tv & 1)}
+            d = {"theory": k_true * (1 - k_true) / k}
+            for scheme, e in ests.items():
+                e = e.double().cpu().numpy()
+                d["bias_" + scheme] = float(e.mean() - k_true)
+                d["mse_" + scheme] = float(((e - k_true) ** 2).mean())
+            row["ks"][k] = d
+        rows[pair] = row
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    require_launched("estimator", launches, ("cws_hash_rng", "min_sum"))
+    if launches["cws_hash_rng"] != len(PAIRS) * REPS:
+        raise AssertionError(f"estimator: cws_hash_rng launched "
+                             f"{launches['cws_hash_rng']} times, not "
+                             f"{len(PAIRS)} x {REPS}")
+    # the benchmark's own assertions (fig45_cws_mse.py:97-101)
+    for pair, row in rows.items():
+        for k in (64, 256, 1024):
+            d = row["ks"][k]
+            if not (d["mse_0bit"] < 3.0 * d["theory"] + 1e-6
+                    and abs(d["bias_0bit"]) < 0.03):
+                raise AssertionError(f"estimator {pair} k={k}: {d}")
+    # K at the fast mode's 4,096 documents against the JAX package's
+    # stored values, within the min-max bound 4·D·2^-24
+    stored = json.loads(FIG45_JSON.read_text())
+    k4096 = {}
+    for pair in PAIRS:
+        x = compacted_pair(pair, 4096)
+        got, want = pair_k(x, dev), stored[pair]["K"]
+        k4096[pair] = (got, want)
+        if abs(got - want) > 4 * x.shape[1] * U32 * want:
+            raise AssertionError(f"estimator {pair}: K at 4,096 documents "
+                                 f"{got} vs stored {want}")
+    results["estimator"] = {"pairs": rows, "wall_s": wall,
+                            "K_4096": k4096, "reps": REPS,
+                            "launches": {k: launches[k] for k in
+                                         ("cws_hash_rng", "min_sum")}}
+    for name in ("cws_hash_rng", "min_sum"):
+        results[name]["launches"] += launches[name]
+    for pair, row in rows.items():
+        big = row["ks"][kmax]
+        print(f"slice estimator {pair} [{card}]: D={row['D']} K={row['K']:.8f}"
+              f" (K at 4,096 docs {k4096[pair][0]:.8f}, stored "
+              f"{k4096[pair][1]:.8f}); k={kmax}: bias full "
+              f"{big['bias_full']:+.3g} 0-bit {big['bias_0bit']:+.3g} 1-bit "
+              f"{big['bias_1bit']:+.3g}; mse full {big['mse_full']:.4g} 0-bit "
+              f"{big['mse_0bit']:.4g} 1-bit {big['mse_1bit']:.4g} theory "
+              f"{big['theory']:.4g}; mse_0bit / theory at k in {KS}: "
+              + " ".join(f"{d['mse_0bit'] / d['theory']:.3f}"
+                         for d in row["ks"].values()))
+    print(f"slice estimator: {len(PAIRS)} pairs x {REPS} reps in "
+          f"{wall:.3f} s; launches cws_hash_rng {launches['cws_hash_rng']}, "
+          f"min_sum {launches['min_sum']}")
+
+
+def phase_times(dev, results, peak_ops):
     rng = np.random.default_rng(5)
     key = (0x2F0A1C3B, 0x9E3779B9)
     for d, tag in ((DIM, ""), (WIDE_DIM, "_wide")):
         x = torch.from_numpy(sparse_rows(rng, 512, d)).to(dev)
         params = stored_params(rng, d, NUM_HASHES, dev)
-        for name in KERNELS:
+        for name in ENCODES:
             b_i = 4 if name == "cws_encode_packed" else B_I
             case = KernelCase(name, x, b_i, 0, params=params, key=key,
                               k=NUM_HASHES)
@@ -367,58 +759,156 @@ def phase_times(dev, results):
             ms = time_ms(lambda: case.run(case.cuda), reps=5 if wide else 50)
             plain_ms = time_ms(lambda: case.run(case.plain),
                                reps=1 if wide else 10, warmup=1)
-            bound, by = case.bound_ms()
+            bound_ms, by = case.bound_ms(peak_ops)
             r = results[name]
             r["ms" + tag], r["plain_ms" + tag] = ms, plain_ms
-            r["bound_ms" + tag], r["bound_by" + tag] = bound, by
+            r["bound_ms" + tag], r["bound_by" + tag] = bound_ms, by
             print(f"time {name} (512, {d}, {NUM_HASHES}) b={b_i}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} "
-                  f"ms ({by}); library call: none (no PyTorch op computes "
-                  f"the CWS encode)")
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({by}); library call: none (no "
+                  f"PyTorch op computes the CWS encode)")
+
+    # the raw hashes: serving and wide shapes, and the estimator's pair
+    est = torch.from_numpy(compacted_pair("CREDIT-CARD", N_DOCS)).to(dev)
+    shapes = [(torch.from_numpy(sparse_rows(rng, 512, d)).to(dev), reps)
+              for d, reps in ((DIM, 50), (WIDE_DIM, 5))] + [(est, 50)]
+    for x, reps in shapes:
+        n, d = x.shape
+        params = stored_params(rng, d, NUM_HASHES, dev)
+        for name in RAW:
+            case = KernelCase(name, x, params=params, key=key, k=NUM_HASHES)
+            ms = time_ms(lambda: case.run(case.cuda), reps=reps)
+            plain_ms = time_ms(lambda: case.run(case.plain),
+                               reps=1 if d == WIDE_DIM else 10, warmup=1)
+            bound_ms, by = case.bound_ms(peak_ops)
+            results[name]["times"].append({
+                "shape": [n, d, NUM_HASHES], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+            print(f"time {name} ({n}, {d}, {NUM_HASHES}): kernel {ms:.4f} "
+                  f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({by}); library call: none (no PyTorch op computes "
+                  f"CWS)")
+
+    # the min-sum Gram: the suite's train Gram and an MNIST-variations
+    # train Gram (Table 1's M-Rotate / M-Image shape, synthetic rows)
+    from repro_torch.data.synthetic import CLASSIFICATION_SUITES
+    from repro_torch.kernels import minmax_gram as G
+    suite = torch.from_numpy(CLASSIFICATION_SUITES["template"]().x_train)
+    for m, n, d in GRAM_TIMING:
+        if (m, d) == tuple(suite.shape):
+            x = y = suite.to(dev)
+        else:
+            x = torch.from_numpy(gram_rows(rng, m, d)).to(dev)
+            y = x
+        big = m * n > 10 ** 7
+        ms = time_ms(lambda: G.min_sum_cuda(x, y), reps=5 if big else 50)
+        plain_ms = time_ms(lambda: G.min_sum_plain(x, y),
+                           reps=1 if big else 5, warmup=1)
+        lib_ms = time_ms(lambda: torch.cdist(x, y, p=1),
+                         reps=2 if big else 20, warmup=1)
+        bound_ms, by = bound(4 * (m + n) * d + 4 * m * n, 2 * m * n * d,
+                             peak_ops)
+        results[GRAM[0]]["times"].append({
+            "shape": [m, n, d], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms})
+        print(f"time min_sum ({m}, {n}, {d}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}); library "
+              f"call torch.cdist(p=1) {lib_ms:.4f} ms (a yardstick: "
+              f"S = (sum x + sum y - L1) / 2; the port never calls it)")
+
+
+def build_all():
+    """Build every kernel library at once, one nvcc per source."""
+    from repro_torch.kernels.build import (cws_encode_library,
+                                           minmax_gram_library)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(f) for f in (cws_encode_library,
+                                         minmax_gram_library)]
+        built = [f.result() for f in futs]
+    wall = time.perf_counter() - t0
+    for lib in built:
+        print(f"build: {lib.path.name} (nvcc {lib.seconds:.2f} s)")
+        for line in lib.log.splitlines():
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
+                print("  " + line.strip())
+    print(f"build: {len(built)} libraries in {wall:.2f} s")
+
+
+def kernel_entry(name, source, replaces, r, primary):
+    """One kernel's line of the JSON summary; ``primary`` is the timing
+    that stands for it (the shape its main path gives it)."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": primary["ms"],
+            "plain_ms": primary["plain_ms"],
+            "bound_ms": primary["bound_ms"],
+            "bound_by": primary["bound_by"],
+            "library_ms": primary["library_ms"],
+            "shapes_checked": r["checked"], "mismatches": r["mismatches"]}
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    from repro_torch.kernels.build import cws_encode_library
-
+    t_start = time.perf_counter()
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
+    peak_ops, sms, mhz = lane_rate()
     print(f"device: {name} (count {torch.cuda.device_count()}); "
           f"nvidia-smi: {smi}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}")
+          f"{torch.version.cuda}; lane issue rate {sms} SMs x "
+          f"{LANES_PER_SM} lanes x {mhz:.0f} MHz = {peak_ops / 1e12:.3f} "
+          f"T operations/s (the bounds' operation rate); memory "
+          f"{PEAK_BYTES_S / 1e12:.2f} TB/s")
 
-    t0 = time.perf_counter()
-    built = cws_encode_library()
-    print(f"build: {built.path.name} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {built.seconds:.2f} s)")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "entry function" in line:
-            print("  " + line.strip())
+    build_all()
 
     results = {k: {"checked": 0, "mismatches": 0, "max_abs_err": 0,
                    "launches": 0} for k in KERNELS}
+    for k in RAW:
+        results[k].update(mismatches_i=0, mismatches_t=0, times=[])
+    results[GRAM[0]] = {"checked": 0, "mismatches": 0, "max_abs_err": 0.0,
+                        "launches": 0, "times": []}
     phase_parity(dev, results)
+    phase_gram_parity(dev, results)
     phase_slice(smi, results)
-    phase_times(dev, results)
+    phase_kernel_machine(dev, smi, results)
+    phase_estimator(dev, smi, results)
+    phase_times(dev, results, peak_ops)
 
     kernels = []
-    for k, (replaces, _, _) in KERNELS.items():
+    for k in ENCODES:
         r = results[k]
-        kernels.append({"name": k, "route": "cuda", "source": SOURCE,
-                        "replaces": replaces, "launches": r["launches"],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None,
-                        "ms_wide": r["ms_wide"],
-                        "plain_ms_wide": r["plain_ms_wide"],
-                        "bound_ms_wide": r["bound_ms_wide"],
-                        "bound_by_wide": r["bound_by_wide"],
-                        "shapes_checked": r["checked"],
-                        "mismatches": r["mismatches"],
-                        "slice": r["slice"]})
-    print(json.dumps({"kernels": kernels}))
+        entry = kernel_entry(k, SOURCE, KERNELS[k][0], r,
+                             {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                              "bound_ms": r["bound_ms"],
+                              "bound_by": r["bound_by"], "library_ms": None})
+        entry.update(ms_wide=r["ms_wide"], plain_ms_wide=r["plain_ms_wide"],
+                     bound_ms_wide=r["bound_ms_wide"],
+                     bound_by_wide=r["bound_by_wide"], slice=r["slice"])
+        kernels.append(entry)
+    for k in RAW:
+        r = results[k]
+        # the main path's shape: the suite's rows (stored) or the
+        # estimator's pair (regen); (512, 256, 1024) stands for the former
+        primary = r["times"][2] if k == "cws_hash_rng" else r["times"][0]
+        entry = kernel_entry(k, SOURCE, KERNELS[k][0], r, primary)
+        entry.update(mismatches_i=r["mismatches_i"],
+                     mismatches_t=r["mismatches_t"], times=r["times"])
+        kernels.append(entry)
+    r = results[GRAM[0]]
+    entry = kernel_entry(GRAM[0], GRAM[2], GRAM[1], r, r["times"][0])
+    entry.update(worst_ratio_S=r["worst_ratio_S"],
+                 worst_ratio_K=r["worst_ratio_K"], times=r["times"],
+                 kernel_machine=results["kernel_machine"],
+                 estimator={k: v for k, v in results["estimator"].items()
+                            if k != "pairs"})
+    kernels.append(entry)
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels, "lane_rate_ops_s": peak_ops}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,4 +1,5 @@
-"""Encodings of CWS samples (port of ``repro.core.hashing``).
+"""Encodings of CWS samples and collision estimators (port of
+``repro.core.hashing``).
 
 Hash j with code z contributes the one-hot index ``j * 2^{b_i+b_t} + z``;
 packed mode stores the b-bit codes of a row in uint32 words instead.
@@ -26,6 +27,34 @@ def encode(i_star: torch.Tensor, t_star: torch.Tensor, *, b_i: int = 0,
     t_part = t_star.to(torch.int64) & ((1 << b_t) - 1)
     code = i_part * (1 << b_t) + t_part
     return torch.where(sentinel, -1, code).to(torch.int32)
+
+
+def encode_tstar_only(i_star: torch.Tensor, t_star: torch.Tensor, *,
+                      b_i: int) -> torch.Tensor:
+    """Fig. 6 variant: all of t* and only b_i bits of i* (b_i may be 0),
+    combined as ``t* * 2^b_i + (i* & mask)`` wrapped to int32 as the
+    reference's int32 arithmetic wraps (computed in int64, then folded to
+    two's complement); all-zero rows get the sentinel -(2^30) - 12345."""
+    t64 = t_star.to(torch.int64)
+    if b_i == 0:
+        code = t64
+    else:
+        i_part = i_star.to(torch.int64) & ((1 << b_i) - 1)
+        code = t64 * (1 << b_i) + i_part
+    code = ((code + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31
+    return torch.where(i_star < 0, -(2 ** 30) - 12345, code).to(torch.int32)
+
+
+def collision_estimate(codes_u: torch.Tensor,
+                       codes_v: torch.Tensor) -> torch.Tensor:
+    """K_hat = (1/k) sum_j 1[code_u_j == code_v_j], batched on (..., k)."""
+    return (codes_u == codes_v).to(torch.float32).mean(dim=-1)
+
+
+def full_collision_estimate(i_u, t_u, i_v, t_v) -> torch.Tensor:
+    """The full scheme: a hash collides when both i* and t* agree."""
+    eq = (i_u == i_v) & (t_u == t_v)
+    return eq.to(torch.float32).mean(dim=-1)
 
 
 def feature_indices(codes: torch.Tensor, *, b_i: int,

@@ -1,21 +1,24 @@
-// Fused CWS encode kernels for Hopper (sm_90a): x (n, D) nonneg ->
-// embedding-bag indices (n, k) int32, or b-bit codes packed into
-// (n, ceil(k*b/32)) uint32 words.
+// CWS kernels for Hopper (sm_90a): x (n, D) nonneg -> embedding-bag
+// indices (n, k) int32, b-bit codes packed into (n, ceil(k*b/32)) uint32
+// words, or the raw samples (i*, t*) as two (n, k) int32 arrays.
 //
-// Replaces the four Pallas TPU encode kernels of src/repro/kernels/cws_hash.py:
+// Replaces six Pallas TPU kernels of src/repro/kernels/cws_hash.py:
 //   cws_encode_launch             <- cws_encode_pallas            (stored params)
 //   cws_encode_rng_launch         <- cws_encode_rng_pallas        (regenerated params)
 //   cws_encode_packed_launch      <- cws_encode_packed_pallas     (stored, packed emit)
 //   cws_encode_rng_packed_launch  <- cws_encode_rng_packed_pallas (regenerated, packed)
-// One device body, templated on <Regen, Packed, TrackT>, plays the part of
-// the TPU kernels' shared _accum_loop and _encode_emit.
+//   cws_hash_launch               <- cws_hash_pallas / _cws_kernel (stored, raw emit)
+//   cws_hash_rng_launch           <- cws_hash_rng_pallas / _cws_hash_rng_kernel
+//                                    (regenerated, raw emit)
+// One device body, templated on <Regen, Emit, TrackT>, plays the part of
+// the TPU kernels' shared _accum_loop and their emit steps.
 //
 // What bounds it on this card: operations, not bytes.  Each (row, d, hash)
 // with x > 0 costs one IEEE division plus about eight fp32 operations, and
 // in regen mode each (d, hash) needs three threefry-2x32 evaluations,
 // four log1p and one log (this kernel repeats them once per block of BN
 // rows); the bytes are 4·n·D in (plus 12·D·k of parameters in stored
-// mode) and 4·n·k or n·k·b/8 out.
+// mode) and 4·n·k, n·k·b/8 or (raw) 8·n·k out.
 //
 // What the design does about it: one thread per (row, hash) pair, a block
 // of BN rows x BK hashes walking D in chunks of BD.  The block stages
@@ -42,6 +45,11 @@ constexpr int BK = 32;   // hashes per block (threadIdx.x): one warp
 constexpr int BN = 16;   // rows per block (threadIdx.y)
 constexpr int BD = 64;   // dimensions per shared-memory chunk
 constexpr int THREADS = BK * BN;
+
+// What a block writes at the end of its walk over D.
+constexpr int EMIT_INDEX = 0;    // (n, k) int32 bag indices
+constexpr int EMIT_PACKED = 1;   // (n, words) uint32 packed codes
+constexpr int EMIT_RAW = 2;      // (n, k) int32 i* and t*
 
 constexpr uint32_t STREAM_R = 0x243F6A89u;
 constexpr uint32_t STREAM_C = 0x85A308D3u;
@@ -96,13 +104,15 @@ __device__ __forceinline__ void regen_param(uint32_t k0, uint32_t k1,
   be = uniform24(u0);
 }
 
-template <bool Regen, bool Packed, bool TrackT>
+template <bool Regen, int Emit, bool TrackT>
 __global__ void __launch_bounds__(THREADS)
 cws_encode_kernel(const float* __restrict__ x, const float* __restrict__ r_g,
                   const float* __restrict__ lc_g,
                   const float* __restrict__ be_g, uint32_t k0, uint32_t k1,
                   int n, int d, int k, int b_i, int b_t,
-                  void* __restrict__ out, int out_cols) {
+                  void* __restrict__ out, int32_t* __restrict__ out_t,
+                  int out_cols) {
+  constexpr bool Packed = Emit == EMIT_PACKED;
   __shared__ float s_lu[BN][BD];
   __shared__ float s_r[BD][BK];
   __shared__ float s_lc[BD][BK];
@@ -168,6 +178,18 @@ cws_encode_kernel(const float* __restrict__ x, const float* __restrict__ r_g,
     __syncthreads();
   }
 
+  // Raw emit (repro/kernels/cws_hash.py:_cws_kernel): i*, and t* clipped
+  // to +-2^30; an all-zero row keeps (-1, 0).
+  if constexpr (Emit == EMIT_RAW) {
+    if (row < n && h < k) {
+      const size_t o = static_cast<size_t>(row) * out_cols + h;
+      const float t = fminf(fmaxf(best_t, -1073741824.0f), 1073741824.0f);
+      static_cast<int32_t*>(out)[o] = best_i;
+      out_t[o] = best_i < 0 ? 0 : static_cast<int>(t);
+    }
+    return;
+  }
+
   // Emit: b-bit code, sentinel -> bucket 0 (repro/kernels/cws_hash.py:_encode_emit).
   int code = b_i ? (best_i & ((1 << b_i) - 1)) : best_i;
   if (TrackT) {
@@ -176,7 +198,7 @@ cws_encode_kernel(const float* __restrict__ x, const float* __restrict__ r_g,
   }
   if (best_i < 0) code = 0;
 
-  if (Packed) {
+  if constexpr (Packed) {
     const int b = b_i + b_t, cpw = 32 / b;
     s_code[ty][tx] = h < k ? code : 0;   // pad hash columns pack as zero
     __syncthreads();
@@ -195,20 +217,24 @@ cws_encode_kernel(const float* __restrict__ x, const float* __restrict__ r_g,
   }
 }
 
-template <bool Regen, bool Packed>
+template <bool Regen, int Emit>
 cudaError_t launch(const float* x, const float* r, const float* lc,
                    const float* be, uint32_t k0, uint32_t k1, int n, int d,
-                   int k, int b_i, int b_t, void* out, int out_cols,
-                   cudaStream_t stream) {
+                   int k, int b_i, int b_t, void* out, int32_t* out_t,
+                   int out_cols, cudaStream_t stream) {
   if (n <= 0 || k <= 0) return cudaSuccess;
   const dim3 grid((k + BK - 1) / BK, (n + BN - 1) / BN);
   const dim3 block(BK, BN);
-  if (b_t > 0)
-    cws_encode_kernel<Regen, Packed, true><<<grid, block, 0, stream>>>(
-        x, r, lc, be, k0, k1, n, d, k, b_i, b_t, out, out_cols);
-  else
-    cws_encode_kernel<Regen, Packed, false><<<grid, block, 0, stream>>>(
-        x, r, lc, be, k0, k1, n, d, k, b_i, b_t, out, out_cols);
+  if constexpr (Emit == EMIT_RAW) {   // t* is always part of the output
+    cws_encode_kernel<Regen, Emit, true><<<grid, block, 0, stream>>>(
+        x, r, lc, be, k0, k1, n, d, k, b_i, b_t, out, out_t, out_cols);
+  } else if (b_t > 0) {
+    cws_encode_kernel<Regen, Emit, true><<<grid, block, 0, stream>>>(
+        x, r, lc, be, k0, k1, n, d, k, b_i, b_t, out, out_t, out_cols);
+  } else {
+    cws_encode_kernel<Regen, Emit, false><<<grid, block, 0, stream>>>(
+        x, r, lc, be, k0, k1, n, d, k, b_i, b_t, out, out_t, out_cols);
+  }
   return cudaGetLastError();
 }
 
@@ -220,16 +246,16 @@ extern "C" {
 int cws_encode_launch(const float* x, const float* r, const float* lc,
                       const float* be, int n, int d, int k, int b_i, int b_t,
                       int32_t* out, cudaStream_t stream) {
-  return launch<false, false>(x, r, lc, be, 0u, 0u, n, d, k, b_i, b_t, out,
-                              k, stream);
+  return launch<false, EMIT_INDEX>(x, r, lc, be, 0u, 0u, n, d, k, b_i, b_t,
+                                   out, nullptr, k, stream);
 }
 
 // Row 1: regenerated params -> (n, k) int32 indices.
 int cws_encode_rng_launch(const float* x, uint32_t k0, uint32_t k1, int n,
                           int d, int k, int b_i, int b_t, int32_t* out,
                           cudaStream_t stream) {
-  return launch<true, false>(x, nullptr, nullptr, nullptr, k0, k1, n, d, k,
-                             b_i, b_t, out, k, stream);
+  return launch<true, EMIT_INDEX>(x, nullptr, nullptr, nullptr, k0, k1, n, d,
+                                  k, b_i, b_t, out, nullptr, k, stream);
 }
 
 // Row 4: stored params -> (n, words) packed uint32.
@@ -237,8 +263,8 @@ int cws_encode_packed_launch(const float* x, const float* r, const float* lc,
                              const float* be, int n, int d, int k, int b_i,
                              int b_t, uint32_t* out, int words,
                              cudaStream_t stream) {
-  return launch<false, true>(x, r, lc, be, 0u, 0u, n, d, k, b_i, b_t, out,
-                             words, stream);
+  return launch<false, EMIT_PACKED>(x, r, lc, be, 0u, 0u, n, d, k, b_i, b_t,
+                                    out, nullptr, words, stream);
 }
 
 // Row 3: regenerated params -> (n, words) packed uint32.
@@ -246,8 +272,25 @@ int cws_encode_rng_packed_launch(const float* x, uint32_t k0, uint32_t k1,
                                  int n, int d, int k, int b_i, int b_t,
                                  uint32_t* out, int words,
                                  cudaStream_t stream) {
-  return launch<true, true>(x, nullptr, nullptr, nullptr, k0, k1, n, d, k,
-                            b_i, b_t, out, words, stream);
+  return launch<true, EMIT_PACKED>(x, nullptr, nullptr, nullptr, k0, k1, n,
+                                   d, k, b_i, b_t, out, nullptr, words,
+                                   stream);
+}
+
+// Row 5: stored params -> raw i* and t*, each (n, k) int32.
+int cws_hash_launch(const float* x, const float* r, const float* lc,
+                    const float* be, int n, int d, int k, int32_t* i_out,
+                    int32_t* t_out, cudaStream_t stream) {
+  return launch<false, EMIT_RAW>(x, r, lc, be, 0u, 0u, n, d, k, 0, 0, i_out,
+                                 t_out, k, stream);
+}
+
+// Row 6: regenerated params -> raw i* and t*, each (n, k) int32.
+int cws_hash_rng_launch(const float* x, uint32_t k0, uint32_t k1, int n,
+                        int d, int k, int32_t* i_out, int32_t* t_out,
+                        cudaStream_t stream) {
+  return launch<true, EMIT_RAW>(x, nullptr, nullptr, nullptr, k0, k1, n, d, k,
+                                0, 0, i_out, t_out, k, stream);
 }
 
 }  // extern "C"

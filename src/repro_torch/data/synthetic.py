@@ -1,0 +1,182 @@
+"""Deterministic synthetic datasets with the paper's data characteristics
+(port of ``repro.data.synthetic``).
+
+The UCI/LIBSVM datasets of Table 1 are replaced by generators with the
+same qualitative structure the paper exploits: nonnegative, sparse,
+heavy-tailed magnitudes, with class structure carried by which
+coordinates are active and by their relative magnitudes; and word-count
+vector pairs over 2^16 documents (Table 2 / Figs 4-5).
+
+Everything is drawn from ``numpy.random.default_rng(seed)``, so a dataset
+is the same on any machine and framework-free.  ``Dataset``,
+``make_word_pair``, ``WORD_PAIRS`` and ``word_pair`` are numpy-only in the
+reference too, and these copies give the same bits.  The classification
+generators draw the reference's distributions, but the reference draws
+them from ``jax.random``: the datasets are not bit twins, so parity tests
+hand the reference's datasets over as arrays.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class Dataset:
+    name: str
+    x_train: np.ndarray
+    y_train: np.ndarray
+    x_test: np.ndarray
+    y_test: np.ndarray
+    n_classes: int
+
+
+# ---------------------------------------------------------------------------
+# classification data
+# ---------------------------------------------------------------------------
+
+def _heavy_tailed(rng, shape, tail: float = 1.2):
+    """Pareto-ish magnitudes: exp of exponential => polynomial tail."""
+    return np.exp(rng.standard_exponential(shape) / tail) - 1.0
+
+
+def _split(name, x, y, n_train, n_classes) -> Dataset:
+    x = np.asarray(x, np.float32)
+    y = np.asarray(y, np.int32)
+    return Dataset(name, x[:n_train], y[:n_train], x[n_train:], y[n_train:],
+                   n_classes)
+
+
+def make_template_classification(seed: int, *, n_train=1200, n_test=800,
+                                 dim=256, n_classes=6, density=0.25,
+                                 mult_noise=1.3, spike_prob=0.10,
+                                 spike_scale=12.0, name="template") -> Dataset:
+    """Sparse nonneg class templates + heavy multiplicative noise + spikes.
+
+    The spikes and multiplicative noise dominate <u,v>, while min-max (a
+    bounded ratio) stays informative: the paper's min-max > intersection >
+    linear ordering.
+    """
+    rng = np.random.default_rng(seed)
+    n = n_train + n_test
+    tmpl_mask = rng.random((n_classes, dim)) < density
+    templates = tmpl_mask * (0.5 + _heavy_tailed(rng, (n_classes, dim)))
+    labels = rng.integers(0, n_classes, n)
+    mnoise = np.exp(mult_noise * rng.standard_normal((n, dim)))
+    keep = rng.random((n, dim)) < 0.9
+    x = templates[labels] * mnoise * keep
+    spikes = ((rng.random((n, dim)) < spike_prob) * spike_scale *
+              _heavy_tailed(rng, (n, dim)))
+    return _split(name, x + spikes, labels, n_train, n_classes)
+
+
+def make_ratio_xor(seed: int, *, n_train=1200, n_test=800, dim=16,
+                   name="ratio-xor") -> Dataset:
+    """Binary labels from an XOR over coordinate-pair dominance:
+    label = {x_0 > x_1} XOR {x_2 > x_3}.  Linearly inseparable by
+    construction; the four dominance patterns form four clusters under
+    min-max similarity."""
+    rng = np.random.default_rng(seed)
+    n = n_train + n_test
+    n_pairs = 2
+    x = (0.3 * np.abs(rng.standard_normal((n, dim))) + 0.05).astype(
+        np.float32)
+    flips = rng.random((n, n_pairs)) < 0.5
+    for p in range(n_pairs):
+        hi = 3.0 + rng.random(n)
+        lo = 0.2 + 0.2 * rng.random(n)
+        x[:, 2 * p] = np.where(flips[:, p], hi, lo)
+        x[:, 2 * p + 1] = np.where(flips[:, p], lo, hi)
+    y = flips.sum(axis=1) % 2
+    return _split(name, x, y, n_train, 2)
+
+
+def make_histogram_mixture(seed: int, *, n_train=1200, n_test=800, dim=128,
+                           n_classes=10, conc_scale=6.0,
+                           name="hist-mix") -> Dataset:
+    """Dirichlet histograms per class with heavy-tailed total mass
+    (bag-of-words / visual-word histograms; total counts vary by 2-3
+    orders of magnitude per sample)."""
+    rng = np.random.default_rng(seed)
+    n = n_train + n_test
+    protos = rng.dirichlet(0.25 * np.ones(dim), n_classes)
+    labels = rng.integers(0, n_classes, n)
+    alpha = conc_scale * protos[labels] + 0.05
+    gam = rng.standard_gamma(alpha)
+    p = gam / gam.sum(axis=1, keepdims=True)
+    mass = np.exp(3.0 * rng.standard_normal((n, 1)))
+    return _split(name, p * mass * 100.0, labels, n_train, n_classes)
+
+
+CLASSIFICATION_SUITES = {
+    "template": lambda: make_template_classification(0),
+    "template-hard": lambda: make_template_classification(
+        1, n_classes=10, density=0.15, mult_noise=1.2, spike_prob=0.08,
+        name="template-hard"),
+    "ratio-xor": lambda: make_ratio_xor(2),
+    "hist-mix": lambda: make_histogram_mixture(3),
+}
+
+
+# ---------------------------------------------------------------------------
+# word-frequency pairs (Table 2 / Figures 4-5), numpy in the reference too
+# ---------------------------------------------------------------------------
+
+def make_word_pair(seed: int, *, n_docs=2 ** 16, f1=3000, f2=2500,
+                   overlap=0.5, zipf_a=1.6) -> Tuple[np.ndarray, np.ndarray]:
+    """Two word-count vectors over n_docs documents.
+
+    ``overlap`` controls the shared active-document fraction, Zipfian
+    per-document counts give the heavy tail the paper highlights.
+    """
+    rng = np.random.default_rng(seed)
+    shared = int(round(overlap * min(f1, f2)))
+    # scale down when the union would not fit in n_docs (small-doc runs)
+    union = f1 + f2 - shared
+    if union > n_docs:
+        sc = 0.98 * n_docs / union
+        f1, f2 = max(int(f1 * sc), 2), max(int(f2 * sc), 2)
+        shared = int(round(overlap * min(f1, f2)))
+    docs = rng.permutation(n_docs)
+    s_docs = docs[:shared]
+    u_docs = docs[shared:shared + (f1 - shared)]
+    v_docs = docs[shared + (f1 - shared):shared + (f1 - shared) + (f2 - shared)]
+
+    def counts(size):
+        z = rng.zipf(zipf_a, size=size).astype(np.float32)
+        return np.minimum(z, 5000.0)
+
+    u = np.zeros(n_docs, np.float32)
+    v = np.zeros(n_docs, np.float32)
+    u[s_docs] = counts(shared)
+    # correlated counts on the shared support (same doc popularity)
+    v[s_docs] = np.maximum(np.round(u[s_docs] *
+                                    np.exp(0.5 * rng.standard_normal(shared))), 1.0)
+    u[u_docs] = counts(f1 - shared)
+    v[v_docs] = counts(f2 - shared)
+    return u, v
+
+
+WORD_PAIRS = {
+    # name: (seed, f1, f2, overlap), spanning the R/MM range of Table 2
+    "HONG-KONG":      (11, 940, 948, 0.96),
+    "UNITED-STATES":  (12, 4079, 3981, 0.75),
+    "GAMBIA-KIRIBATI": (13, 206, 186, 0.84),
+    "OF-AND":         (14, 37339, 36289, 0.87),
+    "A-THE":          (15, 39063, 42754, 0.80),
+    "CREDIT-CARD":    (16, 2999, 2697, 0.45),
+    "SAN-FRANCISCO":  (17, 3194, 1651, 0.65),
+    "THIS-TODAY":     (18, 27695, 5775, 0.55),
+    "TIME-JOB":       (19, 37339, 36289, 0.22),
+    "PAPER-REVIEW":   (20, 1944, 3197, 0.18),
+    "AIR-DOCTOR":     (21, 3159, 860, 0.14),
+    "PIPELINE-FLUSH": (22, 139, 118, 0.08),
+    "ADDICT-PRICELESS": (23, 77, 77, 0.01),
+}
+
+
+def word_pair(name: str, n_docs: int = 2 ** 16):
+    seed, f1, f2, ov = WORD_PAIRS[name]
+    return make_word_pair(seed, n_docs=n_docs, f1=f1, f2=f2, overlap=ov)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cws import CWSParams
+from repro_torch.core.kernel_svm import SVMModel
 from repro_torch.core.linear_model import LinearParams
 from repro_torch.core.regen import key_words as _key_words
 from repro_torch.device import resolve_device
@@ -33,6 +34,16 @@ def cws_params(r, log_c, beta, *, device=None) -> CWSParams:
     device = resolve_device(device)
     return CWSParams(_tensor(r, device), _tensor(log_c, device),
                      _tensor(beta, device))
+
+
+def svm_model(alpha, y_signed, classes, *, device=None) -> SVMModel:
+    """Reference ``SVMModel`` (alpha and y_signed (C, n) or (n,), classes
+    (C,)) -> the port's, so both packages' ``decision_values`` can be
+    compared on identical coefficients."""
+    device = resolve_device(device)
+    return SVMModel(_tensor(alpha, device), _tensor(y_signed, device),
+                    torch.as_tensor(np.asarray(classes, np.int64),
+                                    device=device))
 
 
 def key_words(words) -> Tuple[int, int]:

@@ -22,7 +22,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-# No --use_fast_math, and no fused multiply-add: the encode kernels must
+# No --use_fast_math, and no fused multiply-add: the CWS kernels must
 # round each division, product and sum as the reference does.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
@@ -79,22 +79,36 @@ def build(source: str) -> BuiltLibrary:
     return BuiltLibrary(ctypes.CDLL(str(out)), out, log, seconds)
 
 
+def _declare(built: BuiltLibrary, signatures) -> BuiltLibrary:
+    """Declare each launcher's ctypes signature: pointers and the stream
+    as c_void_p, so none is cut to 32 bits; every launcher returns its
+    cudaError_t as an int."""
+    for name, argtypes in signatures.items():
+        fn = getattr(built.lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return built
+
+
 @functools.lru_cache(maxsize=None)
 def cws_encode_library() -> BuiltLibrary:
-    """The encode kernels' library with every launcher's ctypes signature
-    declared (pointers and the stream as c_void_p, so none is cut to 32
-    bits; key words as c_uint32)."""
-    built = build("cws_encode.cu")
-    lib = built.lib
+    """The CWS kernels' library (``csrc/cws_encode.cu``): the four encode
+    launchers and the two raw (i*, t*) launchers; key words as c_uint32."""
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    signatures = {
+    return _declare(build("cws_encode.cu"), {
         "cws_encode_launch": (p, p, p, p, i, i, i, i, i, p, p),
         "cws_encode_rng_launch": (p, u, u, i, i, i, i, i, p, p),
         "cws_encode_packed_launch": (p, p, p, p, i, i, i, i, i, p, i, p),
         "cws_encode_rng_packed_launch": (p, u, u, i, i, i, i, i, p, i, p),
-    }
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return built
+        "cws_hash_launch": (p, p, p, p, i, i, i, p, p, p),
+        "cws_hash_rng_launch": (p, u, u, i, i, i, p, p, p),
+    })
+
+
+@functools.lru_cache(maxsize=None)
+def minmax_gram_library() -> BuiltLibrary:
+    """The min-sum Gram kernel's library (``csrc/minmax_gram.cu``)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _declare(build("minmax_gram.cu"), {
+        "min_sum_launch": (p, p, i, i, i, p, p),
+    })

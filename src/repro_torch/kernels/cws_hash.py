@@ -1,11 +1,13 @@
-"""The four CWS encode kernels: CUDA launchers beside their plain versions.
+"""The six CWS kernels: CUDA launchers beside their plain versions.
 
-For each TPU kernel on the serving path (``repro/kernels/cws_hash.py``)
-this module holds
+For each TPU kernel of ``repro/kernels/cws_hash.py`` (the four fused
+encodes of the serving path and the two raw (i*, t*) hashes of the
+estimator path) this module holds
 
-  * the plain PyTorch version: the staged composition
-    ``encode -> feature_indices`` (or ``pack_codes``) over the chunked
-    ``cws_hash`` / ``cws_hash_regen``, the definition the kernel is held to;
+  * the plain PyTorch version, the definition the kernel is held to: the
+    chunked ``cws_hash`` / ``cws_hash_regen`` for the raw hashes, and the
+    staged composition ``encode -> feature_indices`` (or ``pack_codes``)
+    over them for the encodes;
   * the launcher of the hand-written CUDA kernel (``csrc/cws_encode.cu``),
     which checks its inputs, allocates the output with ``torch.empty``,
     launches on the current stream and raises on a launch error;
@@ -28,7 +30,7 @@ from repro_torch.kernels.build import cws_encode_library
 # Launches per kernel since the last reset_launches(): how a run shows
 # that it really went through the kernels.
 LAUNCHES = {"cws_encode": 0, "cws_encode_rng": 0, "cws_encode_packed": 0,
-            "cws_encode_rng_packed": 0}
+            "cws_encode_rng_packed": 0, "cws_hash": 0, "cws_hash_rng": 0}
 
 
 def reset_launches() -> None:
@@ -39,6 +41,17 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
+
+def cws_hash_plain(x, params: CWSParams):
+    """x (n, D) nonneg -> (i*, t*) each (n, k) int32; t* clipped to
+    +-2^30, an all-zero row gives (-1, 0)."""
+    return cws_hash(x, params)
+
+
+def cws_hash_rng_plain(x, key, num_hashes: int):
+    """As ``cws_hash_plain`` with parameters regenerated from ``key``."""
+    return cws_hash_regen(x, key, num_hashes)
+
 
 def cws_encode_plain(x, params: CWSParams, *, b_i: int, b_t: int = 0):
     """x (n, D) nonneg -> (n, k) int32 embedding-bag indices."""
@@ -75,7 +88,7 @@ _INT_MAX = 2 ** 31 - 1
 
 def _check_x(x: torch.Tensor) -> torch.Tensor:
     if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
-        raise ValueError("the CUDA encode kernels take a CUDA tensor x")
+        raise ValueError("the CUDA CWS kernels take a CUDA tensor x")
     if x.ndim != 2:
         raise ValueError(f"x must be (n, D); got {tuple(x.shape)}")
     x = x.to(torch.float32)
@@ -189,3 +202,36 @@ def cws_encode_rng_packed_cuda(x, key, num_hashes: int, *, b_i: int,
                    _lib().cws_encode_rng_packed_launch, out,
                    x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
                    out.data_ptr(), words)
+
+
+def cws_hash_cuda(x, params: CWSParams):
+    """Stored-parameter raw hash kernel (replaces ``cws_hash_pallas``):
+    x (n, D) -> (i*, t*) each (n, k) int32."""
+    x = _check_x(x)
+    _check_params(x, params)
+    n, d = x.shape
+    k = params.num_hashes
+    i_star = torch.empty((n, k), dtype=torch.int32, device=x.device)
+    t_star = torch.empty_like(i_star)
+    if n == 0 or k == 0:
+        return i_star, t_star
+    _launch("cws_hash", _lib().cws_hash_launch, i_star, x.data_ptr(),
+            params.r.data_ptr(), params.log_c.data_ptr(),
+            params.beta.data_ptr(), n, d, k, i_star.data_ptr(),
+            t_star.data_ptr())
+    return i_star, t_star
+
+
+def cws_hash_rng_cuda(x, key, num_hashes: int):
+    """Regenerated-parameter raw hash kernel (replaces
+    ``cws_hash_rng_pallas``): the only input in device memory is x."""
+    x = _check_x(x)
+    k0, k1 = key_words(key)
+    n, d = x.shape
+    i_star = torch.empty((n, num_hashes), dtype=torch.int32, device=x.device)
+    t_star = torch.empty_like(i_star)
+    if n == 0 or num_hashes == 0:
+        return i_star, t_star
+    _launch("cws_hash_rng", _lib().cws_hash_rng_launch, i_star, x.data_ptr(),
+            k0, k1, n, d, num_hashes, i_star.data_ptr(), t_star.data_ptr())
+    return i_star, t_star

@@ -1,7 +1,7 @@
 """Kernel implementations by op, chosen by the input tensor's device
-(the serving subset of ``repro.kernels.registry``).
+(the ported subset of ``repro.kernels.registry``).
 
-Each encode op has two implementations: ``cuda``, the hand-written kernel,
+Each op has two implementations: ``cuda``, the hand-written kernel,
 for CUDA tensors, and ``reference``, its plain PyTorch version, for CPU
 tensors.  The tensor's device alone chooses; there is no fallback from
 one to the other.  Also here: the serving bucket ladder.
@@ -12,7 +12,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import cws_hash
+from repro_torch.kernels import cws_hash, minmax_gram
 
 IMPLS: Dict[str, Dict[str, Callable]] = {
     "cws_encode": {"cuda": cws_hash.cws_encode_cuda,
@@ -24,11 +24,21 @@ IMPLS: Dict[str, Dict[str, Callable]] = {
     "cws_encode_rng_packed": {
         "cuda": cws_hash.cws_encode_rng_packed_cuda,
         "reference": cws_hash.cws_encode_rng_packed_plain},
+    "cws_hash": {"cuda": cws_hash.cws_hash_cuda,
+                 "reference": cws_hash.cws_hash_plain},
+    "cws_hash_rng": {"cuda": cws_hash.cws_hash_rng_cuda,
+                     "reference": cws_hash.cws_hash_rng_plain},
+    "min_sum": {"cuda": minmax_gram.min_sum_cuda,
+                "reference": minmax_gram.min_sum_plain},
+    "minmax_gram": {"cuda": minmax_gram.minmax_gram_cuda,
+                    "reference": minmax_gram.minmax_gram_plain},
 }
 
 _FAMILY_ALIASES = {"cws_encode": "cws", "cws_encode_rng": "cws_rng",
                    "cws_encode_packed": "cws_packed",
-                   "cws_encode_rng_packed": "cws_rng_packed"}
+                   "cws_encode_rng_packed": "cws_rng_packed",
+                   "cws_hash": "cws", "cws_hash_rng": "cws_rng",
+                   "minmax_gram": "min_sum", "gram": "min_sum"}
 
 
 def family(op: str) -> str:

@@ -4,11 +4,12 @@
     pipe = FeaturePipeline.create_regen(key_words, dim, FeatureSpec(1024, 8))
     idx  = pipe.features(x)          # (n, k) int32 into pipe.num_features
 
-``features`` streams ``row_chunk`` rows per kernel launch.  PyTorch runs
-eagerly, so a ragged last chunk needs no padding to avoid a recompile:
-each launch is sized to its rows.  The pipeline lives on one device; its
-kernels are the CUDA ones for a CUDA pipeline and the plain versions for
-a CPU pipeline.
+``hashes`` / ``codes`` give the raw (i*, t*) and the per-hash codes for
+the collision estimators.  ``features`` streams ``row_chunk`` rows per
+kernel launch.  PyTorch runs eagerly, so a ragged last chunk needs no
+padding to avoid a recompile: each launch is sized to its rows.  The
+pipeline lives on one device; its kernels are the CUDA ones for a CUDA
+pipeline and the plain versions for a CPU pipeline.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.core.hashing import (check_packed_bits, encode,
                                       pack_codes, packed_width, unpack_codes)
 from repro_torch.core.regen import key_words
 from repro_torch.device import resolve_device
-from repro_torch.kernels import registry
+from repro_torch.kernels import ops, registry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +210,25 @@ class FeaturePipeline:
             return self.launch_chunk(x)
         return torch.cat([out for _, _, out in self.feature_chunks(x)],
                          dim=0)
+
+    def hashes(self, x):
+        """Stage 1 alone, for estimator sweeps that reuse one hash pass
+        across many (b_i, b_t) encodings: x (n, D) nonneg -> (i*, t*) each
+        (n, k) int32, through the raw hash kernel in one launch."""
+        if x.shape[0] == 0:
+            z = torch.zeros((0, self.spec.num_hashes), dtype=torch.int32,
+                            device=self.device)
+            return z, z
+        x = self._as_rows(x)
+        if self.param_free:
+            return ops.cws_hash_rng(x, self._key_words, self.spec.num_hashes)
+        return ops.cws_hash(x, self._state())
+
+    def codes(self, x) -> torch.Tensor:
+        """Per-hash codes without feature offsets (collision estimators);
+        all-zero rows keep the sentinel -1."""
+        i_star, t_star = self.hashes(x)
+        return encode(i_star, t_star, b_i=self.spec.b_i, b_t=self.spec.b_t)
 
     def features_from_hashes(self, i_star, t_star) -> torch.Tensor:
         """Stages 2 and 3 on precomputed (i*, t*)."""

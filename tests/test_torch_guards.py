@@ -5,9 +5,10 @@
     module in a subprocess where both are blocked);
   * an entry point given no device raises when CUDA is absent, instead of
     running quietly on the CPU;
-  * the CPU path runs the plain versions and leaves the kernel launch
-    counters at 0, and a CUDA launcher given a CPU tensor raises rather
-    than falling back.
+  * the CPU path (serving, and the min-max kernel and estimator path)
+    runs the plain versions and leaves the kernel launch counters at 0,
+    and a CUDA launcher given a CPU tensor raises rather than falling
+    back.
 """
 import ast
 import pathlib
@@ -20,7 +21,9 @@ import torch
 
 from repro_torch import interop
 from repro_torch.core.cws import CWSParams
-from repro_torch.kernels import cws_hash, ops, registry
+from repro_torch.core import GRAM_FNS
+from repro_torch.core.kernel_svm import best_accuracy_over_C
+from repro_torch.kernels import cws_hash, minmax_gram, ops, registry
 from repro_torch.pipeline import FeaturePipeline, FeatureSpec
 from repro_torch.serving import ServingService, load_bundle, save_bundle
 
@@ -92,6 +95,8 @@ def test_entry_points_without_device_raise_when_cuda_absent(tmp_path,
         ServingService.from_bundle(path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         interop.linear_params(np.ones((3, 2)), np.zeros(2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.svm_model(np.ones((2, 3)), np.ones((2, 3)), np.arange(2))
     with pytest.raises(RuntimeError, match="not available"):
         load_bundle(path, device="cuda")
 
@@ -112,6 +117,28 @@ def test_cpu_path_runs_plain_versions_and_no_kernel(tmp_path):
     assert cws_hash.LAUNCHES == dict.fromkeys(cws_hash.LAUNCHES, 0)
 
 
+def test_cpu_min_max_path_runs_plain_versions_and_no_kernel():
+    """The estimator and kernel-machine entry points on CPU tensors: raw
+    hashes, codes, every Gram and the SVM, with no kernel launched."""
+    cws_hash.reset_launches()
+    minmax_gram.reset_launches()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(np.abs(rng.standard_normal((12, 6)))
+                         .astype(np.float32))
+    y = torch.arange(12) % 3
+    params = CWSParams(*(torch.rand(6, 8) + 0.5 for _ in range(3)))
+    ops.cws_hash(x, params)
+    pipe = FeaturePipeline.create_regen(np.array([1, 2], np.uint32), 6,
+                                        FeatureSpec(num_hashes=8, b_i=0),
+                                        device="cpu")
+    pipe.codes(x)
+    for gram in GRAM_FNS.values():
+        best_accuracy_over_C(gram(x, x), gram(x, x), y, y, n_classes=3,
+                             Cs=(1.0,), sweeps=1)
+    assert cws_hash.LAUNCHES == dict.fromkeys(cws_hash.LAUNCHES, 0)
+    assert minmax_gram.LAUNCHES == {"min_sum": 0}
+
+
 def test_cuda_launcher_refuses_cpu_tensors():
     x = torch.rand(3, 6)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -121,3 +148,26 @@ def test_cuda_launcher_refuses_cpu_tensors():
     assert registry.resolve("cws_encode_rng", torch.device("cuda", 0)) is \
         cws_hash.cws_encode_rng_cuda
     assert registry.family("cws_encode_rng_packed") == "cws_rng_packed"
+
+
+@pytest.mark.parametrize("launcher,args", [
+    (cws_hash.cws_hash_cuda, lambda x: (CWSParams(*(torch.rand(6, 8),) * 3),)),
+    (cws_hash.cws_hash_rng_cuda, lambda x: ((1, 2), 8)),
+    (minmax_gram.min_sum_cuda, lambda x: (x,)),
+    (minmax_gram.minmax_gram_cuda, lambda x: (x,)),
+])
+def test_min_max_cuda_launchers_refuse_cpu_tensors(launcher, args):
+    x = torch.rand(3, 6)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        launcher(x, *args(x))
+
+
+def test_min_max_ops_registered_by_device():
+    cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
+    for op, mod in (("cws_hash", cws_hash), ("cws_hash_rng", cws_hash),
+                    ("min_sum", minmax_gram), ("minmax_gram", minmax_gram)):
+        assert registry.resolve(op, cpu) is getattr(mod, op + "_plain")
+        assert registry.resolve(op, cuda) is getattr(mod, op + "_cuda")
+    assert [registry.family(op) for op in ("cws_hash", "cws_hash_rng",
+                                           "minmax_gram", "gram")] == \
+        ["cws", "cws_rng", "min_sum", "min_sum"]
