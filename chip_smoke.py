@@ -8,10 +8,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   1. device   - require CUDA; print the card's name and power limit, and
                 the lane issue rate the bounds use (SMs x 128 lanes x the
                 maximum SM clock, read from the card);
-  2. build    - nvcc-build the CWS kernels and the min-sum Gram kernel from
-                ``src/repro_torch/csrc``, one nvcc per source, started
-                together, and print the compiler's per-kernel registers,
-                shared memory and spills;
+  2. build    - nvcc-build the CWS kernels, the min-sum Gram kernel and
+                the flash-attention kernel from ``src/repro_torch/csrc``,
+                one nvcc per source, started together, and print the
+                compiler's per-kernel registers, shared memory and spills;
   3. parity   - each of the six CWS kernels against its plain PyTorch
                 version on the card, exactly (integer outputs): the four
                 encodes at the serving shapes, at ragged shapes with
@@ -22,7 +22,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 pushing t* to the +-2^30 clip, and 512 x 65,536 x 1024;
                 the min-sum kernel (``min_sum``, ``minmax_gram``) at
                 ragged, block-edge, suite and long-D shapes within the
-                bound its fp32 sums allow;
+                bound its fp32 sums allow; the flash-attention kernel in
+                fp32 and bf16 over 52 shapes each (the reference test's
+                cases, D in 64/128/256, H/G in 1/2/9/48, ragged S, windows,
+                q_base with Sq < Sk, gemma3's (4, 2048)) within its stated
+                tolerance;
   4. slice    - the serving path at the paper configuration's full width
                 (D = 256, k = 1024, 10 classes): four bundles (regen,
                 stored, regen+packed b = 8, stored+packed b = 4), each
@@ -46,11 +50,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the full / 0-bit / 1-bit bias and MSE at k in
                 {1, 4, ..., 1024} with the benchmark's own assertions; K at
                 4,096 documents against the JAX package's stored values;
-  7. times    - each kernel and its plain version timed with CUDA events,
+  7. lm       - gemma3_12b at full width and depth, attn_impl "flash":
+                the fp32 prefill + decode logits against one cached forward
+                (prompt 600, 4 steps); then the masters cast once to bf16
+                and the main path, ``serve_lm`` (4 x 2,048-token prompts,
+                flash prefill, 16 greedy decode steps), which must launch
+                the flash kernel once per attention layer (48); the same
+                prefill through the plain attention, within a stated
+                tolerance; the CWS head on the pooled hidden state
+                (``cws_encode``), its codes equal to the CPU path's;
+  8. times    - each kernel and its plain version timed with CUDA events,
                 beside the least time the card could take for the same
-                work and, for the Gram, ``torch.cdist(p=1)`` as a yardstick.
+                work and a PyTorch call as yardstick where one exists
+                (``torch.cdist(p=1)`` for the Gram,
+                ``scaled_dot_product_attention`` for flash attention, at
+                the slice's global and local layers and at S = 32,768).
 
-Phases 4-6 are the main paths: each zeroes the launch counters just
+Phases 4-7 are the main paths: each zeroes the launch counters just
 before it and reads them just after, and fails if a kernel it runs was
 never launched.  The line before the last is ``nvidia-smi``'s name and
 power limit, the one before it a JSON summary of every kernel; the last
@@ -59,6 +75,8 @@ line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import dataclasses
 import json
 import math
 import pathlib
@@ -117,6 +135,41 @@ RAW = [k for k, v in KERNELS.items() if v[2] == "raw"]
 SOURCE = "src/repro_torch/csrc/cws_encode.cu"
 GRAM = ("min_sum", "src/repro/kernels/minmax_gram.py:66",
         "src/repro_torch/csrc/minmax_gram.cu")
+FLASH = ("flash_attention_fwd", "src/repro/kernels/flash_attention.py:117",
+         "src/repro_torch/csrc/flash_attention.cu")
+
+# The LM slice: gemma3_12b (src/repro/configs/gemma3_12b.py:CONFIG) at full
+# width and depth with attn_impl="flash", served as ``serve_lm`` serves it:
+# 4 prompts of 2,048 tokens (above attn_chunk = 512, so prefill routes to
+# the flash kernel, and above the 1,024 window, so the local caches fill by
+# the roll), then 16 greedy decode steps.  Weights from LM_SEED.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = "gemma3_12b", 4, 2048, 17, 2026
+FP32_BATCH, FP32_PROMPT, FP32_STEPS = 2, 600, 4
+CWS_CLASSES = 10
+# (batch, sequence, window) of the flash timings at gemma3's heads: the
+# slice's global and local layers, and prefill_32k's sequence length
+FLASH_TIMING = ((4, 2048, 0), (4, 2048, 1024), (1, 32768, 0),
+                (1, 32768, 1024))
+TENSOR_FLOPS_PER_SM_CLK = 4096    # dense bf16 tensor-core flops per SM clock
+FMA_FLOPS_PER_SM_CLK = 2 * LANES_PER_SM
+
+# Tolerances.  Flash kernel vs its plain version: both sum in fp32 (the
+# scores over D <= 256 products, the softmax and p . v over up to 32k
+# keys), in other orders, on N(0, 1) inputs whose outputs are O(1): fp32
+# |dout| <= FLASH_TOL (1 + |out|).  bf16: the same fp32 results round once
+# to bf16, so two results a few 1e-7 apart may land one output ulp apart,
+# at most 2^-7 relative: |dout| <= FLASH_TOL + 2^-7 |out|.
+FLASH_TOL = 2e-5
+BF16_ULP = 2.0 ** -7
+# The LM prefill with the kernel vs with the plain version, bf16: the
+# attention outputs differ by such one-ulp flips, which 48 layers of bf16
+# rounding carry on to the logits, so |dlogit| <= 0.1 max |logit| (a wrong
+# mask or a skipped tile moves them by the order of max |logit|).  fp32
+# prefill + decode vs one forward over the whole sequence: only sums in
+# other orders, which the CPU tests hold to 1e-4 max |logit| through the
+# smoke models; 48 layers get twice that: |dlogit| <= 2e-4 max |logit|.
+LM_BF16_TOL = 0.1
+LM_FP32_TOL = 2e-4
 
 
 def sparse_rows(rng, n, d, density=0.3, zero_rows=()):
@@ -536,14 +589,16 @@ def phase_slice(card, results):
 
 
 def reset_all_launches():
-    from repro_torch.kernels import cws_hash, minmax_gram
+    from repro_torch.kernels import cws_hash, flash_attention, minmax_gram
     cws_hash.reset_launches()
     minmax_gram.reset_launches()
+    flash_attention.reset_launches()
 
 
 def read_launches():
-    from repro_torch.kernels import cws_hash, minmax_gram
-    return {**cws_hash.LAUNCHES, **minmax_gram.LAUNCHES}
+    from repro_torch.kernels import cws_hash, flash_attention, minmax_gram
+    return {**cws_hash.LAUNCHES, **minmax_gram.LAUNCHES,
+            **flash_attention.LAUNCHES}
 
 
 def require_launched(phase, launches, names):
@@ -745,6 +800,418 @@ def phase_estimator(dev, card, results):
           f"min_sum {launches['min_sum']}")
 
 
+def flash_inputs(rng, b, sq, sk, h, g, d, dtype, dev):
+    """N(0, 1) q (b, sq, h, d), k and v (b, sk, g, d), made with numpy."""
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, dtype)
+    return draw(b, sq, h, d), draw(b, sk, g, d), draw(b, sk, g, d)
+
+
+def flash_worst(q, k, v, window, q_base):
+    """(worst |cuda - plain| / tolerance, max |cuda - plain|)."""
+    from repro_torch.kernels import flash_attention as fa
+    got = fa.flash_attention_fwd_cuda(q, k, v, window=window, q_base=q_base)
+    want = fa.flash_attention_fwd_plain(q, k, v, window=window,
+                                        q_base=q_base)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != q.dtype or \
+            not torch.isfinite(got).all():
+        raise AssertionError(f"flash {tuple(q.shape)}: shape, dtype or "
+                             f"non-finite output")
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    rel = BF16_ULP if q.dtype == torch.bfloat16 else FLASH_TOL
+    ratio = float((diff / (FLASH_TOL + rel * want.abs())).max())
+    return ratio, float(diff.max())
+
+
+def phase_flash_parity(dev, results):
+    """The flash kernel against its plain version in the working dtype."""
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    rng = np.random.default_rng(8)
+    cases = []   # (b, sq, sk, h, g, d, window, q_base)
+    # the reference test's CASES (tests/test_flash_attention.py)
+    for b, s_, h, g, d, w in ((1, 64, 4, 2, 16, 0), (2, 128, 4, 1, 32, 0),
+                              (1, 96, 6, 3, 16, 0), (2, 128, 4, 4, 16, 32),
+                              (1, 256, 8, 2, 64, 64), (1, 64, 2, 2, 128, 0)):
+        cases.append((b, s_, s_, h, g, d, w, 0))
+    # head dims x GQA ratios 1, 2, 9, 48 at ragged lengths, causal and
+    # windowed, and a window longer than the sequence
+    for d in (64, 128, 256):
+        for (h, g), s_ in zip(((4, 4), (4, 2), (18, 2), (48, 1)),
+                              (1000, 2047, 1000, 2047)):
+            for w in (0, 1024, 4096):
+                cases.append((1, s_, s_, h, g, d, w, 0))
+    # q rows at a global offset: Sq < Sk
+    for d in (64, 256):
+        for w in (0, 256):
+            cases.append((2, 300, 1000, 8, 2, d, w, 700))
+            cases.append((1, 77, 1500, 4, 4, d, w, 1000))
+    # the slice's own shapes: gemma3_12b's heads at (4, 2048)
+    for w in (0, 1024):
+        cases.append((LM_BATCH, LM_PROMPT, LM_PROMPT, 16, 8, 256, w, 0))
+    r = results[FLASH[0]]
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, sq, sk, h, g, d, w, qb in cases:
+            q, k, v = flash_inputs(rng, b, sq, sk, h, g, d, dtype, dev)
+            ratio, err = flash_worst(q, k, v, w, qb)
+            r["checked"] += 1
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            key = str(dtype).split(".")[1]
+            if ratio > worst.get(key, (-1.0,))[0]:
+                worst[key] = (ratio, (b, sq, sk, h, g, d, w, qb), err)
+            if ratio > 1:
+                raise AssertionError(
+                    f"flash {key} (b={b}, Sq={sq}, Sk={sk}, H={h}, G={g}, "
+                    f"D={d}, window={w}, q_base={qb}): |cuda - plain| at "
+                    f"{ratio:.3g} of the tolerance (max {err:.3g})")
+    r["worst"] = {k: {"ratio": v[0], "case": v[1], "max_abs_err": v[2]}
+                  for k, v in worst.items()}
+    print(f"parity flash_attention_fwd: {r['checked']} cases (the reference "
+          f"test's six; D in 64/128/256 x H/G in 1/2/9/48 at S = 1000/2047, "
+          f"window 0/1024/4096; q_base 700/1000 with Sq < Sk; gemma3 "
+          f"(4, 2048) 16/8 heads D = 256, window 0/1024), fp32 and bf16; "
+          + "; ".join(f"worst {k} |cuda - plain| / tolerance {v[0]:.4g} at "
+                      f"(b, Sq, Sk, H, G, D, window, q_base) = {v[1]}, max "
+                      f"{v[2]:.3g}" for k, v in worst.items())
+          + f" (tolerance fp32 {FLASH_TOL:g}(1 + |out|), bf16 {FLASH_TOL:g}"
+          f" + 2^-7 |out|); launches {LAUNCHES['flash_attention_fwd']}")
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """Run the flash op's plain version on CUDA tensors (the comparison
+    prefill only; the port never does)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import registry
+    table = registry.IMPLS["flash_attention"]
+    kernel = table["cuda"]
+    table["cuda"] = fa.flash_attention_fwd_plain
+    try:
+        yield
+    finally:
+        table["cuda"] = kernel
+
+
+def lm_fp32_consistency(params, cfg, dev):
+    """The reference's test_prefill_then_decode_matches_forward at full
+    width, fp32 compute: prefill FP32_PROMPT tokens, decode FP32_STEPS,
+    and hold the logits against one cached forward over the sequence."""
+    from repro_torch.models import decode_step, forward, init_caches, prefill
+    from repro_torch.models.layers import lm_logits
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    seq = FP32_PROMPT + FP32_STEPS
+    x = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (FP32_BATCH, seq))).to(dev)
+    caches = init_caches(cfg32, FP32_BATCH, seq, device=dev)
+    logits, caches = prefill(params, x[:, :FP32_PROMPT], cfg32, caches)
+    outs = [logits]
+    for t in range(FP32_PROMPT, seq - 1):
+        logits, caches = decode_step(params, x[:, t:t + 1], t, cfg32, caches)
+        outs.append(logits)
+    del caches
+    hidden, _, _ = forward(params, x, cfg32, caches=init_caches(
+        cfg32, FP32_BATCH, seq, device=dev), update_cache=True)
+    want = lm_logits(params["embed"], hidden[:, FP32_PROMPT - 1:seq - 1],
+                     cfg32)
+    got = torch.stack(outs, 1)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError("fp32 prefill + decode: shape or non-finite "
+                             "logits")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if err > LM_FP32_TOL * scale:
+        raise AssertionError(f"fp32 prefill + decode vs forward: max "
+                             f"|dlogit| {err:.4g} > {LM_FP32_TOL:g} x "
+                             f"{scale:.4g}")
+    return {"max_abs_err": err, "max_logit": scale, "rel": err / scale,
+            "argmax_agree": agree}
+
+
+def device_profile(fn):
+    """Run ``fn`` under ``torch.profiler``: (device seconds, the kernels
+    by device time as (name, seconds, calls), flash kernel seconds).
+    Only the device's own events count: the host operators that launched
+    them carry the same time as their self device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e6, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and
+                   e.self_device_time_total > 0), key=lambda r: -r[1])
+    flash = sum(r[1] for r in rows if "flash_fwd_kernel" in r[0])
+    return sum(r[1] for r in rows), rows, flash
+
+
+def lm_breakdown(params, cfg, prompts, dev, decode_wall_s):
+    """Where a warm prefill and a decode step spend the card's time: the
+    profiler's device seconds against the wall time of the same work
+    unprofiled (the prefill timed here, the decode from serve_lm)."""
+    from repro_torch.models import decode_step, init_caches, prefill
+    caches = init_caches(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, prompts, cfg, caches)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    caches = init_caches(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+    pre = device_profile(lambda: prefill(params, prompts, cfg, caches))
+    tokens = logits[:, :cfg.vocab].argmax(-1)[:, None]
+    steps = 4
+
+    def decode():
+        for t in range(steps):
+            decode_step(params, tokens, LM_PROMPT + t, cfg, caches)
+    dec = device_profile(decode)
+    if pre[0] == 0 or dec[0] == 0:
+        raise AssertionError("lm breakdown: the profiler recorded no device "
+                             "time; time with CUDA events instead")
+    step_s = decode_wall_s / (LM_GEN - 1)
+    out = {"prefill_warm_ms": warm_s * 1e3,
+           "prefill_device_ms": pre[0] * 1e3,
+           "prefill_flash_ms": pre[2] * 1e3,
+           "prefill_busy": pre[0] / warm_s,
+           "decode_step_ms": step_s * 1e3,
+           "decode_step_device_ms": dec[0] / steps * 1e3,
+           "decode_busy": dec[0] / steps / step_s,
+           "prefill_kernels": sum(r[2] for r in pre[1]),
+           "decode_kernels_per_step": sum(r[2] for r in dec[1]) / steps,
+           "prefill_top": [[n[:60], t * 1e3, c] for n, t, c in pre[1][:6]],
+           "decode_top": [[n[:60], t / steps * 1e3, c // steps]
+                          for n, t, c in dec[1][:6]]}
+    print(f"lm breakdown: warm prefill {out['prefill_warm_ms']:.1f} ms, of "
+          f"which the card is busy {out['prefill_device_ms']:.1f} ms "
+          f"({100 * out['prefill_busy']:.1f}%), the flash kernel "
+          f"{out['prefill_flash_ms']:.1f} ms, {out['prefill_kernels']} "
+          f"kernels; decode step {out['decode_step_ms']:.2f} ms, the card "
+          f"busy {out['decode_step_device_ms']:.2f} ms "
+          f"({100 * out['decode_busy']:.1f}%), "
+          f"{out['decode_kernels_per_step']:.0f} kernels a step; prefill "
+          f"top kernels (ms, "
+          f"calls): " + "; ".join(f"{n} {t:.1f} x{c}" for n, t, c in
+                                  out["prefill_top"])
+          + "; decode top kernels per step (ms, calls): "
+          + "; ".join(f"{n} {t:.3f} x{c}" for n, t, c in out["decode_top"]))
+    return out
+
+
+def phase_lm(dev, card, results):
+    """gemma3_12b at full width and depth: the fp32 decode/forward check,
+    then the main path (``serve_lm``: flash prefill + greedy decode), the
+    same prefill with the plain attention, and the CWS head on the pooled
+    hidden state."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cws import CWSParams
+    from repro_torch.kernels import cws_hash
+    from repro_torch.launch.serve import parser, serve_lm
+    from repro_torch.models import (cast_params, forward, init_caches,
+                                    init_model, prefill)
+    from repro_torch.models.cws_head import (cws_head_logits, head_pipeline,
+                                             init_cws_head, pool_hidden)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: fp32 checks need them off")
+    cfg = dataclasses.replace(get_config(LM_ARCH, "full"), attn_impl="flash")
+    n_attn = cfg.n_layers   # every block of gemma3 is attention
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(dev).manual_seed(LM_SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    masters_gb = torch.cuda.memory_allocated() / 1e9
+
+    reset_all_launches()
+    fp32 = lm_fp32_consistency(params, cfg, dev)
+    fp32["flash_launches"] = read_launches()["flash_attention_fwd"]
+    if fp32["flash_launches"] != 2 * n_attn:
+        raise AssertionError(f"fp32 check: {fp32['flash_launches']} flash "
+                             f"launches, not {2 * n_attn}")
+    print(f"slice lm fp32 [{card}]: {LM_ARCH} full width, {cfg.n_layers} "
+          f"layers, fp32 masters {masters_gb:.2f} GB drawn on the card in "
+          f"{init_s:.2f} s; prefill {FP32_BATCH}x{FP32_PROMPT} + "
+          f"{FP32_STEPS} decode steps vs one cached forward: max |dlogit| "
+          f"{fp32['max_abs_err']:.4g} ({fp32['rel']:.3g} of max |logit| "
+          f"{fp32['max_logit']:.4g}; limit {LM_FP32_TOL:g}); argmax agree "
+          f"{fp32['argmax_agree']:.3f}; flash launches "
+          f"{fp32['flash_launches']}")
+
+    # the masters cast once to bf16: the same bits as casting at each use
+    cast_params(params, cfg.compute_dtype)
+    torch.cuda.empty_cache()
+    args = parser().parse_args([
+        "--arch", LM_ARCH, "--variant", "full", "--attn-impl", "flash",
+        "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+        "--gen", str(LM_GEN), "--seed", str(LM_SEED), "--device", DEVICE])
+
+    # the main path, counters zeroed just before and read just after
+    reset_all_launches()
+    out = serve_lm(args, params=params)
+    launches = read_launches()
+    require_launched("lm", launches, (FLASH[0],))
+    if launches[FLASH[0]] != n_attn:
+        raise AssertionError(f"lm: {launches[FLASH[0]]} flash launches in "
+                             f"one prefill, not {n_attn}")
+    results[FLASH[0]]["launches"] = launches[FLASH[0]]
+    gen = out["generated"]
+    if gen.shape != (LM_BATCH, LM_GEN) or not (
+            (gen >= 0) & (gen < cfg.vocab)).all():
+        raise AssertionError(f"lm: generated ids {gen.shape} out of range")
+    flash_logits = out["prefill_logits"].float()
+    prompts = out["prompts"]
+
+    # the same prefill through the plain attention; then warm ones through
+    # the kernel, timed and profiled
+    with plain_flash():
+        plain_logits, _ = prefill(params, prompts, cfg, init_caches(
+            cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev))
+    plain_logits = plain_logits.float()
+    if not torch.isfinite(flash_logits).all() or \
+            flash_logits.shape != (LM_BATCH, cfg.padded_vocab):
+        raise AssertionError("lm: prefill logits non-finite or misshapen")
+    scale = float(plain_logits.abs().max())
+    err = float((flash_logits - plain_logits).abs().max())
+    agree = float((flash_logits[:, :cfg.vocab].argmax(-1) ==
+                   plain_logits[:, :cfg.vocab].argmax(-1)).float().mean())
+    if err > LM_BF16_TOL * scale:
+        raise AssertionError(f"lm: flash vs plain prefill max |dlogit| "
+                             f"{err:.4g} > {LM_BF16_TOL:g} x {scale:.4g}")
+    breakdown = lm_breakdown(params, cfg, prompts, dev, out["decode_s"])
+    warm_ms = breakdown["prefill_warm_ms"]
+
+    # the paper's head on the pooled hidden state (cws_encode kernel)
+    hidden, _, _ = forward(params, prompts, cfg)
+    feats = pool_hidden(hidden).float()
+    del hidden
+    head = init_cws_head(torch.Generator(dev).manual_seed(LM_SEED),
+                         cfg.d_model, k=cfg.cws_k, b_i=cfg.cws_b_i,
+                         n_classes=CWS_CLASSES)
+    head = head._replace(table=torch.from_numpy(
+        np.random.default_rng(14).standard_normal(
+            tuple(head.table.shape), np.float32)).to(dev))
+    cws_hash.reset_launches()
+    head_logits = cws_head_logits(head, feats, b_i=cfg.cws_b_i)
+    cws_launches = cws_hash.LAUNCHES["cws_encode"]
+    if cws_launches == 0:
+        raise AssertionError("cws head: cws_encode was never launched")
+    idx = head_pipeline(head, b_i=cfg.cws_b_i).features(torch.relu(feats))
+    torch.cuda.synchronize()
+    cpu_head = head._replace(
+        cws=CWSParams(head.cws.r.cpu(), head.cws.log_c.cpu(),
+                      head.cws.beta.cpu()),
+        table=head.table.cpu(), bias=head.bias.cpu())
+    cpu_idx = head_pipeline(cpu_head, b_i=cfg.cws_b_i).features(
+        torch.relu(feats.cpu()))
+    if not torch.equal(idx.cpu(), cpu_idx):
+        raise AssertionError("cws head: card and CPU hash codes differ")
+    # float32 sums of k = 512 table rows in another order
+    cpu_logits = cws_head_logits(cpu_head, feats.cpu(), b_i=cfg.cws_b_i)
+    np.testing.assert_allclose(head_logits.cpu().numpy(), cpu_logits.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    results["lm"] = {
+        "arch": LM_ARCH, "batch": LM_BATCH, "prompt": LM_PROMPT,
+        "decode_steps": LM_GEN - 1, "prefill_ms": out["prefill_ms"],
+        "prefill_warm_ms": warm_ms, "decode_s": out["decode_s"],
+        "decode_tok_s": out["decode_tok_s"], "flash_launches": launches[
+            FLASH[0]], "flash_vs_plain_max_abs": err, "max_logit": scale,
+        "greedy_agree": agree, "fp32": fp32, "cws_encode_launches":
+        cws_launches, "peak_gb": peak_gb, "masters_gb": masters_gb,
+        "init_s": init_s, "first_ids": gen[0].tolist(),
+        "breakdown": breakdown}
+    print(f"slice lm [{card}]: {LM_ARCH} full width and depth, attn_impl "
+          f"flash, bf16 weights cast once at load; prefill {LM_BATCH}x"
+          f"{LM_PROMPT} {out['prefill_ms']:.1f} ms (warm {warm_ms:.1f} ms),"
+          f" decode {LM_GEN - 1} steps {out['decode_tok_s']:.1f} tok/s; "
+          f"flash launches {launches[FLASH[0]]} (= {n_attn} attention "
+          f"layers); prefill logits vs the plain attention: max |dlogit| "
+          f"{err:.4g} ({err / scale:.3g} of max |logit| {scale:.4g}; limit "
+          f"{LM_BF16_TOL:g}), greedy agree {agree:.3f}; CWS head (k = "
+          f"{cfg.cws_k}, b_i = {cfg.cws_b_i}, D = {cfg.d_model}) cws_encode "
+          f"launches {cws_launches}, codes equal the CPU path's; peak "
+          f"memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated); "
+          f"first ids {gen[0][:8].tolist()}")
+    del params, out, plain_logits, flash_logits
+    torch.cuda.empty_cache()
+
+
+def visible_pairs(sq, sk, window, q_base=0):
+    """(query, key) pairs the causal / window mask lets through."""
+    pos = np.arange(sq, dtype=np.int64) + q_base
+    hi = np.minimum(pos + 1, sk)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def phase_flash_times(dev, results, mhz, sms):
+    """The flash kernel at the slice's layers and at prefill_32k's length,
+    beside its bound, its plain version and SDPA as a yardstick."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention as fa
+    tensor_rate = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
+    fma_rate = sms * FMA_FLOPS_PER_SM_CLK * mhz * 1e6
+    rng = np.random.default_rng(9)
+    h, g, d = 16, 8, 256
+    for b, s_, w in FLASH_TIMING:
+        q, k, v = flash_inputs(rng, b, s_, s_, h, g, d, torch.bfloat16, dev)
+        long = s_ > 4096
+        ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, window=w),
+                     reps=3 if long else 10, warmup=1)
+        plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
+            q, k, v, window=w), reps=1 if long else 3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if w == 0:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            # a boolean mask for the window.  With enable_gqa and a mask
+            # PyTorch would take its math path, which at S = 32,768 writes
+            # (H, S, S) scores; so k and v are repeated to the query heads
+            # first (outside the timing) and the memory-efficient path is
+            # asked for
+            i = torch.arange(s_, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+            kt, vt = (t.repeat_interleave(h // g, dim=1) for t in (kt, vt))
+
+            def lib():
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                    return F.scaled_dot_product_attention(qt, kt, vt,
+                                                          attn_mask=mask)
+        lib_ms = time_ms(lib, reps=3 if long else 10, warmup=1)
+        pairs = visible_pairs(s_, s_, w) * b * h
+        flops = 4 * d * pairs
+        nbytes = 2 * (2 * b * s_ * h * d + 2 * b * s_ * g * d)
+        bound_ms, by = bound(nbytes, flops, tensor_rate)
+        fma_ms = flops / fma_rate * 1e3
+        results[FLASH[0]]["times"].append({
+            "shape": [b, s_, h, g, d], "window": w, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "fp32_fma_bound_ms": fma_ms, "library_ms": lib_ms,
+            "visible_pairs": pairs, "flops": flops, "bytes": nbytes})
+        print(f"time flash_attention_fwd (B, S) = ({b}, {s_}) H/G {h}/{g} "
+              f"D {d} window {w} bf16: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; dense bf16 "
+              f"{tensor_rate / 1e12:.1f} TFLOP/s, {flops / 1e9:.2f} GFLOP on "
+              f"{nbytes / 1e6:.1f} MB), fp32-FMA bound {fma_ms:.4f} ms "
+              f"({fma_rate / 1e12:.2f} TFLOP/s); library call "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms "
+              + ("(causal, enable_gqa" if w == 0 else
+                 "(boolean window mask, memory-efficient path, k/v repeated"
+                 " to the query heads")
+              + "; a yardstick, the port never calls it)")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
 def phase_times(dev, results, peak_ops):
     rng = np.random.default_rng(5)
     key = (0x2F0A1C3B, 0x9E3779B9)
@@ -820,11 +1287,12 @@ def phase_times(dev, results, peak_ops):
 def build_all():
     """Build every kernel library at once, one nvcc per source."""
     from repro_torch.kernels.build import (cws_encode_library,
+                                           flash_attention_library,
                                            minmax_gram_library)
+    libs = (cws_encode_library, minmax_gram_library, flash_attention_library)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        futs = [pool.submit(f) for f in (cws_encode_library,
-                                         minmax_gram_library)]
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        futs = [pool.submit(f) for f in libs]
         built = [f.result() for f in futs]
     wall = time.perf_counter() - t0
     for lib in built:
@@ -872,12 +1340,17 @@ def main():
         results[k].update(mismatches_i=0, mismatches_t=0, times=[])
     results[GRAM[0]] = {"checked": 0, "mismatches": 0, "max_abs_err": 0.0,
                         "launches": 0, "times": []}
+    results[FLASH[0]] = {"checked": 0, "mismatches": 0, "max_abs_err": 0.0,
+                         "launches": 0, "times": []}
     phase_parity(dev, results)
     phase_gram_parity(dev, results)
+    phase_flash_parity(dev, results)
     phase_slice(smi, results)
     phase_kernel_machine(dev, smi, results)
     phase_estimator(dev, smi, results)
+    phase_lm(dev, smi, results)
     phase_times(dev, results, peak_ops)
+    phase_flash_times(dev, results, mhz, sms)
 
     kernels = []
     for k in ENCODES:
@@ -906,6 +1379,14 @@ def main():
                  kernel_machine=results["kernel_machine"],
                  estimator={k: v for k, v in results["estimator"].items()
                             if k != "pairs"})
+    kernels.append(entry)
+    r = results[FLASH[0]]
+    # the main path's most frequent launch: a local layer of the slice
+    primary = next(t for t in r["times"]
+                   if t["shape"][:2] == [LM_BATCH, LM_PROMPT] and
+                   t["window"] > 0)
+    entry = kernel_entry(FLASH[0], FLASH[2], FLASH[1], r, primary)
+    entry.update(worst=r["worst"], times=r["times"], lm=results["lm"])
     kernels.append(entry)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "lane_rate_ops_s": peak_ops}))

@@ -1,0 +1,296 @@
+// Flash-attention forward for Hopper (sm_90a), causal with an optional
+// sliding window, GQA without repeating k/v:
+//   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h / r] * scale) v[b, j, h / r]
+// with q (B, Sq, H, D), k and v (B, Sk, G, D), r = H / G, scale = D^-1/2,
+// over the keys visible from query row i: j < Sk, j <= i + q_base and, when
+// window > 0, j > i + q_base - window.  fp32 or bf16 in, the same type out.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
+//   flash_attention_fwd_launch  <- flash_attention_fwd / _flash_kernel
+//                                  (_block_update for one score tile)
+// (row 8 of the TPU kernel table; the block-resumable flash_attention_step
+// of the ring schedule is not ported here).
+//
+// Numerics, as the reference: q, k and v are widened to fp32 on load; the
+// scores, the running (m, l, acc) of the online softmax and p . v stay in
+// fp32 (p is never rounded to bf16); a masked score is the finite -1e30,
+// not -inf.  A row whose first needed tile holds no visible key yet then
+// gets exp(0) = 1 garbage in l and acc, which the first visible key wipes
+// out with corr = exp(-1e30 - m) = 0 (with -inf the same tile would give
+// exp(-inf + inf) = NaN).  The output is acc / max(l, 1e-30), rounded to
+// the output type once.  Only the order of the fp32 sums differs.
+//
+// What bounds it on this card: operations.  Every visible (query, key)
+// pair costs 2·D multiply-adds (q.k and p.v) on 4·D bytes of q, k, v and
+// out per row, so at the model's lengths the work is hundreds of flops per
+// byte.  The tensor cores would take it at the bf16 rate, but mma.sync /
+// wgmma round p to bf16, which the reference does not; this kernel keeps
+// everything in fp32 FMAs on the SIMT lanes (the fp32-FMA ceiling is
+// SMs x 128 lanes x 2 flops x clock).  A bf16 tensor-core design, with its
+// own stated tolerance, is later work.
+//
+// What the design does about it: one block of 256 threads per (q tile of
+// 64 rows, head, batch row); the grid runs the heaviest q tiles first.  The
+// block walks only the 64-key tiles its mask needs (the reference's
+// `needed` predicate, as a loop range), staging q once and each k/v tile
+// through shared memory as fp32: q and k d-major, so a thread's 4 rows or 4
+// keys are one 16-byte load; v row-major.  A thread owns a 4 x 4 tile of
+// scores (4 query rows x 4 keys) and the same 4 rows of the output
+// accumulator over D / 16 columns, in registers.  The row max and row sum
+// reduce over the 16 lanes of a half-warp that share those rows
+// (__shfl_xor_sync), so m, l and the correction stay in registers; p goes
+// through shared memory, key-major, to the p . v loop.  At D = 256 the
+// tiles take 217 KB of dynamic shared memory (one block per SM), set with
+// cudaFuncAttributeMaxDynamicSharedMemorySize.  Ragged Sq and Sk are
+// masked in the kernel (out-of-range rows and keys stage as zeros and are
+// never written or counted), never padded by copies; element offsets are
+// size_t (they reach 5e8).
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int BQ = 64;                  // query rows per block
+constexpr int BK = 64;                  // keys per tile
+constexpr int TX = 16, TY = 16;         // threads: keys/columns x rows
+constexpr int THREADS = TX * TY;
+constexpr int RQ = BQ / TY;             // 4 query rows per thread
+constexpr int RK = BK / TX;             // 4 keys per thread
+constexpr int LD = BQ + 4;              // stride of the d-major and p tiles
+constexpr int MAX_D = 256;
+constexpr float NEG_INF = -1e30f;
+
+static_assert(BQ == BK, "q and k tiles share the stride LD");
+static_assert(RQ == 4 && RK == 4, "the tiles load as float4");
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__host__ __device__ constexpr size_t smem_floats(int d) {
+  return static_cast<size_t>(d) * LD * 2      // q and k tiles, d-major
+         + static_cast<size_t>(BK) * d        // v tile
+         + static_cast<size_t>(BK) * LD;      // p tile, key-major
+}
+
+// Row `row` of a (B, S, heads, D) tensor at (batch bi, head hi): element 0.
+template <typename T>
+__device__ __forceinline__ const T* row_ptr(const T* base, int bi, int row,
+                                            int s, int heads, int hi, int d) {
+  return base + ((static_cast<size_t>(bi) * s + row) * heads + hi) *
+                    static_cast<size_t>(d);
+}
+
+// DPT: output columns per thread, ceil(D / 16) rounded up to an
+// instantiated size; columns tx + 16 c at or past D are skipped.
+template <typename T, int DPT>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out, int sq,
+                 int sk, int h, int g, int d, int window, int q_base,
+                 float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_qt = smem;                        // [d][LD]
+  float* s_kt = s_qt + static_cast<size_t>(d) * LD;   // [d][LD]
+  float* s_v = s_kt + static_cast<size_t>(d) * LD;    // [BK][d]
+  float* s_pt = s_v + static_cast<size_t>(BK) * d;    // [BK][LD]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
+  const int hh = blockIdx.y, bi = blockIdx.z;
+  const int kvh = hh / (h / g);
+
+  // q tile, widened to fp32; rows past Sq stage as zeros
+  for (int r = warp; r < BQ; r += THREADS / 32) {
+    const int i = q0 + r;
+    const T* src = i < sq ? row_ptr(q, bi, i, sq, h, hh, d) : nullptr;
+    for (int c = lane; c < d; c += 32)
+      s_qt[c * LD + r] = src ? to_f32(src[c]) : 0.0f;
+  }
+
+  float acc[RQ][DPT];
+  float m_run[RQ], l_run[RQ];
+#pragma unroll
+  for (int r = 0; r < RQ; ++r) {
+    m_run[r] = NEG_INF;
+    l_run[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) acc[r][c] = 0.0f;
+  }
+
+  // the keys this tile's valid rows can see: [k_begin, k_end)
+  const int q_first = q0 + q_base;
+  const int q_last = min(q0 + BQ, sq) - 1 + q_base;
+  const int k_end = min(sk, q_last + 1);
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+
+  for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
+    __syncthreads();   // the previous tile's reads of s_kt, s_v, s_pt are done
+    for (int r = warp; r < BK; r += THREADS / 32) {
+      const int j = k0 + r;
+      const T* ks = j < sk ? row_ptr(k, bi, j, sk, g, kvh, d) : nullptr;
+      const T* vs = j < sk ? row_ptr(v, bi, j, sk, g, kvh, d) : nullptr;
+      for (int c = lane; c < d; c += 32) {
+        s_kt[c * LD + r] = ks ? to_f32(ks[c]) : 0.0f;
+        s_v[r * d + c] = vs ? to_f32(vs[c]) : 0.0f;
+      }
+    }
+    __syncthreads();
+
+    // scores of rows ty*4.. against keys tx*4..
+    float s[RQ][RK];
+#pragma unroll
+    for (int r = 0; r < RQ; ++r)
+#pragma unroll
+      for (int c = 0; c < RK; ++c) s[r][c] = 0.0f;
+#pragma unroll 4
+    for (int c = 0; c < d; ++c) {
+      const float4 qa = *reinterpret_cast<const float4*>(s_qt + c * LD + ty * RQ);
+      const float4 ka = *reinterpret_cast<const float4*>(s_kt + c * LD + tx * RK);
+      const float qv[RQ] = {qa.x, qa.y, qa.z, qa.w};
+      const float kv[RK] = {ka.x, ka.y, ka.z, ka.w};
+#pragma unroll
+      for (int r = 0; r < RQ; ++r)
+#pragma unroll
+        for (int cc = 0; cc < RK; ++cc) s[r][cc] = fmaf(qv[r], kv[cc], s[r][cc]);
+    }
+
+    // mask, then the online softmax; each row lives on 16 lanes (tx)
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      const int pos = q0 + ty * RQ + r + q_base;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int c = 0; c < RK; ++c) {
+        const int j = k0 + tx * RK + c;
+        const bool ok = j < sk && j <= pos && (window <= 0 || j > pos - window);
+        s[r][c] = ok ? s[r][c] * scale : NEG_INF;
+        mx = fmaxf(mx, s[r][c]);
+      }
+#pragma unroll
+      for (int off = TX / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run[r], mx);
+      const float corr = expf(m_run[r] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < RK; ++c) {
+        s[r][c] = expf(s[r][c] - m_new);
+        sum += s[r][c];
+      }
+#pragma unroll
+      for (int off = TX / 2; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l_run[r] = corr * l_run[r] + sum;
+      m_run[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) acc[r][c] *= corr;
+    }
+#pragma unroll
+    for (int c = 0; c < RK; ++c)
+      *reinterpret_cast<float4*>(s_pt + (tx * RK + c) * LD + ty * RQ) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+    __syncthreads();
+
+    // acc += p . v over this tile's in-range keys (past Sk, v is zero)
+    const int kn = min(BK, sk - k0);
+    for (int j = 0; j < kn; ++j) {
+      const float4 pa = *reinterpret_cast<const float4*>(s_pt + j * LD + ty * RQ);
+      const float pv[RQ] = {pa.x, pa.y, pa.z, pa.w};
+      const float* vr = s_v + j * d;
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) {
+        const int col = tx + TX * c;
+        const float vv = col < d ? vr[col] : 0.0f;
+#pragma unroll
+        for (int r = 0; r < RQ; ++r) acc[r][c] = fmaf(pv[r], vv, acc[r][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < RQ; ++r) {
+    const int i = q0 + ty * RQ + r;
+    if (i >= sq) continue;
+    const float lm = fmaxf(l_run[r], 1e-30f);
+    T* dst = out + ((static_cast<size_t>(bi) * sq + i) * h + hh) *
+                       static_cast<size_t>(d);
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) {
+      const int col = tx + TX * c;
+      if (col < d) dst[col] = from_f32<T>(acc[r][c] / lm);
+    }
+  }
+}
+
+template <typename T, int DPT>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int b, int sq, int sk, int h, int g, int d, int window,
+                   int q_base, float scale, cudaStream_t stream) {
+  const size_t smem = smem_floats(d) * sizeof(float);
+  auto kernel = flash_fwd_kernel<T, DPT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + BQ - 1) / BQ, h, b);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, h, g, d,
+      window, q_base, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
+                     int b, int sq, int sk, int h, int g, int d, int window,
+                     int q_base, float scale, cudaStream_t stream) {
+  const int cols = (d + TX - 1) / TX;
+#define FLASH_CASE(N)                                                      \
+  if (cols <= N)                                                           \
+    return launch<T, N>(q, k, v, out, b, sq, sk, h, g, d, window, q_base,  \
+                        scale, stream);
+  FLASH_CASE(1)
+  FLASH_CASE(2)
+  FLASH_CASE(4)
+  FLASH_CASE(8)
+  FLASH_CASE(12)
+  FLASH_CASE(16)
+#undef FLASH_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Row 8 of the TPU kernel table.  q (b, sq, h, d), k and v (b, sk, g, d)
+// and out (b, sq, h, d), all dense, fp32 (bf16 = 0) or bf16 (bf16 = 1).
+// Returns the launch's cudaError_t (a refused launch never runs).
+int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
+                               void* out, int b, int sq, int sk, int h, int g,
+                               int d, int window, int q_base, float scale,
+                               int bf16, cudaStream_t stream) {
+  if (b <= 0 || sq <= 0 || h <= 0) return cudaSuccess;
+  if (d <= 0 || d > MAX_D || g <= 0 || h % g != 0 || sk < 0 || q_base < 0 ||
+      h > 65535 || b > 65535)
+    return cudaErrorInvalidValue;
+  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, b, sq, sk, h, g, d,
+                                        window, q_base, scale, stream)
+              : dispatch<float>(q, k, v, out, b, sq, sk, h, g, d, window,
+                                q_base, scale, stream);
+}
+
+}  // extern "C"

@@ -17,6 +17,8 @@ from repro_torch.core.kernel_svm import SVMModel
 from repro_torch.core.linear_model import LinearParams
 from repro_torch.core.regen import key_words as _key_words
 from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import init_model
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -52,3 +54,39 @@ def key_words(words) -> Tuple[int, int]:
     words: two Python ints, which the kernels take as scalars, so they
     live on no device."""
     return _key_words(np.asarray(words, np.uint32))
+
+
+def _float_tensor(a, dtype, device) -> torch.Tensor:
+    # numpy has no bfloat16: widen to float32 (exact), then narrow on the
+    # device to the port's dtype
+    return _tensor(np.asarray(a, np.float32), device).to(dtype)
+
+
+def lm_params(params, cfg: ModelConfig, *, device=None) -> dict:
+    """The reference's LM parameters (the nested dict of ``init_model``,
+    leaves as numpy) -> the port's: ``embed/tokens`` (and ``head`` when
+    untied), ``units/block{i}/{norm1, mixer/{wq, wk, wv, wo}, norm2,
+    mlp/{gate, up, down}}`` with the leading unit axis, ``final_norm``,
+    in ``cfg.master_dtype``.  Keys and shapes must be exactly the port's
+    (checked against ``init_model(cfg, device="meta")``)."""
+    device = resolve_device(device)
+
+    def convert(ref, want, path):
+        if not isinstance(ref, dict) or set(ref) != set(want):
+            raise ValueError(f"{'/'.join(path) or 'params'}: keys "
+                             f"{sorted(ref) if isinstance(ref, dict) else ref!r}"
+                             f" != {sorted(want)}")
+        out = {}
+        for key, spec in want.items():
+            where = path + (key,)
+            if isinstance(spec, dict):
+                out[key] = convert(ref[key], spec, where)
+                continue
+            a = np.asarray(ref[key])
+            if a.shape != tuple(spec.shape):
+                raise ValueError(f"{'/'.join(where)}: shape {a.shape} != "
+                                 f"{tuple(spec.shape)}")
+            out[key] = _float_tensor(a, cfg.master_dtype, device)
+        return out
+
+    return convert(params, init_model(cfg, device="meta"), ())

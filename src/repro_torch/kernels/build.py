@@ -22,11 +22,13 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-# No --use_fast_math, and no fused multiply-add: the CWS kernels must
-# round each division, product and sum as the reference does.
+# No --use_fast_math anywhere.  Each library takes its own flags, and the
+# flags enter its hash.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+# No fused multiply-add either: the CWS kernels must round each division,
+# product and sum as the reference does, bit for bit.
+EXACT_FLAGS = NVCC_FLAGS + ("--fmad=false",)
 
 
 def nvcc_path() -> str:
@@ -51,12 +53,12 @@ class BuiltLibrary:
         self.seconds = seconds    # build wall time (0 if cached)
 
 
-def build(source: str) -> BuiltLibrary:
-    """Compile ``csrc/<source>`` unless a library for this exact source
-    and flag set is already built; load it either way."""
+def build(source: str, flags=EXACT_FLAGS) -> BuiltLibrary:
+    """Compile ``csrc/<source>`` with ``flags`` unless a library for this
+    exact source and flag set is already built; load it either way."""
     src = CSRC / source
     digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     log, seconds = "", 0.0
@@ -65,7 +67,7 @@ def build(source: str) -> BuiltLibrary:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+            proc = subprocess.run([nvcc_path(), *flags, "-o", tmp,
                                    str(src)], capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
@@ -111,4 +113,17 @@ def minmax_gram_library() -> BuiltLibrary:
     p, i = ctypes.c_void_p, ctypes.c_int
     return _declare(build("minmax_gram.cu"), {
         "min_sum_launch": (p, p, i, i, i, p, p),
+    })
+
+
+@functools.lru_cache(maxsize=None)
+def flash_attention_library() -> BuiltLibrary:
+    """The flash-attention kernel's library (``csrc/flash_attention.cu``).
+    Its output is compared within a tolerance, not bit for bit, so it
+    builds with fused multiply-adds (``NVCC_FLAGS``); the scale goes over
+    as a c_float."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _declare(build("flash_attention.cu", NVCC_FLAGS), {
+        "flash_attention_fwd_launch": (p, p, p, p, i, i, i, i, i, i, i, i,
+                                       f, i, p),
     })

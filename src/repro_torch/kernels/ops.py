@@ -2,7 +2,7 @@
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to its plain
 version (``repro_torch.kernels.cws_hash``, ``repro_torch.kernels.
-minmax_gram``).
+minmax_gram``, ``repro_torch.kernels.flash_attention``).
 """
 from __future__ import annotations
 
@@ -57,3 +57,12 @@ def min_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def minmax_gram(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Min-max Gram (m, n) of the nonnegative parts of x and y."""
     return registry.resolve("minmax_gram", x.device)(x, y)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0, q_base: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, D), k/v (B, Sk, G, D) -> (B, Sq, H, D) causal (and,
+    with ``window > 0``, sliding-window) attention, rows at global
+    positions ``q_base + i``."""
+    return registry.resolve("flash_attention", q.device)(
+        q, k, v, window=window, q_base=q_base)

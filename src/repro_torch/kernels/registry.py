@@ -12,7 +12,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import cws_hash, minmax_gram
+from repro_torch.kernels import cws_hash, flash_attention, minmax_gram
 
 IMPLS: Dict[str, Dict[str, Callable]] = {
     "cws_encode": {"cuda": cws_hash.cws_encode_cuda,
@@ -32,6 +32,9 @@ IMPLS: Dict[str, Dict[str, Callable]] = {
                 "reference": minmax_gram.min_sum_plain},
     "minmax_gram": {"cuda": minmax_gram.minmax_gram_cuda,
                     "reference": minmax_gram.minmax_gram_plain},
+    "flash_attention": {
+        "cuda": flash_attention.flash_attention_fwd_cuda,
+        "reference": flash_attention.flash_attention_fwd_plain},
 }
 
 _FAMILY_ALIASES = {"cws_encode": "cws", "cws_encode_rng": "cws_rng",

@@ -1,16 +1,28 @@
-"""Serving driver: boot a replica from a served-model bundle and drive
-synthetic request traffic through its gateway.
+"""Serving drivers: the featurize->score service, and LM decode.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --bundle DIR \
-        --requests 200 --max-rows 48 --stats-port 0 [--device cuda]
+  * ``--bundle DIR`` boots a replica from a served-model bundle and drives
+    synthetic request traffic through its gateway:
+
+      PYTHONPATH=src python -m repro_torch.launch.serve --bundle DIR \
+          --requests 200 --max-rows 48 --stats-port 0 [--device cuda]
+
+  * ``--arch NAME`` runs the LM path: a synthetic prompt batch through
+    prefill (flash attention with ``--attn-impl flash``), then decode with
+    the KV caches:
+
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b \
+          --variant full --attn-impl flash --batch 4 --prompt-len 2048 \
+          --gen 17
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
 import numpy as np
+import torch
 
 
 def synthetic_rows(rng: np.random.Generator, m: int, dim: int) -> np.ndarray:
@@ -60,13 +72,95 @@ def serve_bundle(args) -> dict:
             "req_per_s": args.requests / wall}
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_lm(args, params=None) -> dict:
+    """Prefill ``--batch`` x ``--prompt-len`` synthetic tokens, then decode
+    ``--gen`` - 1 more, greedily (exact argmax) or, with a temperature, by
+    sampling from a seeded ``torch.Generator`` (not the reference's
+    ``jax.random`` draws).  Weights are drawn from ``--seed`` and cast once
+    to the compute dtype (the same bits as casting the masters at each
+    use); a caller may pass ``params`` already built for the config.
+    Prints prefill ms, decode tok/s and the first generated ids; returns
+    them with the prompts and the prefill logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import cast_params, init_caches, init_model
+    from repro_torch.training import make_serve_steps
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, args.variant)
+    if args.attn_impl is not None:
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    if params is None:
+        gen = torch.Generator(device).manual_seed(args.seed)
+        params = cast_params(init_model(cfg, gen, device), cfg.compute_dtype)
+    prefill_step, decode_one = make_serve_steps(cfg)
+
+    rng = np.random.default_rng(args.seed)
+    if cfg.input_mode == "embeddings":
+        prompts = torch.as_tensor(rng.standard_normal(
+            (args.batch, args.prompt_len, cfg.d_model)).astype(np.float32),
+            device=device)
+    else:
+        prompts = torch.as_tensor(rng.integers(
+            0, cfg.vocab, (args.batch, args.prompt_len)), device=device)
+    caches = init_caches(cfg, args.batch, args.prompt_len + args.gen,
+                         device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, caches = prefill_step(params, prompts, caches)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    prefill_logits = logits
+
+    sampler = torch.Generator(device).manual_seed(args.seed)
+    tokens = logits[:, :cfg.vocab].argmax(-1)[:, None]
+    outs = [tokens]
+    t0 = time.perf_counter()
+    for t in range(args.gen - 1):
+        step_in = tokens
+        if cfg.input_mode == "embeddings":
+            # stub frontends embed generated ids via the output table
+            step_in = params["embed"]["tokens"][tokens].to(cfg.compute_dtype)
+        logits, caches = decode_one(params, step_in, args.prompt_len + t,
+                                    caches)
+        if args.temperature > 0:
+            probs = torch.softmax(
+                logits[:, :cfg.vocab].float() / args.temperature, -1)
+            tokens = torch.multinomial(probs, 1, generator=sampler)
+        else:
+            tokens = logits[:, :cfg.vocab].argmax(-1)[:, None]
+        outs.append(tokens)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+
+    generated = torch.cat(outs, 1).cpu().numpy()
+    steps = args.gen - 1
+    tok_s = args.batch * steps / max(t_decode, 1e-9)
+    print(f"prefill: {t_prefill * 1e3:.1f} ms for "
+          f"{args.batch}x{args.prompt_len} tokens")
+    print(f"decode : {tok_s:,.1f} tok/s ({steps} steps)")
+    print("generated ids (first row):", generated[0][:16])
+    return {"prompts": prompts, "prefill_logits": prefill_logits,
+            "generated": generated,
+            "prefill_ms": t_prefill * 1e3, "decode_s": t_decode,
+            "decode_tok_s": tok_s}
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--bundle", required=True,
-                    help="served-model bundle directory")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cpu runs the plain "
                     "PyTorch kernels)")
+    ap.add_argument("--seed", type=int, default=0)
+    # featurize->score service
+    ap.add_argument("--bundle", default=None,
+                    help="served-model bundle directory -> run the "
+                    "featurize+score service instead of the LM path")
     ap.add_argument("--requests", type=int, default=100)
     ap.add_argument("--max-rows", type=int, default=32,
                     help="synthetic request sizes draw from [1, max-rows]")
@@ -76,12 +170,30 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--hard-timeout-s", type=float, default=0.0)
     ap.add_argument("--stats-port", type=int, default=None,
                     help="expose GET /stats on this port (0 = pick free)")
-    ap.add_argument("--seed", type=int, default=0)
+    # LM decode
+    ap.add_argument("--arch", default=None,
+                    help="LM architecture (repro_torch.configs.ARCHS)")
+    ap.add_argument("--variant", default="smoke", choices=("full", "smoke"))
+    ap.add_argument("--attn-impl", default=None,
+                    choices=("naive", "chunked", "flash"),
+                    help="override the config's attn_impl")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
     return ap
 
 
 def main(argv=None):
-    serve_bundle(parser().parse_args(argv))
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.bundle is not None:
+        serve_bundle(args)
+    elif args.arch is not None:
+        serve_lm(args)
+    else:
+        ap.error("pass --bundle DIR (featurize->score service) or "
+                 "--arch NAME (LM decode)")
 
 
 if __name__ == "__main__":

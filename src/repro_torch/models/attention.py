@@ -1,0 +1,289 @@
+"""GQA attention: full/sliding-window, prefill + KV-cache decode.
+
+Port of ``repro.models.attention`` on one device (tensor parallelism of
+one: the reference's sharded and ring branches are multi-device and wait
+for the sequence-parallel port).  Execution paths, chosen as the
+reference chooses them:
+  * ``decode``  - one query against the KV cache (``_decode_grouped``),
+                  plain tensor operations;
+  * ``flash``   - the hand-written flash kernel (``ops.flash_attention``,
+                  TPU kernel row 8) when ``cfg.attn_impl == "flash"`` and
+                  the sequence is longer than ``cfg.attn_chunk``;
+  * ``naive`` / ``chunked`` - scores materialized at once, or an online
+                  softmax over ``attn_chunk`` blocks that skips blocks
+                  outside the causal/window range; flat heads (k/v
+                  repeated to the query heads) without a cache, grouped
+                  (B, S, G, R, Dh) queries with one.
+
+q is (B, S, H, Dh), k and v (B, S, G, Dh); the caches are stacked
+(U, B, M, G, Dh) per pattern entry, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, trunc_normal
+
+NEG_INF = -1e30
+
+
+def init_attention(generator, cfg: ModelConfig, device,
+                   lead=()) -> dict:
+    d = cfg.d_model
+    dt = cfg.master_dtype
+    scale = d ** -0.5
+    lead = tuple(lead)
+    return {
+        "wq": trunc_normal(generator, lead + (d, cfg.q_flat), scale, dt,
+                           device),
+        "wk": trunc_normal(generator, lead + (d, cfg.kv_flat), scale, dt,
+                           device),
+        "wv": trunc_normal(generator, lead + (d, cfg.kv_flat), scale, dt,
+                           device),
+        "wo": trunc_normal(generator, lead + (cfg.q_flat, d),
+                           cfg.q_flat ** -0.5, dt, device),
+    }
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # (B, S_max, G, Dh), or stacked (U, B, ...)
+    v: torch.Tensor
+    length: torch.Tensor   # () int32, or (U,)
+
+
+def _block_mask(sq: int, sk: int, off, window: int,
+                device=None) -> torch.Tensor:
+    """m[i, j] = (j <= i + off) & (j > i + off - window)."""
+    qi = torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(sk, device=device)[None, :]
+    m = kj <= qi + off
+    if window > 0:
+        m &= kj > qi + off - window
+    return m
+
+
+def _softmax_pv(scores, v_op, q_dtype):
+    # softmax in fp32, probabilities cast to the compute dtype before the
+    # product with v, as the reference does; the product sums in fp32
+    probs = torch.softmax(scores, dim=-1).to(q_dtype)
+    return v_op(probs.float())
+
+
+# ---------------------------------------------------------------------------
+# grouped (GQA-native) attention cores
+# ---------------------------------------------------------------------------
+
+def _naive_grouped(q5, k, v, *, window: int) -> torch.Tensor:
+    # q5: (b, sq, g, r, d); k/v: (b, sk, g, d)
+    sq, sk = q5.shape[1], k.shape[1]
+    scale = q5.shape[-1] ** -0.5
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", q5.float(), k.float()) * scale
+    mask = _block_mask(sq, sk, 0, window, q5.device)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    out = _softmax_pv(scores, lambda p: torch.einsum(
+        "bgrqk,bkgd->bqgrd", p, v.float()), q5.dtype)
+    return out.to(q5.dtype)
+
+
+def _online_blocks(q, k, v, *, window: int, chunk: int, scores_fn, pv_fn,
+                   row_t):
+    """The reference's chunked online softmax, shared by the grouped and
+    flat layouts: q, k, v padded to a multiple of ``chunk`` along the
+    sequence; for each q block, the kv blocks inside the causal/window
+    range (the others are skipped), with (m, l) in the scores' layout
+    ``(..., chunk, 1)`` and ``row_t`` mapping them to the output layout."""
+    s = q.shape[1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        q, k, v = (torch.cat([t, t.new_zeros((t.shape[0], pad) +
+                                             t.shape[2:])], 1)
+                   for t in (q, k, v))
+    n_blk = q.shape[1] // chunk
+    scale = q.shape[-1] ** -0.5
+    outs = []
+    for qi in range(n_blk):
+        q_off = qi * chunk
+        qc = q[:, q_off:q_off + chunk]
+        m = l = o = None
+        for ki in range(n_blk):
+            k_off = ki * chunk
+            needed = k_off <= q_off
+            if window > 0:
+                needed &= k_off >= q_off - window - chunk + 1
+            if not needed:
+                continue
+            kc, vc = k[:, k_off:k_off + chunk], v[:, k_off:k_off + chunk]
+            s_blk = scores_fn(qc, kc) * scale
+            mask = _block_mask(chunk, chunk, q_off - k_off, window, q.device)
+            s_blk = s_blk.masked_fill(~mask, NEG_INF)
+            if m is None:
+                m = torch.full(s_blk.shape[:-1] + (1,), NEG_INF,
+                               device=q.device)
+                l = torch.zeros_like(m)
+                o = torch.zeros(qc.shape, dtype=torch.float32,
+                                device=q.device)
+            m_new = torch.maximum(m, s_blk.amax(-1, keepdim=True))
+            p = torch.exp(s_blk - m_new)
+            corr = torch.exp(m - m_new)
+            l = corr * l + p.sum(-1, keepdim=True)
+            pv = pv_fn(p.to(q.dtype).float(), vc)
+            o = row_t(corr) * o + pv
+            m = m_new
+        outs.append((o / torch.clamp_min(row_t(l), 1e-30)).to(q.dtype))
+    return torch.cat(outs, 1)[:, :s]
+
+
+def _chunked_grouped(q5, k, v, *, window: int, chunk: int) -> torch.Tensor:
+    return _online_blocks(
+        q5, k, v, window=window, chunk=chunk,
+        scores_fn=lambda qc, kc: torch.einsum(
+            "bqgrd,bkgd->bgrqk", qc.float(), kc.float()),
+        pv_fn=lambda p, vc: torch.einsum("bgrqk,bkgd->bqgrd", p, vc.float()),
+        row_t=lambda t: t[..., 0].permute(0, 3, 1, 2)[..., None])
+
+
+def _decode_grouped(q5, cache: KVCache, *, window: int) -> torch.Tensor:
+    # q5: (b, 1, g, r, d); cache.k: (b, S, g, d)
+    s = cache.k.shape[1]
+    scale = q5.shape[-1] ** -0.5
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", q5.float(),
+                          cache.k.float()) * scale
+    pos = torch.arange(s, device=q5.device)
+    valid = pos < cache.length
+    if window > 0:
+        valid &= pos >= cache.length - window
+    scores = scores.masked_fill(~valid, NEG_INF)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p.to(q5.dtype).float(),
+                       cache.v.float())
+    l_t = l[..., 0].permute(0, 3, 1, 2)[..., None]
+    return (out / torch.clamp_min(l_t, 1e-30)).to(q5.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flat-head core (no cache)
+# ---------------------------------------------------------------------------
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    b, s, g, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, g, n_rep, d).reshape(
+        b, s, g * n_rep, d)
+
+
+def _naive_flat(q, k, v, *, window: int) -> torch.Tensor:
+    sq, sk = q.shape[1], k.shape[1]
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = _block_mask(sq, sk, 0, window, q.device)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    out = _softmax_pv(scores, lambda p: torch.einsum(
+        "bhqk,bkhd->bqhd", p, v.float()), q.dtype)
+    return out.to(q.dtype)
+
+
+def _chunked_flat(q, k, v, *, window: int, chunk: int) -> torch.Tensor:
+    return _online_blocks(
+        q, k, v, window=window, chunk=chunk,
+        scores_fn=lambda qc, kc: torch.einsum("bqhd,bkhd->bhqk", qc.float(),
+                                              kc.float()),
+        pv_fn=lambda p, vc: torch.einsum("bhqk,bkhd->bqhd", p, vc.float()),
+        row_t=lambda t: t.transpose(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# public layer
+# ---------------------------------------------------------------------------
+
+def _write_cache(cache: KVCache, k, v, s: int) -> KVCache:
+    """Write this call's k/v into the cache IN PLACE and return the cache
+    with its new length.  The reference returns new arrays; updating the
+    stacked cache through views saves a copy of every cache (all of
+    2·U·B·M·G·Dh elements per pattern entry) on every step.  Prefill
+    starts at slot 0, as in the reference."""
+    m_len = cache.k.shape[1]
+    if s == 1:
+        # rolling caches wrap; full caches never reach m_len
+        wpos = (cache.length % m_len).long().reshape(1)
+        cache.k.index_copy_(1, wpos, k.to(cache.k.dtype))
+        cache.v.index_copy_(1, wpos, v.to(cache.v.dtype))
+    elif s >= m_len:
+        # rolling cache: token t lives at slot t % m_len; the last m_len
+        # tokens are a rotation by s % m_len
+        cache.k.copy_(torch.roll(k[:, s - m_len:], s % m_len, dims=1))
+        cache.v.copy_(torch.roll(v[:, s - m_len:], s % m_len, dims=1))
+    else:
+        cache.k[:, :s] = k
+        cache.v[:, :s] = v
+        cache.k[:, s:] = 0
+        cache.v[:, s:] = 0
+    cache.length.add_(s)
+    return cache
+
+
+def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              kind: str, positions: torch.Tensor,
+              cache: Optional[KVCache] = None,
+              update_cache: bool = False,
+              rope_theta: Optional[float] = None):
+    """Returns (out, cache). x: (B, S, D).  With ``update_cache`` the cache
+    is written in place (see ``_write_cache``) and returned."""
+    dt = cfg.compute_dtype
+    b, s, d = x.shape
+    h, g, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    r = h // g
+    window = cfg.window if kind == "local" else 0
+    theta = rope_theta if rope_theta is not None else cfg.rope_theta
+
+    q = (x @ params["wq"].to(dt)).reshape(b, s, h, dh)
+    k = (x @ params["wk"].to(dt)).reshape(b, s, g, dh)
+    v = (x @ params["wv"].to(dt)).reshape(b, s, g, dh)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    if cfg.qk_norm:
+        q = _qknorm(q, dt)
+        k = _qknorm(k, dt)
+
+    rolling = cache is not None and window > 0 and cache.k.shape[1] <= window
+    if cache is not None and update_cache:
+        cache = _write_cache(cache, k, v, s)
+
+    flash_want = (cfg.attn_impl == "flash"
+                  and (cache is None or s > 1) and s > cfg.attn_chunk)
+    if cache is not None and s == 1:
+        # rolling caches enforce the window structurally: no mask needed
+        out = _decode_grouped(q.reshape(b, s, g, r, dh), cache,
+                              window=0 if rolling else window)
+        out = out.reshape(b, s, h, dh)
+    elif flash_want:
+        out = ops.flash_attention(q, k, v, window=window)
+    elif cache is None:
+        kk, vv = _repeat_kv(k, r), _repeat_kv(v, r)
+        if cfg.attn_impl == "naive" or s <= cfg.attn_chunk:
+            out = _naive_flat(q, kk, vv, window=window)
+        else:
+            out = _chunked_flat(q, kk, vv, window=window, chunk=cfg.attn_chunk)
+    else:
+        q5 = q.reshape(b, s, g, r, dh)
+        if cfg.attn_impl == "naive" or s <= cfg.attn_chunk:
+            out = _naive_grouped(q5, k, v, window=window)
+        else:
+            out = _chunked_grouped(q5, k, v, window=window,
+                                   chunk=cfg.attn_chunk)
+        out = out.reshape(b, s, h, dh)
+
+    out = out.to(dt).reshape(b, s, h * dh)
+    return out @ params["wo"].to(dt), cache
+
+
+def _qknorm(q: torch.Tensor, dt) -> torch.Tensor:
+    n = torch.rsqrt(q.float().square().mean(-1, keepdim=True) + 1e-6)
+    return (q.float() * n).to(dt)

@@ -1,0 +1,139 @@
+"""Shared layers: RMSNorm, embeddings, RoPE, MLPs (dense + gated + sq-relu).
+
+Port of ``repro.models.layers``.  Parameters are plain dictionaries of
+tensors in the reference's layout; every ``init_*`` takes a
+``torch.Generator`` and a ``lead`` shape that stacks the leaf (the model's
+leading unit axis).  Weights are cast to the compute dtype at each use, as
+the reference does (a cast of a tensor already in that dtype is free).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+
+
+def trunc_normal(generator: Optional[torch.Generator], shape, scale: float,
+                 dtype: torch.dtype, device) -> torch.Tensor:
+    """``scale`` times a standard normal truncated to [-2, 2], drawn on
+    ``device`` (the reference's ``jax.random.truncated_normal``; not the
+    same draws)."""
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm (fp32 variance)
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(dim: int, dtype: torch.dtype, device,
+                 lead: Tuple[int, ...] = ()) -> dict:
+    return {"scale": torch.zeros(lead + (dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    # the variance in fp32; the normalizing multiplies stay in x's dtype,
+    # in the reference's order: x * inv * (1 + scale)
+    var = x.float().square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * (1.0 + params["scale"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+def init_embed(generator, cfg: ModelConfig, device) -> dict:
+    v, d = cfg.padded_vocab, cfg.d_model
+    p = {"tokens": trunc_normal(generator, (v, d), 1.0, cfg.master_dtype,
+                                device)}
+    if not cfg.tie_embeddings:
+        p["head"] = trunc_normal(generator, (d, v), d ** -0.5,
+                                 cfg.master_dtype, device)
+    return p
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    # gather, then cast: the same bits as the reference's cast-then-gather
+    # without a compute-dtype copy of the whole table
+    return params["tokens"][tokens.long()].to(cfg.compute_dtype)
+
+
+def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = cfg.compute_dtype
+    if cfg.tie_embeddings:
+        w = params["tokens"].to(dt).T
+    else:
+        w = params["head"].to(dt)
+    logits = x @ w
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# RoPE (halves, not interleaved)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)      # (Dh/2,)
+    ang = positions[..., :, None].float() * freqs                # (..., S, Dh/2)
+    cos = torch.cos(ang)[..., None, :]                           # (..., S, 1, Dh/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(generator, cfg: ModelConfig, device,
+             lead: Tuple[int, ...] = (), d_ff: Optional[int] = None) -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    dt = cfg.master_dtype
+    p = {}
+    if cfg.activation in ("swiglu", "geglu"):
+        p["gate"] = trunc_normal(generator, lead + (d, ff), d ** -0.5, dt,
+                                 device)
+    p["up"] = trunc_normal(generator, lead + (d, ff), d ** -0.5, dt, device)
+    p["down"] = trunc_normal(generator, lead + (ff, d), ff ** -0.5, dt,
+                             device)
+    return p
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = cfg.compute_dtype
+    if cfg.activation in ("swiglu", "geglu"):
+        g = x @ params["gate"].to(dt)
+        u = x @ params["up"].to(dt)
+        act = F.silu(g) if cfg.activation == "swiglu" else _gelu(g)
+        h = act * u
+    else:
+        u = x @ params["up"].to(dt)
+        if cfg.activation == "sq_relu":
+            h = torch.square(F.relu(u))
+        else:  # gelu
+            h = _gelu(u)
+    return h @ params["down"].to(dt)
