@@ -23,10 +23,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the min-sum kernel (``min_sum``, ``minmax_gram``) at
                 ragged, block-edge, suite and long-D shapes within the
                 bound its fp32 sums allow; the flash-attention kernel in
-                fp32 and bf16 over 52 shapes each (the reference test's
+                fp32 and bf16 over 60 shapes each (the reference test's
                 cases, D in 64/128/256, H/G in 1/2/9/48, ragged S, windows,
-                q_base with Sq < Sk, gemma3's (4, 2048)) within its stated
-                tolerance;
+                q_base with Sq < Sk, gemma3's (4, 2048), the sequence-
+                parallel all-gather route's q rows against 2,048 keys)
+                within its stated tolerance; the block-resumable flash kernel (row 9) step by
+                step against its plain version, each virtual rank's chain
+                over K/V shards in the ring's order (ragged shards, windows
+                0 and 1,024, gemma3's heads at 8,192 rows a shard), fully
+                masked shards handing the carry back unchanged, and each
+                finalized chain against the one-shot row-8 kernel;
   4. slice    - the serving path at the paper configuration's full width
                 (D = 256, k = 1024, 10 classes): four bundles (regen,
                 stored, regen+packed b = 8, stored+packed b = 4), each
@@ -59,18 +65,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 prefill through the plain attention, within a stated
                 tolerance; the CWS head on the pooled hidden state
                 (``cws_encode``), its codes equal to the CPU path's;
-  8. times    - each kernel and its plain version timed with CUDA events,
+  8. seq-parallel - gemma3_12b at full width cut to 6 layers, its
+                sequence sharded over four ranks of the ``model`` axis
+                (``torch.multiprocessing``; on one card the ranks share it
+                over gloo, CUDA tensors through host copies, since NCCL
+                takes one rank a card): the ring run (1 x 32,768 tokens,
+                every layer on the ring: 24 row-9 launches a rank, no row
+                8) and the all-gather run (1 x 2,048: 6 row-8 launches a
+                rank, no row 9), fp32 then bf16, the gathered hidden states
+                and each rank's last-position logits against the one-device
+                forward on the same weights; the transport, host bytes and
+                each rank's peak memory.  With four cards, once more over
+                NCCL, one rank a card, at full depth;
+  9. times    - each kernel and its plain version timed with CUDA events,
                 beside the least time the card could take for the same
                 work and a PyTorch call as yardstick where one exists
                 (``torch.cdist(p=1)`` for the Gram,
                 ``scaled_dot_product_attention`` for flash attention, at
-                the slice's global and local layers and at S = 32,768).
+                the slice's global and local layers and at S = 32,768, and
+                for row 9 on one ring step's q rows and K/V shard).
 
-Phases 4-7 are the main paths: each zeroes the launch counters just
+Phases 4-8 are the main paths: each zeroes the launch counters just
 before it and reads them just after, and fails if a kernel it runs was
-never launched.  The line before the last is ``nvidia-smi``'s name and
-power limit, the one before it a JSON summary of every kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+never launched (phase 8 in every rank, and in sum).  The line before the
+last is ``nvidia-smi``'s name and power limit, the one before it a JSON
+summary of every kernel; the last line is ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -137,6 +157,8 @@ GRAM = ("min_sum", "src/repro/kernels/minmax_gram.py:66",
         "src/repro_torch/csrc/minmax_gram.cu")
 FLASH = ("flash_attention_fwd", "src/repro/kernels/flash_attention.py:117",
          "src/repro_torch/csrc/flash_attention.cu")
+STEP = ("flash_attention_step", "src/repro/kernels/flash_attention.py:218",
+        "src/repro_torch/csrc/flash_attention.cu")
 
 # The LM slice: gemma3_12b (src/repro/configs/gemma3_12b.py:CONFIG) at full
 # width and depth with attn_impl="flash", served as ``serve_lm`` serves it:
@@ -150,6 +172,28 @@ CWS_CLASSES = 10
 # slice's global and local layers, and prefill_32k's sequence length
 FLASH_TIMING = ((4, 2048, 0), (4, 2048, 1024), (1, 32768, 0),
                 (1, 32768, 1024))
+# The sequence-parallel slice: gemma3_12b at full width, depth cut from 48
+# to 6 layers (one 5 local : 1 global period: four replicated copies of 48
+# layers do not fit one card), its sequence sharded over SP_RANKS ranks of
+# the ``model`` axis.  The ring run takes prefill_32k's 32,768 tokens (batch
+# cut from 32 to 1), so every layer's global K/V is at least RING_MIN_SK and
+# routes to the ring; the all-gather run takes 2,048 tokens, below it.
+# Weights from SP_SEED, drawn on every rank from the same seed.
+SP_LAYERS, SP_RANKS, SP_BATCH, SP_SEED = 6, 4, 1, 2027
+SP_RING_PROMPT, SP_AG_PROMPT = 32768, 2048
+SP_FULL_DEPTH = 48
+# Row 9's parity cases: (b, n virtual ranks, S per rank, H, G, D, window),
+# chained over the shards in each virtual rank's ring order: ragged shards
+# (100 and 1,000 rows, not multiples of the 64-key tile), windows 0 and
+# 1,024, and gemma3's heads at prefill_32k's S per rank
+STEP_PARITY = ((2, 4, 100, 4, 2, 64, 0), (2, 4, 100, 4, 2, 64, 48),
+               (1, 4, 1000, 8, 4, 128, 0), (1, 4, 1000, 8, 4, 128, 1024),
+               (1, 4, 8192, 16, 8, 256, 0), (1, 4, 8192, 16, 8, 256, 1024))
+# row 9 timed at one ring step's shapes, (B, S a rank, H, G, D) in bf16:
+# q rows of rank 1 against the K/V shard of (label, shard, window): its own
+# (diagonal), rank 0's (earlier, fully visible), its own under the window
+STEP_TIMING_SHAPE = (1, 8192, 16, 8, 256)
+STEP_TIMING = (("diagonal", 1, 0), ("earlier", 0, 0), ("window", 1, 1024))
 TENSOR_FLOPS_PER_SM_CLK = 4096    # dense bf16 tensor-core flops per SM clock
 FMA_FLOPS_PER_SM_CLK = 2 * LANES_PER_SM
 
@@ -170,6 +214,12 @@ BF16_ULP = 2.0 ** -7
 # smoke models; 48 layers get twice that: |dlogit| <= 2e-4 max |logit|.
 LM_BF16_TOL = 0.1
 LM_FP32_TOL = 2e-4
+# The sequence-parallel forward vs the one-device forward on the same
+# weights: the ring folds K/V shard by shard and the GEMMs run at another
+# M, so only the order of the fp32 sums differs: the hidden states and
+# last-position logits within LM_FP32_TOL of their max.  In bf16 the
+# attention outputs flip by an ulp and the GEMMs round at other places,
+# which 6 layers carry on: LM_BF16_TOL of the max, and equal argmax ids.
 
 
 def sparse_rows(rng, n, d, density=0.3, zero_rows=()):
@@ -820,10 +870,13 @@ def flash_worst(q, k, v, window, q_base):
         raise AssertionError(f"flash {tuple(q.shape)}: shape, dtype or "
                              f"non-finite output")
     got, want = got.float(), want.float()
-    diff = (got - want).abs()
-    rel = BF16_ULP if q.dtype == torch.bfloat16 else FLASH_TOL
-    ratio = float((diff / (FLASH_TOL + rel * want.abs())).max())
-    return ratio, float(diff.max())
+    return out_ratio(got, want, q.dtype), float((got - want).abs().max())
+
+
+def out_ratio(got, want, dtype):
+    """Worst |got - want| / the flash kernels' output tolerance."""
+    rel = BF16_ULP if dtype == torch.bfloat16 else FLASH_TOL
+    return float(((got - want).abs() / (FLASH_TOL + rel * want.abs())).max())
 
 
 def phase_flash_parity(dev, results):
@@ -851,8 +904,14 @@ def phase_flash_parity(dev, results):
     # the slice's own shapes: gemma3_12b's heads at (4, 2048)
     for w in (0, 1024):
         cases.append((LM_BATCH, LM_PROMPT, LM_PROMPT, 16, 8, 256, w, 0))
+    # the sequence-parallel all-gather route's own shapes: each rank's
+    # S/n q rows at q_base = rank * S/n against the all-gathered K/V
+    sl = SP_AG_PROMPT // SP_RANKS
+    allgather = {(SP_BATCH, sl, SP_AG_PROMPT, 16, 8, 256, w, rank * sl)
+                 for w in (0, 1024) for rank in range(SP_RANKS)}
+    cases += sorted(allgather)
     r = results[FLASH[0]]
-    worst = {}
+    worst, ag_worst = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for b, sq, sk, h, g, d, w, qb in cases:
             q, k, v = flash_inputs(rng, b, sq, sk, h, g, d, dtype, dev)
@@ -860,8 +919,11 @@ def phase_flash_parity(dev, results):
             r["checked"] += 1
             r["max_abs_err"] = max(r["max_abs_err"], err)
             key = str(dtype).split(".")[1]
+            case = (b, sq, sk, h, g, d, w, qb)
             if ratio > worst.get(key, (-1.0,))[0]:
-                worst[key] = (ratio, (b, sq, sk, h, g, d, w, qb), err)
+                worst[key] = (ratio, case, err)
+            if case in allgather:
+                ag_worst[key] = max(ag_worst.get(key, 0.0), ratio)
             if ratio > 1:
                 raise AssertionError(
                     f"flash {key} (b={b}, Sq={sq}, Sk={sk}, H={h}, G={g}, "
@@ -869,15 +931,110 @@ def phase_flash_parity(dev, results):
                     f"{ratio:.3g} of the tolerance (max {err:.3g})")
     r["worst"] = {k: {"ratio": v[0], "case": v[1], "max_abs_err": v[2]}
                   for k, v in worst.items()}
+    r["allgather_worst"] = ag_worst
     print(f"parity flash_attention_fwd: {r['checked']} cases (the reference "
           f"test's six; D in 64/128/256 x H/G in 1/2/9/48 at S = 1000/2047, "
           f"window 0/1024/4096; q_base 700/1000 with Sq < Sk; gemma3 "
-          f"(4, 2048) 16/8 heads D = 256, window 0/1024), fp32 and bf16; "
+          f"(4, 2048) 16/8 heads D = 256, window 0/1024; the all-gather "
+          f"route's ({SP_BATCH}, {SP_AG_PROMPT // SP_RANKS}) q rows at "
+          f"q_base = rank * {SP_AG_PROMPT // SP_RANKS} against "
+          f"{SP_AG_PROMPT} keys, window 0/1024), fp32 and bf16; "
           + "; ".join(f"worst {k} |cuda - plain| / tolerance {v[0]:.4g} at "
                       f"(b, Sq, Sk, H, G, D, window, q_base) = {v[1]}, max "
                       f"{v[2]:.3g}" for k, v in worst.items())
+          + "; worst of the all-gather route's cases: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in ag_worst.items())
           + f" (tolerance fp32 {FLASH_TOL:g}(1 + |out|), bf16 {FLASH_TOL:g}"
           f" + 2^-7 |out|); launches {LAUNCHES['flash_attention_fwd']}")
+
+
+def carry_ratio(got, want, dtype):
+    """Worst |kernel - plain| / tolerance of a carry: m and l within
+    FLASH_TOL (1 + |x|) (fp32 in both dtypes), the finalized output within
+    row 8's output tolerance.  Returns (ratio, max |output difference|)."""
+    from repro_torch.kernels import flash_attention as fa
+    ratio = max(float(((g - w).abs() / (FLASH_TOL * (1 + w.abs()))).max())
+                for g, w in zip(got[:2], want[:2]))
+    go = fa.finalize(got, dtype)[0].float()
+    wo = fa.finalize(want, dtype)[0].float()
+    return max(ratio, out_ratio(go, wo, dtype)), float((go - wo).abs().max())
+
+
+def phase_step_parity(dev, results):
+    """Row 9 against its plain version, step by step, each virtual rank's
+    chain over the K/V shards in the ring's order (shard (me - s) mod n at
+    step s), fed the kernel's own carry; then the finalized chain against
+    the one-shot row-8 kernel at the same q rows.  A shard wholly outside
+    a rank's causal or window range must hand the carry back unchanged."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(10)
+    r = results[STEP[0]]
+    worst = {}
+    for b, n, sl, h, g, d, w in STEP_PARITY:
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[1]
+            q, k, v = flash_inputs(rng, b, n * sl, n * sl, h, g, d, dtype,
+                                   dev)
+            for me in range(n):
+                ql = q[:, me * sl:(me + 1) * sl]
+                carry = None
+                for step in range(n):
+                    j = (me - step) % n
+                    ks, vs = (t[:, j * sl:(j + 1) * sl] for t in (k, v))
+                    args = dict(q_base=me * sl, k_base=j * sl, window=w)
+                    got = fa.flash_attention_step_cuda(ql, ks, vs, carry,
+                                                       **args)
+                    want = fa.flash_attention_step_plain(ql, ks, vs, carry,
+                                                         **args)
+                    torch.cuda.synchronize()
+                    masked = j > me or (w > 0 and (j + 1) * sl - 1 <=
+                                        me * sl - w)
+                    if masked:
+                        if not all(torch.equal(a, c)
+                                   for a, c in zip(got, carry)):
+                            raise AssertionError(
+                                f"step: a fully masked shard (rank {me}, "
+                                f"shard {j}, {(b, sl, h, g, d, w)}) changed "
+                                f"the carry")
+                        r["masked"] += 1
+                    ratio, err = carry_ratio(got, want, dtype)
+                    r["checked"] += 1
+                    r["max_abs_err"] = max(r["max_abs_err"], err)
+                    case = (b, n, sl, h, g, d, w, me, j)
+                    if ratio > worst.get(key, (-1.0,))[0]:
+                        worst[key] = (ratio, case, err)
+                    if ratio > 1:
+                        raise AssertionError(
+                            f"step {key} (b, n, S/n, H, G, D, window, "
+                            f"rank, shard) = {case}: |cuda - plain| at "
+                            f"{ratio:.3g} of the tolerance")
+                    carry = got
+                out = fa.finalize(carry, dtype)[0].float()
+                one = fa.flash_attention_fwd_cuda(
+                    ql, k, v, window=w, q_base=me * sl).float()
+                ratio = out_ratio(out, one, dtype)
+                r["chain_worst"][key] = max(r["chain_worst"].get(key, 0.0),
+                                            ratio)
+                if ratio > 1:
+                    raise AssertionError(
+                        f"step {key}: the chain of rank {me} of "
+                        f"{(b, n, sl, h, g, d, w)} vs the one-shot kernel at "
+                        f"{ratio:.3g} of the tolerance")
+            del q, k, v
+    torch.cuda.empty_cache()
+    r["worst"] = {k: {"ratio": v[0], "case": v[1], "max_abs_err": v[2]}
+                  for k, v in worst.items()}
+    print(f"parity flash_attention_step: {r['checked']} steps ({r['masked']} "
+          f"on fully masked shards, carry unchanged) over "
+          f"(b, n, S/n, H, G, D, window) in {STEP_PARITY}, fp32 and bf16, "
+          f"each virtual rank's chain in ring order; "
+          + "; ".join(f"worst {k} |cuda - plain| / tolerance {v[0]:.4g} at "
+                      f"(b, n, S/n, H, G, D, window, rank, shard) = {v[1]}, "
+                      f"max |dout| {v[2]:.3g}" for k, v in worst.items())
+          + "; chain vs one-shot row 8: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in r["chain_worst"].items())
+          + f" of the tolerance (m, l within {FLASH_TOL:g}(1 + |x|), out "
+          f"fp32 {FLASH_TOL:g}(1 + |out|), bf16 {FLASH_TOL:g} + 2^-7 |out|)")
 
 
 @contextlib.contextmanager
@@ -1143,6 +1300,247 @@ def phase_lm(dev, card, results):
     torch.cuda.empty_cache()
 
 
+def _leaves(tree):
+    out = []
+    for val in tree.values():
+        out.extend(_leaves(val) if isinstance(val, dict) else [val])
+    return out
+
+
+def sp_rank(rank, world, init_method, spec):
+    """One rank of the sequence-parallel phase, in a process of its own:
+    writes its report to ``spec["outdir"]/rank{rank}.json``."""
+    import datetime
+    import torch.distributed as dist
+    dev = torch.device(spec["device_type"],
+                       rank if spec["backend"] == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(spec["backend"], init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(minutes=20))
+    try:
+        report = sp_rank_body(rank, world, dev, spec)
+        pathlib.Path(spec["outdir"], f"rank{rank}.json").write_text(
+            json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_rank_body(rank, world, dev, spec):
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import cast_params, init_model
+    from repro_torch.models.sharding import make_rules
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: fp32 checks need them off")
+    cfg = dataclasses.replace(get_config(LM_ARCH, "full"),
+                              n_layers=spec["layers"], attn_impl="flash")
+    mesh = make_mesh(1, world)
+    rules = make_rules(mesh)
+    route = collectives.transport(dist.get_backend(mesh.group("model")), dev)
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(dev).manual_seed(SP_SEED), dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    # the same weights on every rank: every leaf's sum, gathered
+    sums = torch.stack([t.double().sum() for t in _leaves(params)])
+    every = collectives.all_gather_dim(sums[None], mesh, "model", dim=0)
+    if not (every == every[:1]).all():
+        raise AssertionError(f"rank {rank}: the ranks' weights differ")
+    report = {"rank": rank, "device": str(dev), "transport": route,
+              "init_s": init_s, "masters_gb": sum(
+                  t.numel() * t.element_size() for t in _leaves(params)) /
+              1e9, "runs": []}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            cast_params(params, torch.bfloat16)
+            torch.cuda.empty_cache()
+        cfg_d = dataclasses.replace(cfg, dtype=dtype)
+        for prompt in (spec["ring_prompt"], spec["ag_prompt"]):
+            report["runs"].append(sp_run(rank, world, dev, mesh, rules,
+                                         params, cfg_d, prompt))
+    return report
+
+
+def sp_run(rank, world, dev, mesh, rules, params, cfg, prompt):
+    """One sequence-parallel forward of a (SP_BATCH, prompt) batch on every
+    rank; rank 0 then runs the one-device forward on the same weights and
+    compares the gathered hidden states and each rank's last-position
+    logits with it."""
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import collectives
+    from repro_torch.models import forward
+    from repro_torch.models.layers import lm_logits
+    from repro_torch.models.sharding import (gather_shards, local_shard,
+                                             use_rules)
+    ring = fa.use_ring(prompt, world, threshold=cfg.attn_ring_min_sk or None)
+    tokens = torch.from_numpy(np.random.default_rng(SP_SEED + prompt).integers(
+        0, cfg.vocab, (SP_BATCH, prompt))).to(dev)
+    local = local_shard(tokens, rules, "batch", "sp")
+    dist.barrier()
+    fa.reset_launches()
+    collectives.reset_host_copies()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    # the main path, counters zeroed just before and read just after
+    t0 = time.perf_counter()
+    with use_rules(rules):
+        hidden, _, _ = forward(params, local, cfg)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    host = dict(collectives.HOST_COPIES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n_attn = cfg.n_layers
+    want = {STEP[0]: world * n_attn if ring else 0,
+            FLASH[0]: 0 if ring else n_attn}
+    if launches != want:
+        raise AssertionError(f"rank {rank}, {cfg.dtype} S = {prompt}: "
+                             f"launches {launches}, not {want}")
+    last = lm_logits(params["embed"], hidden[:, -1:], cfg)[:, 0].float()
+    run = {"dtype": cfg.dtype, "prompt": prompt,
+           "route": "ring" if ring else "allgather", "launches": launches,
+           "host_bytes": host["bytes"], "host_tensors": host["tensors"],
+           "peak_gb": peak_gb, "forward_s": wall,
+           "local_tokens": list(local.shape)}
+    hid_all = gather_shards(hidden, rules, (SP_BATCH, prompt, cfg.d_model),
+                            "batch", "sp")
+    last_all = collectives.all_gather_dim(last, mesh, "model", dim=0)
+    del hidden
+    if rank == 0:
+        ref, _, _ = forward(params, tokens, cfg)      # one device: row 8
+        sl = prompt // world
+        idx = [(m + 1) * sl - 1 for m in range(world)]
+        ref_last = lm_logits(params["embed"], ref[:, idx], cfg).float()
+        got_last = last_all.reshape(world, SP_BATCH, -1).transpose(0, 1)
+        torch.cuda.synchronize(dev)
+        if not torch.isfinite(hid_all).all() or hid_all.shape != ref.shape:
+            raise AssertionError("sequence-parallel hidden states: "
+                                 "non-finite or misshapen")
+        h_scale = float(ref.float().abs().max())
+        h_err = float((hid_all.float() - ref.float()).abs().max())
+        l_scale = float(ref_last.abs().max())
+        l_err = float((got_last - ref_last).abs().max())
+        agree = bool((got_last[..., :cfg.vocab].argmax(-1) ==
+                      ref_last[..., :cfg.vocab].argmax(-1)).all())
+        tol = LM_FP32_TOL if cfg.dtype == "float32" else LM_BF16_TOL
+        run.update(hidden_err=h_err, hidden_scale=h_scale, logit_err=l_err,
+                   logit_scale=l_scale, argmax_equal=agree, tol=tol)
+        if h_err > tol * h_scale or l_err > tol * l_scale:
+            raise AssertionError(
+                f"sequence-parallel vs one-device forward, {cfg.dtype} S = "
+                f"{prompt}: max |dhidden| {h_err:.4g} (max {h_scale:.4g}), "
+                f"max |dlogit| {l_err:.4g} (max {l_scale:.4g}); limit "
+                f"{tol:g} of the max")
+        if cfg.dtype == "bfloat16" and not agree:
+            raise AssertionError(f"sequence-parallel vs one-device forward, "
+                                 f"bf16 S = {prompt}: argmax ids differ")
+        del ref
+    del hid_all, last_all
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return run
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_seq_parallel(backend, world, layers):
+    """Spawn ``world`` ranks of the sequence-parallel phase; their reports,
+    with the launch totals checked."""
+    outdir = ROOT / "build" / "seq_parallel" / backend
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    spec = {"backend": backend, "layers": layers, "device_type": DEVICE,
+            "ring_prompt": SP_RING_PROMPT, "ag_prompt": SP_AG_PROMPT,
+            "outdir": str(outdir)}
+    import torch.multiprocessing
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(
+        sp_rank, args=(world, f"tcp://localhost:{free_port()}", spec),
+        nprocs=world, join=True)
+    wall = time.perf_counter() - t0
+    reports = [json.loads((outdir / f"rank{r}.json").read_text())
+               for r in range(world)]
+    shutil.rmtree(outdir, ignore_errors=True)
+    for i, run in enumerate(reports[0]["runs"]):
+        total = {name: sum(rep["runs"][i]["launches"][name]
+                           for rep in reports) for name in (STEP[0], FLASH[0])}
+        ring = run["route"] == "ring"
+        want = {STEP[0]: world * world * layers if ring else 0,
+                FLASH[0]: 0 if ring else world * layers}
+        if total != want:
+            raise AssertionError(f"sequence-parallel {run['dtype']} S = "
+                                 f"{run['prompt']}: launches {total}, not "
+                                 f"{want}")
+        run["total_launches"] = total
+    return {"backend": backend, "world": world, "layers": layers,
+            "wall_s": wall, "ranks": reports}
+
+
+def phase_seq_parallel(card, results):
+    """gemma3_12b at full width, 6 layers, its sequence sharded over four
+    ranks of the ``model`` axis: the ring run (32,768 tokens) and the
+    all-gather run (2,048), fp32 then bf16, each against the one-device
+    forward on the same weights.  On one card the four ranks share it
+    over gloo (NCCL takes one rank a card); with four cards the phase runs
+    once more over NCCL, one rank a card, at full depth."""
+    out = run_seq_parallel("gloo", SP_RANKS, SP_LAYERS)
+    results["seq_parallel"] = {"gloo": out}
+    report_seq_parallel(out, card)
+    ring_bf16 = next(r for r in out["ranks"][0]["runs"]
+                     if r["route"] == "ring" and r["dtype"] == "bfloat16")
+    results[STEP[0]]["launches"] = ring_bf16["total_launches"][STEP[0]]
+    if torch.cuda.device_count() >= SP_RANKS:
+        nccl = run_seq_parallel("nccl", SP_RANKS, SP_FULL_DEPTH)
+        results["seq_parallel"]["nccl"] = nccl
+        report_seq_parallel(nccl, card)
+    else:
+        print(f"seq-parallel nccl: not run: {torch.cuda.device_count()} "
+              f"card(s); the NCCL path (one rank a card, full depth) needs "
+              f"{SP_RANKS}")
+
+
+def report_seq_parallel(out, card):
+    ranks = out["ranks"]
+    how = ("gloo, CUDA tensors through host copies, four ranks on one card"
+           if ranks[0]["transport"] == "gloo+host" else
+           f"{ranks[0]['transport']}, one rank a card")
+    print(f"seq-parallel [{card}]: {LM_ARCH} full width, {out['layers']} "
+          f"layers, {out['world']} ranks (data 1 x model {out['world']}), "
+          f"transport {how}; fp32 masters {ranks[0]['masters_gb']:.2f} GB a "
+          f"rank, the same on every rank (checksummed), drawn in "
+          f"{max(r['init_s'] for r in ranks):.2f} s; whole phase "
+          f"{out['wall_s']:.1f} s")
+    shared = ranks[0]["transport"] == "gloo+host"
+    for i, run in enumerate(ranks[0]["runs"]):
+        per = [r["runs"][i] for r in ranks]
+        h_rel = run["hidden_err"] / run["hidden_scale"]
+        l_rel = run["logit_err"] / run["logit_scale"]
+        print(f"  {run['dtype']} S = {run['prompt']} ({run['route']}, "
+              f"{run['local_tokens'][1]} tokens a rank): launches "
+              f"{run['total_launches']} in all; host copies "
+              f"{[p['host_bytes'] for p in per]} bytes a rank; peak "
+              f"{[round(p['peak_gb'], 2) for p in per]} GB a rank; forward "
+              f"{[round(p['forward_s'], 3) for p in per]} s a rank ("
+              + ("four ranks sharing one card: not a speed of the ring"
+                 if shared else "one rank a card")
+              + f"); vs the one-device forward: max |dhidden| "
+              f"{run['hidden_err']:.4g} ({h_rel:.3g} of "
+              f"{run['hidden_scale']:.4g}), last-position max |dlogit| "
+              f"{run['logit_err']:.4g} ({l_rel:.3g} of "
+              f"{run['logit_scale']:.4g}), limit {run['tol']:g} of the max; "
+              f"argmax ids equal: {run['argmax_equal']}")
+
+
 def visible_pairs(sq, sk, window, q_base=0):
     """(query, key) pairs the causal / window mask lets through."""
     pos = np.arange(sq, dtype=np.int64) + q_base
@@ -1210,6 +1608,69 @@ def phase_flash_times(dev, results, mhz, sms):
               + "; a yardstick, the port never calls it)")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+
+
+def phase_step_times(dev, results, mhz, sms):
+    """Row 9 alone at one ring step's shapes, beside its bound, its plain
+    version and SDPA on the same (q, k shard) and mask without a carry."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention as fa
+    tensor_rate = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
+    rng = np.random.default_rng(12)
+    b, s_, h, g, d = STEP_TIMING_SHAPE
+    q, k, v = flash_inputs(rng, b, s_, s_, h, g, d, torch.bfloat16, dev)
+    carry = fa.init_carry(b, s_, h, d, dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    for label, shard, w in STEP_TIMING:
+        q_base, k_base = s_, shard * s_
+        args = dict(q_base=q_base, k_base=k_base, window=w)
+        ms = time_ms(lambda: fa.flash_attention_step_cuda(q, k, v, carry,
+                                                          **args), reps=10)
+        plain_ms = time_ms(lambda: fa.flash_attention_step_plain(
+            q, k, v, carry, **args), reps=3, warmup=1)
+        if w == 0:
+            # q rows at q_base against keys at k_base: the diagonal shard
+            # is causal, an earlier one fully visible
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=q_base == k_base, enable_gqa=True)
+            lib_note = ("causal" if q_base == k_base else "no mask") + \
+                ", enable_gqa"
+        else:
+            i = torch.arange(s_, device=dev)
+            pos, key = i[:, None] + q_base, i[None, :] + k_base
+            mask = (key <= pos) & (key > pos - w)
+            kr, vr = (t.repeat_interleave(h // g, dim=1) for t in (kt, vt))
+
+            def lib():
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                    return F.scaled_dot_product_attention(qt, kr, vr,
+                                                          attn_mask=mask)
+            lib_note = ("boolean window mask, memory-efficient path, k/v "
+                        "repeated to the query heads")
+        lib_ms = time_ms(lib, reps=10, warmup=1)
+        pairs = visible_pairs(s_, s_, w, q_base - k_base) * b * h
+        flops = 4 * d * pairs
+        # q, k, v read once in bf16; the carry read and written once, fp32
+        nbytes = 2 * (b * s_ * h * d + 2 * b * s_ * g * d) + \
+            2 * 4 * (2 * b * s_ * h + b * s_ * h * d)
+        bound_ms, by = bound(nbytes, flops, tensor_rate)
+        results[STEP[0]]["times"].append({
+            "shape": [b, s_, h, g, d], "shard": label, "q_base": q_base,
+            "k_base": k_base, "window": w, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+            "visible_pairs": pairs, "flops": flops, "bytes": nbytes})
+        print(f"time flash_attention_step ({label} shard: q rows at "
+              f"{q_base}, k rows at {k_base}, window {w}) (B, Sq, Sk) = "
+              f"({b}, {s_}, {s_}) H/G {h}/{g} D {d} bf16, fp32 carry: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+              f"ms ({by}; {flops / 1e9:.2f} GFLOP at "
+              f"{tensor_rate / 1e12:.1f} TFLOP/s, {nbytes / 1e6:.1f} MB); "
+              f"library call scaled_dot_product_attention on the same q and "
+              f"k shard, no carry ({lib_note}) {lib_ms:.4f} ms (the nearest "
+              f"single PyTorch call; the port never calls it)")
+    del q, k, v, qt, kt, vt, carry
+    torch.cuda.empty_cache()
 
 
 def phase_times(dev, results, peak_ops):
@@ -1342,15 +1803,21 @@ def main():
                         "launches": 0, "times": []}
     results[FLASH[0]] = {"checked": 0, "mismatches": 0, "max_abs_err": 0.0,
                          "launches": 0, "times": []}
+    results[STEP[0]] = {"checked": 0, "mismatches": 0, "max_abs_err": 0.0,
+                        "launches": 0, "times": [], "masked": 0,
+                        "chain_worst": {}}
     phase_parity(dev, results)
     phase_gram_parity(dev, results)
     phase_flash_parity(dev, results)
+    phase_step_parity(dev, results)
     phase_slice(smi, results)
     phase_kernel_machine(dev, smi, results)
     phase_estimator(dev, smi, results)
     phase_lm(dev, smi, results)
+    phase_seq_parallel(smi, results)
     phase_times(dev, results, peak_ops)
     phase_flash_times(dev, results, mhz, sms)
+    phase_step_times(dev, results, mhz, sms)
 
     kernels = []
     for k in ENCODES:
@@ -1387,6 +1854,15 @@ def main():
                    t["window"] > 0)
     entry = kernel_entry(FLASH[0], FLASH[2], FLASH[1], r, primary)
     entry.update(worst=r["worst"], times=r["times"], lm=results["lm"])
+    kernels.append(entry)
+    r = results[STEP[0]]
+    # the main path's most frequent computing launch: a local layer's
+    # resident (diagonal) shard under the window
+    primary = next(t for t in r["times"] if t["shard"] == "window")
+    entry = kernel_entry(STEP[0], STEP[2], STEP[1], r, primary)
+    entry.update(worst=r["worst"], chain_worst=r["chain_worst"],
+                 masked_steps=r["masked"], times=r["times"],
+                 seq_parallel=results["seq_parallel"])
     kernels.append(entry)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "lane_rate_ops_s": peak_ops}))

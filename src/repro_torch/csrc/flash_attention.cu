@@ -5,11 +5,33 @@
 // over the keys visible from query row i: j < Sk, j <= i + q_base and, when
 // window > 0, j > i + q_base - window.  fp32 or bf16 in, the same type out.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
+// Replaces the Pallas TPU kernels src/repro/kernels/flash_attention.py:
 //   flash_attention_fwd_launch  <- flash_attention_fwd / _flash_kernel
 //                                  (_block_update for one score tile)
-// (row 8 of the TPU kernel table; the block-resumable flash_attention_step
-// of the ring schedule is not ported here).
+//                                  (row 8 of the TPU kernel table)
+//   flash_attention_step_launch <- flash_attention_step /
+//                                  _flash_carry_kernel (row 9)
+//
+// Row 9 is the block-resumable variant the ring schedule chains over K/V
+// shards: the same device body with CARRY = true.  Its k/v are one shard
+// (b, sk, g, d) whose row 0 sits at global position k_base (the twin of
+// q_base); key j is visible from query row i when j < sk (the shard's true
+// length, the reference's k_valid: no key past the shard can alias the
+// next shard's positions), k_base + j <= i + q_base and, with a window,
+// k_base + j > i + q_base - window.  The block loads the running (m, l,
+// acc) of its 64 rows from the fp32 carry (m, l of shape (b, sq, h, 1),
+// acc (b, sq, h, d)) instead of (-1e30, 0, 0), walks only the 64-key
+// tiles its rows can see (the reference's `needed`: k_off <= q_off +
+// blk_q - 1, local k < k_valid and, with a window, k_off + blk_k - 1 >
+// q_off - window), and writes the carry back un-normalized, with no
+// division by l and no cast.  A shard that shows a block no key still
+// takes the launch (as the reference's grid does) and writes the carry
+// back as it came.  One difference from the reference, in rows only: a
+// masked score contributes p = 0, not exp(-1e30 - m), so a row that has
+// seen no visible key keeps l = 0 and acc = 0, where the reference leaves
+// tile-dependent values that its next visible key multiplies by
+// exp(-1e30 - m) = 0.  For every row that sees a key the two agree; a
+// fully masked shard leaves every row's carry exactly as it came.
 //
 // Numerics, as the reference: q, k and v are widened to fp32 on load; the
 // scores, the running (m, l, acc) of the online softmax and p . v stay in
@@ -27,7 +49,10 @@
 // wgmma round p to bf16, which the reference does not; this kernel keeps
 // everything in fp32 FMAs on the SIMT lanes (the fp32-FMA ceiling is
 // SMs x 128 lanes x 2 flops x clock).  A bf16 tensor-core design, with its
-// own stated tolerance, is later work.
+// own stated tolerance, is later work.  Row 9 moves more bytes than row
+// 8: the fp32 carry, 8 + 4·D bytes per (row, head), is read and written
+// once a step; under a sliding window, where a shard shows each row at
+// most `window` keys, that traffic is as large a bound as the work.
 //
 // What the design does about it: one block of 256 threads per (q tile of
 // 64 rows, head, batch row); the grid runs the heaviest q tiles first.  The
@@ -91,14 +116,27 @@ __device__ __forceinline__ const T* row_ptr(const T* base, int bi, int row,
                     static_cast<size_t>(d);
 }
 
+// The running state of the online softmax, fp32: (m, l) of shape
+// (b, sq, h, 1) and acc (b, sq, h, d), dense.  Row 8 passes none.
+struct Carry {
+  const float* m_in;
+  const float* l_in;
+  const float* acc_in;
+  float* m_out;
+  float* l_out;
+  float* acc_out;
+};
+
 // DPT: output columns per thread, ceil(D / 16) rounded up to an
-// instantiated size; columns tx + 16 c at or past D are skipped.
-template <typename T, int DPT>
+// instantiated size; columns tx + 16 c at or past D are skipped.  CARRY:
+// row 9 (load and store the carry, k rows at k_base) or row 8 (start from
+// (-1e30, 0, 0), k_base = 0, write acc / l in T).
+template <typename T, int DPT, bool CARRY>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int sq,
-                 int sk, int h, int g, int d, int window, int q_base,
-                 float scale) {
+                 const T* __restrict__ v, T* __restrict__ out, Carry carry,
+                 int sq, int sk, int h, int g, int d, int window,
+                 int q_base, int k_base, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* s_qt = smem;                        // [d][LD]
   float* s_kt = s_qt + static_cast<size_t>(d) * LD;   // [d][LD]
@@ -128,13 +166,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l_run[r] = 0.0f;
 #pragma unroll
     for (int c = 0; c < DPT; ++c) acc[r][c] = 0.0f;
+    const int i = q0 + ty * RQ + r;
+    if (CARRY && i < sq) {
+      // each thread loads the (m, l) of its rows and the acc columns it
+      // will store back, so the carry may be updated in place
+      const size_t row = (static_cast<size_t>(bi) * sq + i) * h + hh;
+      m_run[r] = carry.m_in[row];
+      l_run[r] = carry.l_in[row];
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) {
+        const int col = tx + TX * c;
+        if (col < d) acc[r][c] = carry.acc_in[row * d + col];
+      }
+    }
   }
 
-  // the keys this tile's valid rows can see: [k_begin, k_end)
+  // the local keys this tile's valid rows can see: [k_begin, k_end)
   const int q_first = q0 + q_base;
   const int q_last = min(q0 + BQ, sq) - 1 + q_base;
-  const int k_end = min(sk, q_last + 1);
-  const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  const int k_end = min(sk, q_last + 1 - k_base);
+  const int k_begin =
+      window > 0 ? static_cast<int>(max(0LL, static_cast<long long>(q_first) -
+                                                  window + 1 - k_base))
+                 : 0;
 
   for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
     __syncthreads();   // the previous tile's reads of s_kt, s_v, s_pt are done
@@ -172,11 +226,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < RQ; ++r) {
       const int pos = q0 + ty * RQ + r + q_base;
       float mx = NEG_INF;
+      bool ok[RK];
 #pragma unroll
       for (int c = 0; c < RK; ++c) {
         const int j = k0 + tx * RK + c;
-        const bool ok = j < sk && j <= pos && (window <= 0 || j > pos - window);
-        s[r][c] = ok ? s[r][c] * scale : NEG_INF;
+        const int jg = k_base + j;
+        ok[c] = j < sk && jg <= pos && (window <= 0 || jg > pos - window);
+        s[r][c] = ok[c] ? s[r][c] * scale : NEG_INF;
         mx = fmaxf(mx, s[r][c]);
       }
 #pragma unroll
@@ -187,7 +243,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float sum = 0.0f;
 #pragma unroll
       for (int c = 0; c < RK; ++c) {
-        s[r][c] = expf(s[r][c] - m_new);
+        // row 9: a masked key adds nothing, even to a row that has seen
+        // no key yet (see the header)
+        s[r][c] = CARRY && !ok[c] ? 0.0f : expf(s[r][c] - m_new);
         sum += s[r][c];
       }
 #pragma unroll
@@ -220,10 +278,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  // every lane of a row has read its (m, l) before any lane writes them
+  if (CARRY) __syncthreads();
 #pragma unroll
   for (int r = 0; r < RQ; ++r) {
     const int i = q0 + ty * RQ + r;
     if (i >= sq) continue;
+    if (CARRY) {
+      // un-normalized, fp32: the next ring step resumes from it
+      const size_t row = (static_cast<size_t>(bi) * sq + i) * h + hh;
+      if (tx == 0) {
+        carry.m_out[row] = m_run[r];
+        carry.l_out[row] = l_run[r];
+      }
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) {
+        const int col = tx + TX * c;
+        if (col < d) carry.acc_out[row * d + col] = acc[r][c];
+      }
+      continue;
+    }
     const float lm = fmaxf(l_run[r], 1e-30f);
     T* dst = out + ((static_cast<size_t>(bi) * sq + i) * h + hh) *
                        static_cast<size_t>(d);
@@ -235,12 +309,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DPT>
+template <typename T, int DPT, bool CARRY>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int b, int sq, int sk, int h, int g, int d, int window,
-                   int q_base, float scale, cudaStream_t stream) {
+                   const Carry& carry, int b, int sq, int sk, int h, int g,
+                   int d, int window, int q_base, int k_base, float scale,
+                   cudaStream_t stream) {
   const size_t smem = smem_floats(d) * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, DPT>;
+  auto kernel = flash_fwd_kernel<T, DPT, CARRY>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -248,20 +323,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((sq + BQ - 1) / BQ, h, b);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, h, g, d,
-      window, q_base, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), carry, sq, sk, h, g,
+      d, window, q_base, k_base, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CARRY>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     int b, int sq, int sk, int h, int g, int d, int window,
-                     int q_base, float scale, cudaStream_t stream) {
+                     const Carry& carry, int b, int sq, int sk, int h, int g,
+                     int d, int window, int q_base, int k_base, float scale,
+                     cudaStream_t stream) {
   const int cols = (d + TX - 1) / TX;
 #define FLASH_CASE(N)                                                      \
   if (cols <= N)                                                           \
-    return launch<T, N>(q, k, v, out, b, sq, sk, h, g, d, window, q_base,  \
-                        scale, stream);
+    return launch<T, N, CARRY>(q, k, v, out, carry, b, sq, sk, h, g, d,    \
+                               window, q_base, k_base, scale, stream);
   FLASH_CASE(1)
   FLASH_CASE(2)
   FLASH_CASE(4)
@@ -287,10 +363,37 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
   if (d <= 0 || d > MAX_D || g <= 0 || h % g != 0 || sk < 0 || q_base < 0 ||
       h > 65535 || b > 65535)
     return cudaErrorInvalidValue;
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, b, sq, sk, h, g, d,
-                                        window, q_base, scale, stream)
-              : dispatch<float>(q, k, v, out, b, sq, sk, h, g, d, window,
-                                q_base, scale, stream);
+  const Carry none = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  return bf16 ? dispatch<__nv_bfloat16, false>(q, k, v, out, none, b, sq, sk,
+                                               h, g, d, window, q_base, 0,
+                                               scale, stream)
+              : dispatch<float, false>(q, k, v, out, none, b, sq, sk, h, g,
+                                       d, window, q_base, 0, scale, stream);
+}
+
+// Row 9 of the TPU kernel table.  q (b, sq, h, d) and the k/v shard
+// (b, sk, g, d), dense, fp32 (bf16 = 0) or bf16 (bf16 = 1); the carry fp32:
+// m_in, l_in, m_out, l_out (b, sq, h), acc_in, acc_out (b, sq, h, d).  The
+// out pointers may equal the in pointers (each thread stores only what it
+// loaded).  Returns the launch's cudaError_t.
+int flash_attention_step_launch(const void* q, const void* k, const void* v,
+                                const float* m_in, const float* l_in,
+                                const float* acc_in, float* m_out,
+                                float* l_out, float* acc_out, int b, int sq,
+                                int sk, int h, int g, int d, int window,
+                                int q_base, int k_base, float scale, int bf16,
+                                cudaStream_t stream) {
+  if (b <= 0 || sq <= 0 || h <= 0) return cudaSuccess;
+  if (d <= 0 || d > MAX_D || g <= 0 || h % g != 0 || sk < 0 || q_base < 0 ||
+      k_base < 0 || h > 65535 || b > 65535)
+    return cudaErrorInvalidValue;
+  const Carry carry = {m_in, l_in, acc_in, m_out, l_out, acc_out};
+  return bf16 ? dispatch<__nv_bfloat16, true>(q, k, v, nullptr, carry, b, sq,
+                                              sk, h, g, d, window, q_base,
+                                              k_base, scale, stream)
+              : dispatch<float, true>(q, k, v, nullptr, carry, b, sq, sk, h,
+                                      g, d, window, q_base, k_base, scale,
+                                      stream);
 }
 
 }  // extern "C"

@@ -118,12 +118,15 @@ def minmax_gram_library() -> BuiltLibrary:
 
 @functools.lru_cache(maxsize=None)
 def flash_attention_library() -> BuiltLibrary:
-    """The flash-attention kernel's library (``csrc/flash_attention.cu``).
-    Its output is compared within a tolerance, not bit for bit, so it
+    """The flash-attention kernels' library (``csrc/flash_attention.cu``):
+    the one-shot forward (row 8) and the block-resumable step (row 9).
+    Their outputs are compared within a tolerance, not bit for bit, so it
     builds with fused multiply-adds (``NVCC_FLAGS``); the scale goes over
     as a c_float."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _declare(build("flash_attention.cu", NVCC_FLAGS), {
         "flash_attention_fwd_launch": (p, p, p, p, i, i, i, i, i, i, i, i,
                                        f, i, p),
+        "flash_attention_step_launch": (p, p, p, p, p, p, p, p, p, i, i, i,
+                                        i, i, i, i, i, i, f, i, p),
     })

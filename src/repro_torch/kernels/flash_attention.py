@@ -1,8 +1,10 @@
-"""Flash-attention forward: CUDA launcher beside its plain version.
+"""Flash-attention forward: CUDA launchers beside their plain versions,
+and the sequence-parallel schedules built on them.
 
-Port of ``repro/kernels/flash_attention.py:flash_attention_fwd`` (TPU
-kernel table row 8).  The function, for q (B, Sq, H, D) and k, v
-(B, Sk, G, D) with H % G == 0 and r = H / G:
+Port of ``repro/kernels/flash_attention.py``: ``flash_attention_fwd``
+(TPU kernel table row 8) and the block-resumable ``flash_attention_step``
+(row 9).  The function, for q (B, Sq, H, D) and k, v (B, Sk, G, D) with
+H % G == 0 and r = H / G:
 
     out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h // r] / sqrt(D)) v[b, j, h // r]
 
@@ -11,13 +13,28 @@ over the keys visible from query row i: ``j <= i + q_base`` and, when
 product with v are fp32 whatever the input dtype; the output is cast to
 q's dtype after dividing by ``max(l, 1e-30)``.
 
-``flash_attention_fwd_cuda`` runs the hand-written kernel
+``flash_attention_step`` folds one K/V shard, whose row 0 sits at global
+position ``k_base``, into a carried online-softmax state (m, l, acc): fp32
+(B, Sq, H, 1), (B, Sq, H, 1) and (B, Sq, H, D), ``None`` for a fresh start
+(m = -1e30, l = 0, acc = 0), returned un-normalized; ``finalize`` turns it
+into (out, lse).  Chaining the steps over the shards of K/V gives the
+one-shot forward.
+
+Each op has a launcher, ``*_cuda``, which runs the hand-written kernel
 (``csrc/flash_attention.cu``) on CUDA tensors and counts its launches in
-``LAUNCHES["flash_attention_fwd"]``; ``flash_attention_fwd_plain`` is the
-same function in PyTorch tensor operations, chunked over query rows so
-its (B, H, rows, Sk) score block stays bounded.  ``flash_attention_fwd``
-chooses between them by the tensors' device, through the registry; a
-launcher never falls back to the plain version.
+``LAUNCHES``, and a plain version, ``*_plain``, the same function in
+PyTorch tensor operations, chunked over query rows so its (B, H, rows, Sk)
+score block stays bounded.  ``flash_attention_fwd`` and
+``flash_attention_step`` choose between them by the tensors' device,
+through the registry; a launcher never falls back to the plain version.
+
+The sequence-parallel schedules (the reference's shard_map wrappers) run
+on every rank of a mesh axis with that rank's sequence shard of q, k and
+v: ``sharded_flash_attention`` all-gathers K/V and runs row 8 at the
+shard's ``q_base``; ``ring_flash_attention`` keeps K/V sharded and chains
+row 9 over the ring, rotating the shards with
+``repro_torch.launch.collectives.ring_shift``.  ``use_ring`` is the
+routing predicate between them.
 """
 from __future__ import annotations
 
@@ -26,8 +43,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import flash_attention_library
+from repro_torch.launch.collectives import all_gather_dim, ring_shift
+# the reference's name for launch.mesh.axis_size, as this module exports it
+from repro_torch.launch.mesh import axis_size as axes_size
 
-LAUNCHES = {"flash_attention_fwd": 0}
+LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_step": 0}
 
 NEG_INF = -1e30
 # fp32 elements of one (B, H, rows, Sk) score block in the plain version
@@ -68,6 +88,49 @@ def flash_attention_fwd(q, k, v, *, window: int = 0, q_base: int = 0):
         q, k, v, window=window, q_base=q_base)
 
 
+def flash_attention_step(q, k, v, carry, *, q_base: int, k_base: int,
+                         window: int = 0):
+    """One ring step (row 9): the kernel on CUDA tensors, its plain
+    version on CPU tensors."""
+    from repro_torch.kernels import registry
+    return registry.resolve("flash_attention_step", q.device)(
+        q, k, v, carry, q_base=q_base, k_base=k_base, window=window)
+
+
+def init_carry(b: int, sq: int, h: int, d: int, device):
+    """The fresh carry: m = -1e30, l = 0, acc = 0, fp32."""
+    return (torch.full((b, sq, h, 1), NEG_INF, dtype=torch.float32,
+                       device=device),
+            torch.zeros((b, sq, h, 1), dtype=torch.float32, device=device),
+            torch.zeros((b, sq, h, d), dtype=torch.float32, device=device))
+
+
+def _carry(carry, b, sq, h, d, device):
+    """``carry``, checked against the step's shapes, or a fresh one."""
+    if carry is None:
+        return init_carry(b, sq, h, d, device)
+    m, l, acc = carry
+    for name, t, shape in (("m", m, (b, sq, h, 1)), ("l", l, (b, sq, h, 1)),
+                           ("acc", acc, (b, sq, h, d))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or \
+                t.device != device:
+            raise ValueError(f"carry {name}: {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}; the step needs {shape} float32 "
+                             f"on {device}")
+    return m, l, acc
+
+
+def finalize(carry, dtype):
+    """(out, lse) from a carry: ``out = acc / max(l, 1e-30)`` in ``dtype``
+    and the per-row logsumexp ``m + log l`` (B, Sq, H), 0 where l = 0 (a
+    row that saw no key)."""
+    m, l, acc = carry
+    out = (acc / l.clamp_min(1e-30)).to(dtype)
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)),
+                      torch.zeros_like(m))
+    return out, lse[..., 0]
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
@@ -100,15 +163,57 @@ def flash_attention_fwd_plain(q, k, v, *, window: int = 0, q_base: int = 0):
     return out
 
 
+def flash_attention_step_plain(q, k, v, carry, *, q_base: int, k_base: int,
+                               window: int = 0):
+    """The definition the row-9 kernel is held to: ``carry`` updated by the
+    online softmax with the keys of this shard that each row can see,
+    global key position ``k_base + j``.  A masked key adds nothing, so a
+    row that sees no key here keeps its carry exactly."""
+    b, sq, sk, h, g, d = _shapes(q, k, v)
+    m0, l0, acc0 = _carry(carry, b, sq, h, d, q.device)
+    r = h // g
+    scale = d ** -0.5
+    qf = q.float().reshape(b, sq, g, r, d)
+    kf, vf = k.float(), v.float()
+    m, l, acc = m0.clone(), l0.clone(), acc0.clone()
+    if sk == 0:
+        return m, l, acc
+    kj = torch.arange(sk, device=q.device) + k_base
+    rows = max(1, _CHUNK_ELEMS // max(b * h * sk, 1))
+
+    def rows_t(t, i0, n):       # (b, n, h, 1) -> (b, g, r, n)
+        return t[:, i0:i0 + n, :, 0].reshape(b, n, g, r).permute(0, 2, 3, 1)
+
+    for i0 in range(0, sq, rows):
+        qc = qf[:, i0:i0 + rows]
+        n = qc.shape[1]
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qc, kf) * scale
+        pos = torch.arange(i0, i0 + n, device=q.device)[:, None] + q_base
+        visible = kj[None, :] <= pos
+        if window > 0:
+            visible &= kj[None, :] > pos - window
+        s.masked_fill_(~visible, NEG_INF)
+        m_prev = rows_t(m0, i0, n)
+        m_new = torch.maximum(m_prev, s.amax(-1))
+        p = s.sub_(m_new[..., None]).exp_().masked_fill_(~visible, 0.0)
+        corr = torch.exp(m_prev - m_new)
+        l_new = corr * rows_t(l0, i0, n) + p.sum(-1)
+        pv = torch.einsum("bgrqk,bkgd->bqgrd", p, vf)
+        back = lambda t: t.permute(0, 3, 1, 2).reshape(b, n, h, 1)  # noqa: E731
+        acc[:, i0:i0 + n] = back(corr) * acc0[:, i0:i0 + n] + \
+            pv.reshape(b, n, h, d)
+        m[:, i0:i0 + n] = back(m_new)
+        l[:, i0:i0 + n] = back(l_new)
+    return m, l, acc
+
+
 # ---------------------------------------------------------------------------
-# CUDA launcher
+# CUDA launchers
 # ---------------------------------------------------------------------------
 
-def flash_attention_fwd_cuda(q, k, v, *, window: int = 0, q_base: int = 0):
-    """Flash-attention kernel (replaces ``flash_attention_fwd``'s
-    ``_flash_kernel``).  The kernel reads dense (B, S, heads, D) rows, so
-    a strided q, k or v (a transposed or sliced view) is copied to a
-    contiguous tensor here; the model's q, k and v already are."""
+def _check_cuda(q, k, v, window, q_base, k_base=0):
+    """The launchers' checks: CUDA tensors of one dtype and device that the
+    kernel takes, within its int32 ranges.  Returns the shapes."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
             raise ValueError(f"the CUDA flash-attention kernel takes CUDA "
@@ -125,9 +230,20 @@ def flash_attention_fwd_cuda(q, k, v, *, window: int = 0, q_base: int = 0):
         raise ValueError(f"head dim {d} outside 1..{_MAX_HEAD_DIM}")
     if h > _GRID_YZ_MAX or b > _GRID_YZ_MAX:
         raise ValueError(f"{b} batch rows or {h} heads exceed the grid")
-    if max(sq, sk, int(window), int(q_base) + sq) > _INT_MAX or q_base < 0:
-        raise ValueError(f"sequence lengths ({sq}, {sk}) or q_base "
-                         f"{q_base} outside the kernel's int32 range")
+    if max(sq, sk, int(window), int(q_base) + sq, int(k_base) + sk) > \
+            _INT_MAX or q_base < 0 or k_base < 0:
+        raise ValueError(f"sequence lengths ({sq}, {sk}), q_base {q_base} "
+                         f"or k_base {k_base} outside the kernel's int32 "
+                         f"range")
+    return b, sq, sk, h, g, d
+
+
+def flash_attention_fwd_cuda(q, k, v, *, window: int = 0, q_base: int = 0):
+    """Flash-attention kernel (replaces ``flash_attention_fwd``'s
+    ``_flash_kernel``).  The kernel reads dense (B, S, heads, D) rows, so
+    a strided q, k or v (a transposed or sliced view) is copied to a
+    contiguous tensor here; the model's q, k and v already are."""
+    b, sq, sk, h, g, d = _check_cuda(q, k, v, window, q_base)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -144,3 +260,94 @@ def flash_attention_fwd_cuda(q, k, v, *, window: int = 0, q_base: int = 0):
                            f"cudaError {rc}")
     LAUNCHES["flash_attention_fwd"] += 1
     return out
+
+
+def flash_attention_step_cuda(q, k, v, carry, *, q_base: int, k_base: int,
+                              window: int = 0):
+    """Block-resumable flash kernel (row 9, replaces
+    ``flash_attention_step``'s ``_flash_carry_kernel``).  Returns a new
+    carry; the one passed in is left as it is.  Strided q, k, v or carry
+    tensors are copied to contiguous ones here."""
+    b, sq, sk, h, g, d = _check_cuda(q, k, v, window, q_base, k_base)
+    m, l, acc = (t.contiguous() for t in _carry(carry, b, sq, h, d,
+                                                q.device))
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
+    if acc.numel() == 0:
+        return m_out, l_out, acc_out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = flash_attention_library().lib.flash_attention_step_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+            l.data_ptr(), acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
+            acc_out.data_ptr(), b, sq, sk, h, g, d, int(window), int(q_base),
+            int(k_base), ctypes.c_float(d ** -0.5),
+            int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_step kernel launch failed: "
+                           f"cudaError {rc}")
+    LAUNCHES["flash_attention_step"] += 1
+    return m_out, l_out, acc_out
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel schedules over a mesh axis
+# ---------------------------------------------------------------------------
+
+# Below this k/v length the all-gather schedule wins: a ring of tiny shards
+# pays N collective latencies for K/V that would have fit on each rank
+# anyway.  models/attention.py routes on cfg.attn_ring_min_sk, which
+# defaults to this.
+RING_MIN_SK = 4096
+
+
+def use_ring(s_k: int, n_shards: int, *, threshold: int | None = None) -> bool:
+    """The ring-vs-all-gather routing predicate, on the GLOBAL k/v length:
+    ring only when there is a real ring (> 1 shard), K/V divides over it,
+    and the per-rank K/V saving (~N x) is worth N collective steps."""
+    t = RING_MIN_SK if threshold is None else threshold
+    return n_shards > 1 and s_k >= t and s_k % n_shards == 0
+
+
+def sharded_flash_attention(q, k, v, *, window: int, mesh,
+                            seq_axes=("model",)):
+    """The all-gather schedule.  On every rank of ``seq_axes``: q (B, Sq/N,
+    H, D), k and v (B, Sk/N, G, D), this rank's sequence shards.  K/V are
+    all-gathered to their full length and row 8 runs on the local q rows
+    at ``q_base = index * Sq/N``, so the masks compare global positions.
+    Returns this rank's (B, Sq/N, H, D) rows."""
+    kf = all_gather_dim(k, mesh, seq_axes, dim=1)
+    vf = all_gather_dim(v, mesh, seq_axes, dim=1)
+    q_base = mesh.axis_index(seq_axes) * q.shape[1]
+    return flash_attention_fwd(q, kf, vf, window=window, q_base=q_base)
+
+
+def ring_flash_attention_fwd(q, k, v, *, window: int, mesh,
+                             seq_axes=("model",)):
+    """The ring schedule's body (the reference's ``_ring_fwd_impl``), on
+    every rank of ``seq_axes`` with its sequence shards as in
+    ``sharded_flash_attention``.  K/V stay sharded: at step s the rank
+    holds the shard that started s hops upstream, global row 0 at
+    ``k_base = ((index - s) mod N) * Sk/N``; the rotation for step s + 1
+    starts before step s's kernel and is waited on after it.  Returns
+    (out (B, Sq/N, H, D), lse (B, Sq/N, H)); lse is for a backward."""
+    n = axes_size(mesh, seq_axes)
+    me = mesh.axis_index(seq_axes)
+    q_base = me * q.shape[1]
+    sk_local = k.shape[1]
+    carry = None
+    kv = (k, v)
+    for s in range(n):
+        pending = ring_shift(kv, mesh, seq_axes) if s < n - 1 else None
+        carry = flash_attention_step(
+            q, kv[0], kv[1], carry, q_base=q_base,
+            k_base=((me - s) % n) * sk_local, window=window)
+        if pending is not None:
+            kv = pending.wait()
+    return finalize(carry, q.dtype)
+
+
+def ring_flash_attention(q, k, v, *, window: int, mesh, seq_axes=("model",)):
+    """The ring schedule: this rank's (B, Sq/N, H, D) output rows."""
+    return ring_flash_attention_fwd(q, k, v, window=window, mesh=mesh,
+                                    seq_axes=seq_axes)[0]

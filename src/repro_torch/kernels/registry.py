@@ -35,6 +35,9 @@ IMPLS: Dict[str, Dict[str, Callable]] = {
     "flash_attention": {
         "cuda": flash_attention.flash_attention_fwd_cuda,
         "reference": flash_attention.flash_attention_fwd_plain},
+    "flash_attention_step": {
+        "cuda": flash_attention.flash_attention_step_cuda,
+        "reference": flash_attention.flash_attention_step_plain},
 }
 
 _FAMILY_ALIASES = {"cws_encode": "cws", "cws_encode_rng": "cws_rng",

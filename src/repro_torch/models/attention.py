@@ -1,19 +1,32 @@
-"""GQA attention: full/sliding-window, prefill + KV-cache decode.
+"""GQA attention: full/sliding-window, prefill + KV-cache decode, and the
+sequence-parallel flash schedules.
 
-Port of ``repro.models.attention`` on one device (tensor parallelism of
-one: the reference's sharded and ring branches are multi-device and wait
-for the sequence-parallel port).  Execution paths, chosen as the
+Port of ``repro.models.attention``.  Execution paths, chosen as the
 reference chooses them:
   * ``decode``  - one query against the KV cache (``_decode_grouped``),
                   plain tensor operations;
   * ``flash``   - the hand-written flash kernel (``ops.flash_attention``,
                   TPU kernel row 8) when ``cfg.attn_impl == "flash"`` and
                   the sequence is longer than ``cfg.attn_chunk``;
+  * ``sharded`` - under axis rules whose sequence axes (``sp``, else
+                  ``tp``) span N > 1 ranks, x is this rank's sequence shard
+                  and the flash route runs a schedule over those ranks: the
+                  ring (``ring_flash_attention``, row 9) when
+                  ``use_ring`` holds for the global k/v length, else the
+                  all-gather (``sharded_flash_attention``, row 8 at the
+                  shard's ``q_base``);
   * ``naive`` / ``chunked`` - scores materialized at once, or an online
                   softmax over ``attn_chunk`` blocks that skips blocks
                   outside the causal/window range; flat heads (k/v
                   repeated to the query heads) without a cache, grouped
                   (B, S, G, R, Dh) queries with one.
+
+Under sequence sharding the reference's predicates see global arrays; each
+rank here sees S/N rows, so the global length N * S stands in for S in
+each of them.  A global length that does not divide over N never reaches
+this layer: ``sharding.local_shard`` refuses it.  The reference's other
+routes under a mesh (GSPMD-gathered naive/chunked attention, caches
+sharded over ``kv_seq``) are not ported: they raise.
 
 q is (B, S, H, Dh), k and v (B, S, G, Dh); the caches are stacked
 (U, B, M, G, Dh) per pattern entry, as in the reference.
@@ -25,8 +38,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (ring_flash_attention,
+                                                 sharded_flash_attention,
+                                                 use_ring)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, trunc_normal
+from repro_torch.models.sharding import current_rules, seq_shards
 
 NEG_INF = -1e30
 
@@ -252,17 +269,40 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         q = _qknorm(q, dt)
         k = _qknorm(k, dt)
 
+    # under sequence sharding x holds S / N of the sequence: the
+    # predicates below take the global length
+    seq_axes, n_seq = seq_shards()
+    s_global = n_seq * s
+    if n_seq > 1 and cache is not None:
+        raise NotImplementedError(
+            "caches sharded over the sequence (kv_seq) are not ported yet "
+            "(ROADMAP A12): the sequence-parallel path runs forward only")
     rolling = cache is not None and window > 0 and cache.k.shape[1] <= window
     if cache is not None and update_cache:
         cache = _write_cache(cache, k, v, s)
 
     flash_want = (cfg.attn_impl == "flash"
-                  and (cache is None or s > 1) and s > cfg.attn_chunk)
+                  and (cache is None or s > 1) and s_global > cfg.attn_chunk)
+    if n_seq > 1 and not flash_want:
+        raise NotImplementedError(
+            f"sequence-parallel attention runs the flash schedules only "
+            f"(attn_impl='flash', a global length {s_global} above "
+            f"attn_chunk {cfg.attn_chunk}); got attn_impl="
+            f"{cfg.attn_impl!r}")
     if cache is not None and s == 1:
         # rolling caches enforce the window structurally: no mask needed
         out = _decode_grouped(q.reshape(b, s, g, r, dh), cache,
                               window=0 if rolling else window)
         out = out.reshape(b, s, h, dh)
+    elif n_seq > 1:
+        # each rank masks at its shard's global offsets.  Short sequences
+        # all-gather K/V; from attn_ring_min_sk keys on, the ring keeps
+        # them sharded and rotates them past the resident q rows.
+        fn = ring_flash_attention if use_ring(
+            s_global, n_seq, threshold=cfg.attn_ring_min_sk or None) \
+            else sharded_flash_attention
+        out = fn(q, k, v, window=window, mesh=current_rules().mesh,
+                 seq_axes=seq_axes)
     elif flash_want:
         out = ops.flash_attention(q, k, v, window=window)
     elif cache is None:

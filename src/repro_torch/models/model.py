@@ -19,6 +19,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed_tokens, init_embed, init_mlp,
                                        init_rmsnorm, lm_logits, mlp, rmsnorm)
+from repro_torch.models.sharding import current_rules, seq_shards
 
 ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_dropped": 0.0}
 
@@ -152,14 +153,28 @@ def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
     """inputs: (B, S) int tokens or (B, S, D) embeddings (vlm/audio stub).
 
     Returns (hidden (B, S, D), caches, aux).  The caches are the ones
-    passed in, written in place when ``update_cache``."""
+    passed in, written in place when ``update_cache``.
+
+    Under axis rules (``sharding.use_rules``) whose sequence axes span N
+    ranks, ``inputs`` is this rank's shard of the residual stream, its
+    rows ``index * S .. index * S + S - 1`` of the global sequence
+    (``sharding.local_shard(tokens, rules, "batch", "sp")``), and so is
+    the hidden state returned; the weights are whole on every rank.  The
+    default positions are then global, so RoPE and the windows see true
+    sequence coordinates.  Everything but attention is per token and
+    stays local; attention reaches the other ranks' K/V through the
+    sequence-parallel schedules."""
     check_supported(cfg)
     if inputs.ndim == 2:
         x = embed_tokens(params["embed"], inputs, cfg)
     else:
         x = inputs.to(cfg.compute_dtype)
     if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        seq_axes, n = seq_shards()
+        base = current_rules().mesh.axis_index(seq_axes) * x.shape[1] \
+            if n > 1 else 0
+        positions = torch.arange(base, base + x.shape[1],
+                                 device=x.device)[None, :]
     for u in range(cfg.n_units):
         unit_caches = None if caches is None else tuple(
             attn_lib.KVCache(c.k[u], c.v[u], c.length[u]) for c in caches)

@@ -110,7 +110,8 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     q, k, v = (torch.from_numpy(a) for a in _inputs(3, 1, 40, 40, 4, 2, 8))
     out = ops.flash_attention(q, k, v, window=16)
     assert torch.equal(out, fa.flash_attention_fwd_plain(q, k, v, window=16))
-    assert fa.LAUNCHES == {"flash_attention_fwd": 0}
+    assert fa.LAUNCHES == {"flash_attention_fwd": 0,
+                           "flash_attention_step": 0}
 
 
 def test_registry_picks_the_kernel_by_device():
