@@ -9,9 +9,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the lane issue rate the bounds use (SMs x 128 lanes x the
                 maximum SM clock, read from the card);
   2. build    - nvcc-build the CWS kernels, the min-sum Gram kernel and
-                the flash-attention kernel from ``src/repro_torch/csrc``,
-                one nvcc per source, started together, and print the
-                compiler's per-kernel registers, shared memory and spills;
+                the flash-attention kernels' two bodies (SIMT and wgmma)
+                from ``src/repro_torch/csrc``, one nvcc per source, started
+                together, and print the compiler's per-kernel registers,
+                shared memory and spills;
   3. parity   - each of the six CWS kernels against its plain PyTorch
                 version on the card, exactly (integer outputs): the four
                 encodes at the serving shapes, at ragged shapes with
@@ -23,11 +24,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the min-sum kernel (``min_sum``, ``minmax_gram``) at
                 ragged, block-edge, suite and long-D shapes within the
                 bound its fp32 sums allow; the flash-attention kernel in
-                fp32 and bf16 over 60 shapes each (the reference test's
+                fp32 and bf16 over 64 shapes each (the reference test's
                 cases, D in 64/128/256, H/G in 1/2/9/48, ragged S, windows,
-                q_base with Sq < Sk, gemma3's (4, 2048), the sequence-
-                parallel all-gather route's q rows against 2,048 keys)
-                within its stated tolerance; the block-resumable flash kernel (row 9) step by
+                q_base with Sq < Sk, gemma3's (4, 2048), nemotron's 96/8
+                heads at D = 192, the sequence-parallel all-gather route's
+                q rows against 2,048 keys) within its stated tolerance, bf16
+                at D in 64/128/192/256 on the wgmma body and the rest on
+                the SIMT body; the block-resumable flash kernel (row 9) step by
                 step against its plain version, each virtual rank's chain
                 over K/V shards in the ring's order (ragged shards, windows
                 0 and 1,024, gemma3's heads at 8,192 rows a shard), fully
@@ -61,7 +64,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 (prompt 600, 4 steps); then the masters cast once to bf16
                 and the main path, ``serve_lm`` (4 x 2,048-token prompts,
                 flash prefill, 16 greedy decode steps), which must launch
-                the flash kernel once per attention layer (48); the same
+                the flash kernel once per attention layer (48), all on the
+                wgmma body (the fp32 check all on the SIMT body); the same
                 prefill through the plain attention, within a stated
                 tolerance; the CWS head on the pooled hidden state
                 (``cws_encode``), its codes equal to the CPU path's;
@@ -72,12 +76,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 takes one rank a card): the ring run (1 x 32,768 tokens,
                 every layer on the ring: 24 row-9 launches a rank, no row
                 8) and the all-gather run (1 x 2,048: 6 row-8 launches a
-                rank, no row 9), fp32 then bf16, the gathered hidden states
+                rank, no row 9), fp32 (SIMT body) then bf16 (wgmma body),
+                the gathered hidden states
                 and each rank's last-position logits against the one-device
                 forward on the same weights; the transport, host bytes and
                 each rank's peak memory.  With four cards, once more over
                 NCCL, one rank a card, at full depth;
-  9. times    - each kernel and its plain version timed with CUDA events,
+  9. times    - each kernel and its plain version timed with CUDA events
+                (rows 8 and 9: the wgmma and the SIMT body on the same
+                inputs, in turns, the wgmma body required to be faster),
                 beside the least time the card could take for the same
                 work and a PyTorch call as yardstick where one exists
                 (``torch.cdist(p=1)`` for the Gram,
@@ -155,10 +162,14 @@ RAW = [k for k, v in KERNELS.items() if v[2] == "raw"]
 SOURCE = "src/repro_torch/csrc/cws_encode.cu"
 GRAM = ("min_sum", "src/repro/kernels/minmax_gram.py:66",
         "src/repro_torch/csrc/minmax_gram.cu")
+# rows 8 and 9: (name, replaces, the bf16 body's source); both bodies'
+# sources, by body
 FLASH = ("flash_attention_fwd", "src/repro/kernels/flash_attention.py:117",
-         "src/repro_torch/csrc/flash_attention.cu")
+         "src/repro_torch/csrc/flash_attention_wgmma.cu")
 STEP = ("flash_attention_step", "src/repro/kernels/flash_attention.py:218",
-        "src/repro_torch/csrc/flash_attention.cu")
+        "src/repro_torch/csrc/flash_attention_wgmma.cu")
+FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+                 "simt": "src/repro_torch/csrc/flash_attention.cu"}
 
 # The LM slice: gemma3_12b (src/repro/configs/gemma3_12b.py:CONFIG) at full
 # width and depth with attn_impl="flash", served as ``serve_lm`` serves it:
@@ -880,8 +891,9 @@ def out_ratio(got, want, dtype):
 
 
 def phase_flash_parity(dev, results):
-    """The flash kernel against its plain version in the working dtype."""
-    from repro_torch.kernels.flash_attention import LAUNCHES
+    """The flash kernel against its plain version in the working dtype, on
+    the body ``flash_body`` picks for each case."""
+    from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(8)
     cases = []   # (b, sq, sk, h, g, d, window, q_base)
     # the reference test's CASES (tests/test_flash_attention.py)
@@ -904,6 +916,11 @@ def phase_flash_parity(dev, results):
     # the slice's own shapes: gemma3_12b's heads at (4, 2048)
     for w in (0, 1024):
         cases.append((LM_BATCH, LM_PROMPT, LM_PROMPT, 16, 8, 256, w, 0))
+    # nemotron's heads (96/8, r = 12) at D = 192, the wgmma body's fourth
+    # head dim, at ragged lengths, causal and windowed
+    for s_ in (1000, 2047):
+        for w in (0, 1024):
+            cases.append((1, s_, s_, 96, 8, 192, w, 0))
     # the sequence-parallel all-gather route's own shapes: each rank's
     # S/n q rows at q_base = rank * S/n against the all-gathered K/V
     sl = SP_AG_PROMPT // SP_RANKS
@@ -912,6 +929,7 @@ def phase_flash_parity(dev, results):
     cases += sorted(allgather)
     r = results[FLASH[0]]
     worst, ag_worst = {}, {}
+    fa.reset_launches()
     for dtype in (torch.float32, torch.bfloat16):
         for b, sq, sk, h, g, d, w, qb in cases:
             q, k, v = flash_inputs(rng, b, sq, sk, h, g, d, dtype, dev)
@@ -929,13 +947,22 @@ def phase_flash_parity(dev, results):
                     f"flash {key} (b={b}, Sq={sq}, Sk={sk}, H={h}, G={g}, "
                     f"D={d}, window={w}, q_base={qb}): |cuda - plain| at "
                     f"{ratio:.3g} of the tolerance (max {err:.3g})")
+    bodies = dict(fa.BODY_LAUNCHES)
+    want = {"wgmma": sum(fa.flash_body(torch.bfloat16, c[5]) == "wgmma"
+                         for c in cases)}
+    want["simt"] = 2 * len(cases) - want["wgmma"]
+    if bodies != want:
+        raise AssertionError(f"flash parity: cases by body {bodies}, not "
+                             f"{want}")
     r["worst"] = {k: {"ratio": v[0], "case": v[1], "max_abs_err": v[2]}
                   for k, v in worst.items()}
     r["allgather_worst"] = ag_worst
+    r["parity_bodies"] = bodies
     print(f"parity flash_attention_fwd: {r['checked']} cases (the reference "
           f"test's six; D in 64/128/256 x H/G in 1/2/9/48 at S = 1000/2047, "
           f"window 0/1024/4096; q_base 700/1000 with Sq < Sk; gemma3 "
-          f"(4, 2048) 16/8 heads D = 256, window 0/1024; the all-gather "
+          f"(4, 2048) 16/8 heads D = 256, window 0/1024; nemotron 96/8 "
+          f"heads D = 192 at S = 1000/2047, window 0/1024; the all-gather "
           f"route's ({SP_BATCH}, {SP_AG_PROMPT // SP_RANKS}) q rows at "
           f"q_base = rank * {SP_AG_PROMPT // SP_RANKS} against "
           f"{SP_AG_PROMPT} keys, window 0/1024), fp32 and bf16; "
@@ -945,7 +972,8 @@ def phase_flash_parity(dev, results):
           + "; worst of the all-gather route's cases: "
           + ", ".join(f"{k} {v:.4g}" for k, v in ag_worst.items())
           + f" (tolerance fp32 {FLASH_TOL:g}(1 + |out|), bf16 {FLASH_TOL:g}"
-          f" + 2^-7 |out|); launches {LAUNCHES['flash_attention_fwd']}")
+          f" + 2^-7 |out|); cases by body {bodies} (wgmma: bf16 at D in "
+          f"{fa.WGMMA_HEAD_DIMS})")
 
 
 def carry_ratio(got, want, dtype):
@@ -970,8 +998,12 @@ def phase_step_parity(dev, results):
     rng = np.random.default_rng(10)
     r = results[STEP[0]]
     worst = {}
+    fa.reset_launches()
+    want_bodies = {"wgmma": 0, "simt": 0}
     for b, n, sl, h, g, d, w in STEP_PARITY:
         for dtype in (torch.float32, torch.bfloat16):
+            # n steps and one one-shot row 8 for each of the n ranks
+            want_bodies[fa.flash_body(dtype, d)] += n * (n + 1)
             key = str(dtype).split(".")[1]
             q, k, v = flash_inputs(rng, b, n * sl, n * sl, h, g, d, dtype,
                                    dev)
@@ -1022,8 +1054,13 @@ def phase_step_parity(dev, results):
                         f"{ratio:.3g} of the tolerance")
             del q, k, v
     torch.cuda.empty_cache()
+    bodies = dict(fa.BODY_LAUNCHES)
+    if bodies != want_bodies:
+        raise AssertionError(f"step parity: launches by body {bodies}, not "
+                             f"{want_bodies}")
     r["worst"] = {k: {"ratio": v[0], "case": v[1], "max_abs_err": v[2]}
                   for k, v in worst.items()}
+    r["parity_bodies"] = bodies
     print(f"parity flash_attention_step: {r['checked']} steps ({r['masked']} "
           f"on fully masked shards, carry unchanged) over "
           f"(b, n, S/n, H, G, D, window) in {STEP_PARITY}, fp32 and bf16, "
@@ -1034,7 +1071,9 @@ def phase_step_parity(dev, results):
           + "; chain vs one-shot row 8: "
           + ", ".join(f"{k} {v:.4g}" for k, v in r["chain_worst"].items())
           + f" of the tolerance (m, l within {FLASH_TOL:g}(1 + |x|), out "
-          f"fp32 {FLASH_TOL:g}(1 + |out|), bf16 {FLASH_TOL:g} + 2^-7 |out|)")
+          f"fp32 {FLASH_TOL:g}(1 + |out|), bf16 {FLASH_TOL:g} + 2^-7 |out|);"
+          f" launches by body {bodies} (fp32 on the SIMT body, bf16 on the "
+          f"wgmma body)")
 
 
 @contextlib.contextmanager
@@ -1093,7 +1132,8 @@ def device_profile(fn):
     """Run ``fn`` under ``torch.profiler``: (device seconds, the kernels
     by device time as (name, seconds, calls), flash kernel seconds).
     Only the device's own events count: the host operators that launched
-    them carry the same time as their self device time."""
+    them carry the same time as their self device time.  The flash kernel
+    is either body's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1105,7 +1145,8 @@ def device_profile(fn):
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and
                    e.self_device_time_total > 0), key=lambda r: -r[1])
-    flash = sum(r[1] for r in rows if "flash_fwd_kernel" in r[0])
+    flash = sum(r[1] for r in rows if "flash_fwd_kernel" in r[0] or
+                "flash_wgmma_kernel" in r[0])
     return sum(r[1] for r in rows), rows, flash
 
 
@@ -1169,6 +1210,7 @@ def phase_lm(dev, card, results):
     from repro_torch.configs import get_config
     from repro_torch.core.cws import CWSParams
     from repro_torch.kernels import cws_hash
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import parser, serve_lm
     from repro_torch.models import (cast_params, forward, init_caches,
                                     init_model, prefill)
@@ -1188,9 +1230,12 @@ def phase_lm(dev, card, results):
     reset_all_launches()
     fp32 = lm_fp32_consistency(params, cfg, dev)
     fp32["flash_launches"] = read_launches()["flash_attention_fwd"]
-    if fp32["flash_launches"] != 2 * n_attn:
+    fp32["body_launches"] = dict(fa.BODY_LAUNCHES)
+    if fp32["flash_launches"] != 2 * n_attn or \
+            fp32["body_launches"] != {"wgmma": 0, "simt": 2 * n_attn}:
         raise AssertionError(f"fp32 check: {fp32['flash_launches']} flash "
-                             f"launches, not {2 * n_attn}")
+                             f"launches, by body {fp32['body_launches']}; "
+                             f"want {2 * n_attn}, all on the SIMT body")
     print(f"slice lm fp32 [{card}]: {LM_ARCH} full width, {cfg.n_layers} "
           f"layers, fp32 masters {masters_gb:.2f} GB drawn on the card in "
           f"{init_s:.2f} s; prefill {FP32_BATCH}x{FP32_PROMPT} + "
@@ -1198,7 +1243,7 @@ def phase_lm(dev, card, results):
           f"{fp32['max_abs_err']:.4g} ({fp32['rel']:.3g} of max |logit| "
           f"{fp32['max_logit']:.4g}; limit {LM_FP32_TOL:g}); argmax agree "
           f"{fp32['argmax_agree']:.3f}; flash launches "
-          f"{fp32['flash_launches']}")
+          f"{fp32['flash_launches']} (by body {fp32['body_launches']})")
 
     # the masters cast once to bf16: the same bits as casting at each use
     cast_params(params, cfg.compute_dtype)
@@ -1212,11 +1257,15 @@ def phase_lm(dev, card, results):
     reset_all_launches()
     out = serve_lm(args, params=params)
     launches = read_launches()
+    bodies = dict(fa.BODY_LAUNCHES)
     require_launched("lm", launches, (FLASH[0],))
-    if launches[FLASH[0]] != n_attn:
+    if launches[FLASH[0]] != n_attn or \
+            bodies != {"wgmma": n_attn, "simt": 0}:
         raise AssertionError(f"lm: {launches[FLASH[0]]} flash launches in "
-                             f"one prefill, not {n_attn}")
+                             f"one prefill, by body {bodies}; want {n_attn}, "
+                             f"all on the wgmma body")
     results[FLASH[0]]["launches"] = launches[FLASH[0]]
+    results[FLASH[0]]["body_launches"] = bodies
     gen = out["generated"]
     if gen.shape != (LM_BATCH, LM_GEN) or not (
             (gen >= 0) & (gen < cfg.vocab)).all():
@@ -1279,7 +1328,8 @@ def phase_lm(dev, card, results):
         "decode_steps": LM_GEN - 1, "prefill_ms": out["prefill_ms"],
         "prefill_warm_ms": warm_ms, "decode_s": out["decode_s"],
         "decode_tok_s": out["decode_tok_s"], "flash_launches": launches[
-            FLASH[0]], "flash_vs_plain_max_abs": err, "max_logit": scale,
+            FLASH[0]], "body_launches": bodies,
+        "flash_vs_plain_max_abs": err, "max_logit": scale,
         "greedy_agree": agree, "fp32": fp32, "cws_encode_launches":
         cws_launches, "peak_gb": peak_gb, "masters_gb": masters_gb,
         "init_s": init_s, "first_ids": gen[0].tolist(),
@@ -1289,7 +1339,8 @@ def phase_lm(dev, card, results):
           f"{LM_PROMPT} {out['prefill_ms']:.1f} ms (warm {warm_ms:.1f} ms),"
           f" decode {LM_GEN - 1} steps {out['decode_tok_s']:.1f} tok/s; "
           f"flash launches {launches[FLASH[0]]} (= {n_attn} attention "
-          f"layers); prefill logits vs the plain attention: max |dlogit| "
+          f"layers; by body {bodies}); prefill logits vs the plain "
+          f"attention: max |dlogit| "
           f"{err:.4g} ({err / scale:.3g} of max |logit| {scale:.4g}; limit "
           f"{LM_BF16_TOL:g}), greedy agree {agree:.3f}; CWS head (k = "
           f"{cfg.cws_k}, b_i = {cfg.cws_b_i}, D = {cfg.d_model}) cws_encode "
@@ -1392,17 +1443,23 @@ def sp_run(rank, world, dev, mesh, rules, params, cfg, prompt):
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
+    bodies = dict(fa.BODY_LAUNCHES)
     host = dict(collectives.HOST_COPIES)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     n_attn = cfg.n_layers
     want = {STEP[0]: world * n_attn if ring else 0,
             FLASH[0]: 0 if ring else n_attn}
-    if launches != want:
+    body = fa.flash_body(cfg.compute_dtype, cfg.head_dim_)
+    want_bodies = {"wgmma": 0, "simt": 0}
+    want_bodies[body] = sum(want.values())
+    if launches != want or bodies != want_bodies:
         raise AssertionError(f"rank {rank}, {cfg.dtype} S = {prompt}: "
-                             f"launches {launches}, not {want}")
+                             f"launches {launches}, by body {bodies}; not "
+                             f"{want}, {want_bodies}")
     last = lm_logits(params["embed"], hidden[:, -1:], cfg)[:, 0].float()
     run = {"dtype": cfg.dtype, "prompt": prompt,
            "route": "ring" if ring else "allgather", "launches": launches,
+           "body_launches": bodies,
            "host_bytes": host["bytes"], "host_tensors": host["tensors"],
            "peak_gb": peak_gb, "forward_s": wall,
            "local_tokens": list(local.shape)}
@@ -1474,14 +1531,21 @@ def run_seq_parallel(backend, world, layers):
     for i, run in enumerate(reports[0]["runs"]):
         total = {name: sum(rep["runs"][i]["launches"][name]
                            for rep in reports) for name in (STEP[0], FLASH[0])}
+        bodies = {name: sum(rep["runs"][i]["body_launches"][name]
+                            for rep in reports) for name in ("wgmma", "simt")}
         ring = run["route"] == "ring"
         want = {STEP[0]: world * world * layers if ring else 0,
                 FLASH[0]: 0 if ring else world * layers}
-        if total != want:
+        # gemma3's D = 256: bf16 on the wgmma body, fp32 on the SIMT body
+        body = "wgmma" if run["dtype"] == "bfloat16" else "simt"
+        want_bodies = {"wgmma": 0, "simt": 0}
+        want_bodies[body] = sum(want.values())
+        if total != want or bodies != want_bodies:
             raise AssertionError(f"sequence-parallel {run['dtype']} S = "
-                                 f"{run['prompt']}: launches {total}, not "
-                                 f"{want}")
+                                 f"{run['prompt']}: launches {total}, by "
+                                 f"body {bodies}; not {want}, {want_bodies}")
         run["total_launches"] = total
+        run["total_body_launches"] = bodies
     return {"backend": backend, "world": world, "layers": layers,
             "wall_s": wall, "ranks": reports}
 
@@ -1499,6 +1563,7 @@ def phase_seq_parallel(card, results):
     ring_bf16 = next(r for r in out["ranks"][0]["runs"]
                      if r["route"] == "ring" and r["dtype"] == "bfloat16")
     results[STEP[0]]["launches"] = ring_bf16["total_launches"][STEP[0]]
+    results[STEP[0]]["body_launches"] = ring_bf16["total_body_launches"]
     if torch.cuda.device_count() >= SP_RANKS:
         nccl = run_seq_parallel("nccl", SP_RANKS, SP_FULL_DEPTH)
         results["seq_parallel"]["nccl"] = nccl
@@ -1527,7 +1592,8 @@ def report_seq_parallel(out, card):
         l_rel = run["logit_err"] / run["logit_scale"]
         print(f"  {run['dtype']} S = {run['prompt']} ({run['route']}, "
               f"{run['local_tokens'][1]} tokens a rank): launches "
-              f"{run['total_launches']} in all; host copies "
+              f"{run['total_launches']} in all, by body "
+              f"{run['total_body_launches']}; host copies "
               f"{[p['host_bytes'] for p in per]} bytes a rank; peak "
               f"{[round(p['peak_gb'], 2) for p in per]} GB a rank; forward "
               f"{[round(p['forward_s'], 3) for p in per]} s a rank ("
@@ -1549,9 +1615,27 @@ def visible_pairs(sq, sk, window, q_base=0):
     return int(np.maximum(hi - lo, 0).sum())
 
 
+def time_bodies(run, reps, warmup=1):
+    """``run(body)`` timed on the wgmma and the SIMT body in turns (wgmma,
+    simt, simt, wgmma): ({body: mean ms}, {body: [the two readings]}).
+    Raises unless the wgmma body is the faster."""
+    readings = {"wgmma": [], "simt": []}
+    for body in ("wgmma", "simt", "simt", "wgmma"):
+        readings[body].append(time_ms(lambda: run(body), reps=reps,
+                                      warmup=warmup))
+    ms = {b: sum(v) / len(v) for b, v in readings.items()}
+    if ms["wgmma"] >= ms["simt"]:
+        raise AssertionError(f"the wgmma body ({ms['wgmma']:.4f} ms) is not "
+                             f"faster than the SIMT body ({ms['simt']:.4f} "
+                             f"ms) on the same inputs")
+    return ms, readings
+
+
 def phase_flash_times(dev, results, mhz, sms):
     """The flash kernel at the slice's layers and at prefill_32k's length,
-    beside its bound, its plain version and SDPA as a yardstick."""
+    the wgmma and the SIMT body on the same inputs, beside the bound, the
+    wgmma design's own floor, the plain version and SDPA as a
+    yardstick."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import flash_attention as fa
@@ -1562,8 +1646,8 @@ def phase_flash_times(dev, results, mhz, sms):
     for b, s_, w in FLASH_TIMING:
         q, k, v = flash_inputs(rng, b, s_, s_, h, g, d, torch.bfloat16, dev)
         long = s_ > 4096
-        ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, window=w),
-                     reps=3 if long else 10, warmup=1)
+        ms, readings = time_bodies(lambda body: fa.flash_attention_fwd_cuda(
+            q, k, v, window=w, body=body), reps=3 if long else 10)
         plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
             q, k, v, window=w), reps=1 if long else 3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1589,18 +1673,24 @@ def phase_flash_times(dev, results, mhz, sms):
         flops = 4 * d * pairs
         nbytes = 2 * (2 * b * s_ * h * d + 2 * b * s_ * g * d)
         bound_ms, by = bound(nbytes, flops, tensor_rate)
+        # the wgmma design's own floor: p . v twice (hi and lo), 6 D flops
+        floor_ms = bound(nbytes, 6 * d * pairs, tensor_rate)[0]
         fma_ms = flops / fma_rate * 1e3
         results[FLASH[0]]["times"].append({
-            "shape": [b, s_, h, g, d], "window": w, "ms": ms,
+            "shape": [b, s_, h, g, d], "window": w, "ms": ms["wgmma"],
+            "simt_ms": ms["simt"], "readings": readings,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "fp32_fma_bound_ms": fma_ms, "library_ms": lib_ms,
-            "visible_pairs": pairs, "flops": flops, "bytes": nbytes})
+            "floor_6d_ms": floor_ms, "fp32_fma_bound_ms": fma_ms,
+            "library_ms": lib_ms, "visible_pairs": pairs, "flops": flops,
+            "bytes": nbytes})
         print(f"time flash_attention_fwd (B, S) = ({b}, {s_}) H/G {h}/{g} "
-              f"D {d} window {w} bf16: kernel {ms:.4f} ms, plain "
+              f"D {d} window {w} bf16: wgmma body {ms['wgmma']:.4f} ms, SIMT "
+              f"body {ms['simt']:.4f} ms (in turns: {readings}), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; dense bf16 "
-              f"{tensor_rate / 1e12:.1f} TFLOP/s, {flops / 1e9:.2f} GFLOP on "
-              f"{nbytes / 1e6:.1f} MB), fp32-FMA bound {fma_ms:.4f} ms "
-              f"({fma_rate / 1e12:.2f} TFLOP/s); library call "
+              f"{tensor_rate / 1e12:.1f} TFLOP/s, {flops / 1e9:.2f} GFLOP at "
+              f"4 D a pair on {nbytes / 1e6:.1f} MB), the wgmma design's "
+              f"floor (6 D a pair) {floor_ms:.4f} ms, fp32-FMA bound "
+              f"{fma_ms:.4f} ms ({fma_rate / 1e12:.2f} TFLOP/s); library call "
               f"scaled_dot_product_attention {lib_ms:.4f} ms "
               + ("(causal, enable_gqa" if w == 0 else
                  "(boolean window mask, memory-efficient path, k/v repeated"
@@ -1611,8 +1701,10 @@ def phase_flash_times(dev, results, mhz, sms):
 
 
 def phase_step_times(dev, results, mhz, sms):
-    """Row 9 alone at one ring step's shapes, beside its bound, its plain
-    version and SDPA on the same (q, k shard) and mask without a carry."""
+    """Row 9 alone at one ring step's shapes, the wgmma and the SIMT body
+    on the same inputs, beside its bound, the wgmma design's floor, its
+    plain version and SDPA on the same (q, k shard) and mask without a
+    carry."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import flash_attention as fa
@@ -1625,8 +1717,8 @@ def phase_step_times(dev, results, mhz, sms):
     for label, shard, w in STEP_TIMING:
         q_base, k_base = s_, shard * s_
         args = dict(q_base=q_base, k_base=k_base, window=w)
-        ms = time_ms(lambda: fa.flash_attention_step_cuda(q, k, v, carry,
-                                                          **args), reps=10)
+        ms, readings = time_bodies(lambda body: fa.flash_attention_step_cuda(
+            q, k, v, carry, body=body, **args), reps=10)
         plain_ms = time_ms(lambda: fa.flash_attention_step_plain(
             q, k, v, carry, **args), reps=3, warmup=1)
         if w == 0:
@@ -1655,17 +1747,23 @@ def phase_step_times(dev, results, mhz, sms):
         nbytes = 2 * (b * s_ * h * d + 2 * b * s_ * g * d) + \
             2 * 4 * (2 * b * s_ * h + b * s_ * h * d)
         bound_ms, by = bound(nbytes, flops, tensor_rate)
+        floor_ms = bound(nbytes, 6 * d * pairs, tensor_rate)[0]
         results[STEP[0]]["times"].append({
             "shape": [b, s_, h, g, d], "shard": label, "q_base": q_base,
-            "k_base": k_base, "window": w, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+            "k_base": k_base, "window": w, "ms": ms["wgmma"],
+            "simt_ms": ms["simt"], "readings": readings,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "floor_6d_ms": floor_ms, "library_ms": lib_ms,
             "visible_pairs": pairs, "flops": flops, "bytes": nbytes})
         print(f"time flash_attention_step ({label} shard: q rows at "
               f"{q_base}, k rows at {k_base}, window {w}) (B, Sq, Sk) = "
-              f"({b}, {s_}, {s_}) H/G {h}/{g} D {d} bf16, fp32 carry: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
-              f"ms ({by}; {flops / 1e9:.2f} GFLOP at "
-              f"{tensor_rate / 1e12:.1f} TFLOP/s, {nbytes / 1e6:.1f} MB); "
+              f"({b}, {s_}, {s_}) H/G {h}/{g} D {d} bf16, fp32 carry: wgmma "
+              f"body {ms['wgmma']:.4f} ms, SIMT body {ms['simt']:.4f} ms (in "
+              f"turns: {readings}), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP at 4 D a "
+              f"pair, {tensor_rate / 1e12:.1f} TFLOP/s, {nbytes / 1e6:.1f} "
+              f"MB), the wgmma design's floor (6 D a pair) {floor_ms:.4f} "
+              f"ms; "
               f"library call scaled_dot_product_attention on the same q and "
               f"k shard, no carry ({lib_note}) {lib_ms:.4f} ms (the nearest "
               f"single PyTorch call; the port never calls it)")
@@ -1749,8 +1847,10 @@ def build_all():
     """Build every kernel library at once, one nvcc per source."""
     from repro_torch.kernels.build import (cws_encode_library,
                                            flash_attention_library,
+                                           flash_attention_wgmma_library,
                                            minmax_gram_library)
-    libs = (cws_encode_library, minmax_gram_library, flash_attention_library)
+    libs = (cws_encode_library, minmax_gram_library, flash_attention_library,
+            flash_attention_wgmma_library)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         futs = [pool.submit(f) for f in libs]
@@ -1853,14 +1953,20 @@ def main():
                    if t["shape"][:2] == [LM_BATCH, LM_PROMPT] and
                    t["window"] > 0)
     entry = kernel_entry(FLASH[0], FLASH[2], FLASH[1], r, primary)
-    entry.update(worst=r["worst"], times=r["times"], lm=results["lm"])
+    entry.update(sources=FLASH_SOURCES, body_launches=r["body_launches"],
+                 simt_ms=primary["simt_ms"], worst=r["worst"],
+                 parity_bodies=r["parity_bodies"], times=r["times"],
+                 lm=results["lm"])
     kernels.append(entry)
     r = results[STEP[0]]
     # the main path's most frequent computing launch: a local layer's
     # resident (diagonal) shard under the window
     primary = next(t for t in r["times"] if t["shard"] == "window")
     entry = kernel_entry(STEP[0], STEP[2], STEP[1], r, primary)
-    entry.update(worst=r["worst"], chain_worst=r["chain_worst"],
+    entry.update(sources=FLASH_SOURCES, body_launches=r["body_launches"],
+                 simt_ms=primary["simt_ms"],
+                 parity_bodies=r["parity_bodies"], worst=r["worst"],
+                 chain_worst=r["chain_worst"],
                  masked_steps=r["masked"], times=r["times"],
                  seq_parallel=results["seq_parallel"])
     kernels.append(entry)

@@ -45,14 +45,16 @@
 // What bounds it on this card: operations.  Every visible (query, key)
 // pair costs 2·D multiply-adds (q.k and p.v) on 4·D bytes of q, k, v and
 // out per row, so at the model's lengths the work is hundreds of flops per
-// byte.  The tensor cores would take it at the bf16 rate, but mma.sync /
-// wgmma round p to bf16, which the reference does not; this kernel keeps
-// everything in fp32 FMAs on the SIMT lanes (the fp32-FMA ceiling is
-// SMs x 128 lanes x 2 flops x clock).  A bf16 tensor-core design, with its
-// own stated tolerance, is later work.  Row 9 moves more bytes than row
-// 8: the fp32 carry, 8 + 4·D bytes per (row, head), is read and written
-// once a step; under a sliding window, where a shard shows each row at
-// most `window` keys, that traffic is as large a bound as the work.
+// byte.  This body keeps everything in fp32 FMAs on the SIMT lanes (the
+// fp32-FMA ceiling is SMs x 128 lanes x 2 flops x clock): it is the route
+// for fp32 q/k/v, and for bf16 at head dims the tensor-core body does not
+// take.  bf16 at D in {64, 128, 192, 256} runs on flash_attention_wgmma.cu,
+// wgmma on the tensor cores with p kept to fp32 accuracy as a bf16 hi + lo
+// pair (kernels/flash_attention.py:flash_body routes).  Row 9 moves more
+// bytes than row 8: the fp32 carry, 8 + 4·D bytes per (row, head), is
+// read and written once a step; under a sliding window, where a shard
+// shows each row at most `window` keys, that traffic is as large a bound
+// as the work.
 //
 // What the design does about it: one block of 256 threads per (q tile of
 // 64 rows, head, batch row); the grid runs the heaviest q tiles first.  The

@@ -130,3 +130,18 @@ def flash_attention_library() -> BuiltLibrary:
         "flash_attention_step_launch": (p, p, p, p, p, p, p, p, p, i, i, i,
                                         i, i, i, i, i, i, f, i, p),
     })
+
+
+@functools.lru_cache(maxsize=None)
+def flash_attention_wgmma_library() -> BuiltLibrary:
+    """The flash kernels' tensor-core body (``csrc/flash_attention_wgmma.cu``:
+    rows 8 and 9 for bf16 at D in 64/128/192/256), built like the SIMT
+    body with ``NVCC_FLAGS``; it reaches ``cuTensorMapEncodeTiled`` through
+    the runtime, so it links no driver library."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _declare(build("flash_attention_wgmma.cu", NVCC_FLAGS), {
+        "flash_attention_wgmma_fwd_launch": (p, p, p, p, i, i, i, i, i, i,
+                                             i, i, f, p),
+        "flash_attention_wgmma_step_launch": (p, p, p, p, p, p, p, p, p, i,
+                                              i, i, i, i, i, i, i, i, f, p),
+    })

@@ -20,13 +20,20 @@ position ``k_base``, into a carried online-softmax state (m, l, acc): fp32
 into (out, lse).  Chaining the steps over the shards of K/V gives the
 one-shot forward.
 
-Each op has a launcher, ``*_cuda``, which runs the hand-written kernel
-(``csrc/flash_attention.cu``) on CUDA tensors and counts its launches in
-``LAUNCHES``, and a plain version, ``*_plain``, the same function in
-PyTorch tensor operations, chunked over query rows so its (B, H, rows, Sk)
-score block stays bounded.  ``flash_attention_fwd`` and
+Each op has a launcher, ``*_cuda``, which runs a hand-written kernel on
+CUDA tensors and counts its launches in ``LAUNCHES``, and a plain
+version, ``*_plain``, the same function in PyTorch tensor operations,
+chunked over query rows so its (B, H, rows, Sk) score block stays
+bounded.  ``flash_attention_fwd`` and
 ``flash_attention_step`` choose between them by the tensors' device,
 through the registry; a launcher never falls back to the plain version.
+
+Two device bodies compute rows 8 and 9, and ``flash_body`` picks one from
+the dtype and head dim alone: ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``,
+Hopper's tensor cores fed by TMA, p split into bf16 hi + lo) for bf16 with
+D in ``WGMMA_HEAD_DIMS``, ``"simt"`` (``csrc/flash_attention.cu``, fp32 FMAs)
+for fp32 and every other D.  ``BODY_LAUNCHES`` counts launches by body; a
+refused launch raises, and neither body gives way to the other.
 
 The sequence-parallel schedules (the reference's shard_map wrappers) run
 on every rank of a mesh axis with that rank's sequence shard of q, k and
@@ -42,12 +49,16 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import flash_attention_library
+from repro_torch.kernels.build import (flash_attention_library,
+                                       flash_attention_wgmma_library)
 from repro_torch.launch.collectives import all_gather_dim, ring_shift
 # the reference's name for launch.mesh.axis_size, as this module exports it
 from repro_torch.launch.mesh import axis_size as axes_size
 
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_step": 0}
+BODY_LAUNCHES = {"wgmma": 0, "simt": 0}
+# the head dims the tensor-core body is built for: every full config's
+WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 
 NEG_INF = -1e30
 # fp32 elements of one (B, H, rows, Sk) score block in the plain version
@@ -60,8 +71,17 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BODY_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def flash_body(dtype: torch.dtype, d: int) -> str:
+    """The device body rows 8 and 9 run for q/k/v of ``dtype`` and head
+    dim ``d``: ``"wgmma"`` for bf16 at D in ``WGMMA_HEAD_DIMS``, else
+    ``"simt"``."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS \
+        else "simt"
 
 
 def _shapes(q, k, v):
@@ -238,55 +258,103 @@ def _check_cuda(q, k, v, window, q_base, k_base=0):
     return b, sq, sk, h, g, d
 
 
-def flash_attention_fwd_cuda(q, k, v, *, window: int = 0, q_base: int = 0):
+def _pick_body(body, dtype, d):
+    """``body`` checked against what it takes, or ``flash_body``'s."""
+    if body is None:
+        return flash_body(dtype, d)
+    if body == "simt":
+        return body
+    if body == "wgmma" and flash_body(dtype, d) == "wgmma":
+        return body
+    raise ValueError(f"flash body {body!r} does not take {dtype} at head "
+                     f"dim {d} (wgmma: bfloat16, D in {WGMMA_HEAD_DIMS})")
+
+
+def check_tma(name: str, t: torch.Tensor) -> None:
+    """Refuse a tensor the TMA loads cannot read: the base pointer and
+    every stride but the innermost must be multiples of 16 bytes."""
+    size = t.element_size()
+    if t.data_ptr() % 16 or any(s * size % 16 for s in t.stride()[:-1]):
+        raise ValueError(f"the wgmma flash body reads {name} by TMA, which "
+                         f"needs 16-byte-aligned base pointers and strides; "
+                         f"{name} starts at {t.data_ptr():#x} with strides "
+                         f"{t.stride()} of {size} bytes")
+
+
+def flash_attention_fwd_cuda(q, k, v, *, window: int = 0, q_base: int = 0,
+                             body: str | None = None):
     """Flash-attention kernel (replaces ``flash_attention_fwd``'s
-    ``_flash_kernel``).  The kernel reads dense (B, S, heads, D) rows, so
-    a strided q, k or v (a transposed or sliced view) is copied to a
-    contiguous tensor here; the model's q, k and v already are."""
+    ``_flash_kernel``) on the body ``flash_body`` picks, or on ``body``
+    when given (the comparisons of the two bodies).  The kernels read
+    dense (B, S, heads, D) rows, so a strided q, k or v (a transposed or
+    sliced view) is copied to a contiguous tensor here; the model's q, k
+    and v already are."""
     b, sq, sk, h, g, d = _check_cuda(q, k, v, window, q_base)
+    body = _pick_body(body, q.dtype, d)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if body == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_tma(name, t)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = flash_attention_library().lib.flash_attention_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, sq, sk, h, g, d, int(window), int(q_base),
-            ctypes.c_float(d ** -0.5), int(q.dtype == torch.bfloat16),
-            stream)
+        scale = ctypes.c_float(d ** -0.5)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        if body == "wgmma":
+            rc = flash_attention_wgmma_library().lib.\
+                flash_attention_wgmma_fwd_launch(
+                    *ptrs, b, sq, sk, h, g, d, int(window), int(q_base),
+                    scale, stream)
+        else:
+            rc = flash_attention_library().lib.flash_attention_fwd_launch(
+                *ptrs, b, sq, sk, h, g, d, int(window), int(q_base), scale,
+                int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"flash_attention_fwd kernel ({body} body) launch "
+                           f"failed: cudaError {rc}")
     LAUNCHES["flash_attention_fwd"] += 1
+    BODY_LAUNCHES[body] += 1
     return out
 
 
 def flash_attention_step_cuda(q, k, v, carry, *, q_base: int, k_base: int,
-                              window: int = 0):
+                              window: int = 0, body: str | None = None):
     """Block-resumable flash kernel (row 9, replaces
-    ``flash_attention_step``'s ``_flash_carry_kernel``).  Returns a new
-    carry; the one passed in is left as it is.  Strided q, k, v or carry
-    tensors are copied to contiguous ones here."""
+    ``flash_attention_step``'s ``_flash_carry_kernel``) on the body
+    ``flash_body`` picks, or on ``body`` when given.  Returns a new carry;
+    the one passed in is left as it is.  Strided q, k, v or carry tensors
+    are copied to contiguous ones here."""
     b, sq, sk, h, g, d = _check_cuda(q, k, v, window, q_base, k_base)
+    body = _pick_body(body, q.dtype, d)
     m, l, acc = (t.contiguous() for t in _carry(carry, b, sq, h, d,
                                                 q.device))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
     if acc.numel() == 0:
         return m_out, l_out, acc_out
+    if body == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_tma(name, t)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = flash_attention_library().lib.flash_attention_step_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
-            acc_out.data_ptr(), b, sq, sk, h, g, d, int(window), int(q_base),
-            int(k_base), ctypes.c_float(d ** -0.5),
-            int(q.dtype == torch.bfloat16), stream)
+        scale = ctypes.c_float(d ** -0.5)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+                l.data_ptr(), acc.data_ptr(), m_out.data_ptr(),
+                l_out.data_ptr(), acc_out.data_ptr(), b, sq, sk, h, g, d,
+                int(window), int(q_base), int(k_base), scale)
+        if body == "wgmma":
+            rc = flash_attention_wgmma_library().lib.\
+                flash_attention_wgmma_step_launch(*args, stream)
+        else:
+            rc = flash_attention_library().lib.flash_attention_step_launch(
+                *args, int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_step kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"flash_attention_step kernel ({body} body) "
+                           f"launch failed: cudaError {rc}")
     LAUNCHES["flash_attention_step"] += 1
+    BODY_LAUNCHES[body] += 1
     return m_out, l_out, acc_out
 
 

@@ -154,3 +154,52 @@ def test_bad_shapes_raise(shapes, match):
     q, k, v = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError, match=match):
         fa.flash_attention_fwd(q, k, v)
+
+
+@pytest.mark.parametrize("dtype,d,body", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 192, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 96, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
+])
+def test_flash_body_table(dtype, d, body):
+    """bf16 at the full configs' head dims runs on the tensor cores; fp32
+    and every other head dim on the SIMT body."""
+    assert fa.flash_body(dtype, d) == body
+
+
+def test_tma_refuses_misaligned_tensors():
+    """The wgmma body reads q, k and v by TMA: a base pointer or a row
+    stride that is not a multiple of 16 bytes raises, and no copy is made
+    to hide it."""
+    buf = torch.zeros(4096, dtype=torch.bfloat16)
+    fa.check_tma("q", buf[:2 * 8 * 64].view(1, 8, 2, 64))
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.check_tma("q", buf[1:1 + 2 * 8 * 64].view(1, 8, 2, 64))
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.check_tma("k", buf[:8 * 12].view(1, 8, 1, 12))
+
+
+def test_forcing_a_body_that_does_not_take_the_inputs_raises():
+    with pytest.raises(ValueError, match="does not take"):
+        fa._pick_body("wgmma", torch.float32, 128)
+    with pytest.raises(ValueError, match="does not take"):
+        fa._pick_body("wgmma", torch.bfloat16, 32)
+    with pytest.raises(ValueError, match="does not take"):
+        fa._pick_body("tensor", torch.bfloat16, 64)
+    assert fa._pick_body(None, torch.bfloat16, 64) == "wgmma"
+    assert fa._pick_body("simt", torch.bfloat16, 64) == "simt"
+
+
+def test_cpu_tensors_count_no_body_launch():
+    """bf16 at D = 64, which a card would run on the wgmma body, runs the
+    plain version on CPU tensors and counts no launch of either body."""
+    fa.reset_launches()
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(4, 1, 40, 40, 4, 2, 64))
+    ops.flash_attention(q, k, v, window=16)
+    fa.flash_attention_step(q, k, v, None, q_base=0, k_base=0)
+    assert fa.BODY_LAUNCHES == {"wgmma": 0, "simt": 0}
+    assert fa.LAUNCHES == {"flash_attention_fwd": 0,
+                           "flash_attention_step": 0}
