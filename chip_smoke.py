@@ -8,11 +8,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   1. device   - require CUDA; print the card's name and power limit, and
                 the lane issue rate the bounds use (SMs x 128 lanes x the
                 maximum SM clock, read from the card);
-  2. build    - nvcc-build the CWS kernels, the min-sum Gram kernel and
-                the flash-attention kernels' two bodies (SIMT and wgmma)
-                from ``src/repro_torch/csrc``, one nvcc per source, started
-                together, and print the compiler's per-kernel registers,
-                shared memory and spills;
+  2. build    - nvcc-build the CWS kernels' two bodies (pair and split),
+                the min-sum Gram kernel and the flash-attention kernels'
+                two bodies (SIMT and wgmma) from ``src/repro_torch/csrc``,
+                one nvcc per source, started together, and print the
+                compiler's per-kernel registers, shared memory and spills;
+                then count the two CWS bodies' SASS instructions
+                (``cuobjdump -xelf`` + ``nvdisasm -gi`` on the built
+                libraries): per nonzero (row, d, hash) step and per
+                regenerated (d, hash), the design floors of the times
+                phase ("not measured" where the disassembly fails);
   3. parity   - each of the six CWS kernels against its plain PyTorch
                 version on the card, exactly (integer outputs): the four
                 encodes at the serving shapes, at ragged shapes with
@@ -21,6 +26,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 raw (i*, t*) hashes at the serving shapes, ragged with
                 all-zero rows, the estimator's (2, 2000, 1024), a row
                 pushing t* to the +-2^30 clip, and 512 x 65,536 x 1024;
+                rows 6 and 3 (on the split body) also at n in {2, 3, 17},
+                D = 1,000, k = 1,000, D = 65,536 at two rows, 1,024 rows
+                and D too short to split further, each with an all-zero
+                row, asserting that the plans covered S in {1, 2, 4, 8},
+                and on the pair body at 512 x 256 x 1024;
                 the min-sum kernel (``min_sum``, ``minmax_gram``) at
                 ragged, block-edge, suite and long-D shapes within the
                 bound its fp32 sums allow; the flash-attention kernel in
@@ -44,7 +54,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 launch counters are zeroed just before and read just after;
                 the features of every served batch are held exactly, and
                 served logits within a tolerance, against offline
-                ``pipe.features(x)`` and ``bag_logits`` of them;
+                ``pipe.features(x)`` and ``bag_logits`` of them; by body,
+                every row-3 launch (regen+packed) ran on the split body
+                and every other encode on the pair body;
   5. kernel machine - Table 1 on the "template" suite at full size (1,200
                 train / 800 test rows, D = 256, 6 classes): the four
                 Grams through ``GRAM_FNS`` and ``best_accuracy_over_C``
@@ -59,6 +71,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the full / 0-bit / 1-bit bias and MSE at k in
                 {1, 4, ..., 1024} with the benchmark's own assertions; K at
                 4,096 documents against the JAX package's stored values;
+                all 600 row-6 launches on the split body; the phase's wall
+                time beside its launches' device time (600 x kernel ms at
+                each pair's shape);
   7. lm       - gemma3_12b at full width and depth, attn_impl "flash":
                 the fp32 prefill + decode logits against one cached forward
                 (prompt 600, 4 steps); then the masters cast once to bf16
@@ -84,7 +99,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 NCCL, one rank a card, at full depth;
   9. times    - each kernel and its plain version timed with CUDA events
                 (rows 8 and 9: the wgmma and the SIMT body on the same
-                inputs, in turns, the wgmma body required to be faster),
+                inputs, in turns, the wgmma body required to be faster;
+                rows 6 and 3: the split and the pair body on the same
+                inputs, in turns, each beside its design floor from the
+                SASS counts, at (512, 256, 1024), (512, 65,536, 1024) and,
+                for row 6, the estimator's (2, 2,000, 1,024)),
                 beside the least time the card could take for the same
                 work and a PyTorch call as yardstick where one exists
                 (``torch.cdist(p=1)`` for the Gram,
@@ -107,6 +126,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -145,6 +165,7 @@ PEAK_BYTES_S = 3.35e12
 LANES_PER_SM = 128
 THREEFRY_OPS = 117        # 20 rounds of add/rotate/xor + key injections
 U32 = 2.0 ** -24          # fp32 unit roundoff
+QUEUE_AHEAD_CYCLES = 20_000_000   # ~10 ms of sleep ahead of a timing
 
 KERNELS = {
     # name: (replaces, regen, emit)
@@ -160,6 +181,28 @@ KERNELS = {
 ENCODES = [k for k, v in KERNELS.items() if v[2] != "raw"]
 RAW = [k for k, v in KERNELS.items() if v[2] == "raw"]
 SOURCE = "src/repro_torch/csrc/cws_encode.cu"
+# rows 6 and 3 run on the split body; the pair body is their yardstick
+CWS_SOURCES = {"split": "src/repro_torch/csrc/cws_regen_split.cu",
+               "pair": SOURCE}
+PAIR_ROWS = 16            # rows a pair-body block holds (cws_encode.cu:BN)
+# Parity shapes (n, D, k) the split body adds: n in {2, 3, 17}, a D that
+# no S x 64 divides (1,000 at S = 8), k = 1,000 (not a multiple of the
+# 32-hash tile), D = 65,536 at two rows, 1,024 rows (S = 1 on 132 SMs),
+# and D too short to split further (S = 1, 2, 4 on any card)
+SPLIT_PARITY = ((2, DIM, NUM_HASHES), (3, DIM, NUM_HASHES),
+                (17, DIM, NUM_HASHES), (2, 1000, NUM_HASHES),
+                (8, DIM, 1000), (2, WIDE_DIM, NUM_HASHES),
+                (1024, DIM, NUM_HASHES), (3, 100, 70), (2, 200, 70),
+                (2, 300, 70))
+# SASS regions (the [sass: ...] marks in the CWS sources): an instruction
+# counts for a region when its source line, or a line its code was inlined
+# at, lies inside the marks
+SASS_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]*?)\s*;")
+SASS_LOC = re.compile(r'(?:File|inlined at) "([^"]+)", line (\d+)')
+SASS_FUNC = re.compile(r"^\.text\.(\S+):$")
+SASS_MARK = re.compile(r"//\s*\[sass:\s*(/?)(\w+)\]")
+SASS_ARGS = re.compile(r"kernelIL[ib](\d+)EL[ib](\d+)EL[ib](\d+)EE")
+ROTATES_PER_REGEN = 60    # three threefry-2x32 of 20 rotations each
 GRAM = ("min_sum", "src/repro/kernels/minmax_gram.py:66",
         "src/repro_torch/csrc/minmax_gram.cu")
 # rows 8 and 9: (name, replaces, the bf16 body's source); both bodies'
@@ -290,16 +333,18 @@ class KernelCase:
         self.plain = getattr(K, name + "_plain")
         self.k = k if self.regen else params.num_hashes
 
-    def run(self, fn):
+    def run(self, fn, **body):
+        """``fn`` on the case's inputs; ``body`` (``body="pair"``) picks
+        the device body of rows 6 and 3."""
         if self.emit == "raw":        # (i*, t*) stacked: (2, n, k)
-            return torch.stack(fn(*self.args))
-        out = fn(*self.args, b_i=self.b_i, b_t=self.b_t)
+            return torch.stack(fn(*self.args, **body))
+        out = fn(*self.args, b_i=self.b_i, b_t=self.b_t, **body)
         return out.view(torch.int32) if self.emit == "packed" else out
 
-    def compare(self):
+    def compare(self, **body):
         """([mismatches per output], max |difference|): one output, or
         i* and t* for the raw hashes."""
-        got, want = self.run(self.cuda), self.run(self.plain)
+        got, want = self.run(self.cuda, **body), self.run(self.plain)
         torch.cuda.synchronize()
         if got.shape != want.shape:
             raise AssertionError(f"{self.name}: shape {tuple(got.shape)} "
@@ -328,13 +373,157 @@ class KernelCase:
             ops += d * k * (3 * THREEFRY_OPS + 5)
         return bound(nbytes, ops, peak_ops)
 
+    def floor_ms(self, peak_ops, counts, body):
+        """A body's design floor: its SASS instructions for this run's
+        work at one instruction per lane per cycle: a fast-path step per
+        nonzero (row, d, hash), a regeneration per (d, hash) per row tile
+        it regenerates in (zero entries, log x staging and the emit not
+        counted); None without counts."""
+        from repro_torch.kernels.cws_hash import sm_count, split_plan
+        n, d = self.x.shape
+        emit = 2 if self.emit == "raw" else 1
+        track_t = self.emit == "raw" or self.b_t > 0
+        if body == "split":
+            plan = split_plan(n, d, self.k, sm_count(0))
+            c = sass_lookup(counts, body, emit, track_t,
+                            plan.rows_per_thread)
+            tiles = plan.grid[1]
+        else:
+            c = sass_lookup(counts, body, emit, track_t)
+            tiles = -(-n // PAIR_ROWS)
+        if c is None or c["regen"] is None:
+            return None
+        ops = (int((self.x > 0).sum()) * self.k * c["step"]
+               + d * self.k * tiles * c["regen"])
+        return ops / peak_ops * 1e3
+
+
+def sass_regions(source):
+    """{region: [(first, last) line]} of the ``[sass: name]`` ...
+    ``[sass: /name]`` marks in ``source``."""
+    spans, opened = {}, {}
+    for no, line in enumerate((ROOT / source).read_text().splitlines(), 1):
+        m = SASS_MARK.search(line)
+        if m and m.group(1):
+            spans.setdefault(m.group(2), []).append((opened.pop(m.group(2)),
+                                                     no))
+        elif m:
+            opened[m.group(2)] = no
+    return spans
+
+
+def disassemble(lib_path):
+    """SASS of a built library with line and inlining info: ``cuobjdump
+    -xelf`` takes out its cubin, ``nvdisasm -gi`` disassembles it (the
+    CWS libraries build with ``-lineinfo``)."""
+    tool = lambda name: shutil.which(name) or f"/usr/local/cuda/bin/{name}"
+    work = ROOT / "build" / "sass" / lib_path.stem
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    subprocess.run([tool("cuobjdump"), "-xelf", "all", str(lib_path)],
+                   cwd=work, check=True, capture_output=True, timeout=120)
+    cubins = sorted(work.glob("*.cubin"))
+    if not cubins:
+        raise RuntimeError(f"no cubin in {lib_path.name}")
+    out = subprocess.run([tool("nvdisasm"), "-gi", "-c", str(cubins[0])],
+                         check=True, capture_output=True, text=True,
+                         timeout=300)
+    return out.stdout
+
+
+def sass_counts(body, lib_path):
+    """Per kernel instantiation of a CWS body: its template arguments and,
+    from its SASS, the instructions of one nonzero (row, d, hash) step on
+    the division's fast path (the ``inner`` region over its MUFU.RCP count,
+    less the slow-path call sequence the fast path branches over; for the
+    split body plus its share of the per-column loads and loop, the
+    ``column`` region outside ``inner`` over the rows a thread holds) and
+    of one regenerated (d, hash) (the ``regen`` region over its rotations
+    / 60)."""
+    source = CWS_SOURCES[body]
+    spans = sass_regions(source)
+    name = pathlib.Path(source).name
+    kernels, func, locs, fresh = {}, None, set(), True
+    for line in disassemble(lib_path).splitlines():
+        m = SASS_FUNC.match(line.strip())
+        if m:
+            func, locs = m.group(1), set()
+            kernels[func] = {r: {"n": 0, "rcp": 0, "rot": 0, "slow": 0,
+                                 "in_slow": False, "fchk": False}
+                             for r in spans}
+            continue
+        if "//##" in line:
+            if fresh:
+                locs, fresh = set(), False
+            locs |= {int(no) for f, no in SASS_LOC.findall(line)
+                     if f.endswith(name)}
+            continue
+        m = SASS_INSN.search(line)
+        if not (m and func):
+            continue
+        fresh = True
+        words = m.group(1).split()
+        op = words[1] if words[0].startswith("@") and len(words) > 1 \
+            else words[0]
+        for region, lines in spans.items():
+            if not any(lo < no < hi for no in locs for lo, hi in lines):
+                continue
+            c = kernels[func][region]
+            c["n"] += 1
+            c["rcp"] += op.startswith("MUFU.RCP")
+            c["rot"] += op.startswith("SHF.L.W")
+            if op.startswith("FCHK"):
+                c["fchk"] = True
+            elif c["fchk"] and op.startswith("BRA"):   # fast path jumps on
+                c["fchk"], c["in_slow"] = False, True
+            elif op.startswith("BSYNC"):
+                c["in_slow"] = False
+            elif c["in_slow"]:
+                c["slow"] += 1
+    counts = []
+    for func, regions in kernels.items():
+        args = SASS_ARGS.search(func)
+        inner, regen = regions.get("inner"), regions.get("regen")
+        if not args or not inner or not inner["rcp"]:
+            continue
+        a, emit, track_t = (int(v) for v in args.groups())
+        rows = a if body == "split" else 1   # pair: a is the Regen flag
+        step = (inner["n"] - inner["slow"]) / inner["rcp"]
+        column = regions.get("column")
+        if column:   # the loop over columns, unrolled rcp / rows times
+            step += (column["n"] - inner["n"]) / (inner["rcp"] / rows) / rows
+        entry = {"body": body, "emit": emit, "track_t": bool(track_t),
+                 "rows": rows, "regen_mode": body == "split" or bool(a),
+                 "step_static": inner["n"] / inner["rcp"], "step": step,
+                 "regen": None}
+        if regen and regen["rot"]:
+            entry["regen"] = regen["n"] / max(
+                1, round(regen["rot"] / ROTATES_PER_REGEN))
+        counts.append(entry)
+    return counts
+
+
+def sass_lookup(counts, body, emit, track_t, rows=1):
+    """The counted instantiation a launch of ``body`` ran, or None."""
+    for c in counts or ():
+        if (c["body"] == body and c["emit"] == emit and c["regen_mode"]
+                and c["track_t"] == track_t and c["rows"] == rows):
+            return c
+    return None
+
 
 def time_ms(fn, reps, warmup=2):
+    """Mean device ms of ``fn`` over ``reps`` calls, between CUDA events.
+    A sleep kernel queued ahead of the start event (~10 ms) lets the host
+    enqueue the calls before the card reaches them, so a kernel shorter
+    than its call's host cost is timed on the card and not at the host's
+    enqueue rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -361,19 +550,24 @@ def clip_case(rng, dev):
 
 
 def phase_parity(dev, results):
-    from repro_torch.kernels.cws_hash import LAUNCHES
+    from repro_torch.kernels.cws_hash import (BODY_LAUNCHES, LAUNCHES,
+                                              SPLIT_KERNELS, SPLIT_SIZES,
+                                              sm_count, split_plan)
     rng = np.random.default_rng(11)
     key = tuple(int(w) for w in rng.integers(0, 2 ** 32, 2, dtype=np.uint64))
 
     def check(name, n, d, k, b_i=0, b_t=0, zero_rows=(), x=None,
-              params=None):
+              params=None, body=None):
         if x is None:
             x = torch.from_numpy(sparse_rows(rng, n, d, zero_rows=zero_rows)
                                  ).to(dev)
         if params is None and not KERNELS[name][1]:
             params = stored_params(rng, d, k, dev)
         case = KernelCase(name, x, b_i, b_t, params=params, key=key, k=k)
-        bad, err = case.compare()
+        bad, err = case.compare(**({} if body is None else {"body": body}))
+        if name in SPLIT_KERNELS and body is None:
+            s = split_plan(x.shape[0], x.shape[1], k, sm_count(0)).splits
+            results[name]["splits"][s] = results[name]["splits"].get(s, 0) + 1
         r = results[name]
         r["checked"] += 1
         r["mismatches"] += sum(bad)
@@ -401,10 +595,19 @@ def phase_parity(dev, results):
             for b_t in (0, 2):
                 check(name, b_i=4, b_t=b_t, **ragged)
         check(name, 512, WIDE_DIM, NUM_HASHES, B_I, 0)
+        extra = ""
+        if name in SPLIT_KERNELS:
+            for n, d, k in SPLIT_PARITY + ((2, SUPPORT_CAP, NUM_HASHES),):
+                check(name, n, d, k, B_I, 0, zero_rows=(1,))
+            check(name, 512, DIM, NUM_HASHES, B_I, 0, body="pair")
+            extra = (f"; split body also at (n, D, k) in {SPLIT_PARITY} and "
+                     f"2x{SUPPORT_CAP}x{NUM_HASHES} (row 1 all zero), S "
+                     f"used {dict(sorted(results[name]['splits'].items()))}"
+                     f"; the pair body at 512x{DIM}x{NUM_HASHES}")
         r = results[name]
         print(f"parity {name}: {r['checked']} shapes (serving n in "
               f"{BUCKETS} at D={DIM} k={NUM_HASHES}; ragged 37x300x70 with "
-              f"zero rows; 512x{WIDE_DIM}x{NUM_HASHES}); mismatches "
+              f"zero rows; 512x{WIDE_DIM}x{NUM_HASHES}{extra}); mismatches "
               f"{r['mismatches']}; launches {LAUNCHES[name]}")
 
     x_clip, p_clip = clip_case(rng, dev)
@@ -429,13 +632,28 @@ def phase_parity(dev, results):
             check(name, 2, 60, 96, x=x)
             clip = "rows of 3e38 and 1.2e-38 entries"
         check(name, 512, WIDE_DIM, NUM_HASHES)
+        extra = ""
+        if name in SPLIT_KERNELS:
+            for n, d, k in SPLIT_PARITY:
+                check(name, n, d, k, zero_rows=(1,))
+            check(name, 512, DIM, NUM_HASHES, body="pair")
+            extra = (f"; split body also at (n, D, k) in {SPLIT_PARITY} "
+                     f"(row 1 all zero), S used "
+                     f"{dict(sorted(results[name]['splits'].items()))}; the "
+                     f"pair body at 512x{DIM}x{NUM_HASHES}")
         r = results[name]
         print(f"parity {name}: {r['checked']} shapes (serving n in "
               f"{BUCKETS} at D={DIM} k={NUM_HASHES}; ragged 37x300x70 with "
               f"zero rows; 2x{SUPPORT_CAP}x{NUM_HASHES}; {clip}; "
-              f"512x{WIDE_DIM}x{NUM_HASHES}); mismatches i* "
+              f"512x{WIDE_DIM}x{NUM_HASHES}{extra}); mismatches i* "
               f"{r['mismatches_i']} t* {r['mismatches_t']}; launches "
               f"{LAUNCHES[name]}")
+    for name in SPLIT_KERNELS:
+        missing = set(SPLIT_SIZES) - set(results[name]["splits"])
+        if missing:
+            raise AssertionError(f"{name}: the split body's parity cases "
+                                 f"never ran S in {sorted(missing)}")
+    print(f"parity: launches by CWS body {dict(BODY_LAUNCHES)}")
 
 
 def gram_rows(rng, n, d, zero_rows=()):
@@ -598,9 +816,16 @@ def phase_slice(card, results):
             wall = time.perf_counter() - t0
             stats = svc.stats()
         served[mode] = (kernel, xs, outs, wall, stats, batches)
-    launches = dict(K.LAUNCHES)
+    launches, bodies = dict(K.LAUNCHES), dict(K.BODY_LAUNCHES)
     for name in ENCODES:
         results[name]["launches"] = launches[name]
+    # by body: every row-3 launch on the split body, the rest on the pair
+    split = sum(launches[k] for k in K.SPLIT_KERNELS)
+    if bodies != {"split": split, "pair": sum(launches.values()) - split}:
+        raise AssertionError(f"slice: launches by body {bodies} for kernel "
+                             f"launches {launches}")
+    print(f"slice: launches by CWS body {bodies} (split: "
+          f"cws_encode_rng_packed; pair: the other encodes)")
 
     for mode, (kernel, xs, outs, wall, stats, batches) in served.items():
         if launches[kernel] == 0:
@@ -779,6 +1004,7 @@ def phase_estimator(dev, card, results):
     """Figs 4-5: Monte-Carlo bias and MSE of the full, 0-bit and 1-bit
     estimators of K_MM against K (1 - K) / k."""
     from repro_torch.core import collision_estimate, full_collision_estimate
+    from repro_torch.kernels import cws_hash as CWS
     from repro_torch.pipeline import FeaturePipeline, FeatureSpec
     rng = np.random.default_rng(45)
     kmax = max(KS)
@@ -816,11 +1042,22 @@ def phase_estimator(dev, card, results):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    bodies = dict(CWS.BODY_LAUNCHES)
     require_launched("estimator", launches, ("cws_hash_rng", "min_sum"))
     if launches["cws_hash_rng"] != len(PAIRS) * REPS:
         raise AssertionError(f"estimator: cws_hash_rng launched "
                              f"{launches['cws_hash_rng']} times, not "
                              f"{len(PAIRS)} x {REPS}")
+    if bodies != {"split": len(PAIRS) * REPS, "pair": 0}:
+        raise AssertionError(f"estimator: launches by CWS body {bodies}, "
+                             f"not all {len(PAIRS) * REPS} on the split body")
+    # the phase's wall time beside its launches' device time: one launch
+    # of each pair's shape timed with CUDA events, times its launches
+    device_s = 0.0
+    for pair in PAIRS:
+        xd = torch.from_numpy(compacted_pair(pair, N_DOCS)).to(dev)
+        device_s += REPS * time_ms(lambda: CWS.cws_hash_rng_cuda(
+            xd, keys[0], kmax), reps=50) / 1e3
     # the benchmark's own assertions (fig45_cws_mse.py:97-101)
     for pair, row in rows.items():
         for k in (64, 256, 1024):
@@ -840,6 +1077,7 @@ def phase_estimator(dev, card, results):
             raise AssertionError(f"estimator {pair}: K at 4,096 documents "
                                  f"{got} vs stored {want}")
     results["estimator"] = {"pairs": rows, "wall_s": wall,
+                            "hash_device_s": device_s, "bodies": bodies,
                             "K_4096": k4096, "reps": REPS,
                             "launches": {k: launches[k] for k in
                                          ("cws_hash_rng", "min_sum")}}
@@ -857,8 +1095,12 @@ def phase_estimator(dev, card, results):
               + " ".join(f"{d['mse_0bit'] / d['theory']:.3f}"
                          for d in row["ks"].values()))
     print(f"slice estimator: {len(PAIRS)} pairs x {REPS} reps in "
-          f"{wall:.3f} s; launches cws_hash_rng {launches['cws_hash_rng']}, "
-          f"min_sum {launches['min_sum']}")
+          f"{wall:.3f} s; launches cws_hash_rng {launches['cws_hash_rng']} "
+          f"(by body {bodies}), min_sum {launches['min_sum']}; the "
+          f"cws_hash_rng launches' device time (launches x kernel ms at each "
+          f"pair's shape) {device_s:.4f} s, {100 * device_s / wall:.1f}% of "
+          f"the phase: the rest is the host's loop, the estimators and "
+          f"their copies")
 
 
 def flash_inputs(rng, b, sq, sk, h, g, d, dtype, dev):
@@ -1771,7 +2013,61 @@ def phase_step_times(dev, results, mhz, sms):
     torch.cuda.empty_cache()
 
 
-def phase_times(dev, results, peak_ops):
+def time_cws_bodies(case, reps):
+    """Rows 6 and 3 on the split and the pair body on the same inputs, in
+    turns (split, pair, pair, split): ({body: mean ms}, {body: [the two
+    readings]})."""
+    readings = {"split": [], "pair": []}
+    for body in ("split", "pair", "pair", "split"):
+        readings[body].append(time_ms(lambda: case.run(case.cuda, body=body),
+                                      reps=reps))
+    return {b: sum(v) / len(v) for b, v in readings.items()}, readings
+
+
+def cws_times(case, reps, plain_reps, peak_ops, counts):
+    """One CWS kernel's times at one shape: the kernel (for rows 6 and 3
+    the split body, with the pair body beside it and each body's design
+    floor), the plain version, the bound."""
+    from repro_torch.kernels.cws_hash import (SPLIT_KERNELS, sm_count,
+                                              split_plan)
+    t = {"shape": list(case.x.shape) + [case.k], "library_ms": None}
+    if case.name in SPLIT_KERNELS:
+        ms, readings = time_cws_bodies(case, reps)
+        plan = split_plan(*case.x.shape, case.k, sm_count(0))
+        t.update(ms=ms["split"], pair_ms=ms["pair"], readings=readings,
+                 floor_ms=case.floor_ms(peak_ops, counts, "split"),
+                 pair_floor_ms=case.floor_ms(peak_ops, counts, "pair"),
+                 plan={"rows_per_thread": plan.rows_per_thread,
+                       "row_warps": plan.row_warps, "splits": plan.splits,
+                       "blocks": plan.blocks})
+    else:
+        t["ms"] = time_ms(lambda: case.run(case.cuda), reps=reps)
+    t["plain_ms"] = time_ms(lambda: case.run(case.plain), reps=plain_reps,
+                            warmup=1)
+    t["bound_ms"], t["bound_by"] = case.bound_ms(peak_ops)
+    return t
+
+
+def cws_time_line(name, t, b=None):
+    n, d, k = t["shape"]
+    head = f"time {name} ({n}, {d}, {k})" + ("" if b is None else f" b={b}")
+    floor = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    if "pair_ms" in t:
+        p = t["plan"]
+        body = (f"split body {t['ms']:.4f} ms (design floor "
+                f"{floor(t['floor_ms'])}; plan {p['rows_per_thread']} rows a "
+                f"thread x {p['row_warps']} row warps, S = {p['splits']}, "
+                f"{p['blocks']} blocks), pair body {t['pair_ms']:.4f} ms "
+                f"(design floor {floor(t['pair_floor_ms'])}) (in turns: "
+                f"{t['readings']})")
+    else:
+        body = f"kernel {t['ms']:.4f} ms"
+    return (f"{head}: {body}, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}); library call: none "
+            f"(no PyTorch op computes CWS)")
+
+
+def phase_times(dev, results, peak_ops, counts):
     rng = np.random.default_rng(5)
     key = (0x2F0A1C3B, 0x9E3779B9)
     for d, tag in ((DIM, ""), (WIDE_DIM, "_wide")):
@@ -1782,17 +2078,15 @@ def phase_times(dev, results, peak_ops):
             case = KernelCase(name, x, b_i, 0, params=params, key=key,
                               k=NUM_HASHES)
             wide = d == WIDE_DIM
-            ms = time_ms(lambda: case.run(case.cuda), reps=5 if wide else 50)
-            plain_ms = time_ms(lambda: case.run(case.plain),
-                               reps=1 if wide else 10, warmup=1)
-            bound_ms, by = case.bound_ms(peak_ops)
+            t = cws_times(case, 5 if wide else 50, 1 if wide else 10,
+                          peak_ops, counts)
             r = results[name]
-            r["ms" + tag], r["plain_ms" + tag] = ms, plain_ms
-            r["bound_ms" + tag], r["bound_by" + tag] = bound_ms, by
-            print(f"time {name} (512, {d}, {NUM_HASHES}) b={b_i}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({by}); library call: none (no "
-                  f"PyTorch op computes the CWS encode)")
+            for key_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "pair_ms", "floor_ms", "pair_floor_ms"):
+                if key_ in t:
+                    r[key_ + tag] = t[key_]
+            r.setdefault("times", []).append(t)
+            print(cws_time_line(name, t, b_i))
 
     # the raw hashes: serving and wide shapes, and the estimator's pair
     est = torch.from_numpy(compacted_pair("CREDIT-CARD", N_DOCS)).to(dev)
@@ -1803,17 +2097,10 @@ def phase_times(dev, results, peak_ops):
         params = stored_params(rng, d, NUM_HASHES, dev)
         for name in RAW:
             case = KernelCase(name, x, params=params, key=key, k=NUM_HASHES)
-            ms = time_ms(lambda: case.run(case.cuda), reps=reps)
-            plain_ms = time_ms(lambda: case.run(case.plain),
-                               reps=1 if d == WIDE_DIM else 10, warmup=1)
-            bound_ms, by = case.bound_ms(peak_ops)
-            results[name]["times"].append({
-                "shape": [n, d, NUM_HASHES], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
-            print(f"time {name} ({n}, {d}, {NUM_HASHES}): kernel {ms:.4f} "
-                  f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({by}); library call: none (no PyTorch op computes "
-                  f"CWS)")
+            t = cws_times(case, reps, 1 if d == WIDE_DIM else 10, peak_ops,
+                          counts)
+            results[name]["times"].append(t)
+            print(cws_time_line(name, t))
 
     # the min-sum Gram: the suite's train Gram and an MNIST-variations
     # train Gram (Table 1's M-Rotate / M-Image shape, synthetic rows)
@@ -1844,13 +2131,15 @@ def phase_times(dev, results, peak_ops):
 
 
 def build_all():
-    """Build every kernel library at once, one nvcc per source."""
+    """Build every kernel library at once, one nvcc per source; return
+    the two CWS bodies' libraries by body."""
     from repro_torch.kernels.build import (cws_encode_library,
+                                           cws_regen_split_library,
                                            flash_attention_library,
                                            flash_attention_wgmma_library,
                                            minmax_gram_library)
-    libs = (cws_encode_library, minmax_gram_library, flash_attention_library,
-            flash_attention_wgmma_library)
+    libs = (cws_encode_library, cws_regen_split_library, minmax_gram_library,
+            flash_attention_library, flash_attention_wgmma_library)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         futs = [pool.submit(f) for f in libs]
@@ -1863,6 +2152,38 @@ def build_all():
                     or "entry function" in line):
                 print("  " + line.strip())
     print(f"build: {len(built)} libraries in {wall:.2f} s")
+    return {"pair": built[0], "split": built[1]}
+
+
+def count_instructions(cws_libs):
+    """SASS instruction counts of the two CWS bodies (``sass_counts``),
+    printed by instantiation; None, and "not measured", where the
+    disassembly fails."""
+    counts = []
+    for body, lib in cws_libs.items():
+        try:
+            got = sass_counts(body, lib.path)
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            print(f"sass {body} body ({lib.path.name}): not measured ({e})")
+            return None
+        if not got:
+            print(f"sass {body} body ({lib.path.name}): not measured (no "
+                  f"marked region found in the disassembly)")
+            return None
+        for c in got:
+            if not c["regen_mode"]:
+                continue
+            regen = ("not found" if c["regen"] is None
+                     else f"{c['regen']:.0f}")
+            emit = ("index", "packed", "raw")[c["emit"]]
+            print(f"sass {body} body ({CWS_SOURCES[body]}): emit {emit}, "
+                  f"t* tracked {c['track_t']}, {c['rows']} rows a thread: "
+                  f"{c['step']:.2f} instructions a nonzero (row, d, hash) "
+                  f"step on the division's fast path ({c['step_static']:.1f} "
+                  f"static in the step's region a division), {regen} a "
+                  f"regenerated (d, hash)")
+        counts += got
+    return counts
 
 
 def kernel_entry(name, source, replaces, r, primary):
@@ -1893,12 +2214,16 @@ def main():
           f"T operations/s (the bounds' operation rate); memory "
           f"{PEAK_BYTES_S / 1e12:.2f} TB/s")
 
-    build_all()
+    cws_libs = build_all()
+    counts = count_instructions(cws_libs)
 
+    from repro_torch.kernels.cws_hash import SPLIT_KERNELS
     results = {k: {"checked": 0, "mismatches": 0, "max_abs_err": 0,
                    "launches": 0} for k in KERNELS}
     for k in RAW:
         results[k].update(mismatches_i=0, mismatches_t=0, times=[])
+    for k in SPLIT_KERNELS:
+        results[k]["splits"] = {}
     results[GRAM[0]] = {"checked": 0, "mismatches": 0, "max_abs_err": 0.0,
                         "launches": 0, "times": []}
     results[FLASH[0]] = {"checked": 0, "mismatches": 0, "max_abs_err": 0.0,
@@ -1915,17 +2240,27 @@ def main():
     phase_estimator(dev, smi, results)
     phase_lm(dev, smi, results)
     phase_seq_parallel(smi, results)
-    phase_times(dev, results, peak_ops)
+    phase_times(dev, results, peak_ops, counts)
     phase_flash_times(dev, results, mhz, sms)
     phase_step_times(dev, results, mhz, sms)
+
+    def cws_entry(k, primary):
+        r = results[k]
+        split = k in SPLIT_KERNELS
+        entry = kernel_entry(k, CWS_SOURCES["split" if split else "pair"],
+                             KERNELS[k][0], r, primary)
+        entry.update(body="split" if split else "pair", times=r["times"])
+        if split:
+            entry.update(sources=CWS_SOURCES, pair_ms=primary["pair_ms"],
+                         floor_ms=primary["floor_ms"],
+                         pair_floor_ms=primary["pair_floor_ms"],
+                         parity_splits=r["splits"])
+        return entry
 
     kernels = []
     for k in ENCODES:
         r = results[k]
-        entry = kernel_entry(k, SOURCE, KERNELS[k][0], r,
-                             {"ms": r["ms"], "plain_ms": r["plain_ms"],
-                              "bound_ms": r["bound_ms"],
-                              "bound_by": r["bound_by"], "library_ms": None})
+        entry = cws_entry(k, r["times"][0])
         entry.update(ms_wide=r["ms_wide"], plain_ms_wide=r["plain_ms_wide"],
                      bound_ms_wide=r["bound_ms_wide"],
                      bound_by_wide=r["bound_by_wide"], slice=r["slice"])
@@ -1935,9 +2270,9 @@ def main():
         # the main path's shape: the suite's rows (stored) or the
         # estimator's pair (regen); (512, 256, 1024) stands for the former
         primary = r["times"][2] if k == "cws_hash_rng" else r["times"][0]
-        entry = kernel_entry(k, SOURCE, KERNELS[k][0], r, primary)
+        entry = cws_entry(k, primary)
         entry.update(mismatches_i=r["mismatches_i"],
-                     mismatches_t=r["mismatches_t"], times=r["times"])
+                     mismatches_t=r["mismatches_t"])
         kernels.append(entry)
     r = results[GRAM[0]]
     entry = kernel_entry(GRAM[0], GRAM[2], GRAM[1], r, r["times"][0])

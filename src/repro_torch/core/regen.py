@@ -4,7 +4,7 @@ One deterministic function
 
     (key words, d, hash)  ->  (r[d, hash], log_c[d, hash], beta[d, hash])
 
-shared by the CUDA kernels (``csrc/cws_encode.cu``) and the plain PyTorch
+shared by the CUDA kernels (``csrc/cws_common.cuh``) and the plain PyTorch
 path here.  Threefry-2x32 (20 rounds) keyed by the two key words, with one
 key word XOR-tweaked per stream, and the GLOBAL (d, hash) coordinates as
 the counter, so any tiling of the (D, k) grid gives the same parameters.

@@ -2,14 +2,16 @@
 // indices (n, k) int32, b-bit codes packed into (n, ceil(k*b/32)) uint32
 // words, or the raw samples (i*, t*) as two (n, k) int32 arrays.
 //
-// Replaces six Pallas TPU kernels of src/repro/kernels/cws_hash.py:
+// Replaces four Pallas TPU kernels of src/repro/kernels/cws_hash.py:
 //   cws_encode_launch             <- cws_encode_pallas            (stored params)
 //   cws_encode_rng_launch         <- cws_encode_rng_pallas        (regenerated params)
 //   cws_encode_packed_launch      <- cws_encode_packed_pallas     (stored, packed emit)
-//   cws_encode_rng_packed_launch  <- cws_encode_rng_packed_pallas (regenerated, packed)
 //   cws_hash_launch               <- cws_hash_pallas / _cws_kernel (stored, raw emit)
-//   cws_hash_rng_launch           <- cws_hash_rng_pallas / _cws_hash_rng_kernel
-//                                    (regenerated, raw emit)
+// The regenerated packed and raw kernels (cws_encode_rng_packed_pallas,
+// cws_hash_rng_pallas) run on the row-tiled, cluster-split body of
+// cws_regen_split.cu; this body's instantiations for them stay reachable
+// through cws_encode_rng_packed_launch and cws_hash_rng_launch as the
+// yardstick that body is timed against.
 // One device body, templated on <Regen, Emit, TrackT>, plays the part of
 // the TPU kernels' shared _accum_loop and their emit steps.
 //
@@ -30,14 +32,11 @@
 // warp is one row of 32 hashes, so the mask on zero entries is uniform
 // across the warp.  Ragged edges are masked by bounds, never padded.
 //
-// Bit-exactness with the reference (integers must match exactly): build
-// WITHOUT --use_fast_math and WITH --fmad=false; the arithmetic below also
-// spells out round-to-nearest IEEE division, multiply and add, in the
-// reference's order.  logf / log1pf / floorf, not the __logf intrinsics.
-// Ties go to the lowest d (strict < over ascending d).
-#include <cstdint>
-#include <cuda_runtime.h>
-#include <math.h>
+// Bit-exactness: the arithmetic is cws_common.cuh's, built with
+// --fmad=false.  Ties go to the lowest d (strict < over ascending d).
+// The [sass: ...] comments mark the regions chip_smoke.py counts SASS
+// instructions in.
+#include "cws_common.cuh"
 
 namespace {
 
@@ -50,59 +49,6 @@ constexpr int THREADS = BK * BN;
 constexpr int EMIT_INDEX = 0;    // (n, k) int32 bag indices
 constexpr int EMIT_PACKED = 1;   // (n, words) uint32 packed codes
 constexpr int EMIT_RAW = 2;      // (n, k) int32 i* and t*
-
-constexpr uint32_t STREAM_R = 0x243F6A89u;
-constexpr uint32_t STREAM_C = 0x85A308D3u;
-constexpr uint32_t STREAM_BETA = 0x13198A2Fu;
-constexpr uint32_t THREEFRY_PARITY = 0x1BD11BDAu;
-
-__device__ __forceinline__ uint32_t rotl(uint32_t v, int r) {
-  return (v << r) | (v >> (32 - r));
-}
-
-// Threefry-2x32, 20 rounds (repro/core/regen.py:threefry2x32).
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ THREEFRY_PARITY};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl(x1, rot[i % 2][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-}
-
-// Top 24 bits -> fp32 uniform in [0, 1), exact.
-__device__ __forceinline__ float uniform24(uint32_t bits) {
-  return __fmul_rn(__uint2float_rn(bits >> 8), 5.9604644775390625e-08f);
-}
-
-__device__ __forceinline__ float exp1(float u) { return -log1pf(-u); }
-
-// (r, log c, beta) at global coordinate (d, h) (repro/core/regen.py:regen_tile).
-__device__ __forceinline__ void regen_param(uint32_t k0, uint32_t k1,
-                                            uint32_t d, uint32_t h, float& r,
-                                            float& lc, float& be) {
-  uint32_t u0 = d, u1 = h;
-  threefry2x32(k0, k1 ^ STREAM_R, u0, u1);
-  r = fmaxf(__fadd_rn(exp1(uniform24(u0)), exp1(uniform24(u1))), 1e-12f);
-  u0 = d;
-  u1 = h;
-  threefry2x32(k0, k1 ^ STREAM_C, u0, u1);
-  const float c = __fadd_rn(exp1(uniform24(u0)), exp1(uniform24(u1)));
-  lc = logf(fmaxf(c, 1e-38f));
-  u0 = d;
-  u1 = h;
-  threefry2x32(k0, k1 ^ STREAM_BETA, u0, u1);
-  be = uniform24(u0);
-}
 
 template <bool Regen, int Emit, bool TrackT>
 __global__ void __launch_bounds__(THREADS)
@@ -132,12 +78,9 @@ cws_encode_kernel(const float* __restrict__ x, const float* __restrict__ r_g,
     for (int e = tid; e < BN * BD; e += THREADS) {
       const int rr = e / BD, dd = e % BD;
       const int gr = row0 + rr, gd = d0 + dd;
-      float lu = -INFINITY;
-      if (gr < n && gd < d) {
-        const float v = x[static_cast<size_t>(gr) * d + gd];
-        if (v > 0.0f) lu = logf(fmaxf(v, 1e-38f));
-      }
-      s_lu[rr][dd] = lu;
+      s_lu[rr][dd] = gr < n && gd < d
+                         ? cws::log_entry(x[static_cast<size_t>(gr) * d + gd])
+                         : -INFINITY;
     }
     for (int e = tid; e < BD * BK; e += THREADS) {
       const int dd = e / BK, hh = e % BK;
@@ -145,8 +88,10 @@ cws_encode_kernel(const float* __restrict__ x, const float* __restrict__ r_g,
       float r = 1.0f, lc = 0.0f, be = 0.0f;
       if (gd < d && gh < k) {
         if (Regen) {
-          regen_param(k0, k1, static_cast<uint32_t>(gd),
-                      static_cast<uint32_t>(gh), r, lc, be);
+          // [sass: regen]
+          cws::regen_param(k0, k1, static_cast<uint32_t>(gd),
+                           static_cast<uint32_t>(gh), r, lc, be);
+          // [sass: /regen]
         } else {
           const size_t o = static_cast<size_t>(gd) * k + gh;
           r = r_g[o];
@@ -162,18 +107,18 @@ cws_encode_kernel(const float* __restrict__ x, const float* __restrict__ r_g,
 
     const int dn = min(BD, d - d0);
     for (int dd = 0; dd < dn; ++dd) {
+      // [sass: inner]
       const float lu = s_lu[ty][dd];
       if (!isfinite(lu)) continue;   // zero, NaN or inf entry: never wins
       const float r = s_r[dd][tx], lc = s_lc[dd][tx], be = s_be[dd][tx];
-      // tt = floor(lu / r + be); la = lc - r * (tt - be + 1)
-      const float tt = floorf(__fadd_rn(__fdiv_rn(lu, r), be));
-      const float la =
-          __fsub_rn(lc, __fmul_rn(r, __fadd_rn(__fsub_rn(tt, be), 1.0f)));
+      float tt, la;
+      cws::step(lu, r, lc, be, tt, la);
       if (la < best_a) {
         best_a = la;
         best_i = d0 + dd;
         if (TrackT) best_t = tt;
       }
+      // [sass: /inner]
     }
     __syncthreads();
   }
@@ -183,20 +128,14 @@ cws_encode_kernel(const float* __restrict__ x, const float* __restrict__ r_g,
   if constexpr (Emit == EMIT_RAW) {
     if (row < n && h < k) {
       const size_t o = static_cast<size_t>(row) * out_cols + h;
-      const float t = fminf(fmaxf(best_t, -1073741824.0f), 1073741824.0f);
       static_cast<int32_t*>(out)[o] = best_i;
-      out_t[o] = best_i < 0 ? 0 : static_cast<int>(t);
+      out_t[o] = cws::clip_t(best_i, best_t);
     }
     return;
   }
 
   // Emit: b-bit code, sentinel -> bucket 0 (repro/kernels/cws_hash.py:_encode_emit).
-  int code = b_i ? (best_i & ((1 << b_i) - 1)) : best_i;
-  if (TrackT) {
-    const float t = fminf(fmaxf(best_t, -1073741824.0f), 1073741824.0f);
-    code = code * (1 << b_t) + (static_cast<int>(t) & ((1 << b_t) - 1));
-  }
-  if (best_i < 0) code = 0;
+  const int code = cws::code_of<TrackT>(best_i, best_t, b_i, b_t);
 
   if constexpr (Packed) {
     const int b = b_i + b_t, cpw = 32 / b;
@@ -267,7 +206,8 @@ int cws_encode_packed_launch(const float* x, const float* r, const float* lc,
                                     out, nullptr, words, stream);
 }
 
-// Row 3: regenerated params -> (n, words) packed uint32.
+// Row 3's yardstick (the row runs on cws_regen_split.cu): regenerated
+// params -> (n, words) packed uint32.
 int cws_encode_rng_packed_launch(const float* x, uint32_t k0, uint32_t k1,
                                  int n, int d, int k, int b_i, int b_t,
                                  uint32_t* out, int words,
@@ -285,7 +225,8 @@ int cws_hash_launch(const float* x, const float* r, const float* lc,
                                  t_out, k, stream);
 }
 
-// Row 6: regenerated params -> raw i* and t*, each (n, k) int32.
+// Row 6's yardstick (the row runs on cws_regen_split.cu): regenerated
+// params -> raw i* and t*, each (n, k) int32.
 int cws_hash_rng_launch(const float* x, uint32_t k0, uint32_t k1, int n,
                         int d, int k, int32_t* i_out, int32_t* t_out,
                         cudaStream_t stream) {

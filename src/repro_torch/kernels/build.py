@@ -2,8 +2,9 @@
 
 Each source under ``repro_torch/csrc/`` compiles on first use into a shared
 library with a plain C interface, under ``build/kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once.  Nothing here runs at
+the checkout, named by a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one loads at once.  Nothing here runs at
 import time: a machine without ``nvcc`` imports the package and uses the
 plain PyTorch paths on CPU tensors.
 """
@@ -27,8 +28,10 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # No fused multiply-add either: the CWS kernels must round each division,
-# product and sum as the reference does, bit for bit.
-EXACT_FLAGS = NVCC_FLAGS + ("--fmad=false",)
+# product and sum as the reference does, bit for bit.  Line info leaves the
+# code as it is and lets a disassembly attribute each SASS instruction to
+# its source line (chip_smoke.py's instruction counts).
+EXACT_FLAGS = NVCC_FLAGS + ("--fmad=false", "-lineinfo")
 
 
 def nvcc_path() -> str:
@@ -57,7 +60,10 @@ def build(source: str, flags=EXACT_FLAGS) -> BuiltLibrary:
     """Compile ``csrc/<source>`` with ``flags`` unless a library for this
     exact source and flag set is already built; load it either way."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() +
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = hashlib.sha256(digest.digest() +
                             " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
@@ -94,8 +100,10 @@ def _declare(built: BuiltLibrary, signatures) -> BuiltLibrary:
 
 @functools.lru_cache(maxsize=None)
 def cws_encode_library() -> BuiltLibrary:
-    """The CWS kernels' library (``csrc/cws_encode.cu``): the four encode
-    launchers and the two raw (i*, t*) launchers; key words as c_uint32."""
+    """The CWS kernels' one-thread-per-pair body (``csrc/cws_encode.cu``):
+    the four encode launchers and the two raw (i*, t*) launchers (the
+    regenerated packed and raw ones are the split body's yardstick); key
+    words as c_uint32."""
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     return _declare(build("cws_encode.cu"), {
         "cws_encode_launch": (p, p, p, p, i, i, i, i, i, p, p),
@@ -104,6 +112,19 @@ def cws_encode_library() -> BuiltLibrary:
         "cws_encode_rng_packed_launch": (p, u, u, i, i, i, i, i, p, i, p),
         "cws_hash_launch": (p, p, p, p, i, i, i, p, p, p),
         "cws_hash_rng_launch": (p, u, u, i, i, i, p, p, p),
+    })
+
+
+@functools.lru_cache(maxsize=None)
+def cws_regen_split_library() -> BuiltLibrary:
+    """The regenerated-parameter CWS body with D split across a cluster
+    (``csrc/cws_regen_split.cu``): rows 6 (raw) and 3 (packed), each taking
+    its plan's rows per thread, row warps and splits as ints."""
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    return _declare(build("cws_regen_split.cu"), {
+        "cws_regen_split_hash_launch": (p, u, u, i, i, i, i, i, i, p, p, p),
+        "cws_regen_split_packed_launch": (p, u, u, i, i, i, i, i, i, i, i,
+                                          p, i, p),
     })
 
 
