@@ -15,9 +15,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 compiler's per-kernel registers, shared memory and spills;
                 then count the two CWS bodies' SASS instructions
                 (``cuobjdump -xelf`` + ``nvdisasm -gi`` on the built
-                libraries): per nonzero (row, d, hash) step and per
-                regenerated (d, hash), the design floors of the times
-                phase ("not measured" where the disassembly fails);
+                libraries): per nonzero (row, d, hash) step, per
+                regenerated (d, hash) and per stored (d, hash) loaded, the
+                design floors of the times phase ("not measured" where the
+                disassembly fails);
   3. parity   - each of the six CWS kernels against its plain PyTorch
                 version on the card, exactly (integer outputs): the four
                 encodes at the serving shapes, at ragged shapes with
@@ -26,11 +27,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 raw (i*, t*) hashes at the serving shapes, ragged with
                 all-zero rows, the estimator's (2, 2000, 1024), a row
                 pushing t* to the +-2^30 clip, and 512 x 65,536 x 1024;
-                rows 6 and 3 (on the split body) also at n in {2, 3, 17},
-                D = 1,000, k = 1,000, D = 65,536 at two rows, 1,024 rows
-                and D too short to split further, each with an all-zero
-                row, asserting that the plans covered S in {1, 2, 4, 8},
-                and on the pair body at 512 x 256 x 1024;
+                rows 1, 2, 3 and 6 (on the split body) also at n in {2,
+                3, 17}, D = 1,000, k = 1,000, D = 65,536 at two rows, 1,024
+                rows and D too short to split further (and the encodes at
+                2 x 2,000 x 1,024), each with an all-zero row, asserting
+                that the plans covered S in {1, 2, 4, 8} and that row 2's
+                stored tiles took both copy widths (16 bytes where
+                k % 4 == 0, 4 at k = 70), and on the pair body at 512 x 256
+                x 1024;
                 the min-sum kernel (``min_sum``, ``minmax_gram``) at
                 ragged, block-edge, suite and long-D shapes within the
                 bound its fp32 sums allow; the flash-attention kernel in
@@ -55,8 +59,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the features of every served batch are held exactly, and
                 served logits within a tolerance, against offline
                 ``pipe.features(x)`` and ``bag_logits`` of them; by body,
-                every row-3 launch (regen+packed) ran on the split body
-                and every other encode on the pair body;
+                every row-1, 2 and 3 launch (regen, stored, regen+packed)
+                ran on the split body and every row-4 launch
+                (stored+packed) on the pair body;
   5. kernel machine - Table 1 on the "template" suite at full size (1,200
                 train / 800 test rows, D = 256, 6 classes): the four
                 Grams through ``GRAM_FNS`` and ``best_accuracy_over_C``
@@ -83,7 +88,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 wgmma body (the fp32 check all on the SIMT body); the same
                 prefill through the plain attention, within a stated
                 tolerance; the CWS head on the pooled hidden state
-                (``cws_encode``), its codes equal to the CPU path's;
+                (``cws_encode``, on the split body), its codes equal to
+                the CPU path's;
   8. seq-parallel - gemma3_12b at full width cut to 6 layers, its
                 sequence sharded over four ranks of the ``model`` axis
                 (``torch.multiprocessing``; on one card the ranks share it
@@ -100,10 +106,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   9. times    - each kernel and its plain version timed with CUDA events
                 (rows 8 and 9: the wgmma and the SIMT body on the same
                 inputs, in turns, the wgmma body required to be faster;
-                rows 6 and 3: the split and the pair body on the same
-                inputs, in turns, each beside its design floor from the
-                SASS counts, at (512, 256, 1024), (512, 65,536, 1024) and,
-                for row 6, the estimator's (2, 2,000, 1,024)),
+                rows 1, 2, 3 and 6: the split and the pair body on the
+                same inputs, in turns, each beside its design floor from
+                the SASS counts, at (512, 256, 1024), (512, 65,536, 1024)
+                and, for row 6, the estimator's (2, 2,000, 1,024); the
+                split body required to be faster for rows 1 and 2 at
+                (512, 256, 1024); row 2 also on its stored plan and on the
+                regenerated-parameter plan, in turns, at n in {12, 17, 32,
+                64, 128, 256}, the stored plan required to be faster at the
+                buckets 32 and 128),
                 beside the least time the card could take for the same
                 work and a PyTorch call as yardstick where one exists
                 (``torch.cdist(p=1)`` for the Gram,
@@ -181,9 +192,18 @@ KERNELS = {
 ENCODES = [k for k, v in KERNELS.items() if v[2] != "raw"]
 RAW = [k for k, v in KERNELS.items() if v[2] == "raw"]
 SOURCE = "src/repro_torch/csrc/cws_encode.cu"
-# rows 6 and 3 run on the split body; the pair body is their yardstick
-CWS_SOURCES = {"split": "src/repro_torch/csrc/cws_regen_split.cu",
+# rows 1, 2, 3 and 6 run on the split body; the pair body is their
+# yardstick and runs rows 4 and 5
+CWS_SOURCES = {"split": "src/repro_torch/csrc/cws_split.cu",
                "pair": SOURCE}
+EMITS = ("index", "packed", "raw")   # the bodies' Emit template argument
+# the split body must beat the pair body for these rows at (512, 256, 1024)
+SPLIT_FASTER = ("cws_encode_rng", "cws_encode")
+# rows at which row 2 is timed on its stored plan and on the regenerated-
+# parameter plan (D = 256, k = 1024): the buckets below 512, where the
+# plans differ, and rows between them; at the buckets the stored plan
+# must be the faster
+STORED_PLAN_ROWS = (12, 17, 32, 64, 128, 256)
 PAIR_ROWS = 16            # rows a pair-body block holds (cws_encode.cu:BN)
 # Parity shapes (n, D, k) the split body adds: n in {2, 3, 17}, a D that
 # no S x 64 divides (1,000 at S = 8), k = 1,000 (not a multiple of the
@@ -201,8 +221,15 @@ SASS_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]*?)\s*;")
 SASS_LOC = re.compile(r'(?:File|inlined at) "([^"]+)", line (\d+)')
 SASS_FUNC = re.compile(r"^\.text\.(\S+):$")
 SASS_MARK = re.compile(r"//\s*\[sass:\s*(/?)(\w+)\]")
-SASS_ARGS = re.compile(r"kernelIL[ib](\d+)EL[ib](\d+)EL[ib](\d+)EE")
+# the template arguments: pair <Regen, Emit, TrackT>, split <R, Emit,
+# TrackT, Stored>
+SASS_ARGS = re.compile(
+    r"kernelIL[ib](\d+)EL[ib](\d+)EL[ib](\d+)E(?:L[ib](\d+)E)?E")
 ROTATES_PER_REGEN = 60    # three threefry-2x32 of 20 rotations each
+# hashes of one stored parameter that one load instruction of the
+# ``load`` region brings in: the split body's 16-byte copies (the 4-byte
+# path, k % 4 != 0, is not counted), the pair body's scalar loads
+LOAD_HASHES = {"split": 4, "pair": 1}
 GRAM = ("min_sum", "src/repro/kernels/minmax_gram.py:66",
         "src/repro_torch/csrc/minmax_gram.cu")
 # rows 8 and 9: (name, replaces, the bf16 body's source); both bodies'
@@ -376,25 +403,27 @@ class KernelCase:
     def floor_ms(self, peak_ops, counts, body):
         """A body's design floor: its SASS instructions for this run's
         work at one instruction per lane per cycle: a fast-path step per
-        nonzero (row, d, hash), a regeneration per (d, hash) per row tile
-        it regenerates in (zero entries, log x staging and the emit not
+        nonzero (row, d, hash), and per (d, hash) per row tile a
+        regeneration or (stored parameters) a load of its three
+        parameters (zero entries, log x staging and the emit not
         counted); None without counts."""
         from repro_torch.kernels.cws_hash import sm_count, split_plan
         n, d = self.x.shape
-        emit = 2 if self.emit == "raw" else 1
         track_t = self.emit == "raw" or self.b_t > 0
+        stored = not self.regen
         if body == "split":
-            plan = split_plan(n, d, self.k, sm_count(0))
-            c = sass_lookup(counts, body, emit, track_t,
+            plan = split_plan(n, d, self.k, sm_count(0), stored=stored)
+            c = sass_lookup(counts, body, self.emit, track_t, stored,
                             plan.rows_per_thread)
             tiles = plan.grid[1]
         else:
-            c = sass_lookup(counts, body, emit, track_t)
+            c = sass_lookup(counts, body, self.emit, track_t, stored)
             tiles = -(-n // PAIR_ROWS)
-        if c is None or c["regen"] is None:
+        per_tile = None if c is None else c["load" if stored else "regen"]
+        if per_tile is None:
             return None
         ops = (int((self.x > 0).sum()) * self.k * c["step"]
-               + d * self.k * tiles * c["regen"])
+               + d * self.k * tiles * per_tile)
         return ops / peak_ops * 1e3
 
 
@@ -437,9 +466,10 @@ def sass_counts(body, lib_path):
     the division's fast path (the ``inner`` region over its MUFU.RCP count,
     less the slow-path call sequence the fast path branches over; for the
     split body plus its share of the per-column loads and loop, the
-    ``column`` region outside ``inner`` over the rows a thread holds) and
-    of one regenerated (d, hash) (the ``regen`` region over its rotations
-    / 60)."""
+    ``column`` region outside ``inner`` over the rows a thread holds), of
+    one regenerated (d, hash) (the ``regen`` region over its rotations
+    / 60) and of one stored (d, hash) loaded (the ``load`` region over its
+    global loads / 3, per ``LOAD_HASHES`` hashes a load)."""
     source = CWS_SOURCES[body]
     spans = sass_regions(source)
     name = pathlib.Path(source).name
@@ -448,8 +478,8 @@ def sass_counts(body, lib_path):
         m = SASS_FUNC.match(line.strip())
         if m:
             func, locs = m.group(1), set()
-            kernels[func] = {r: {"n": 0, "rcp": 0, "rot": 0, "slow": 0,
-                                 "in_slow": False, "fchk": False}
+            kernels[func] = {r: {"n": 0, "rcp": 0, "rot": 0, "ldg": 0,
+                                 "slow": 0, "in_slow": False, "fchk": False}
                              for r in spans}
             continue
         if "//##" in line:
@@ -472,6 +502,7 @@ def sass_counts(body, lib_path):
             c["n"] += 1
             c["rcp"] += op.startswith("MUFU.RCP")
             c["rot"] += op.startswith("SHF.L.W")
+            c["ldg"] += op.startswith("LDG")   # LDG and LDGSTS (cp.async)
             if op.startswith("FCHK"):
                 c["fchk"] = True
             elif c["fchk"] and op.startswith("BRA"):   # fast path jumps on
@@ -486,27 +517,32 @@ def sass_counts(body, lib_path):
         inner, regen = regions.get("inner"), regions.get("regen")
         if not args or not inner or not inner["rcp"]:
             continue
-        a, emit, track_t = (int(v) for v in args.groups())
-        rows = a if body == "split" else 1   # pair: a is the Regen flag
+        a, emit, track_t, flag = (int(v or 0) for v in args.groups())
+        # pair: a is the Regen flag; split: a rows a thread, flag Stored
+        rows = a if body == "split" else 1
+        stored = bool(flag) if body == "split" else not a
         step = (inner["n"] - inner["slow"]) / inner["rcp"]
         column = regions.get("column")
         if column:   # the loop over columns, unrolled rcp / rows times
             step += (column["n"] - inner["n"]) / (inner["rcp"] / rows) / rows
-        entry = {"body": body, "emit": emit, "track_t": bool(track_t),
-                 "rows": rows, "regen_mode": body == "split" or bool(a),
+        entry = {"body": body, "emit": EMITS[emit], "track_t": bool(track_t),
+                 "rows": rows, "stored": stored,
                  "step_static": inner["n"] / inner["rcp"], "step": step,
-                 "regen": None}
+                 "regen": None, "load": None}
         if regen and regen["rot"]:
             entry["regen"] = regen["n"] / max(
                 1, round(regen["rot"] / ROTATES_PER_REGEN))
+        load = regions.get("load")
+        if load and load["ldg"]:
+            entry["load"] = load["n"] / (load["ldg"] / 3) / LOAD_HASHES[body]
         counts.append(entry)
     return counts
 
 
-def sass_lookup(counts, body, emit, track_t, rows=1):
+def sass_lookup(counts, body, emit, track_t, stored, rows=1):
     """The counted instantiation a launch of ``body`` ran, or None."""
     for c in counts or ():
-        if (c["body"] == body and c["emit"] == emit and c["regen_mode"]
+        if (c["body"] == body and c["emit"] == emit and c["stored"] == stored
                 and c["track_t"] == track_t and c["rows"] == rows):
             return c
     return None
@@ -552,7 +588,8 @@ def clip_case(rng, dev):
 def phase_parity(dev, results):
     from repro_torch.kernels.cws_hash import (BODY_LAUNCHES, LAUNCHES,
                                               SPLIT_KERNELS, SPLIT_SIZES,
-                                              sm_count, split_plan)
+                                              sm_count, split_plan,
+                                              stored_copy_bytes)
     rng = np.random.default_rng(11)
     key = tuple(int(w) for w in rng.integers(0, 2 ** 32, 2, dtype=np.uint64))
 
@@ -566,8 +603,13 @@ def phase_parity(dev, results):
         case = KernelCase(name, x, b_i, b_t, params=params, key=key, k=k)
         bad, err = case.compare(**({} if body is None else {"body": body}))
         if name in SPLIT_KERNELS and body is None:
-            s = split_plan(x.shape[0], x.shape[1], k, sm_count(0)).splits
+            s = split_plan(x.shape[0], x.shape[1], k, sm_count(0),
+                           stored=params is not None).splits
             results[name]["splits"][s] = results[name]["splits"].get(s, 0) + 1
+            if params is not None:   # row 2: the stored tiles' copy width
+                w = stored_copy_bytes(params)
+                results[name]["copies"][w] = (
+                    results[name]["copies"].get(w, 0) + 1)
         r = results[name]
         r["checked"] += 1
         r["mismatches"] += sum(bad)
@@ -604,6 +646,9 @@ def phase_parity(dev, results):
                      f"2x{SUPPORT_CAP}x{NUM_HASHES} (row 1 all zero), S "
                      f"used {dict(sorted(results[name]['splits'].items()))}"
                      f"; the pair body at 512x{DIM}x{NUM_HASHES}")
+            if "copies" in results[name]:
+                extra += (f"; stored tiles' copy bytes used "
+                          f"{dict(sorted(results[name]['copies'].items()))}")
         r = results[name]
         print(f"parity {name}: {r['checked']} shapes (serving n in "
               f"{BUCKETS} at D={DIM} k={NUM_HASHES}; ragged 37x300x70 with "
@@ -653,6 +698,12 @@ def phase_parity(dev, results):
         if missing:
             raise AssertionError(f"{name}: the split body's parity cases "
                                  f"never ran S in {sorted(missing)}")
+        if "copies" in results[name]:
+            missing = {4, 16} - set(results[name]["copies"])
+            if missing:
+                raise AssertionError(f"{name}: the split body's parity cases "
+                                     f"never copied stored tiles "
+                                     f"{sorted(missing)} bytes at a time")
     print(f"parity: launches by CWS body {dict(BODY_LAUNCHES)}")
 
 
@@ -819,13 +870,14 @@ def phase_slice(card, results):
     launches, bodies = dict(K.LAUNCHES), dict(K.BODY_LAUNCHES)
     for name in ENCODES:
         results[name]["launches"] = launches[name]
-    # by body: every row-3 launch on the split body, the rest on the pair
+    # by body: every row-1, 2 and 3 launch on the split body, row 4's on
+    # the pair body
     split = sum(launches[k] for k in K.SPLIT_KERNELS)
     if bodies != {"split": split, "pair": sum(launches.values()) - split}:
         raise AssertionError(f"slice: launches by body {bodies} for kernel "
                              f"launches {launches}")
-    print(f"slice: launches by CWS body {bodies} (split: "
-          f"cws_encode_rng_packed; pair: the other encodes)")
+    print(f"slice: launches by CWS body {bodies} (split: cws_encode_rng, "
+          f"cws_encode, cws_encode_rng_packed; pair: cws_encode_packed)")
 
     for mode, (kernel, xs, outs, wall, stats, batches) in served.items():
         if launches[kernel] == 0:
@@ -1547,8 +1599,12 @@ def phase_lm(dev, card, results):
     cws_hash.reset_launches()
     head_logits = cws_head_logits(head, feats, b_i=cfg.cws_b_i)
     cws_launches = cws_hash.LAUNCHES["cws_encode"]
+    cws_bodies = dict(cws_hash.BODY_LAUNCHES)
     if cws_launches == 0:
         raise AssertionError("cws head: cws_encode was never launched")
+    if cws_bodies != {"split": cws_launches, "pair": 0}:
+        raise AssertionError(f"cws head: launches by CWS body {cws_bodies},"
+                             f" not all {cws_launches} on the split body")
     idx = head_pipeline(head, b_i=cfg.cws_b_i).features(torch.relu(feats))
     torch.cuda.synchronize()
     cpu_head = head._replace(
@@ -1573,7 +1629,8 @@ def phase_lm(dev, card, results):
             FLASH[0]], "body_launches": bodies,
         "flash_vs_plain_max_abs": err, "max_logit": scale,
         "greedy_agree": agree, "fp32": fp32, "cws_encode_launches":
-        cws_launches, "peak_gb": peak_gb, "masters_gb": masters_gb,
+        cws_launches, "cws_body_launches": cws_bodies, "peak_gb": peak_gb,
+        "masters_gb": masters_gb,
         "init_s": init_s, "first_ids": gen[0].tolist(),
         "breakdown": breakdown}
     print(f"slice lm [{card}]: {LM_ARCH} full width and depth, attn_impl "
@@ -1586,7 +1643,8 @@ def phase_lm(dev, card, results):
           f"{err:.4g} ({err / scale:.3g} of max |logit| {scale:.4g}; limit "
           f"{LM_BF16_TOL:g}), greedy agree {agree:.3f}; CWS head (k = "
           f"{cfg.cws_k}, b_i = {cfg.cws_b_i}, D = {cfg.d_model}) cws_encode "
-          f"launches {cws_launches}, codes equal the CPU path's; peak "
+          f"launches {cws_launches} (by body {cws_bodies}), codes equal the "
+          f"CPU path's; peak "
           f"memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated); "
           f"first ids {gen[0][:8].tolist()}")
     del params, out, plain_logits, flash_logits
@@ -2014,9 +2072,9 @@ def phase_step_times(dev, results, mhz, sms):
 
 
 def time_cws_bodies(case, reps):
-    """Rows 6 and 3 on the split and the pair body on the same inputs, in
-    turns (split, pair, pair, split): ({body: mean ms}, {body: [the two
-    readings]})."""
+    """A split-body kernel (rows 1, 2, 3 and 6) on the split and the pair
+    body on the same inputs, in turns (split, pair, pair, split): ({body:
+    mean ms}, {body: [the two readings]})."""
     readings = {"split": [], "pair": []}
     for body in ("split", "pair", "pair", "split"):
         readings[body].append(time_ms(lambda: case.run(case.cuda, body=body),
@@ -2025,15 +2083,16 @@ def time_cws_bodies(case, reps):
 
 
 def cws_times(case, reps, plain_reps, peak_ops, counts):
-    """One CWS kernel's times at one shape: the kernel (for rows 6 and 3
-    the split body, with the pair body beside it and each body's design
-    floor), the plain version, the bound."""
+    """One CWS kernel's times at one shape: the kernel (for rows 1, 2, 3
+    and 6 the split body, with the pair body beside it and each body's
+    design floor), the plain version, the bound."""
     from repro_torch.kernels.cws_hash import (SPLIT_KERNELS, sm_count,
                                               split_plan)
     t = {"shape": list(case.x.shape) + [case.k], "library_ms": None}
     if case.name in SPLIT_KERNELS:
         ms, readings = time_cws_bodies(case, reps)
-        plan = split_plan(*case.x.shape, case.k, sm_count(0))
+        plan = split_plan(*case.x.shape, case.k, sm_count(0),
+                          stored=not case.regen)
         t.update(ms=ms["split"], pair_ms=ms["pair"], readings=readings,
                  floor_ms=case.floor_ms(peak_ops, counts, "split"),
                  pair_floor_ms=case.floor_ms(peak_ops, counts, "pair"),
@@ -2067,6 +2126,45 @@ def cws_time_line(name, t, b=None):
             f"(no PyTorch op computes CWS)")
 
 
+def time_stored_plans(dev, results):
+    """Row 2 on ``split_plan(..., stored=True)`` and on the plan the
+    regenerated-parameter rows take, in turns (stored, regen, regen,
+    stored), at ``STORED_PLAN_ROWS``; both plans' indices must be equal."""
+    from repro_torch.kernels import cws_hash as K
+    rng = np.random.default_rng(6)
+    times = []
+    for n in STORED_PLAN_ROWS:
+        x = torch.from_numpy(sparse_rows(rng, n, DIM)).to(dev)
+        params = stored_params(rng, DIM, NUM_HASHES, dev)
+        plans = {w: K.split_plan(n, DIM, NUM_HASHES, K.sm_count(0),
+                                 stored=w == "stored")
+                 for w in ("stored", "regen")}
+        run = {w: (lambda p=p: K.cws_encode_cuda(x, params, b_i=B_I, plan=p))
+               for w, p in plans.items()}
+        if not torch.equal(run["stored"](), run["regen"]()):
+            raise AssertionError(f"times: cws_encode at n = {n}: the two "
+                                 f"plans' indices differ")
+        readings = {"stored": [], "regen": []}
+        for w in ("stored", "regen", "regen", "stored"):
+            readings[w].append(time_ms(run[w], reps=50))
+        ms = {w: sum(v) / len(v) for w, v in readings.items()}
+        tiles = {w: [p.rows_per_thread, p.row_warps, p.splits, p.blocks]
+                 for w, p in plans.items()}
+        times.append({"shape": [n, DIM, NUM_HASHES], "ms": ms["stored"],
+                      "regen_plan_ms": ms["regen"], "readings": readings,
+                      "plans": tiles})
+        print(f"time cws_encode plans ({n}, {DIM}, {NUM_HASHES}) b={B_I}: "
+              f"stored plan {ms['stored']:.4f} ms, regen plan "
+              f"{ms['regen']:.4f} ms ([rows a thread, row warps, S, "
+              f"blocks] {tiles}; in turns: {readings})")
+        if (n in BUCKETS and plans["stored"] != plans["regen"]
+                and ms["stored"] >= ms["regen"]):
+            raise AssertionError(f"times: cws_encode at bucket n = {n}: the "
+                                 f"stored plan is not faster than the regen "
+                                 f"plan")
+    results["cws_encode"]["plan_times"] = times
+
+
 def phase_times(dev, results, peak_ops, counts):
     rng = np.random.default_rng(5)
     key = (0x2F0A1C3B, 0x9E3779B9)
@@ -2087,6 +2185,13 @@ def phase_times(dev, results, peak_ops, counts):
                     r[key_ + tag] = t[key_]
             r.setdefault("times", []).append(t)
             print(cws_time_line(name, t, b_i))
+            if name in SPLIT_FASTER and not wide and t["ms"] >= t["pair_ms"]:
+                raise AssertionError(
+                    f"times: {name} at (512, {d}, {NUM_HASHES}): the split "
+                    f"body ({t['ms']:.4f} ms) is not faster than the pair "
+                    f"body ({t['pair_ms']:.4f} ms)")
+
+    time_stored_plans(dev, results)
 
     # the raw hashes: serving and wide shapes, and the estimator's pair
     est = torch.from_numpy(compacted_pair("CREDIT-CARD", N_DOCS)).to(dev)
@@ -2134,11 +2239,11 @@ def build_all():
     """Build every kernel library at once, one nvcc per source; return
     the two CWS bodies' libraries by body."""
     from repro_torch.kernels.build import (cws_encode_library,
-                                           cws_regen_split_library,
+                                           cws_split_library,
                                            flash_attention_library,
                                            flash_attention_wgmma_library,
                                            minmax_gram_library)
-    libs = (cws_encode_library, cws_regen_split_library, minmax_gram_library,
+    libs = (cws_encode_library, cws_split_library, minmax_gram_library,
             flash_attention_library, flash_attention_wgmma_library)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
@@ -2171,17 +2276,17 @@ def count_instructions(cws_libs):
                   f"marked region found in the disassembly)")
             return None
         for c in got:
-            if not c["regen_mode"]:
-                continue
-            regen = ("not found" if c["regen"] is None
-                     else f"{c['regen']:.0f}")
-            emit = ("index", "packed", "raw")[c["emit"]]
-            print(f"sass {body} body ({CWS_SOURCES[body]}): emit {emit}, "
-                  f"t* tracked {c['track_t']}, {c['rows']} rows a thread: "
-                  f"{c['step']:.2f} instructions a nonzero (row, d, hash) "
-                  f"step on the division's fast path ({c['step_static']:.1f} "
-                  f"static in the step's region a division), {regen} a "
-                  f"regenerated (d, hash)")
+            per, what = ((c["load"], "a stored (d, hash) loaded")
+                         if c["stored"] else
+                         (c["regen"], "a regenerated (d, hash)"))
+            per = "not found" if per is None else f"{per:.2f}"
+            print(f"sass {body} body ({CWS_SOURCES[body]}): "
+                  f"{'stored' if c['stored'] else 'regen'}, emit "
+                  f"{c['emit']}, t* tracked {c['track_t']}, {c['rows']} "
+                  f"rows a thread: {c['step']:.2f} instructions a nonzero "
+                  f"(row, d, hash) step on the division's fast path "
+                  f"({c['step_static']:.1f} static in the step's region a "
+                  f"division), {per} {what}")
         counts += got
     return counts
 
@@ -2224,6 +2329,7 @@ def main():
         results[k].update(mismatches_i=0, mismatches_t=0, times=[])
     for k in SPLIT_KERNELS:
         results[k]["splits"] = {}
+    results["cws_encode"]["copies"] = {}
     results[GRAM[0]] = {"checked": 0, "mismatches": 0, "max_abs_err": 0.0,
                         "launches": 0, "times": []}
     results[FLASH[0]] = {"checked": 0, "mismatches": 0, "max_abs_err": 0.0,
@@ -2255,6 +2361,9 @@ def main():
                          floor_ms=primary["floor_ms"],
                          pair_floor_ms=primary["pair_floor_ms"],
                          parity_splits=r["splits"])
+        if "copies" in r:
+            entry.update(parity_copy_bytes=r["copies"],
+                         plan_times=r["plan_times"])
         return entry
 
     kernels = []

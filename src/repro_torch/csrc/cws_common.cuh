@@ -1,5 +1,5 @@
 // Device arithmetic shared by the two CWS bodies (cws_encode.cu and
-// cws_regen_split.cu): the counter-based parameter regeneration, the
+// cws_split.cu): the counter-based parameter regeneration, the
 // per-(row, d, hash) step, the t* clip and the b-bit code.
 //
 // Bit-exactness with the reference (integers must match exactly): build

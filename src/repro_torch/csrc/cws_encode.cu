@@ -1,17 +1,17 @@
-// CWS kernels for Hopper (sm_90a): x (n, D) nonneg -> embedding-bag
-// indices (n, k) int32, b-bit codes packed into (n, ceil(k*b/32)) uint32
-// words, or the raw samples (i*, t*) as two (n, k) int32 arrays.
+// CWS kernels for Hopper (sm_90a), the one-thread-per-pair body: x (n, D)
+// nonneg -> embedding-bag indices (n, k) int32, b-bit codes packed into
+// (n, ceil(k*b/32)) uint32 words, or the raw samples (i*, t*) as two (n, k)
+// int32 arrays.
 //
-// Replaces four Pallas TPU kernels of src/repro/kernels/cws_hash.py:
-//   cws_encode_launch             <- cws_encode_pallas            (stored params)
-//   cws_encode_rng_launch         <- cws_encode_rng_pallas        (regenerated params)
+// Replaces two Pallas TPU kernels of src/repro/kernels/cws_hash.py:
 //   cws_encode_packed_launch      <- cws_encode_packed_pallas     (stored, packed emit)
 //   cws_hash_launch               <- cws_hash_pallas / _cws_kernel (stored, raw emit)
-// The regenerated packed and raw kernels (cws_encode_rng_packed_pallas,
-// cws_hash_rng_pallas) run on the row-tiled, cluster-split body of
-// cws_regen_split.cu; this body's instantiations for them stay reachable
-// through cws_encode_rng_packed_launch and cws_hash_rng_launch as the
-// yardstick that body is timed against.
+// The other four CWS kernels (cws_encode_rng_pallas, cws_encode_pallas,
+// cws_encode_rng_packed_pallas, cws_hash_rng_pallas) run on the row-tiled,
+// cluster-split body of cws_split.cu; this body's instantiations for them
+// stay reachable through cws_encode_rng_launch, cws_encode_launch,
+// cws_encode_rng_packed_launch and cws_hash_rng_launch as the yardstick
+// that body is timed against.
 // One device body, templated on <Regen, Emit, TrackT>, plays the part of
 // the TPU kernels' shared _accum_loop and their emit steps.
 //
@@ -93,10 +93,12 @@ cws_encode_kernel(const float* __restrict__ x, const float* __restrict__ r_g,
                            static_cast<uint32_t>(gh), r, lc, be);
           // [sass: /regen]
         } else {
+          // [sass: load]
           const size_t o = static_cast<size_t>(gd) * k + gh;
           r = r_g[o];
           lc = lc_g[o];
           be = be_g[o];
+          // [sass: /load]
         }
       }
       s_r[dd][hh] = r;
@@ -181,7 +183,8 @@ cudaError_t launch(const float* x, const float* r, const float* lc,
 
 extern "C" {
 
-// Row 2 of the TPU kernel table: stored params -> (n, k) int32 indices.
+// Row 2's yardstick (the row runs on cws_split.cu): stored params -> (n, k)
+// int32 indices.
 int cws_encode_launch(const float* x, const float* r, const float* lc,
                       const float* be, int n, int d, int k, int b_i, int b_t,
                       int32_t* out, cudaStream_t stream) {
@@ -189,7 +192,8 @@ int cws_encode_launch(const float* x, const float* r, const float* lc,
                                    out, nullptr, k, stream);
 }
 
-// Row 1: regenerated params -> (n, k) int32 indices.
+// Row 1's yardstick (the row runs on cws_split.cu): regenerated params ->
+// (n, k) int32 indices.
 int cws_encode_rng_launch(const float* x, uint32_t k0, uint32_t k1, int n,
                           int d, int k, int b_i, int b_t, int32_t* out,
                           cudaStream_t stream) {
@@ -206,7 +210,7 @@ int cws_encode_packed_launch(const float* x, const float* r, const float* lc,
                                     out, nullptr, words, stream);
 }
 
-// Row 3's yardstick (the row runs on cws_regen_split.cu): regenerated
+// Row 3's yardstick (the row runs on cws_split.cu): regenerated
 // params -> (n, words) packed uint32.
 int cws_encode_rng_packed_launch(const float* x, uint32_t k0, uint32_t k1,
                                  int n, int d, int k, int b_i, int b_t,
@@ -225,7 +229,7 @@ int cws_hash_launch(const float* x, const float* r, const float* lc,
                                  t_out, k, stream);
 }
 
-// Row 6's yardstick (the row runs on cws_regen_split.cu): regenerated
+// Row 6's yardstick (the row runs on cws_split.cu): regenerated
 // params -> raw i* and t*, each (n, k) int32.
 int cws_hash_rng_launch(const float* x, uint32_t k0, uint32_t k1, int n,
                         int d, int k, int32_t* i_out, int32_t* t_out,

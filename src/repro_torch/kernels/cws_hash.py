@@ -14,13 +14,16 @@ estimator path) this module holds
   * a launch counter in ``LAUNCHES``, bumped once per kernel launch, and
     one by device body in ``BODY_LAUNCHES``.
 
-Two device bodies serve them.  The regenerated raw hash (row 6) and the
-regenerated packed encode (row 3) run on ``csrc/cws_regen_split.cu``
+Two device bodies serve them.  The two index encodes (rows 1 and 2,
+regenerated and stored parameters), the regenerated packed encode (row 3)
+and the regenerated raw hash (row 6) run on ``csrc/cws_split.cu``
 ("split": rows tiled in registers, D split across a thread-block
-cluster, on the plan ``split_plan`` makes); the other four on
-``csrc/cws_encode.cu`` ("pair": one thread per (row, hash)).  Rows 6 and 3
-reach the pair body only when a caller asks for it (``body="pair"``, the
-timing comparison of the two bodies).
+cluster, on the plan ``split_plan`` makes; stored parameter tiles copied
+in with ``cp.async``, 16 or 4 bytes a copy as ``stored_copy_bytes``
+says); the stored packed encode and raw hash (rows 4 and 5) on
+``csrc/cws_encode.cu`` ("pair": one thread per (row, hash)).  Rows 1, 2,
+3 and 6 reach the pair body only when a caller asks for it
+(``body="pair"``, the timing comparison of the two bodies).
 
 ``repro_torch.kernels.ops`` chooses between kernel and plain version by the
 tensor's device; a launcher never falls back to the plain version or to
@@ -38,8 +41,7 @@ from repro_torch.core.hashing import (check_packed_bits, encode,
                                       feature_indices, pack_codes,
                                       packed_width)
 from repro_torch.core.regen import key_words
-from repro_torch.kernels.build import (cws_encode_library,
-                                      cws_regen_split_library)
+from repro_torch.kernels.build import cws_encode_library, cws_split_library
 
 # Launches per kernel, and per device body, since the last
 # reset_launches(): how a run shows that it really went through the kernels.
@@ -47,7 +49,8 @@ LAUNCHES = {"cws_encode": 0, "cws_encode_rng": 0, "cws_encode_packed": 0,
             "cws_encode_rng_packed": 0, "cws_hash": 0, "cws_hash_rng": 0}
 BODY_LAUNCHES = {"split": 0, "pair": 0}
 # the kernels the split body serves
-SPLIT_KERNELS = ("cws_hash_rng", "cws_encode_rng_packed")
+SPLIT_KERNELS = ("cws_encode_rng", "cws_encode", "cws_encode_rng_packed",
+                 "cws_hash_rng")
 
 
 def reset_launches() -> None:
@@ -60,13 +63,16 @@ def reset_launches() -> None:
 # the split body's plan
 # ---------------------------------------------------------------------------
 
-# The split body's constants (csrc/cws_regen_split.cu)
+# The split body's constants (csrc/cws_split.cu)
 SPLIT_HASH_TILE = 32                   # hashes per block, one per lane
 SPLIT_WARPS = 16                       # warps per block
 SPLIT_CHUNK = 64                       # dimensions per shared-memory chunk
 SPLIT_ROWS_PER_THREAD = (1, 2, 4, 8)   # its instantiations
 SPLIT_SIZES = (1, 2, 4, 8)             # CTAs per cluster
 SPLIT_BLOCKS_PER_SM = 2                # resident blocks an SM holds
+# the least rows a stored-parameter block is cut to: below it the tiles'
+# loads and the block's fixed costs outweigh its rows' steps
+SPLIT_STORED_MIN_ROWS = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +115,20 @@ class SplitPlan:
                 self.d * (rank + 1) // self.splits)
 
 
-def split_plan(n: int, d: int, k: int, sms: int) -> SplitPlan:
+def _row_tile(rows: int):
+    """(rows per thread, row warps): the fewest row warps, then rows per
+    thread, that cover ``rows`` up to 16 x 8 = 128 rows a block."""
+    row_warps, top = 1, SPLIT_ROWS_PER_THREAD[-1]
+    while row_warps < SPLIT_WARPS and row_warps * top < rows:
+        row_warps *= 2
+    per_thread = SPLIT_ROWS_PER_THREAD[0]
+    while per_thread < top and row_warps * per_thread < rows:
+        per_thread *= 2
+    return per_thread, row_warps
+
+
+def split_plan(n: int, d: int, k: int, sms: int, *,
+               stored: bool = False) -> SplitPlan:
     """The split body's tiles for x (n, D) and k hashes on a card with
     ``sms`` SMs.  Row warps and rows per thread: the fewest of each, in
     that order, that cover n up to 16 x 8 = 128 rows a block (so at
@@ -118,18 +137,24 @@ def split_plan(n: int, d: int, k: int, sms: int) -> SplitPlan:
     most CTAs a cluster that keep the grid within one wave of
     ``SPLIT_BLOCKS_PER_SM`` blocks per SM, as long as every rank keeps a
     whole chunk of D (a rank with less pays the block's fixed costs, the
-    staging barriers and the combine, for a fraction of a chunk's work)."""
-    row_warps, top = 1, SPLIT_ROWS_PER_THREAD[-1]
-    while row_warps < SPLIT_WARPS and row_warps * top < n:
-        row_warps *= 2
-    rows = SPLIT_ROWS_PER_THREAD[0]
-    while rows < top and row_warps * rows < n:
-        rows *= 2
-    plan = SplitPlan(n, d, k, rows, row_warps, 1)
+    staging barriers and the combine, for a fraction of a chunk's work).
+
+    ``stored`` (parameters loaded, not regenerated: no cost to amortize
+    over a tall row tile): before the split, the row tile halves, down to
+    ``SPLIT_STORED_MIN_ROWS`` rows, while the grid keeps room for two CTAs
+    a cluster within the wave."""
+    plan = SplitPlan(n, d, k, *_row_tile(n), 1)
+    wave = SPLIT_BLOCKS_PER_SM * sms
+    while stored and plan.block_rows > SPLIT_STORED_MIN_ROWS:
+        rows, row_warps = _row_tile(plan.block_rows // 2)
+        half = dataclasses.replace(plan, rows_per_thread=rows,
+                                   row_warps=row_warps)
+        if 2 * half.blocks > wave:
+            break
+        plan = half
     tiles = plan.blocks
     splits = 1
-    while (splits < SPLIT_SIZES[-1]
-           and tiles * 2 * splits <= SPLIT_BLOCKS_PER_SM * sms
+    while (splits < SPLIT_SIZES[-1] and tiles * 2 * splits <= wave
            and d // (2 * splits) >= SPLIT_CHUNK):
         splits *= 2
     return dataclasses.replace(plan, splits=splits)
@@ -251,16 +276,39 @@ def _split_body(body) -> str:
     return body
 
 
-def _plan_args(x: torch.Tensor, k: int):
+def _plan_args(x: torch.Tensor, k: int, *, stored: bool = False,
+               plan: SplitPlan | None = None):
+    """The split body's (rows per thread, row warps, splits) for x and k:
+    ``plan`` if given (it must be a plan for this (n, D, k)), else
+    ``split_plan``'s on x's card."""
     n, d = x.shape
-    index = x.device.index
-    plan = split_plan(n, d, k, sm_count(
-        torch.cuda.current_device() if index is None else index))
+    if plan is None:
+        index = x.device.index
+        plan = split_plan(n, d, k, sm_count(
+            torch.cuda.current_device() if index is None else index),
+            stored=stored)
+    elif (plan.n, plan.d, plan.k) != (n, d, k):
+        raise ValueError(f"plan for (n, D, k) = {(plan.n, plan.d, plan.k)} "
+                         f"given for {(n, d, k)}")
     return plan.rows_per_thread, plan.row_warps, plan.splits
 
 
-def cws_encode_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0):
-    """Stored-parameter encode kernel (replaces ``cws_encode_pallas``)."""
+def stored_copy_bytes(params: CWSParams) -> int:
+    """The width of the split body's copies of stored parameter tiles: 16
+    bytes (four hashes) where k % 4 == 0 and r, log c and beta start on
+    16-byte boundaries, else 4."""
+    aligned = all(getattr(params, name).data_ptr() % 16 == 0
+                  for name in ("r", "log_c", "beta"))
+    return 16 if params.num_hashes % 4 == 0 and aligned else 4
+
+
+def cws_encode_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0,
+                    body: str | None = None, plan: SplitPlan | None = None):
+    """Stored-parameter encode kernel (replaces ``cws_encode_pallas``) on
+    the split body, or on ``body`` when given; on the split body with
+    ``split_plan(..., stored=True)``'s tiles, or ``plan``'s when given (the
+    timing comparison of two plans)."""
+    body = _split_body(body)
     x = _check_x(x)
     _check_params(x, params)
     _check_bits(b_i, b_t, packed=False)
@@ -269,15 +317,24 @@ def cws_encode_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0):
     out = torch.empty((n, k), dtype=torch.int32, device=x.device)
     if n == 0 or k == 0:
         return out
-    return _launch("cws_encode", _lib().cws_encode_launch, out,
-                   x.data_ptr(), params.r.data_ptr(),
-                   params.log_c.data_ptr(), params.beta.data_ptr(),
-                   n, d, k, b_i, b_t, out.data_ptr())
+    ptrs = (x.data_ptr(), params.r.data_ptr(), params.log_c.data_ptr(),
+            params.beta.data_ptr())
+    if body == "pair":
+        return _launch("cws_encode", _lib().cws_encode_launch, out, *ptrs,
+                       n, d, k, b_i, b_t, out.data_ptr())
+    return _launch("cws_encode",
+                   cws_split_library().lib.cws_split_stored_index_launch,
+                   out, *ptrs, n, d, k, b_i, b_t,
+                   *_plan_args(x, k, stored=True, plan=plan),
+                   stored_copy_bytes(params), out.data_ptr(), body=body)
 
 
-def cws_encode_rng_cuda(x, key, num_hashes: int, *, b_i: int, b_t: int = 0):
+def cws_encode_rng_cuda(x, key, num_hashes: int, *, b_i: int, b_t: int = 0,
+                        body: str | None = None):
     """Regenerated-parameter encode kernel (replaces
-    ``cws_encode_rng_pallas``): the only input in device memory is x."""
+    ``cws_encode_rng_pallas``): the only input in device memory is x.  On
+    the split body, or on ``body`` when given."""
+    body = _split_body(body)
     x = _check_x(x)
     _check_bits(b_i, b_t, packed=False)
     k0, k1 = key_words(key)
@@ -285,9 +342,14 @@ def cws_encode_rng_cuda(x, key, num_hashes: int, *, b_i: int, b_t: int = 0):
     out = torch.empty((n, num_hashes), dtype=torch.int32, device=x.device)
     if n == 0 or num_hashes == 0:
         return out
-    return _launch("cws_encode_rng", _lib().cws_encode_rng_launch, out,
+    if body == "pair":
+        return _launch("cws_encode_rng", _lib().cws_encode_rng_launch, out,
+                       x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
+                       out.data_ptr())
+    return _launch("cws_encode_rng",
+                   cws_split_library().lib.cws_split_index_launch, out,
                    x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
-                   out.data_ptr())
+                   *_plan_args(x, num_hashes), out.data_ptr(), body=body)
 
 
 def cws_encode_packed_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0):
@@ -328,7 +390,7 @@ def cws_encode_rng_packed_cuda(x, key, num_hashes: int, *, b_i: int,
                        x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
                        out.data_ptr(), words)
     return _launch("cws_encode_rng_packed",
-                   cws_regen_split_library().lib.cws_regen_split_packed_launch,
+                   cws_split_library().lib.cws_regen_split_packed_launch,
                    out, x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
                    *_plan_args(x, num_hashes), out.data_ptr(), words,
                    body=body)
@@ -370,7 +432,7 @@ def cws_hash_rng_cuda(x, key, num_hashes: int, *, body: str | None = None):
                 t_star.data_ptr())
     else:
         _launch("cws_hash_rng",
-                cws_regen_split_library().lib.cws_regen_split_hash_launch,
+                cws_split_library().lib.cws_regen_split_hash_launch,
                 i_star, x.data_ptr(), k0, k1, n, d, num_hashes,
                 *_plan_args(x, num_hashes), i_star.data_ptr(),
                 t_star.data_ptr(), body=body)

@@ -1,20 +1,24 @@
-"""The split body of the regenerated CWS kernels (rows 6 and 3), on the CPU.
+"""The split body of the CWS kernels (rows 1, 2, 3 and 6), on the CPU.
 
-``csrc/cws_regen_split.cu`` runs only on the card, where ``chip_smoke.py``
+``csrc/cws_split.cu`` runs only on the card, where ``chip_smoke.py``
 holds it bit for bit against the plain versions.  What it decides in Python
 or in its reduction is checked here:
 
   (a) ``split_plan``'s properties: S in {1, 2, 4, 8}, no empty D range,
       128 rows a block where n >= 128, about two blocks per SM (more than
       half a wave of them, never more than one wave) wherever D allows it;
+      and the stored-parameter plan's shorter row tiles;
   (b) a plain-PyTorch emulation of the body's reduction (partial argmins
       over each cluster rank's contiguous D range and, inside a rank, over
       each d warp's dimensions of every 64-wide chunk; combined in warp and
-      then rank order with the body's rule; then the raw and packed emits)
+      then rank order with the body's rule; then the raw, packed and index
+      emits), on regenerated parameters and on stored ones (the JAX
+      package's ``make_cws_params`` through ``repro_torch.interop``),
       against the port's plain versions, bit for bit, and against the JAX
-      package's ``cws_hash_rng_pallas`` / ``cws_encode_rng_packed_pallas``
-      in interpret mode;
-  (c) the combine rule on hand-built partials.
+      package's ``cws_hash_rng_pallas``, ``cws_encode_rng_packed_pallas``,
+      ``cws_encode_rng_pallas`` and ``cws_encode_pallas`` in interpret mode;
+  (c) the combine rule on hand-built partials;
+  (d) the width of the stored tiles' copies, and the launchers' guards.
 
 Outputs are integers.  Against the port's plain versions they must match
 exactly; against the JAX package the one exception of
@@ -32,11 +36,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.cws import make_cws_params
 from repro.core.regen import regen_params
-from repro.kernels.cws_hash import (cws_encode_rng_packed_pallas,
+from repro.kernels.cws_hash import (cws_encode_pallas, cws_encode_rng_pallas,
+                                    cws_encode_rng_packed_pallas,
                                     cws_hash_rng_pallas)
-from repro_torch.core.cws import log_u
-from repro_torch.core.hashing import encode, pack_codes
+from repro_torch import interop
+from repro_torch.core.cws import CWSParams, log_u
+from repro_torch.core.hashing import encode, feature_indices, pack_codes
 from repro_torch.core.regen import key_words, regen_tile
 from repro_torch.kernels import cws_hash as K
 from test_torch_cws_encode import assert_exact_or_near_tie
@@ -64,18 +71,32 @@ def _rows(n, d, seed):
 # ---------------------------------------------------------------------------
 
 def beats(la, i, best_la, best_i):
-    """The body's combine rule (``cws_regen_split.cu:beats``): a smaller
+    """The body's combine rule (``cws_split.cu:beats``): a smaller
     la, or an equal la at a smaller d, where the sentinel -1 compares as
     the largest d (uint32)."""
     return (la < best_la) | ((la == best_la) &
                              ((i & 0xFFFFFFFF) < (best_i & 0xFFFFFFFF)))
 
 
-def _steps(x, key, k):
-    """(la, tt) of every (row, d, hash), the body's ``cws::step`` in the
-    reference's order; la = +inf where the entry is not positive."""
+def _regen(key, d, k):
+    """The (D, k) parameters (r, log c, beta) regenerated from ``key``."""
     k0, k1 = key_words(key)
-    r, lc, be = regen_tile(k0, k1, 0, 0, x.shape[1], k)
+    return regen_tile(k0, k1, 0, 0, d, k)
+
+
+@functools.lru_cache(maxsize=None)
+def _stored(d, k):
+    """The JAX package's stored parameters, and the port's copy of them."""
+    p = make_cws_params(jax.random.PRNGKey(7), d, k)
+    return p, interop.cws_params(np.asarray(p.r), np.asarray(p.log_c),
+                                 np.asarray(p.beta), device="cpu")
+
+
+def _steps(x, params):
+    """(la, tt) of every (row, d, hash), the body's ``cws::step`` in the
+    reference's order on the (D, k) ``params`` (r, log c, beta); la = +inf
+    where the entry is not positive."""
+    r, lc, be = params
     lu = log_u(torch.from_numpy(x))[:, :, None]
     tt = torch.floor(lu / r + be)
     la = lc - r * (tt - be + 1.0)
@@ -108,9 +129,11 @@ def _combine(parts):
     return la, i, t
 
 
-def split_emulate(x, key, plan: K.SplitPlan):
-    """(i*, t*) as the split body computes them on ``plan``."""
-    la, tt = _steps(x, key, plan.k)
+def split_emulate(x, params, plan: K.SplitPlan):
+    """(i*, t*) as the split body computes them on ``plan`` from the (D, k)
+    ``params`` (r, log c, beta): regenerated or stored alike, since both
+    reach the walk as the same shared-memory tiles."""
+    la, tt = _steps(x, params)
     sub = K.SPLIT_CHUNK // plan.d_warps
     ranks = []
     for s in range(plan.splits):
@@ -126,9 +149,15 @@ def split_emulate(x, key, plan: K.SplitPlan):
     return i.to(torch.int32), t.to(torch.int32)
 
 
-def split_emulate_packed(x, key, plan, *, b_i, b_t=0):
-    i, t = split_emulate(x, key, plan)
+def split_emulate_packed(x, params, plan, *, b_i, b_t=0):
+    i, t = split_emulate(x, params, plan)
     return pack_codes(encode(i, t, b_i=b_i, b_t=b_t), b=b_i + b_t)
+
+
+def split_emulate_index(x, params, plan, *, b_i, b_t=0):
+    """The index emit: hash h's bag h * 2^b + its code."""
+    i, t = split_emulate(x, params, plan)
+    return feature_indices(encode(i, t, b_i=b_i, b_t=b_t), b_i=b_i, b_t=b_t)
 
 
 def _plan(n, d, k, splits):
@@ -186,6 +215,53 @@ def test_split_plan_regenerates_each_parameter_4_times_at_512_rows():
     assert p.grid[1] == 4 and p.block_rows == 128
 
 
+@pytest.mark.parametrize("sms", [1, 114, 132])
+def test_stored_split_plan_properties(sms):
+    """The stored plan: the regen plan's row tile, halved down to 8 rows
+    while the grid keeps room for S = 2 in one wave, then the same split
+    rule."""
+    wave = K.SPLIT_BLOCKS_PER_SM * sms
+    for n, d, k in PLAN_SHAPES:
+        p = K.split_plan(n, d, k, sms, stored=True)
+        regen = K.split_plan(n, d, k, sms)
+        assert p.splits in K.SPLIT_SIZES
+        assert p.rows_per_thread in K.SPLIT_ROWS_PER_THREAD
+        assert p.row_warps * p.d_warps == K.SPLIT_WARPS
+        assert all(hi > lo for lo, hi in map(p.d_range, range(p.splits)))
+        assert min(n, K.SPLIT_STORED_MIN_ROWS) <= p.block_rows
+        assert p.block_rows <= regen.block_rows
+        tiles = p.blocks // p.splits
+        if p.block_rows < regen.block_rows:   # halved: room for S = 2
+            assert 2 * tiles <= wave
+        if p.block_rows > K.SPLIT_STORED_MIN_ROWS:   # halving stopped
+            per_thread, row_warps = K._row_tile(p.block_rows // 2)
+            half = dataclasses.replace(p, rows_per_thread=per_thread,
+                                       row_warps=row_warps, splits=1)
+            assert 2 * half.blocks > wave
+        # the split rule on the chosen tiles
+        room = (p.splits < K.SPLIT_SIZES[-1] and
+                tiles * 2 * p.splits <= wave and
+                d // (2 * p.splits) >= K.SPLIT_CHUNK)
+        assert not room
+        if p.splits > 1:
+            assert p.blocks <= wave
+        if n <= K.SPLIT_STORED_MIN_ROWS:   # nothing to halve
+            assert p == regen
+
+
+@pytest.mark.parametrize("shape,block_rows,splits", [
+    ((512, 256, 1024), 128, 2), ((128, 256, 1024), 32, 2),
+    ((32, 256, 1024), 8, 2), ((8, 256, 1024), 8, 4), ((1, 256, 1024), 1, 4),
+    ((4, 3840, 512), 4, 8), ((1024, 256, 1024), 128, 1),
+    ((512, 65536, 1024), 128, 2), ((37, 300, 70), 8, 4),
+    ((2, 1000, 1024), 2, 8)])
+def test_stored_split_plan_on_h100(shape, block_rows, splits):
+    """The H100's stored plans at the serving buckets, the LM head's
+    (4, 3,840, 512) and ``chip_smoke.py``'s parity and timing shapes."""
+    p = K.split_plan(*shape, sms=132, stored=True)
+    assert (p.block_rows, p.splits) == (block_rows, splits)
+
+
 # ---------------------------------------------------------------------------
 # (b) the emulated reduction vs the plain versions and the JAX kernels
 # ---------------------------------------------------------------------------
@@ -212,7 +288,7 @@ def _jax_packed(n, d, b_i, b_t):
 def test_split_emulation_raw_matches_plain_and_jax(n, splits):
     x = _rows(n, D_ODD, seed=n)
     plan = _plan(n, D_ODD, K_HASHES, splits)
-    got = split_emulate(x, KEY, plan)
+    got = split_emulate(x, _regen(KEY, D_ODD, K_HASHES), plan)
     want = K.cws_hash_rng_plain(torch.from_numpy(x), KEY, K_HASHES)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype == torch.int32
@@ -231,7 +307,8 @@ def test_split_emulation_packed_matches_plain_and_jax(n, b_i, b_t):
     want = K.cws_encode_rng_packed_plain(torch.from_numpy(x), KEY, K_HASHES,
                                          b_i=b_i, b_t=b_t).view(torch.int32)
     for splits in K.SPLIT_SIZES:
-        got = split_emulate_packed(x, KEY, _plan(n, D_ODD, K_HASHES, splits),
+        got = split_emulate_packed(x, _regen(KEY, D_ODD, K_HASHES),
+                                   _plan(n, D_ODD, K_HASHES, splits),
                                    b_i=b_i, b_t=b_t).view(torch.int32)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     jp = regen_params(jnp.asarray(KEY), D_ODD, K_HASHES)
@@ -249,10 +326,69 @@ def test_split_emulation_on_the_chosen_plan(shape):
     plan = K.split_plan(n, d, k, sms=4)
     assert plan.splits > 1 and plan.d_warps > 1
     x = _rows(n, d, seed=d)
-    got = split_emulate(x, KEY, plan)
+    got = split_emulate(x, _regen(KEY, d, k), plan)
     want = K.cws_hash_rng_plain(torch.from_numpy(x), KEY, k)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_index(source, n, d, b_i, b_t):
+    x = jnp.asarray(_rows(n, d, seed=n))
+    if source == "regen":
+        out = cws_encode_rng_pallas(x, jnp.asarray(KEY), K_HASHES, b_i=b_i,
+                                    b_t=b_t, interpret=True, **JAX_BLOCKS)
+    else:
+        p, _ = _stored(d, K_HASHES)
+        out = cws_encode_pallas(x, p.r, p.log_c, p.beta, b_i=b_i, b_t=b_t,
+                                interpret=True, **JAX_BLOCKS)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("b_i,b_t", [(4, 0), (4, 2), (8, 0)])
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("source", ["regen", "stored"])
+def test_split_emulation_index_matches_plain_and_jax(source, n, b_i, b_t):
+    """Rows 1 (regenerated) and 2 (stored): the index emit on every S."""
+    x = _rows(n, D_ODD, seed=n)
+    xt = torch.from_numpy(x)
+    if source == "regen":
+        params = _regen(KEY, D_ODD, K_HASHES)
+        want = K.cws_encode_rng_plain(xt, KEY, K_HASHES, b_i=b_i, b_t=b_t)
+        jp = regen_params(jnp.asarray(KEY), D_ODD, K_HASHES)
+    else:
+        jp, tp = _stored(D_ODD, K_HASHES)
+        params = (tp.r, tp.log_c, tp.beta)
+        want = K.cws_encode_plain(xt, tp, b_i=b_i, b_t=b_t)
+    for splits in K.SPLIT_SIZES:
+        got = split_emulate_index(x, params, _plan(n, D_ODD, K_HASHES, splits),
+                                  b_i=b_i, b_t=b_t)
+        assert got.dtype == want.dtype == torch.int32
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if n > 1:   # the all-zero row lands in every hash's bucket 0
+        bag = torch.arange(K_HASHES, dtype=torch.int32) * (1 << (b_i + b_t))
+        assert torch.equal(got[1], bag)
+    assert_exact_or_near_tie(got.numpy(), _jax_index(source, n, D_ODD, b_i,
+                                                     b_t), x,
+                             (jp.r, jp.log_c, jp.beta), packed=False,
+                             b_i=b_i, b_t=b_t)
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 70), (17, 200, 40),
+                                   (3, 130, 19)])
+def test_split_emulation_stored_index_on_the_chosen_plan(shape):
+    """Row 2 on its stored plan for a small card (splits and d warps > 1;
+    at 17 rows a halved row tile), its tiles cut at the ranks' ragged
+    chunk ends."""
+    n, d, k = shape
+    plan = K.split_plan(n, d, k, sms=4, stored=True)
+    assert plan.splits > 1 and plan.d_warps > 1
+    x = _rows(n, d, seed=d)
+    _, tp = _stored(d, k)
+    got = split_emulate_index(x, (tp.r, tp.log_c, tp.beta), plan, b_i=4,
+                              b_t=2)
+    want = K.cws_encode_plain(torch.from_numpy(x), tp, b_i=4, b_t=2)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -286,21 +422,47 @@ def test_combine_rule(parts, want):
 
 
 # ---------------------------------------------------------------------------
-# the launchers' guards (no card needed: they refuse before any launch)
+# (d) the stored tiles' copy width, and the launchers' guards (no card
+# needed: they refuse before any launch)
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,offset,width", [
+    (1024, 0, 16), (1000, 0, 16), (512, 0, 16), (70, 0, 4), (19, 0, 4),
+    (1024, 1, 4), (1024, 4, 16)])
+def test_stored_copy_bytes(k, offset, width):
+    """16-byte copies where k % 4 == 0 and every matrix starts on a
+    16-byte boundary (``offset`` floats into its storage), else 4-byte."""
+    d = 3
+    mats = [torch.ones(offset + d * k)[offset:].view(d, k) for _ in range(3)]
+    assert K.stored_copy_bytes(CWSParams(*mats)) == width
+
+
+def _launch_args(launcher, d):
+    """(positional, keyword) arguments of ``launcher`` after x."""
+    if launcher == "cws_encode_cuda":
+        return (CWSParams(*(torch.rand(d, 8) + 0.5 for _ in range(3))),), \
+            {"b_i": 2}
+    kw = {} if launcher == "cws_hash_rng_cuda" else {"b_i": 2}
+    return (KEY, 8), kw
+
 
 @pytest.mark.parametrize("body", [None, "split", "pair"])
 @pytest.mark.parametrize("launcher", ["cws_hash_rng_cuda",
-                                      "cws_encode_rng_packed_cuda"])
+                                      "cws_encode_rng_packed_cuda",
+                                      "cws_encode_rng_cuda",
+                                      "cws_encode_cuda"])
 def test_split_launchers_refuse_cpu_tensors(launcher, body):
     x = torch.from_numpy(_rows(2, 8, seed=0))
-    kw = {} if launcher == "cws_hash_rng_cuda" else {"b_i": 2}
+    args, kw = _launch_args(launcher, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        getattr(K, launcher)(x, KEY, 8, body=body, **kw)
+        getattr(K, launcher)(x, *args, body=body, **kw)
     assert K.BODY_LAUNCHES == dict.fromkeys(K.BODY_LAUNCHES, 0)
 
 
 def test_unknown_body_is_refused():
     x = torch.from_numpy(_rows(2, 8, seed=0))
-    with pytest.raises(ValueError, match="body must be one of"):
-        K.cws_hash_rng_cuda(x, KEY, 8, body="simt")
+    for launcher in ("cws_hash_rng_cuda", "cws_encode_rng_packed_cuda",
+                     "cws_encode_rng_cuda", "cws_encode_cuda"):
+        args, kw = _launch_args(launcher, 8)
+        with pytest.raises(ValueError, match="body must be one of"):
+            getattr(K, launcher)(x, *args, body="simt", **kw)
