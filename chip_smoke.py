@@ -27,14 +27,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 raw (i*, t*) hashes at the serving shapes, ragged with
                 all-zero rows, the estimator's (2, 2000, 1024), a row
                 pushing t* to the +-2^30 clip, and 512 x 65,536 x 1024;
-                rows 1, 2, 3 and 6 (on the split body) also at n in {2,
-                3, 17}, D = 1,000, k = 1,000, D = 65,536 at two rows, 1,024
-                rows and D too short to split further (and the encodes at
-                2 x 2,000 x 1,024), each with an all-zero row, asserting
-                that the plans covered S in {1, 2, 4, 8} and that row 2's
-                stored tiles took both copy widths (16 bytes where
-                k % 4 == 0, 4 at k = 70), and on the pair body at 512 x 256
-                x 1024;
+                all six (on the split body) also at n in {2, 3, 17},
+                D = 1,000, k = 1,000, D = 65,536 at two rows, 1,024 rows
+                and D too short to split further (and the encodes at
+                2 x 2,000 x 1,024), each with an all-zero row, row 5 at the
+                kernel machine's 64 and 1,200 rows, asserting that the
+                plans covered S in {1, 2, 4, 8} for every row, that the
+                stored rows' (2, 4 and 5) tiles took both copy widths (16
+                bytes where k % 4 == 0, 4 at k = 70), and that row 5's
+                all-zero clip row gave (-1, 0); and on the pair body at
+                512 x 256 x 1024;
                 the min-sum kernel (``min_sum``, ``minmax_gram``) at
                 ragged, block-edge, suite and long-D shapes within the
                 bound its fp32 sums allow; the flash-attention kernel in
@@ -59,9 +61,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the features of every served batch are held exactly, and
                 served logits within a tolerance, against offline
                 ``pipe.features(x)`` and ``bag_logits`` of them; by body,
-                every row-1, 2 and 3 launch (regen, stored, regen+packed)
-                ran on the split body and every row-4 launch
-                (stored+packed) on the pair body;
+                every launch of the four modes (rows 1-4) ran on the split
+                body, none on the pair body;
   5. kernel machine - Table 1 on the "template" suite at full size (1,200
                 train / 800 test rows, D = 256, 6 classes): the four
                 Grams through ``GRAM_FNS`` and ``best_accuracy_over_C``
@@ -69,7 +70,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 hash pass of Figs 7-8 (stored parameters, k = 1024) whose
                 full-scheme collision estimates are held against the
                 min-max Gram; min-max accuracy must reach linear's and
-                agree with the plain path on the CPU within 0.5 pp;
+                agree with the plain path on the CPU within 0.5 pp; both
+                row-5 launches on the split body;
   6. estimator - Figs 4-5 at 2^16-document word pairs (HONG-KONG,
                 CREDIT-CARD): K from the min-sum kernel, 300 Monte-Carlo
                 reps of ``pipe.with_key(key).hashes(x)`` at k = 1024, and
@@ -106,15 +108,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   9. times    - each kernel and its plain version timed with CUDA events
                 (rows 8 and 9: the wgmma and the SIMT body on the same
                 inputs, in turns, the wgmma body required to be faster;
-                rows 1, 2, 3 and 6: the split and the pair body on the
-                same inputs, in turns, each beside its design floor from
-                the SASS counts, at (512, 256, 1024), (512, 65,536, 1024)
-                and, for row 6, the estimator's (2, 2,000, 1,024); the
-                split body required to be faster for rows 1 and 2 at
-                (512, 256, 1024); row 2 also on its stored plan and on the
-                regenerated-parameter plan, in turns, at n in {12, 17, 32,
-                64, 128, 256}, the stored plan required to be faster at the
-                buckets 32 and 128),
+                rows 1-6: the split and the pair body on the same inputs,
+                in turns, each beside its design floor from the SASS
+                counts, at (512, 256, 1024), (512, 65,536, 1024), for rows
+                5 and 6 the estimator's (2, 2,000, 1,024) and for row 5
+                the kernel machine's suite rows (1,200, 256, 1,024); the
+                split body required to be faster for rows 1, 2, 4 and 5 at
+                (512, 256, 1024); rows 2 and 5 also on their stored plan
+                and on the regenerated-parameter plan, in turns, row 2 at
+                n in {12, 17, 32, 64, 128, 256}, row 5 at 1,200 (sparse
+                rows), the stored plan required to be faster at the
+                buckets 32 and 128 and at 1,200 rows),
                 beside the least time the card could take for the same
                 work and a PyTorch call as yardstick where one exists
                 (``torch.cdist(p=1)`` for the Gram,
@@ -192,18 +196,21 @@ KERNELS = {
 ENCODES = [k for k, v in KERNELS.items() if v[2] != "raw"]
 RAW = [k for k, v in KERNELS.items() if v[2] == "raw"]
 SOURCE = "src/repro_torch/csrc/cws_encode.cu"
-# rows 1, 2, 3 and 6 run on the split body; the pair body is their
-# yardstick and runs rows 4 and 5
+# every row runs on the split body; the pair body is its yardstick
 CWS_SOURCES = {"split": "src/repro_torch/csrc/cws_split.cu",
                "pair": SOURCE}
 EMITS = ("index", "packed", "raw")   # the bodies' Emit template argument
 # the split body must beat the pair body for these rows at (512, 256, 1024)
-SPLIT_FASTER = ("cws_encode_rng", "cws_encode")
+SPLIT_FASTER = ("cws_encode_rng", "cws_encode", "cws_encode_packed",
+                "cws_hash")
 # rows at which row 2 is timed on its stored plan and on the regenerated-
 # parameter plan (D = 256, k = 1024): the buckets below 512, where the
 # plans differ, and rows between them; at the buckets the stored plan
 # must be the faster
 STORED_PLAN_ROWS = (12, 17, 32, 64, 128, 256)
+# row 5's launches on the kernel machine's path: the test rows whose
+# estimates are checked, and the template suite's training rows
+KM_HASH_ROWS = (EST_ROWS, 1200)
 PAIR_ROWS = 16            # rows a pair-body block holds (cws_encode.cu:BN)
 # Parity shapes (n, D, k) the split body adds: n in {2, 3, 17}, a D that
 # no S x 64 divides (1,000 at S = 8), k = 1,000 (not a multiple of the
@@ -362,7 +369,7 @@ class KernelCase:
 
     def run(self, fn, **body):
         """``fn`` on the case's inputs; ``body`` (``body="pair"``) picks
-        the device body of rows 6 and 3."""
+        the device body."""
         if self.emit == "raw":        # (i*, t*) stacked: (2, n, k)
             return torch.stack(fn(*self.args, **body))
         out = fn(*self.args, b_i=self.b_i, b_t=self.b_t, **body)
@@ -587,9 +594,8 @@ def clip_case(rng, dev):
 
 def phase_parity(dev, results):
     from repro_torch.kernels.cws_hash import (BODY_LAUNCHES, LAUNCHES,
-                                              SPLIT_KERNELS, SPLIT_SIZES,
-                                              sm_count, split_plan,
-                                              stored_copy_bytes)
+                                              SPLIT_SIZES, sm_count,
+                                              split_plan, stored_copy_bytes)
     rng = np.random.default_rng(11)
     key = tuple(int(w) for w in rng.integers(0, 2 ** 32, 2, dtype=np.uint64))
 
@@ -602,11 +608,11 @@ def phase_parity(dev, results):
             params = stored_params(rng, d, k, dev)
         case = KernelCase(name, x, b_i, b_t, params=params, key=key, k=k)
         bad, err = case.compare(**({} if body is None else {"body": body}))
-        if name in SPLIT_KERNELS and body is None:
+        if body is None:
             s = split_plan(x.shape[0], x.shape[1], k, sm_count(0),
                            stored=params is not None).splits
             results[name]["splits"][s] = results[name]["splits"].get(s, 0) + 1
-            if params is not None:   # row 2: the stored tiles' copy width
+            if params is not None:   # the stored tiles' copy width
                 w = stored_copy_bytes(params)
                 results[name]["copies"][w] = (
                     results[name]["copies"].get(w, 0) + 1)
@@ -637,18 +643,16 @@ def phase_parity(dev, results):
             for b_t in (0, 2):
                 check(name, b_i=4, b_t=b_t, **ragged)
         check(name, 512, WIDE_DIM, NUM_HASHES, B_I, 0)
-        extra = ""
-        if name in SPLIT_KERNELS:
-            for n, d, k in SPLIT_PARITY + ((2, SUPPORT_CAP, NUM_HASHES),):
-                check(name, n, d, k, B_I, 0, zero_rows=(1,))
-            check(name, 512, DIM, NUM_HASHES, B_I, 0, body="pair")
-            extra = (f"; split body also at (n, D, k) in {SPLIT_PARITY} and "
-                     f"2x{SUPPORT_CAP}x{NUM_HASHES} (row 1 all zero), S "
-                     f"used {dict(sorted(results[name]['splits'].items()))}"
-                     f"; the pair body at 512x{DIM}x{NUM_HASHES}")
-            if "copies" in results[name]:
-                extra += (f"; stored tiles' copy bytes used "
-                          f"{dict(sorted(results[name]['copies'].items()))}")
+        for n, d, k in SPLIT_PARITY + ((2, SUPPORT_CAP, NUM_HASHES),):
+            check(name, n, d, k, B_I, 0, zero_rows=(1,))
+        check(name, 512, DIM, NUM_HASHES, B_I, 0, body="pair")
+        extra = (f"; split body also at (n, D, k) in {SPLIT_PARITY} and "
+                 f"2x{SUPPORT_CAP}x{NUM_HASHES} (row 1 all zero), S used "
+                 f"{dict(sorted(results[name]['splits'].items()))}; the pair "
+                 f"body at 512x{DIM}x{NUM_HASHES}")
+        if "copies" in results[name]:
+            extra += (f"; stored tiles' copy bytes used "
+                      f"{dict(sorted(results[name]['copies'].items()))}")
         r = results[name]
         print(f"parity {name}: {r['checked']} shapes (serving n in "
               f"{BUCKETS} at D={DIM} k={NUM_HASHES}; ragged 37x300x70 with "
@@ -664,12 +668,18 @@ def phase_parity(dev, results):
         if name == "cws_hash":
             case = check(name, 3, x_clip.shape[1], p_clip.num_hashes,
                          x=x_clip, params=p_clip)
-            t_star = case.run(case.cuda)[1]
+            i_star, t_star = case.run(case.cuda)
             if not ((t_star[0] == 2 ** 30).any() and
                     (t_star[1] == -2 ** 30).any()):
                 raise AssertionError("cws_hash: the clip row never reached "
                                      "t* = +-2^30")
-            clip = "t* clipped to +-2^30 in rows 0 and 1"
+            if not ((i_star[2] == -1).all() and (t_star[2] == 0).all()):
+                raise AssertionError("cws_hash: the all-zero row did not "
+                                     "give (i*, t*) = (-1, 0)")
+            for n in KM_HASH_ROWS:   # the kernel machine's launches
+                check(name, n, DIM, NUM_HASHES)
+            clip = (f"t* clipped to +-2^30 in rows 0 and 1, all-zero row 2 "
+                    f"(-1, 0); the kernel machine's {KM_HASH_ROWS} rows")
         else:   # regenerated r cannot be made tiny: extreme entries only
             x = torch.from_numpy(np.array(
                 [[3e38, 0.0, 1.2e-38] * 20, [0.0, 1e30, 1e-30] * 20],
@@ -677,15 +687,16 @@ def phase_parity(dev, results):
             check(name, 2, 60, 96, x=x)
             clip = "rows of 3e38 and 1.2e-38 entries"
         check(name, 512, WIDE_DIM, NUM_HASHES)
-        extra = ""
-        if name in SPLIT_KERNELS:
-            for n, d, k in SPLIT_PARITY:
-                check(name, n, d, k, zero_rows=(1,))
-            check(name, 512, DIM, NUM_HASHES, body="pair")
-            extra = (f"; split body also at (n, D, k) in {SPLIT_PARITY} "
-                     f"(row 1 all zero), S used "
-                     f"{dict(sorted(results[name]['splits'].items()))}; the "
-                     f"pair body at 512x{DIM}x{NUM_HASHES}")
+        for n, d, k in SPLIT_PARITY:
+            check(name, n, d, k, zero_rows=(1,))
+        check(name, 512, DIM, NUM_HASHES, body="pair")
+        extra = (f"; split body also at (n, D, k) in {SPLIT_PARITY} (row 1 "
+                 f"all zero), S used "
+                 f"{dict(sorted(results[name]['splits'].items()))}; the pair "
+                 f"body at 512x{DIM}x{NUM_HASHES}")
+        if "copies" in results[name]:
+            extra += (f"; stored tiles' copy bytes used "
+                      f"{dict(sorted(results[name]['copies'].items()))}")
         r = results[name]
         print(f"parity {name}: {r['checked']} shapes (serving n in "
               f"{BUCKETS} at D={DIM} k={NUM_HASHES}; ragged 37x300x70 with "
@@ -693,7 +704,7 @@ def phase_parity(dev, results):
               f"512x{WIDE_DIM}x{NUM_HASHES}{extra}); mismatches i* "
               f"{r['mismatches_i']} t* {r['mismatches_t']}; launches "
               f"{LAUNCHES[name]}")
-    for name in SPLIT_KERNELS:
+    for name in KERNELS:
         missing = set(SPLIT_SIZES) - set(results[name]["splits"])
         if missing:
             raise AssertionError(f"{name}: the split body's parity cases "
@@ -870,14 +881,12 @@ def phase_slice(card, results):
     launches, bodies = dict(K.LAUNCHES), dict(K.BODY_LAUNCHES)
     for name in ENCODES:
         results[name]["launches"] = launches[name]
-    # by body: every row-1, 2 and 3 launch on the split body, row 4's on
-    # the pair body
-    split = sum(launches[k] for k in K.SPLIT_KERNELS)
-    if bodies != {"split": split, "pair": sum(launches.values()) - split}:
+    # by body: every launch of the four modes on the split body
+    if bodies != {"split": sum(launches.values()), "pair": 0}:
         raise AssertionError(f"slice: launches by body {bodies} for kernel "
                              f"launches {launches}")
-    print(f"slice: launches by CWS body {bodies} (split: cws_encode_rng, "
-          f"cws_encode, cws_encode_rng_packed; pair: cws_encode_packed)")
+    print(f"slice: launches by CWS body {bodies} (all four modes' kernels "
+          f"on the split body, none on the pair body)")
 
     for mode, (kernel, xs, outs, wall, stats, batches) in served.items():
         if launches[kernel] == 0:
@@ -985,6 +994,11 @@ def phase_kernel_machine(dev, card, results):
     wall = time.perf_counter() - t0
     launches = read_launches()
     require_launched("kernel machine", launches, ("min_sum", "cws_hash"))
+    from repro_torch.kernels.cws_hash import BODY_LAUNCHES
+    bodies = dict(BODY_LAUNCHES)
+    if bodies != {"split": launches["cws_hash"], "pair": 0}:
+        raise AssertionError(f"kernel machine: CWS launches by body {bodies} "
+                             f"for {launches['cws_hash']} cws_hash launches")
 
     if accs["min-max"] < accs["linear"]:
         raise AssertionError(f"min-max accuracy {accs['min-max']} below "
@@ -1013,6 +1027,7 @@ def phase_kernel_machine(dev, card, results):
         "gram_s": {k: v[0] for k, v in secs.items()},
         "dual_cd_s": {k: v[1] for k, v in secs.items()},
         "launches": {k: launches[k] for k in ("min_sum", "cws_hash")},
+        "cws_body_launches": bodies,
         "est_bias_full": bias_full, "est_rmse_full": rmse_full,
         "est_rmse_binomial": theory, "est_bias_0bit": bias_0bit}
     for name in ("min_sum", "cws_hash"):
@@ -1030,7 +1045,7 @@ def phase_kernel_machine(dev, card, results):
           f"pairs) full scheme bias {bias_full:.3g} rmse {rmse_full:.4g} "
           f"(binomial {theory:.4g}), 0-bit bias {bias_0bit:.3g}; phase "
           f"{wall:.3f} s; launches min_sum {launches['min_sum']}, "
-          f"cws_hash {launches['cws_hash']}")
+          f"cws_hash {launches['cws_hash']}; CWS launches by body {bodies}")
 
 
 def compacted_pair(pair, n_docs):
@@ -2072,9 +2087,9 @@ def phase_step_times(dev, results, mhz, sms):
 
 
 def time_cws_bodies(case, reps):
-    """A split-body kernel (rows 1, 2, 3 and 6) on the split and the pair
-    body on the same inputs, in turns (split, pair, pair, split): ({body:
-    mean ms}, {body: [the two readings]})."""
+    """A CWS kernel on the split and the pair body on the same inputs, in
+    turns (split, pair, pair, split): ({body: mean ms}, {body: [the two
+    readings]})."""
     readings = {"split": [], "pair": []}
     for body in ("split", "pair", "pair", "split"):
         readings[body].append(time_ms(lambda: case.run(case.cuda, body=body),
@@ -2083,24 +2098,20 @@ def time_cws_bodies(case, reps):
 
 
 def cws_times(case, reps, plain_reps, peak_ops, counts):
-    """One CWS kernel's times at one shape: the kernel (for rows 1, 2, 3
-    and 6 the split body, with the pair body beside it and each body's
-    design floor), the plain version, the bound."""
-    from repro_torch.kernels.cws_hash import (SPLIT_KERNELS, sm_count,
-                                              split_plan)
+    """One CWS kernel's times at one shape: the kernel on the split body,
+    with the pair body beside it and each body's design floor, the plain
+    version, the bound."""
+    from repro_torch.kernels.cws_hash import sm_count, split_plan
     t = {"shape": list(case.x.shape) + [case.k], "library_ms": None}
-    if case.name in SPLIT_KERNELS:
-        ms, readings = time_cws_bodies(case, reps)
-        plan = split_plan(*case.x.shape, case.k, sm_count(0),
-                          stored=not case.regen)
-        t.update(ms=ms["split"], pair_ms=ms["pair"], readings=readings,
-                 floor_ms=case.floor_ms(peak_ops, counts, "split"),
-                 pair_floor_ms=case.floor_ms(peak_ops, counts, "pair"),
-                 plan={"rows_per_thread": plan.rows_per_thread,
-                       "row_warps": plan.row_warps, "splits": plan.splits,
-                       "blocks": plan.blocks})
-    else:
-        t["ms"] = time_ms(lambda: case.run(case.cuda), reps=reps)
+    ms, readings = time_cws_bodies(case, reps)
+    plan = split_plan(*case.x.shape, case.k, sm_count(0),
+                      stored=not case.regen)
+    t.update(ms=ms["split"], pair_ms=ms["pair"], readings=readings,
+             floor_ms=case.floor_ms(peak_ops, counts, "split"),
+             pair_floor_ms=case.floor_ms(peak_ops, counts, "pair"),
+             plan={"rows_per_thread": plan.rows_per_thread,
+                   "row_warps": plan.row_warps, "splits": plan.splits,
+                   "blocks": plan.blocks})
     t["plain_ms"] = time_ms(lambda: case.run(case.plain), reps=plain_reps,
                             warmup=1)
     t["bound_ms"], t["bound_by"] = case.bound_ms(peak_ops)
@@ -2111,58 +2122,75 @@ def cws_time_line(name, t, b=None):
     n, d, k = t["shape"]
     head = f"time {name} ({n}, {d}, {k})" + ("" if b is None else f" b={b}")
     floor = lambda v: "not measured" if v is None else f"{v:.4f} ms"
-    if "pair_ms" in t:
-        p = t["plan"]
-        body = (f"split body {t['ms']:.4f} ms (design floor "
-                f"{floor(t['floor_ms'])}; plan {p['rows_per_thread']} rows a "
-                f"thread x {p['row_warps']} row warps, S = {p['splits']}, "
-                f"{p['blocks']} blocks), pair body {t['pair_ms']:.4f} ms "
-                f"(design floor {floor(t['pair_floor_ms'])}) (in turns: "
-                f"{t['readings']})")
-    else:
-        body = f"kernel {t['ms']:.4f} ms"
+    p = t["plan"]
+    body = (f"split body {t['ms']:.4f} ms (design floor "
+            f"{floor(t['floor_ms'])}; plan {p['rows_per_thread']} rows a "
+            f"thread x {p['row_warps']} row warps, S = {p['splits']}, "
+            f"{p['blocks']} blocks), pair body {t['pair_ms']:.4f} ms "
+            f"(design floor {floor(t['pair_floor_ms'])}) (in turns: "
+            f"{t['readings']})")
     return (f"{head}: {body}, plain {t['plain_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}); library call: none "
             f"(no PyTorch op computes CWS)")
 
 
 def time_stored_plans(dev, results):
-    """Row 2 on ``split_plan(..., stored=True)`` and on the plan the
+    """Rows 2 (at ``STORED_PLAN_ROWS``) and 5 (at the kernel machine's
+    1,200 rows) on ``split_plan(..., stored=True)`` and on the plan the
     regenerated-parameter rows take, in turns (stored, regen, regen,
-    stored), at ``STORED_PLAN_ROWS``; both plans' indices must be equal."""
+    stored); row 5 also on the stored plan's tile doubled ("taller": the
+    last halving that ``short_tail`` took, timed for the record).  Every
+    plan's output must be equal, and where the plans differ the stored
+    plan must be faster than the regen plan at the buckets (row 2) and at
+    1,200 rows (row 5)."""
     from repro_torch.kernels import cws_hash as K
     rng = np.random.default_rng(6)
-    times = []
-    for n in STORED_PLAN_ROWS:
-        x = torch.from_numpy(sparse_rows(rng, n, DIM)).to(dev)
-        params = stored_params(rng, DIM, NUM_HASHES, dev)
-        plans = {w: K.split_plan(n, DIM, NUM_HASHES, K.sm_count(0),
-                                 stored=w == "stored")
-                 for w in ("stored", "regen")}
-        run = {w: (lambda p=p: K.cws_encode_cuda(x, params, b_i=B_I, plan=p))
-               for w, p in plans.items()}
-        if not torch.equal(run["stored"](), run["regen"]()):
-            raise AssertionError(f"times: cws_encode at n = {n}: the two "
-                                 f"plans' indices differ")
-        readings = {"stored": [], "regen": []}
-        for w in ("stored", "regen", "regen", "stored"):
-            readings[w].append(time_ms(run[w], reps=50))
-        ms = {w: sum(v) / len(v) for w, v in readings.items()}
-        tiles = {w: [p.rows_per_thread, p.row_warps, p.splits, p.blocks]
-                 for w, p in plans.items()}
-        times.append({"shape": [n, DIM, NUM_HASHES], "ms": ms["stored"],
-                      "regen_plan_ms": ms["regen"], "readings": readings,
-                      "plans": tiles})
-        print(f"time cws_encode plans ({n}, {DIM}, {NUM_HASHES}) b={B_I}: "
-              f"stored plan {ms['stored']:.4f} ms, regen plan "
-              f"{ms['regen']:.4f} ms ([rows a thread, row warps, S, "
-              f"blocks] {tiles}; in turns: {readings})")
-        if (n in BUCKETS and plans["stored"] != plans["regen"]
-                and ms["stored"] >= ms["regen"]):
-            raise AssertionError(f"times: cws_encode at bucket n = {n}: the "
-                                 f"stored plan is not faster than the regen "
-                                 f"plan")
-    results["cws_encode"]["plan_times"] = times
+    for name, rows, gated in (("cws_encode", STORED_PLAN_ROWS, BUCKETS),
+                              ("cws_hash", KM_HASH_ROWS[1:], KM_HASH_ROWS)):
+        times = []
+        for n in rows:
+            x = torch.from_numpy(sparse_rows(rng, n, DIM)).to(dev)
+            params = stored_params(rng, DIM, NUM_HASHES, dev)
+            case = KernelCase(name, x, B_I, 0, params=params)
+            plans = {w: K.split_plan(n, DIM, NUM_HASHES, K.sm_count(0),
+                                     stored=w == "stored")
+                     for w in ("stored", "regen")}
+            if name == "cws_hash":
+                plans["taller"] = dataclasses.replace(
+                    plans["stored"], row_warps=2 * plans["stored"].row_warps)
+            run = {w: (lambda p=p: case.run(case.cuda, plan=p))
+                   for w, p in plans.items()}
+            want = run["stored"]()
+            for w in plans:
+                if w != "stored" and not torch.equal(want, run[w]()):
+                    raise AssertionError(f"times: {name} at n = {n}: the "
+                                         f"{w} plan's output differs from "
+                                         f"the stored plan's")
+            order = [w for w in plans if w != "regen"]
+            readings = {w: [] for w in plans}
+            for w in order + ["regen", "regen"] + order[::-1]:
+                readings[w].append(time_ms(run[w], reps=50))
+            ms = {w: sum(v) / len(v) for w, v in readings.items()}
+            tiles = {w: [p.rows_per_thread, p.row_warps, p.splits, p.blocks]
+                     for w, p in plans.items()}
+            entry = {"shape": [n, DIM, NUM_HASHES], "ms": ms["stored"],
+                     "regen_plan_ms": ms["regen"], "readings": readings,
+                     "plans": tiles}
+            taller = ""
+            if "taller" in ms:
+                entry["taller_plan_ms"] = ms["taller"]
+                taller = f", taller plan {ms['taller']:.4f} ms"
+            times.append(entry)
+            print(f"time {name} plans ({n}, {DIM}, {NUM_HASHES}): stored "
+                  f"plan {ms['stored']:.4f} ms{taller}, regen plan "
+                  f"{ms['regen']:.4f} ms ([rows a thread, row warps, S, "
+                  f"blocks] {tiles}; in turns: {readings})")
+            if (n in gated and plans["stored"] != plans["regen"]
+                    and ms["stored"] >= ms["regen"]):
+                raise AssertionError(f"times: {name} at n = {n}: the stored "
+                                     f"plan is not faster than the regen "
+                                     f"plan")
+        results[name]["plan_times"] = times
 
 
 def phase_times(dev, results, peak_ops, counts):
@@ -2193,25 +2221,33 @@ def phase_times(dev, results, peak_ops, counts):
 
     time_stored_plans(dev, results)
 
-    # the raw hashes: serving and wide shapes, and the estimator's pair
+    # the raw hashes: serving and wide shapes, the estimator's pair, and
+    # (row 5 only) the kernel machine's suite rows
+    from repro_torch.data.synthetic import CLASSIFICATION_SUITES
+    suite = torch.from_numpy(CLASSIFICATION_SUITES["template"]().x_train)
     est = torch.from_numpy(compacted_pair("CREDIT-CARD", N_DOCS)).to(dev)
-    shapes = [(torch.from_numpy(sparse_rows(rng, 512, d)).to(dev), reps)
-              for d, reps in ((DIM, 50), (WIDE_DIM, 5))] + [(est, 50)]
-    for x, reps in shapes:
+    shapes = [(torch.from_numpy(sparse_rows(rng, 512, d)).to(dev), reps, RAW)
+              for d, reps in ((DIM, 50), (WIDE_DIM, 5))] + [
+        (est, 50, RAW), (suite.to(dev), 50, ("cws_hash",))]
+    for x, reps, names in shapes:
         n, d = x.shape
         params = stored_params(rng, d, NUM_HASHES, dev)
-        for name in RAW:
+        for name in names:
             case = KernelCase(name, x, params=params, key=key, k=NUM_HASHES)
             t = cws_times(case, reps, 1 if d == WIDE_DIM else 10, peak_ops,
                           counts)
             results[name]["times"].append(t)
             print(cws_time_line(name, t))
+            if (name in SPLIT_FASTER and (n, d) == (512, DIM)
+                    and t["ms"] >= t["pair_ms"]):
+                raise AssertionError(
+                    f"times: {name} at (512, {d}, {NUM_HASHES}): the split "
+                    f"body ({t['ms']:.4f} ms) is not faster than the pair "
+                    f"body ({t['pair_ms']:.4f} ms)")
 
     # the min-sum Gram: the suite's train Gram and an MNIST-variations
     # train Gram (Table 1's M-Rotate / M-Image shape, synthetic rows)
-    from repro_torch.data.synthetic import CLASSIFICATION_SUITES
     from repro_torch.kernels import minmax_gram as G
-    suite = torch.from_numpy(CLASSIFICATION_SUITES["template"]().x_train)
     for m, n, d in GRAM_TIMING:
         if (m, d) == tuple(suite.shape):
             x = y = suite.to(dev)
@@ -2322,14 +2358,13 @@ def main():
     cws_libs = build_all()
     counts = count_instructions(cws_libs)
 
-    from repro_torch.kernels.cws_hash import SPLIT_KERNELS
     results = {k: {"checked": 0, "mismatches": 0, "max_abs_err": 0,
-                   "launches": 0} for k in KERNELS}
+                   "launches": 0, "splits": {}} for k in KERNELS}
     for k in RAW:
         results[k].update(mismatches_i=0, mismatches_t=0, times=[])
-    for k in SPLIT_KERNELS:
-        results[k]["splits"] = {}
-    results["cws_encode"]["copies"] = {}
+    for k, (_, regen, _) in KERNELS.items():
+        if not regen:   # rows 2, 4 and 5: the stored tiles' copy widths
+            results[k]["copies"] = {}
     results[GRAM[0]] = {"checked": 0, "mismatches": 0, "max_abs_err": 0.0,
                         "launches": 0, "times": []}
     results[FLASH[0]] = {"checked": 0, "mismatches": 0, "max_abs_err": 0.0,
@@ -2352,18 +2387,17 @@ def main():
 
     def cws_entry(k, primary):
         r = results[k]
-        split = k in SPLIT_KERNELS
-        entry = kernel_entry(k, CWS_SOURCES["split" if split else "pair"],
-                             KERNELS[k][0], r, primary)
-        entry.update(body="split" if split else "pair", times=r["times"])
-        if split:
-            entry.update(sources=CWS_SOURCES, pair_ms=primary["pair_ms"],
-                         floor_ms=primary["floor_ms"],
-                         pair_floor_ms=primary["pair_floor_ms"],
-                         parity_splits=r["splits"])
+        entry = kernel_entry(k, CWS_SOURCES["split"], KERNELS[k][0], r,
+                             primary)
+        entry.update(primary_shape=primary["shape"], body="split",
+                     times=r["times"], sources=CWS_SOURCES,
+                     pair_ms=primary["pair_ms"], floor_ms=primary["floor_ms"],
+                     pair_floor_ms=primary["pair_floor_ms"],
+                     parity_splits=r["splits"])
         if "copies" in r:
-            entry.update(parity_copy_bytes=r["copies"],
-                         plan_times=r["plan_times"])
+            entry["parity_copy_bytes"] = r["copies"]
+        if "plan_times" in r:
+            entry["plan_times"] = r["plan_times"]
         return entry
 
     kernels = []
@@ -2377,8 +2411,8 @@ def main():
     for k in RAW:
         r = results[k]
         # the main path's shape: the suite's rows (stored) or the
-        # estimator's pair (regen); (512, 256, 1024) stands for the former
-        primary = r["times"][2] if k == "cws_hash_rng" else r["times"][0]
+        # estimator's pair (regen)
+        primary = r["times"][2] if k == "cws_hash_rng" else r["times"][3]
         entry = cws_entry(k, primary)
         entry.update(mismatches_i=r["mismatches_i"],
                      mismatches_t=r["mismatches_t"])

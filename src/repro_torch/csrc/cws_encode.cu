@@ -3,15 +3,15 @@
 // (n, ceil(k*b/32)) uint32 words, or the raw samples (i*, t*) as two (n, k)
 // int32 arrays.
 //
-// Replaces two Pallas TPU kernels of src/repro/kernels/cws_hash.py:
-//   cws_encode_packed_launch      <- cws_encode_packed_pallas     (stored, packed emit)
-//   cws_hash_launch               <- cws_hash_pallas / _cws_kernel (stored, raw emit)
-// The other four CWS kernels (cws_encode_rng_pallas, cws_encode_pallas,
-// cws_encode_rng_packed_pallas, cws_hash_rng_pallas) run on the row-tiled,
-// cluster-split body of cws_split.cu; this body's instantiations for them
-// stay reachable through cws_encode_rng_launch, cws_encode_launch,
-// cws_encode_rng_packed_launch and cws_hash_rng_launch as the yardstick
-// that body is timed against.
+// The yardstick only: all six Pallas TPU kernels of
+// src/repro/kernels/cws_hash.py (cws_encode_rng_pallas, cws_encode_pallas,
+// cws_encode_rng_packed_pallas, cws_encode_packed_pallas, cws_hash_pallas,
+// cws_hash_rng_pallas) run on the row-tiled, cluster-split body of
+// cws_split.cu.  This body's instantiations for them stay reachable through
+// cws_encode_rng_launch, cws_encode_launch, cws_encode_rng_packed_launch,
+// cws_encode_packed_launch, cws_hash_launch and cws_hash_rng_launch
+// (body="pair" in kernels/cws_hash.py), so that the split body can be
+// timed against it.
 // One device body, templated on <Regen, Emit, TrackT>, plays the part of
 // the TPU kernels' shared _accum_loop and their emit steps.
 //

@@ -4,17 +4,21 @@
 // b-bit codes packed into (n, ceil(k*b/32)) uint32 words, or the raw
 // samples (i*, t*) as two (n, k) int32 arrays.
 //
-// Replaces four Pallas TPU kernels of src/repro/kernels/cws_hash.py:
+// Replaces six Pallas TPU kernels of src/repro/kernels/cws_hash.py:
 //   cws_split_index_launch         <- cws_encode_rng_pallas (:431;
 //                                     regenerated params, index emit)
 //   cws_split_stored_index_launch  <- cws_encode_pallas (:246; stored
 //                                     params, index emit)
 //   cws_regen_split_packed_launch  <- cws_encode_rng_packed_pallas (:534;
 //                                     regenerated params, packed emit)
+//   cws_split_stored_packed_launch <- cws_encode_packed_pallas (:488;
+//                                     stored params, packed emit)
+//   cws_split_stored_hash_launch   <- cws_hash_pallas (:213, _cws_kernel;
+//                                     stored params, raw emit)
 //   cws_regen_split_hash_launch    <- cws_hash_rng_pallas (:395,
 //                                     _cws_hash_rng_kernel; raw emit)
-// The stored packed and raw kernels (rows 4 and 5) stay on cws_encode.cu's
-// one-thread-per-pair body.
+// No row stays on cws_encode.cu's one-thread-per-pair body, which is kept
+// only as the yardstick this body is timed against.
 //
 // What bounds it on this card: operations.  Each regenerated (d, hash)
 // parameter costs three threefry-2x32 evaluations, four log1p and one log
@@ -538,6 +542,36 @@ int cws_regen_split_packed_launch(const float* x, uint32_t k0, uint32_t k1,
                      b_t, 0, out, nullptr, words};
   return launch_code<EMIT_PACKED, false>(p, rows_per_thread, row_warps,
                                          splits, stream);
+}
+
+// Row 4: stored (D, k) params -> (n, words) packed uint32 codes; copy_bytes
+// as row 2's.
+int cws_split_stored_packed_launch(const float* x, const float* r,
+                                   const float* lc, const float* be, int n,
+                                   int d, int k, int b_i, int b_t,
+                                   int rows_per_thread, int row_warps,
+                                   int splits, int copy_bytes, uint32_t* out,
+                                   int words, cudaStream_t stream) {
+  if (copy_bytes != 16 && copy_bytes != 4) return cudaErrorInvalidValue;
+  const Problem p = {x, r, lc, be, 0u, 0u, n, d, k, b_i, b_t,
+                     copy_bytes == 16, out, nullptr, words};
+  return launch_code<EMIT_PACKED, true>(p, rows_per_thread, row_warps,
+                                        splits, stream);
+}
+
+// Row 5: stored (D, k) params -> raw i* and t*, each (n, k) int32;
+// copy_bytes as row 2's.
+int cws_split_stored_hash_launch(const float* x, const float* r,
+                                 const float* lc, const float* be, int n,
+                                 int d, int k, int rows_per_thread,
+                                 int row_warps, int splits, int copy_bytes,
+                                 int32_t* i_out, int32_t* t_out,
+                                 cudaStream_t stream) {
+  if (copy_bytes != 16 && copy_bytes != 4) return cudaErrorInvalidValue;
+  const Problem p = {x, r, lc, be, 0u, 0u, n, d, k, 0, 0,
+                     copy_bytes == 16, i_out, t_out, k};
+  return launch<EMIT_RAW, true, true>(p, rows_per_thread, row_warps, splits,
+                                      stream);
 }
 
 // Row 6: regenerated params -> raw i* and t*, each (n, k) int32.

@@ -101,9 +101,8 @@ def _declare(built: BuiltLibrary, signatures) -> BuiltLibrary:
 @functools.lru_cache(maxsize=None)
 def cws_encode_library() -> BuiltLibrary:
     """The CWS kernels' one-thread-per-pair body (``csrc/cws_encode.cu``):
-    the four encode launchers and the two raw (i*, t*) launchers (all but
-    the stored packed and raw ones are the split body's yardstick); key
-    words as c_uint32."""
+    the four encode launchers and the two raw (i*, t*) launchers, the
+    yardstick the split body is timed against; key words as c_uint32."""
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     return _declare(build("cws_encode.cu"), {
         "cws_encode_launch": (p, p, p, p, i, i, i, i, i, p, p),
@@ -118,9 +117,10 @@ def cws_encode_library() -> BuiltLibrary:
 @functools.lru_cache(maxsize=None)
 def cws_split_library() -> BuiltLibrary:
     """The CWS body with rows tiled in registers and D split across a
-    cluster (``csrc/cws_split.cu``): rows 1 (index), 2 (stored parameters,
-    index, with the width of its tile copies), 3 (packed) and 6 (raw), each
-    taking its plan's rows per thread, row warps and splits as ints."""
+    cluster (``csrc/cws_split.cu``): rows 1 (index), 3 (packed) and 6
+    (raw) on regenerated parameters, rows 2 (index), 4 (packed) and 5 (raw)
+    on stored ones with the width of their tile copies, each taking its
+    plan's rows per thread, row warps and splits as ints."""
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     return _declare(build("cws_split.cu"), {
         "cws_split_index_launch": (p, u, u, i, i, i, i, i, i, i, i, p, p),
@@ -129,6 +129,10 @@ def cws_split_library() -> BuiltLibrary:
         "cws_regen_split_packed_launch": (p, u, u, i, i, i, i, i, i, i, i,
                                           p, i, p),
         "cws_regen_split_hash_launch": (p, u, u, i, i, i, i, i, i, p, p, p),
+        "cws_split_stored_packed_launch": (p, p, p, p, i, i, i, i, i, i, i,
+                                           i, i, p, i, p),
+        "cws_split_stored_hash_launch": (p, p, p, p, i, i, i, i, i, i, i, p,
+                                         p, p),
     })
 
 

@@ -2,7 +2,7 @@
 
 For each TPU kernel of ``repro/kernels/cws_hash.py`` (the four fused
 encodes of the serving path and the two raw (i*, t*) hashes of the
-estimator path) this module holds
+kernel-machine and estimator paths) this module holds
 
   * the plain PyTorch version, the definition the kernel is held to: the
     chunked ``cws_hash`` / ``cws_hash_regen`` for the raw hashes, and the
@@ -14,16 +14,14 @@ estimator path) this module holds
   * a launch counter in ``LAUNCHES``, bumped once per kernel launch, and
     one by device body in ``BODY_LAUNCHES``.
 
-Two device bodies serve them.  The two index encodes (rows 1 and 2,
-regenerated and stored parameters), the regenerated packed encode (row 3)
-and the regenerated raw hash (row 6) run on ``csrc/cws_split.cu``
-("split": rows tiled in registers, D split across a thread-block
-cluster, on the plan ``split_plan`` makes; stored parameter tiles copied
-in with ``cp.async``, 16 or 4 bytes a copy as ``stored_copy_bytes``
-says); the stored packed encode and raw hash (rows 4 and 5) on
-``csrc/cws_encode.cu`` ("pair": one thread per (row, hash)).  Rows 1, 2,
-3 and 6 reach the pair body only when a caller asks for it
-(``body="pair"``, the timing comparison of the two bodies).
+Every row runs on ``csrc/cws_split.cu`` ("split": rows tiled in
+registers, D split across a thread-block cluster, on the plan
+``split_plan`` makes; the stored-parameter rows 2, 4 and 5 on its
+``stored=True`` plan, their parameter tiles copied in with ``cp.async``,
+16 or 4 bytes a copy as ``stored_copy_bytes`` says).  The one-thread-per-
+(row, hash) body of ``csrc/cws_encode.cu`` ("pair") is reached only when a
+caller asks for it (``body="pair"``, the timing comparison of the two
+bodies).
 
 ``repro_torch.kernels.ops`` chooses between kernel and plain version by the
 tensor's device; a launcher never falls back to the plain version or to
@@ -48,9 +46,6 @@ from repro_torch.kernels.build import cws_encode_library, cws_split_library
 LAUNCHES = {"cws_encode": 0, "cws_encode_rng": 0, "cws_encode_packed": 0,
             "cws_encode_rng_packed": 0, "cws_hash": 0, "cws_hash_rng": 0}
 BODY_LAUNCHES = {"split": 0, "pair": 0}
-# the kernels the split body serves
-SPLIT_KERNELS = ("cws_encode_rng", "cws_encode", "cws_encode_rng_packed",
-                 "cws_hash_rng")
 
 
 def reset_launches() -> None:
@@ -127,6 +122,12 @@ def _row_tile(rows: int):
     return per_thread, row_warps
 
 
+def short_tail(blocks: int, wave: int) -> bool:
+    """A grid of ``blocks`` past one ``wave`` whose last wave is less
+    than half full: that wave costs a whole block time for a few SMs."""
+    return blocks > wave and 0 < blocks % wave < wave / 2
+
+
 def split_plan(n: int, d: int, k: int, sms: int, *,
                stored: bool = False) -> SplitPlan:
     """The split body's tiles for x (n, D) and k hashes on a card with
@@ -142,14 +143,16 @@ def split_plan(n: int, d: int, k: int, sms: int, *,
     ``stored`` (parameters loaded, not regenerated: no cost to amortize
     over a tall row tile): before the split, the row tile halves, down to
     ``SPLIT_STORED_MIN_ROWS`` rows, while the grid keeps room for two CTAs
-    a cluster within the wave."""
+    a cluster within the wave, or while it runs past one wave with its
+    last wave less than half full (``short_tail``: at 1,200 rows on 132
+    SMs, 128-row tiles make 320 blocks, 1.21 waves)."""
     plan = SplitPlan(n, d, k, *_row_tile(n), 1)
     wave = SPLIT_BLOCKS_PER_SM * sms
     while stored and plan.block_rows > SPLIT_STORED_MIN_ROWS:
         rows, row_warps = _row_tile(plan.block_rows // 2)
         half = dataclasses.replace(plan, rows_per_thread=rows,
                                    row_warps=row_warps)
-        if 2 * half.blocks > wave:
+        if 2 * half.blocks > wave and not short_tail(plan.blocks, wave):
             break
         plan = half
     tiles = plan.blocks
@@ -252,7 +255,7 @@ def _check_bits(b_i: int, b_t: int, packed: bool) -> None:
 
 
 def _launch(name: str, fn, out: torch.Tensor, *args,
-            body: str = "pair") -> torch.Tensor:
+            body: str) -> torch.Tensor:
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         rc = fn(*args, stream)
@@ -321,7 +324,7 @@ def cws_encode_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0,
             params.beta.data_ptr())
     if body == "pair":
         return _launch("cws_encode", _lib().cws_encode_launch, out, *ptrs,
-                       n, d, k, b_i, b_t, out.data_ptr())
+                       n, d, k, b_i, b_t, out.data_ptr(), body=body)
     return _launch("cws_encode",
                    cws_split_library().lib.cws_split_stored_index_launch,
                    out, *ptrs, n, d, k, b_i, b_t,
@@ -345,16 +348,19 @@ def cws_encode_rng_cuda(x, key, num_hashes: int, *, b_i: int, b_t: int = 0,
     if body == "pair":
         return _launch("cws_encode_rng", _lib().cws_encode_rng_launch, out,
                        x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
-                       out.data_ptr())
+                       out.data_ptr(), body=body)
     return _launch("cws_encode_rng",
                    cws_split_library().lib.cws_split_index_launch, out,
                    x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
                    *_plan_args(x, num_hashes), out.data_ptr(), body=body)
 
 
-def cws_encode_packed_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0):
+def cws_encode_packed_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0,
+                           body: str | None = None):
     """Stored-parameter encode with packed emit (replaces
-    ``cws_encode_packed_pallas``)."""
+    ``cws_encode_packed_pallas``) on the split body, or on ``body`` when
+    given; on ``split_plan(..., stored=True)``'s tiles."""
+    body = _split_body(body)
     x = _check_x(x)
     _check_params(x, params)
     _check_bits(b_i, b_t, packed=True)
@@ -364,10 +370,18 @@ def cws_encode_packed_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0):
     out = torch.empty((n, words), dtype=torch.uint32, device=x.device)
     if n == 0 or k == 0:
         return out
-    return _launch("cws_encode_packed", _lib().cws_encode_packed_launch, out,
-                   x.data_ptr(), params.r.data_ptr(),
-                   params.log_c.data_ptr(), params.beta.data_ptr(),
-                   n, d, k, b_i, b_t, out.data_ptr(), words)
+    ptrs = (x.data_ptr(), params.r.data_ptr(), params.log_c.data_ptr(),
+            params.beta.data_ptr())
+    if body == "pair":
+        return _launch("cws_encode_packed", _lib().cws_encode_packed_launch,
+                       out, *ptrs, n, d, k, b_i, b_t, out.data_ptr(), words,
+                       body=body)
+    return _launch("cws_encode_packed",
+                   cws_split_library().lib.cws_split_stored_packed_launch,
+                   out, *ptrs, n, d, k, b_i, b_t,
+                   *_plan_args(x, k, stored=True),
+                   stored_copy_bytes(params), out.data_ptr(), words,
+                   body=body)
 
 
 def cws_encode_rng_packed_cuda(x, key, num_hashes: int, *, b_i: int,
@@ -388,7 +402,7 @@ def cws_encode_rng_packed_cuda(x, key, num_hashes: int, *, b_i: int,
         return _launch("cws_encode_rng_packed",
                        _lib().cws_encode_rng_packed_launch, out,
                        x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
-                       out.data_ptr(), words)
+                       out.data_ptr(), words, body=body)
     return _launch("cws_encode_rng_packed",
                    cws_split_library().lib.cws_regen_split_packed_launch,
                    out, x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
@@ -396,9 +410,13 @@ def cws_encode_rng_packed_cuda(x, key, num_hashes: int, *, b_i: int,
                    body=body)
 
 
-def cws_hash_cuda(x, params: CWSParams):
+def cws_hash_cuda(x, params: CWSParams, *, body: str | None = None,
+                  plan: SplitPlan | None = None):
     """Stored-parameter raw hash kernel (replaces ``cws_hash_pallas``):
-    x (n, D) -> (i*, t*) each (n, k) int32."""
+    x (n, D) -> (i*, t*) each (n, k) int32.  On the split body, or on
+    ``body`` when given; on ``split_plan(..., stored=True)``'s tiles, or
+    ``plan``'s."""
+    body = _split_body(body)
     x = _check_x(x)
     _check_params(x, params)
     n, d = x.shape
@@ -407,10 +425,17 @@ def cws_hash_cuda(x, params: CWSParams):
     t_star = torch.empty_like(i_star)
     if n == 0 or k == 0:
         return i_star, t_star
-    _launch("cws_hash", _lib().cws_hash_launch, i_star, x.data_ptr(),
-            params.r.data_ptr(), params.log_c.data_ptr(),
-            params.beta.data_ptr(), n, d, k, i_star.data_ptr(),
-            t_star.data_ptr())
+    ptrs = (x.data_ptr(), params.r.data_ptr(), params.log_c.data_ptr(),
+            params.beta.data_ptr())
+    if body == "pair":
+        _launch("cws_hash", _lib().cws_hash_launch, i_star, *ptrs, n, d, k,
+                i_star.data_ptr(), t_star.data_ptr(), body=body)
+    else:
+        _launch("cws_hash",
+                cws_split_library().lib.cws_split_stored_hash_launch, i_star,
+                *ptrs, n, d, k, *_plan_args(x, k, stored=True, plan=plan),
+                stored_copy_bytes(params), i_star.data_ptr(),
+                t_star.data_ptr(), body=body)
     return i_star, t_star
 
 
@@ -429,7 +454,7 @@ def cws_hash_rng_cuda(x, key, num_hashes: int, *, body: str | None = None):
     if body == "pair":
         _launch("cws_hash_rng", _lib().cws_hash_rng_launch, i_star,
                 x.data_ptr(), k0, k1, n, d, num_hashes, i_star.data_ptr(),
-                t_star.data_ptr())
+                t_star.data_ptr(), body=body)
     else:
         _launch("cws_hash_rng",
                 cws_split_library().lib.cws_regen_split_hash_launch,

@@ -1,4 +1,4 @@
-"""The split body of the CWS kernels (rows 1, 2, 3 and 6), on the CPU.
+"""The split body of the CWS kernels (rows 1-6), on the CPU.
 
 ``csrc/cws_split.cu`` runs only on the card, where ``chip_smoke.py``
 holds it bit for bit against the plain versions.  What it decides in Python
@@ -7,7 +7,8 @@ or in its reduction is checked here:
   (a) ``split_plan``'s properties: S in {1, 2, 4, 8}, no empty D range,
       128 rows a block where n >= 128, about two blocks per SM (more than
       half a wave of them, never more than one wave) wherever D allows it;
-      and the stored-parameter plan's shorter row tiles;
+      and the stored-parameter plan's shorter row tiles (room for S = 2,
+      or no short last wave);
   (b) a plain-PyTorch emulation of the body's reduction (partial argmins
       over each cluster rank's contiguous D range and, inside a rank, over
       each d warp's dimensions of every 64-wide chunk; combined in warp and
@@ -15,8 +16,9 @@ or in its reduction is checked here:
       emits), on regenerated parameters and on stored ones (the JAX
       package's ``make_cws_params`` through ``repro_torch.interop``),
       against the port's plain versions, bit for bit, and against the JAX
-      package's ``cws_hash_rng_pallas``, ``cws_encode_rng_packed_pallas``,
-      ``cws_encode_rng_pallas`` and ``cws_encode_pallas`` in interpret mode;
+      package's six kernels (``cws_hash_rng_pallas``, ``cws_hash_pallas``,
+      ``cws_encode_rng_packed_pallas``, ``cws_encode_packed_pallas``,
+      ``cws_encode_rng_pallas``, ``cws_encode_pallas``) in interpret mode;
   (c) the combine rule on hand-built partials;
   (d) the width of the stored tiles' copies, and the launchers' guards.
 
@@ -38,9 +40,10 @@ import torch
 
 from repro.core.cws import make_cws_params
 from repro.core.regen import regen_params
-from repro.kernels.cws_hash import (cws_encode_pallas, cws_encode_rng_pallas,
+from repro.kernels.cws_hash import (cws_encode_packed_pallas,
+                                    cws_encode_pallas, cws_encode_rng_pallas,
                                     cws_encode_rng_packed_pallas,
-                                    cws_hash_rng_pallas)
+                                    cws_hash_pallas, cws_hash_rng_pallas)
 from repro_torch import interop
 from repro_torch.core.cws import CWSParams, log_u
 from repro_torch.core.hashing import encode, feature_indices, pack_codes
@@ -231,13 +234,19 @@ def test_stored_split_plan_properties(sms):
         assert min(n, K.SPLIT_STORED_MIN_ROWS) <= p.block_rows
         assert p.block_rows <= regen.block_rows
         tiles = p.blocks // p.splits
-        if p.block_rows < regen.block_rows:   # halved: room for S = 2
-            assert 2 * tiles <= wave
+        if p.block_rows < regen.block_rows:
+            # halved: room for S = 2, or the taller tile's grid ran past
+            # one wave with its last wave less than half full
+            per_thread, row_warps = K._row_tile(2 * p.block_rows)
+            taller = dataclasses.replace(p, rows_per_thread=per_thread,
+                                         row_warps=row_warps, splits=1)
+            assert 2 * tiles <= wave or K.short_tail(taller.blocks, wave)
         if p.block_rows > K.SPLIT_STORED_MIN_ROWS:   # halving stopped
             per_thread, row_warps = K._row_tile(p.block_rows // 2)
             half = dataclasses.replace(p, rows_per_thread=per_thread,
                                        row_warps=row_warps, splits=1)
             assert 2 * half.blocks > wave
+            assert not K.short_tail(tiles, wave)
         # the split rule on the chosen tiles
         room = (p.splits < K.SPLIT_SIZES[-1] and
                 tiles * 2 * p.splits <= wave and
@@ -254,10 +263,19 @@ def test_stored_split_plan_properties(sms):
     ((32, 256, 1024), 8, 2), ((8, 256, 1024), 8, 4), ((1, 256, 1024), 1, 4),
     ((4, 3840, 512), 4, 8), ((1024, 256, 1024), 128, 1),
     ((512, 65536, 1024), 128, 2), ((37, 300, 70), 8, 4),
-    ((2, 1000, 1024), 2, 8)])
+    ((2, 1000, 1024), 2, 8), ((1200, 256, 1024), 32, 1),
+    ((64, 256, 1024), 16, 2), ((2, 2000, 1024), 2, 8),
+    ((1500, 256, 1024), 64, 1), ((1600, 256, 1024), 128, 1),
+    ((2048, 256, 1024), 128, 1)])
 def test_stored_split_plan_on_h100(shape, block_rows, splits):
     """The H100's stored plans at the serving buckets, the LM head's
-    (4, 3,840, 512) and ``chip_smoke.py``'s parity and timing shapes."""
+    (4, 3,840, 512), the kernel machine's row-5 launches (1,200 and 64
+    rows: at 1,200 the 128-row tiles' 320 blocks would leave a last wave
+    of 56 of 264 slots) and ``chip_smoke.py``'s parity and timing
+    shapes; and both sides of ``short_tail``'s half-full wave past 1,024
+    rows: at 1,500 rows 128-row tiles leave a last wave of 120 of 264
+    slots (halved: 64-row tiles, a last wave of 240), at 1,600 one of 152
+    (kept), at 2,048 one of 248 (kept)."""
     p = K.split_plan(*shape, sms=132, stored=True)
     assert (p.block_rows, p.splits) == (block_rows, splits)
 
@@ -266,53 +284,83 @@ def test_stored_split_plan_on_h100(shape, block_rows, splits):
 # (b) the emulated reduction vs the plain versions and the JAX kernels
 # ---------------------------------------------------------------------------
 
+def _source(source, d, k):
+    """(the (D, k) (r, log c, beta) the body walks, the JAX package's
+    parameters, the port's ``CWSParams`` or None) for ``source``."""
+    if source == "regen":
+        return (_regen(KEY, d, k), regen_params(jnp.asarray(KEY), d, k),
+                None)
+    jp, tp = _stored(d, k)
+    return (tp.r, tp.log_c, tp.beta), jp, tp
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_raw(n, d):
-    x = _rows(n, d, seed=n)
-    i, t = cws_hash_rng_pallas(jnp.asarray(x), jnp.asarray(KEY), K_HASHES,
-                               interpret=True, **JAX_BLOCKS)
+def _jax_raw(source, n, d):
+    x = jnp.asarray(_rows(n, d, seed=n))
+    if source == "regen":
+        i, t = cws_hash_rng_pallas(x, jnp.asarray(KEY), K_HASHES,
+                                   interpret=True, **JAX_BLOCKS)
+    else:
+        p, _ = _stored(d, K_HASHES)
+        i, t = cws_hash_pallas(x, p.r, p.log_c, p.beta, interpret=True,
+                               **JAX_BLOCKS)
     return np.asarray(i), np.asarray(t)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_packed(n, d, b_i, b_t):
-    x = _rows(n, d, seed=n)
-    out = cws_encode_rng_packed_pallas(jnp.asarray(x), jnp.asarray(KEY),
-                                       K_HASHES, b_i=b_i, b_t=b_t,
-                                       interpret=True, **JAX_BLOCKS)
+def _jax_packed(source, n, d, b_i, b_t):
+    x = jnp.asarray(_rows(n, d, seed=n))
+    if source == "regen":
+        out = cws_encode_rng_packed_pallas(x, jnp.asarray(KEY), K_HASHES,
+                                           b_i=b_i, b_t=b_t, interpret=True,
+                                           **JAX_BLOCKS)
+    else:
+        p, _ = _stored(d, K_HASHES)
+        out = cws_encode_packed_pallas(x, p.r, p.log_c, p.beta, b_i=b_i,
+                                       b_t=b_t, interpret=True, **JAX_BLOCKS)
     return np.asarray(out).view(np.int32)
 
 
+@pytest.mark.parametrize("source", ["regen", "stored"])
 @pytest.mark.parametrize("splits", [1, 2, 4, 8])
 @pytest.mark.parametrize("n", [1, 2, 3])
-def test_split_emulation_raw_matches_plain_and_jax(n, splits):
+def test_split_emulation_raw_matches_plain_and_jax(n, splits, source):
+    """Rows 6 (regenerated) and 5 (stored): the raw emit."""
     x = _rows(n, D_ODD, seed=n)
-    plan = _plan(n, D_ODD, K_HASHES, splits)
-    got = split_emulate(x, _regen(KEY, D_ODD, K_HASHES), plan)
-    want = K.cws_hash_rng_plain(torch.from_numpy(x), KEY, K_HASHES)
+    xt = torch.from_numpy(x)
+    params, jp, tp = _source(source, D_ODD, K_HASHES)
+    got = split_emulate(x, params, _plan(n, D_ODD, K_HASHES, splits))
+    want = (K.cws_hash_rng_plain(xt, KEY, K_HASHES) if tp is None
+            else K.cws_hash_plain(xt, tp))
     for g, w in zip(got, want):
         assert g.dtype == w.dtype == torch.int32
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     if n > 1:   # the all-zero row keeps the sentinel
         assert (got[0][1] == -1).all() and (got[1][1] == 0).all()
-    jp = regen_params(jnp.asarray(KEY), D_ODD, K_HASHES)
-    assert_raw_exact_or_near_tie([g.numpy() for g in got], _jax_raw(n, D_ODD),
-                                 x, (jp.r, jp.log_c, jp.beta))
+    assert_raw_exact_or_near_tie([g.numpy() for g in got],
+                                 _jax_raw(source, n, D_ODD), x,
+                                 (jp.r, jp.log_c, jp.beta))
 
 
+@pytest.mark.parametrize("source", ["regen", "stored"])
 @pytest.mark.parametrize("b_i,b_t", [(1, 0), (2, 0), (4, 0), (8, 0), (2, 2)])
 @pytest.mark.parametrize("n", [1, 2, 3])
-def test_split_emulation_packed_matches_plain_and_jax(n, b_i, b_t):
+def test_split_emulation_packed_matches_plain_and_jax(n, b_i, b_t, source):
+    """Rows 3 (regenerated) and 4 (stored): the packed emit on every S."""
     x = _rows(n, D_ODD, seed=n)
-    want = K.cws_encode_rng_packed_plain(torch.from_numpy(x), KEY, K_HASHES,
-                                         b_i=b_i, b_t=b_t).view(torch.int32)
+    xt = torch.from_numpy(x)
+    params, jp, tp = _source(source, D_ODD, K_HASHES)
+    want = (K.cws_encode_rng_packed_plain(xt, KEY, K_HASHES, b_i=b_i,
+                                          b_t=b_t) if tp is None
+            else K.cws_encode_packed_plain(xt, tp, b_i=b_i, b_t=b_t))
+    want = want.view(torch.int32)
     for splits in K.SPLIT_SIZES:
-        got = split_emulate_packed(x, _regen(KEY, D_ODD, K_HASHES),
+        got = split_emulate_packed(x, params,
                                    _plan(n, D_ODD, K_HASHES, splits),
                                    b_i=b_i, b_t=b_t).view(torch.int32)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    jp = regen_params(jnp.asarray(KEY), D_ODD, K_HASHES)
-    assert_exact_or_near_tie(got.numpy(), _jax_packed(n, D_ODD, b_i, b_t), x,
+    assert_exact_or_near_tie(got.numpy(),
+                             _jax_packed(source, n, D_ODD, b_i, b_t), x,
                              (jp.r, jp.log_c, jp.beta), packed=True,
                              b_i=b_i, b_t=b_t)
 
@@ -352,14 +400,9 @@ def test_split_emulation_index_matches_plain_and_jax(source, n, b_i, b_t):
     """Rows 1 (regenerated) and 2 (stored): the index emit on every S."""
     x = _rows(n, D_ODD, seed=n)
     xt = torch.from_numpy(x)
-    if source == "regen":
-        params = _regen(KEY, D_ODD, K_HASHES)
-        want = K.cws_encode_rng_plain(xt, KEY, K_HASHES, b_i=b_i, b_t=b_t)
-        jp = regen_params(jnp.asarray(KEY), D_ODD, K_HASHES)
-    else:
-        jp, tp = _stored(D_ODD, K_HASHES)
-        params = (tp.r, tp.log_c, tp.beta)
-        want = K.cws_encode_plain(xt, tp, b_i=b_i, b_t=b_t)
+    params, jp, tp = _source(source, D_ODD, K_HASHES)
+    want = (K.cws_encode_rng_plain(xt, KEY, K_HASHES, b_i=b_i, b_t=b_t)
+            if tp is None else K.cws_encode_plain(xt, tp, b_i=b_i, b_t=b_t))
     for splits in K.SPLIT_SIZES:
         got = split_emulate_index(x, params, _plan(n, D_ODD, K_HASHES, splits),
                                   b_i=b_i, b_t=b_t)
@@ -389,6 +432,27 @@ def test_split_emulation_stored_index_on_the_chosen_plan(shape):
                               b_t=2)
     want = K.cws_encode_plain(torch.from_numpy(x), tp, b_i=4, b_t=2)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 70), (17, 200, 40),
+                                   (3, 130, 19)])
+def test_split_emulation_stored_raw_and_packed_on_the_chosen_plan(shape):
+    """Rows 5 and 4 on the stored plan for a small card, as row 2 above:
+    the raw emit, and the packed emit at b = 2 + 2 (k = 70 and 19 end in a
+    part-filled word)."""
+    n, d, k = shape
+    plan = K.split_plan(n, d, k, sms=4, stored=True)
+    assert plan.splits > 1 and plan.d_warps > 1
+    x = _rows(n, d, seed=d)
+    xt = torch.from_numpy(x)
+    _, tp = _stored(d, k)
+    params = (tp.r, tp.log_c, tp.beta)
+    for g, w in zip(split_emulate(x, params, plan), K.cws_hash_plain(xt, tp)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    got = split_emulate_packed(x, params, plan, b_i=2, b_t=2)
+    want = K.cws_encode_packed_plain(xt, tp, b_i=2, b_t=2)
+    torch.testing.assert_close(got.view(torch.int32), want.view(torch.int32),
+                               rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -437,20 +501,21 @@ def test_stored_copy_bytes(k, offset, width):
     assert K.stored_copy_bytes(CWSParams(*mats)) == width
 
 
+LAUNCHERS = ["cws_hash_rng_cuda", "cws_encode_rng_packed_cuda",
+             "cws_encode_rng_cuda", "cws_encode_cuda",
+             "cws_encode_packed_cuda", "cws_hash_cuda"]
+
+
 def _launch_args(launcher, d):
     """(positional, keyword) arguments of ``launcher`` after x."""
-    if launcher == "cws_encode_cuda":
-        return (CWSParams(*(torch.rand(d, 8) + 0.5 for _ in range(3))),), \
-            {"b_i": 2}
-    kw = {} if launcher == "cws_hash_rng_cuda" else {"b_i": 2}
-    return (KEY, 8), kw
+    kw = {} if launcher.startswith("cws_hash") else {"b_i": 2}
+    if "rng" in launcher:
+        return (KEY, 8), kw
+    return (CWSParams(*(torch.rand(d, 8) + 0.5 for _ in range(3))),), kw
 
 
 @pytest.mark.parametrize("body", [None, "split", "pair"])
-@pytest.mark.parametrize("launcher", ["cws_hash_rng_cuda",
-                                      "cws_encode_rng_packed_cuda",
-                                      "cws_encode_rng_cuda",
-                                      "cws_encode_cuda"])
+@pytest.mark.parametrize("launcher", LAUNCHERS)
 def test_split_launchers_refuse_cpu_tensors(launcher, body):
     x = torch.from_numpy(_rows(2, 8, seed=0))
     args, kw = _launch_args(launcher, 8)
@@ -461,8 +526,7 @@ def test_split_launchers_refuse_cpu_tensors(launcher, body):
 
 def test_unknown_body_is_refused():
     x = torch.from_numpy(_rows(2, 8, seed=0))
-    for launcher in ("cws_hash_rng_cuda", "cws_encode_rng_packed_cuda",
-                     "cws_encode_rng_cuda", "cws_encode_cuda"):
+    for launcher in LAUNCHERS:
         args, kw = _launch_args(launcher, 8)
         with pytest.raises(ValueError, match="body must be one of"):
             getattr(K, launcher)(x, *args, body="simt", **kw)
