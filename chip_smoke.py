@@ -8,16 +8,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   1. device   - require CUDA; print the card's name and power limit, and
                 the lane issue rate the bounds use (SMs x 128 lanes x the
                 maximum SM clock, read from the card);
-  2. build    - nvcc-build the CWS kernels' two bodies (pair and split),
-                the min-sum Gram kernel and the flash-attention kernels'
-                two bodies (SIMT and wgmma) from ``src/repro_torch/csrc``,
-                one nvcc per source, started together, and print the
-                compiler's per-kernel registers, shared memory and spills;
-                then count the two CWS bodies' SASS instructions
-                (``cuobjdump -xelf`` + ``nvdisasm -gi`` on the built
-                libraries): per nonzero (row, d, hash) step, per
-                regenerated (d, hash) and per stored (d, hash) loaded, the
-                design floors of the times phase ("not measured" where the
+  2. build    - nvcc-build the CWS kernels, the min-sum Gram kernel and
+                the flash-attention kernels' two bodies (SIMT and wgmma)
+                from ``src/repro_torch/csrc``, one nvcc per source, started
+                together, and print the compiler's per-kernel registers,
+                shared memory and spills; then count the CWS and the Gram
+                kernels' SASS instructions (``cuobjdump -xelf`` +
+                ``nvdisasm -gi`` on the built libraries): per nonzero (row,
+                d, hash) step, per regenerated (d, hash) and per stored (d,
+                hash) loaded, per (m, n, d) triple of the Gram's tiled inner
+                loop and per step of its small-output loop, the design
+                floors of the times phase ("not measured" where the
                 disassembly fails);
   3. parity   - each of the six CWS kernels against its plain PyTorch
                 version on the card, exactly (integer outputs): the four
@@ -35,11 +36,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 plans covered S in {1, 2, 4, 8} for every row, that the
                 stored rows' (2, 4 and 5) tiles took both copy widths (16
                 bytes where k % 4 == 0, 4 at k = 70), and that row 5's
-                all-zero clip row gave (-1, 0); and on the pair body at
-                512 x 256 x 1024;
-                the min-sum kernel (``min_sum``, ``minmax_gram``) at
-                ragged, block-edge, suite and long-D shapes within the
-                bound its fp32 sums allow; the flash-attention kernel in
+                all-zero clip row gave (-1, 0);
+                the min-sum kernel (``min_sum``, ``minmax_gram``) within
+                the bound its fp32 sums allow, at ragged, block-edge, long-D
+                and all-zero-row shapes, D % 4 != 0 (1,999) and a ragged
+                last chunk (300), the kernel machine's (800 | 1,200, 1,200,
+                256), the estimator's compacted pairs (1, 1, D), (12,000,
+                12,000, 784), and on forced plans (each of the three tiles
+                at S = 1, 2, 4, 8, the small-output mode), asserting that
+                the cases took every tile, every S and the small-output
+                mode; the flash-attention kernel in
                 fp32 and bf16 over 64 shapes each (the reference test's
                 cases, D in 64/128/256, H/G in 1/2/9/48, ragged S, windows,
                 q_base with Sq < Sk, gemma3's (4, 2048), nemotron's 96/8
@@ -60,9 +66,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 launch counters are zeroed just before and read just after;
                 the features of every served batch are held exactly, and
                 served logits within a tolerance, against offline
-                ``pipe.features(x)`` and ``bag_logits`` of them; by body,
-                every launch of the four modes (rows 1-4) ran on the split
-                body, none on the pair body;
+                ``pipe.features(x)`` and ``bag_logits`` of them; each
+                mode's kernel launched once per warmed bucket and once per
+                batch, no other CWS kernel;
   5. kernel machine - Table 1 on the "template" suite at full size (1,200
                 train / 800 test rows, D = 256, 6 classes): the four
                 Grams through ``GRAM_FNS`` and ``best_accuracy_over_C``
@@ -70,17 +76,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 hash pass of Figs 7-8 (stored parameters, k = 1024) whose
                 full-scheme collision estimates are held against the
                 min-max Gram; min-max accuracy must reach linear's and
-                agree with the plain path on the CPU within 0.5 pp; both
-                row-5 launches on the split body;
+                agree with the plain path on the CPU within 0.5 pp;
+                launches: min_sum 6 (two Grams each for min-max, n-min-max
+                and intersection), cws_hash 2, no other kernel;
   6. estimator - Figs 4-5 at 2^16-document word pairs (HONG-KONG,
                 CREDIT-CARD): K from the min-sum kernel, 300 Monte-Carlo
                 reps of ``pipe.with_key(key).hashes(x)`` at k = 1024, and
                 the full / 0-bit / 1-bit bias and MSE at k in
                 {1, 4, ..., 1024} with the benchmark's own assertions; K at
                 4,096 documents against the JAX package's stored values;
-                all 600 row-6 launches on the split body; the phase's wall
-                time beside its launches' device time (600 x kernel ms at
-                each pair's shape);
+                launches: cws_hash_rng 600, min_sum 2, no other kernel;
+                the phase's wall time beside its launches' device time (600
+                x kernel ms at each pair's shape);
   7. lm       - gemma3_12b at full width and depth, attn_impl "flash":
                 the fp32 prefill + decode logits against one cached forward
                 (prompt 600, 4 steps); then the masters cast once to bf16
@@ -89,9 +96,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the flash kernel once per attention layer (48), all on the
                 wgmma body (the fp32 check all on the SIMT body); the same
                 prefill through the plain attention, within a stated
-                tolerance; the CWS head on the pooled hidden state
-                (``cws_encode``, on the split body), its codes equal to
-                the CPU path's;
+                tolerance; the CWS head on the pooled hidden state (one
+                ``cws_encode`` launch, no other CWS kernel), its codes
+                equal to the CPU path's;
   8. seq-parallel - gemma3_12b at full width cut to 6 layers, its
                 sequence sharded over four ranks of the ``model`` axis
                 (``torch.multiprocessing``; on one card the ranks share it
@@ -108,17 +115,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   9. times    - each kernel and its plain version timed with CUDA events
                 (rows 8 and 9: the wgmma and the SIMT body on the same
                 inputs, in turns, the wgmma body required to be faster;
-                rows 1-6: the split and the pair body on the same inputs,
-                in turns, each beside its design floor from the SASS
-                counts, at (512, 256, 1024), (512, 65,536, 1024), for rows
-                5 and 6 the estimator's (2, 2,000, 1,024) and for row 5
-                the kernel machine's suite rows (1,200, 256, 1,024); the
-                split body required to be faster for rows 1, 2, 4 and 5 at
-                (512, 256, 1024); rows 2 and 5 also on their stored plan
-                and on the regenerated-parameter plan, in turns, row 2 at
-                n in {12, 17, 32, 64, 128, 256}, row 5 at 1,200 (sparse
-                rows), the stored plan required to be faster at the
-                buckets 32 and 128 and at 1,200 rows),
+                rows 1-6 beside their design floor from the SASS counts,
+                at (512, 256, 1024), (512, 65,536, 1024), for rows 5 and 6
+                the estimator's (2, 2,000, 1,024) and for row 5 the kernel
+                machine's suite rows (1,200, 256, 1,024); rows 2 and 5 also
+                on their stored plan and on the regenerated-parameter plan,
+                in turns, row 2 at n in {12, 17, 32, 64, 128, 256}, row 5
+                at 1,200 (sparse rows), the stored plan required to be
+                faster at the buckets 32 and 128 and at 1,200 rows; row 7
+                at the kernel machine's (1,200 | 800, 1,200, 256), the
+                estimator's (1, 1, D) and (12,000, 12,000, 784), beside its
+                design floor from the SASS counts, its chosen plan beside
+                the 128-row tiles' plans at the kernel machine's shapes and
+                each tile's rate at (12,000, 12,000, 784), in turns),
                 beside the least time the card could take for the same
                 work and a PyTorch call as yardstick where one exists
                 (``torch.cdist(p=1)`` for the Gram,
@@ -170,7 +179,12 @@ PAIRS = ("HONG-KONG", "CREDIT-CARD")
 N_DOCS, SUPPORT_CAP, REPS = 2 ** 16, 2000, 300
 KS = (1, 4, 16, 64, 256, 1024)
 FIG45_JSON = ROOT / "benchmarks" / "results" / "fig45_cws_mse.json"
-GRAM_TIMING = ((1200, 1200, 256), (12000, 12000, 784))
+# row 7 timed at the kernel machine's train and test Grams (the suite's
+# rows), the estimator's (1, 1, D) (CREDIT-CARD's D, read at run time) and
+# an MNIST-variations train Gram (Table 1's M-Rotate / M-Image shape,
+# synthetic rows); the first is the shape its ``kernels`` entry stands at
+GRAM_TIMING = ((1200, 1200, 256), (800, 1200, 256), "estimator",
+               (12000, 12000, 784))
 
 # Published H100 SXM memory rate (NVIDIA data sheet).  Operations are
 # counted at the lane issue rate read from the card (``lane_rate``): one
@@ -195,14 +209,8 @@ KERNELS = {
 }
 ENCODES = [k for k, v in KERNELS.items() if v[2] != "raw"]
 RAW = [k for k, v in KERNELS.items() if v[2] == "raw"]
-SOURCE = "src/repro_torch/csrc/cws_encode.cu"
-# every row runs on the split body; the pair body is its yardstick
-CWS_SOURCES = {"split": "src/repro_torch/csrc/cws_split.cu",
-               "pair": SOURCE}
-EMITS = ("index", "packed", "raw")   # the bodies' Emit template argument
-# the split body must beat the pair body for these rows at (512, 256, 1024)
-SPLIT_FASTER = ("cws_encode_rng", "cws_encode", "cws_encode_packed",
-                "cws_hash")
+CWS_SOURCE = "src/repro_torch/csrc/cws_split.cu"
+EMITS = ("index", "packed", "raw")   # the body's Emit template argument
 # rows at which row 2 is timed on its stored plan and on the regenerated-
 # parameter plan (D = 256, k = 1024): the buckets below 512, where the
 # plans differ, and rows between them; at the buckets the stored plan
@@ -211,7 +219,6 @@ STORED_PLAN_ROWS = (12, 17, 32, 64, 128, 256)
 # row 5's launches on the kernel machine's path: the test rows whose
 # estimates are checked, and the template suite's training rows
 KM_HASH_ROWS = (EST_ROWS, 1200)
-PAIR_ROWS = 16            # rows a pair-body block holds (cws_encode.cu:BN)
 # Parity shapes (n, D, k) the split body adds: n in {2, 3, 17}, a D that
 # no S x 64 divides (1,000 at S = 8), k = 1,000 (not a multiple of the
 # 32-hash tile), D = 65,536 at two rows, 1,024 rows (S = 1 on 132 SMs),
@@ -221,24 +228,35 @@ SPLIT_PARITY = ((2, DIM, NUM_HASHES), (3, DIM, NUM_HASHES),
                 (8, DIM, 1000), (2, WIDE_DIM, NUM_HASHES),
                 (1024, DIM, NUM_HASHES), (3, 100, 70), (2, 200, 70),
                 (2, 300, 70))
-# SASS regions (the [sass: ...] marks in the CWS sources): an instruction
-# counts for a region when its source line, or a line its code was inlined
-# at, lies inside the marks
+# SASS regions (the [sass: ...] marks in the CWS and Gram sources): an
+# instruction counts for a region when its source line, or a line its code
+# was inlined at, lies inside the marks
 SASS_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]*?)\s*;")
 SASS_LOC = re.compile(r'(?:File|inlined at) "([^"]+)", line (\d+)')
 SASS_FUNC = re.compile(r"^\.text\.(\S+):$")
 SASS_MARK = re.compile(r"//\s*\[sass:\s*(/?)(\w+)\]")
-# the template arguments: pair <Regen, Emit, TrackT>, split <R, Emit,
-# TrackT, Stored>
+# the CWS body's template arguments <R, Emit, TrackT, Stored>, the Gram's
+# tiled kernel's <RM, RN, WM, WN> (an RM x RN micro-tile a thread on WM x
+# WN warps: a 4·RM·WM x 8·RN·WN tile)
 SASS_ARGS = re.compile(
-    r"kernelIL[ib](\d+)EL[ib](\d+)EL[ib](\d+)E(?:L[ib](\d+)E)?E")
+    r"kernelIL[ib](\d+)EL[ib](\d+)EL[ib](\d+)EL[ib](\d+)EE")
+GRAM_SASS_ARGS = re.compile(
+    r"min_sum_tiled_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EE")
 ROTATES_PER_REGEN = 60    # three threefry-2x32 of 20 rotations each
 # hashes of one stored parameter that one load instruction of the
-# ``load`` region brings in: the split body's 16-byte copies (the 4-byte
-# path, k % 4 != 0, is not counted), the pair body's scalar loads
-LOAD_HASHES = {"split": 4, "pair": 1}
+# ``load`` region brings in: the body's 16-byte copies (the 4-byte path,
+# k % 4 != 0, is not counted)
+LOAD_HASHES = 4
 GRAM = ("min_sum", "src/repro/kernels/minmax_gram.py:66",
         "src/repro_torch/csrc/minmax_gram.cu")
+# Row 7's parity cases ((m, n, D), zero rows of x, zero rows of y) beyond
+# the 63/64/65 cube: ragged with zero rows, an all-zero row against every
+# row, a ragged last chunk (300 = 9 chunks + 12), D % 4 != 0 (1,999: the
+# aligned copy), long D, the kernel machine's Grams and the timing shape
+GRAM_PARITY = (((37, 29, 300), (0, 17), (5,)), ((5, 7, 1999), (2,), ()),
+               ((130, 70, 300), (129,), (0, 69)),
+               ((64, 64, WIDE_DIM), (), ()), ((800, 1200, 256), (), ()),
+               ((1200, 1200, 256), (), ()), ((12000, 12000, 784), (), ()))
 # rows 8 and 9: (name, replaces, the bf16 body's source); both bodies'
 # sources, by body
 FLASH = ("flash_attention_fwd", "src/repro/kernels/flash_attention.py:117",
@@ -367,18 +385,18 @@ class KernelCase:
         self.plain = getattr(K, name + "_plain")
         self.k = k if self.regen else params.num_hashes
 
-    def run(self, fn, **body):
-        """``fn`` on the case's inputs; ``body`` (``body="pair"``) picks
-        the device body."""
+    def run(self, fn, **plan):
+        """``fn`` on the case's inputs; ``plan`` (``plan=...``) forces the
+        kernel's plan."""
         if self.emit == "raw":        # (i*, t*) stacked: (2, n, k)
-            return torch.stack(fn(*self.args, **body))
-        out = fn(*self.args, b_i=self.b_i, b_t=self.b_t, **body)
+            return torch.stack(fn(*self.args, **plan))
+        out = fn(*self.args, b_i=self.b_i, b_t=self.b_t, **plan)
         return out.view(torch.int32) if self.emit == "packed" else out
 
-    def compare(self, **body):
+    def compare(self):
         """([mismatches per output], max |difference|): one output, or
         i* and t* for the raw hashes."""
-        got, want = self.run(self.cuda, **body), self.run(self.plain)
+        got, want = self.run(self.cuda), self.run(self.plain)
         torch.cuda.synchronize()
         if got.shape != want.shape:
             raise AssertionError(f"{self.name}: shape {tuple(got.shape)} "
@@ -407,8 +425,8 @@ class KernelCase:
             ops += d * k * (3 * THREEFRY_OPS + 5)
         return bound(nbytes, ops, peak_ops)
 
-    def floor_ms(self, peak_ops, counts, body):
-        """A body's design floor: its SASS instructions for this run's
+    def floor_ms(self, peak_ops, counts):
+        """The design floor: the body's SASS instructions for this run's
         work at one instruction per lane per cycle: a fast-path step per
         nonzero (row, d, hash), and per (d, hash) per row tile a
         regeneration or (stored parameters) a load of its three
@@ -418,14 +436,10 @@ class KernelCase:
         n, d = self.x.shape
         track_t = self.emit == "raw" or self.b_t > 0
         stored = not self.regen
-        if body == "split":
-            plan = split_plan(n, d, self.k, sm_count(0), stored=stored)
-            c = sass_lookup(counts, body, self.emit, track_t, stored,
-                            plan.rows_per_thread)
-            tiles = plan.grid[1]
-        else:
-            c = sass_lookup(counts, body, self.emit, track_t, stored)
-            tiles = -(-n // PAIR_ROWS)
+        plan = split_plan(n, d, self.k, sm_count(0), stored=stored)
+        c = sass_lookup(counts, self.emit, track_t, stored,
+                        plan.rows_per_thread)
+        tiles = plan.grid[1]
         per_tile = None if c is None else c["load" if stored else "regen"]
         if per_tile is None:
             return None
@@ -451,7 +465,7 @@ def sass_regions(source):
 def disassemble(lib_path):
     """SASS of a built library with line and inlining info: ``cuobjdump
     -xelf`` takes out its cubin, ``nvdisasm -gi`` disassembles it (the
-    CWS libraries build with ``-lineinfo``)."""
+    CWS and Gram libraries build with ``-lineinfo``)."""
     tool = lambda name: shutil.which(name) or f"/usr/local/cuda/bin/{name}"
     work = ROOT / "build" / "sass" / lib_path.stem
     shutil.rmtree(work, ignore_errors=True)
@@ -467,27 +481,19 @@ def disassemble(lib_path):
     return out.stdout
 
 
-def sass_counts(body, lib_path):
-    """Per kernel instantiation of a CWS body: its template arguments and,
-    from its SASS, the instructions of one nonzero (row, d, hash) step on
-    the division's fast path (the ``inner`` region over its MUFU.RCP count,
-    less the slow-path call sequence the fast path branches over; for the
-    split body plus its share of the per-column loads and loop, the
-    ``column`` region outside ``inner`` over the rows a thread holds), of
-    one regenerated (d, hash) (the ``regen`` region over its rotations
-    / 60) and of one stored (d, hash) loaded (the ``load`` region over its
-    global loads / 3, per ``LOAD_HASHES`` hashes a load)."""
-    source = CWS_SOURCES[body]
+def sass_walk(source, lib_path):
+    """(kernel, region, opcode) of every SASS instruction of ``lib_path``
+    whose source line, or a line it was inlined at, lies inside one of
+    ``source``'s marked regions, in program order; (kernel, None, None)
+    at the start of each kernel."""
     spans = sass_regions(source)
     name = pathlib.Path(source).name
-    kernels, func, locs, fresh = {}, None, set(), True
+    func, locs, fresh = None, set(), True
     for line in disassemble(lib_path).splitlines():
         m = SASS_FUNC.match(line.strip())
         if m:
             func, locs = m.group(1), set()
-            kernels[func] = {r: {"n": 0, "rcp": 0, "rot": 0, "ldg": 0,
-                                 "slow": 0, "in_slow": False, "fchk": False}
-                             for r in spans}
+            yield func, None, None
             continue
         if "//##" in line:
             if fresh:
@@ -503,37 +509,54 @@ def sass_counts(body, lib_path):
         op = words[1] if words[0].startswith("@") and len(words) > 1 \
             else words[0]
         for region, lines in spans.items():
-            if not any(lo < no < hi for no in locs for lo, hi in lines):
-                continue
-            c = kernels[func][region]
-            c["n"] += 1
-            c["rcp"] += op.startswith("MUFU.RCP")
-            c["rot"] += op.startswith("SHF.L.W")
-            c["ldg"] += op.startswith("LDG")   # LDG and LDGSTS (cp.async)
-            if op.startswith("FCHK"):
-                c["fchk"] = True
-            elif c["fchk"] and op.startswith("BRA"):   # fast path jumps on
-                c["fchk"], c["in_slow"] = False, True
-            elif op.startswith("BSYNC"):
-                c["in_slow"] = False
-            elif c["in_slow"]:
-                c["slow"] += 1
+            if any(lo < no < hi for no in locs for lo, hi in lines):
+                yield func, region, op
+
+
+def sass_counts(lib_path):
+    """Per kernel instantiation of the CWS body: its template arguments
+    and, from its SASS, the instructions of one nonzero (row, d, hash)
+    step on the division's fast path (the ``inner`` region over its
+    MUFU.RCP count, less the slow-path call sequence the fast path
+    branches over, plus its share of the per-column loads and loop: the
+    ``column`` region outside ``inner`` over the rows a thread holds), of
+    one regenerated (d, hash) (the ``regen`` region over its rotations /
+    60) and of one stored (d, hash) loaded (the ``load`` region over its
+    global loads / 3, ``LOAD_HASHES`` hashes a load)."""
+    regions = sass_regions(CWS_SOURCE)
+    kernels = {}
+    for func, region, op in sass_walk(CWS_SOURCE, lib_path):
+        if region is None:
+            kernels[func] = {r: {"n": 0, "rcp": 0, "rot": 0, "ldg": 0,
+                                 "slow": 0, "in_slow": False, "fchk": False}
+                             for r in regions}
+            continue
+        c = kernels[func][region]
+        c["n"] += 1
+        c["rcp"] += op.startswith("MUFU.RCP")
+        c["rot"] += op.startswith("SHF.L.W")
+        c["ldg"] += op.startswith("LDG")   # LDG and LDGSTS (cp.async)
+        if op.startswith("FCHK"):
+            c["fchk"] = True
+        elif c["fchk"] and op.startswith("BRA"):   # fast path jumps on
+            c["fchk"], c["in_slow"] = False, True
+        elif op.startswith("BSYNC"):
+            c["in_slow"] = False
+        elif c["in_slow"]:
+            c["slow"] += 1
     counts = []
     for func, regions in kernels.items():
         args = SASS_ARGS.search(func)
         inner, regen = regions.get("inner"), regions.get("regen")
         if not args or not inner or not inner["rcp"]:
             continue
-        a, emit, track_t, flag = (int(v or 0) for v in args.groups())
-        # pair: a is the Regen flag; split: a rows a thread, flag Stored
-        rows = a if body == "split" else 1
-        stored = bool(flag) if body == "split" else not a
+        rows, emit, track_t, stored = (int(v) for v in args.groups())
         step = (inner["n"] - inner["slow"]) / inner["rcp"]
         column = regions.get("column")
         if column:   # the loop over columns, unrolled rcp / rows times
             step += (column["n"] - inner["n"]) / (inner["rcp"] / rows) / rows
-        entry = {"body": body, "emit": EMITS[emit], "track_t": bool(track_t),
-                 "rows": rows, "stored": stored,
+        entry = {"emit": EMITS[emit], "track_t": bool(track_t),
+                 "rows": rows, "stored": bool(stored),
                  "step_static": inner["n"] / inner["rcp"], "step": step,
                  "regen": None, "load": None}
         if regen and regen["rot"]:
@@ -541,15 +564,36 @@ def sass_counts(body, lib_path):
                 1, round(regen["rot"] / ROTATES_PER_REGEN))
         load = regions.get("load")
         if load and load["ldg"]:
-            entry["load"] = load["n"] / (load["ldg"] / 3) / LOAD_HASHES[body]
+            entry["load"] = load["n"] / (load["ldg"] / 3) / LOAD_HASHES
         counts.append(entry)
     return counts
 
 
-def sass_lookup(counts, body, emit, track_t, stored, rows=1):
-    """The counted instantiation a launch of ``body`` ran, or None."""
+def gram_sass_counts(lib_path):
+    """The Gram kernel's instructions per (m, n, d) triple: for each tiled
+    instantiation (by its tile, (4·RM·WM, 8·RN·WN)) the ``inner`` region's
+    instructions over its FMNMX (one a triple), and for the small-output
+    kernel the ``small`` region's over its FMNMX (one a step):
+    {tile or "small": instructions a triple}."""
+    n, mins = {}, {}
+    for func, region, op in sass_walk(GRAM[2], lib_path):
+        if region is None:
+            continue
+        args = GRAM_SASS_ARGS.search(func)
+        rm, rn, wm, wn = (int(a) for a in args.groups()) if args else (0,) * 4
+        key = ((4 * rm * wm, 8 * rn * wn) if args and region == "inner" else
+               "small" if region == "small" else None)
+        if key is None:
+            continue
+        n[key] = n.get(key, 0) + 1
+        mins[key] = mins.get(key, 0) + op.startswith("FMNMX")
+    return {k: n[k] / mins[k] for k in n if mins[k]}
+
+
+def sass_lookup(counts, emit, track_t, stored, rows=1):
+    """The counted instantiation a launch ran, or None."""
     for c in counts or ():
-        if (c["body"] == body and c["emit"] == emit and c["stored"] == stored
+        if (c["emit"] == emit and c["stored"] == stored
                 and c["track_t"] == track_t and c["rows"] == rows):
             return c
     return None
@@ -593,29 +637,27 @@ def clip_case(rng, dev):
 
 
 def phase_parity(dev, results):
-    from repro_torch.kernels.cws_hash import (BODY_LAUNCHES, LAUNCHES,
-                                              SPLIT_SIZES, sm_count,
-                                              split_plan, stored_copy_bytes)
+    from repro_torch.kernels.cws_hash import (LAUNCHES, SPLIT_SIZES,
+                                              sm_count, split_plan,
+                                              stored_copy_bytes)
     rng = np.random.default_rng(11)
     key = tuple(int(w) for w in rng.integers(0, 2 ** 32, 2, dtype=np.uint64))
 
     def check(name, n, d, k, b_i=0, b_t=0, zero_rows=(), x=None,
-              params=None, body=None):
+              params=None):
         if x is None:
             x = torch.from_numpy(sparse_rows(rng, n, d, zero_rows=zero_rows)
                                  ).to(dev)
         if params is None and not KERNELS[name][1]:
             params = stored_params(rng, d, k, dev)
         case = KernelCase(name, x, b_i, b_t, params=params, key=key, k=k)
-        bad, err = case.compare(**({} if body is None else {"body": body}))
-        if body is None:
-            s = split_plan(x.shape[0], x.shape[1], k, sm_count(0),
-                           stored=params is not None).splits
-            results[name]["splits"][s] = results[name]["splits"].get(s, 0) + 1
-            if params is not None:   # the stored tiles' copy width
-                w = stored_copy_bytes(params)
-                results[name]["copies"][w] = (
-                    results[name]["copies"].get(w, 0) + 1)
+        bad, err = case.compare()
+        s = split_plan(x.shape[0], x.shape[1], k, sm_count(0),
+                       stored=params is not None).splits
+        results[name]["splits"][s] = results[name]["splits"].get(s, 0) + 1
+        if params is not None:   # the stored tiles' copy width
+            w = stored_copy_bytes(params)
+            results[name]["copies"][w] = results[name]["copies"].get(w, 0) + 1
         r = results[name]
         r["checked"] += 1
         r["mismatches"] += sum(bad)
@@ -645,11 +687,9 @@ def phase_parity(dev, results):
         check(name, 512, WIDE_DIM, NUM_HASHES, B_I, 0)
         for n, d, k in SPLIT_PARITY + ((2, SUPPORT_CAP, NUM_HASHES),):
             check(name, n, d, k, B_I, 0, zero_rows=(1,))
-        check(name, 512, DIM, NUM_HASHES, B_I, 0, body="pair")
-        extra = (f"; split body also at (n, D, k) in {SPLIT_PARITY} and "
+        extra = (f"; also at (n, D, k) in {SPLIT_PARITY} and "
                  f"2x{SUPPORT_CAP}x{NUM_HASHES} (row 1 all zero), S used "
-                 f"{dict(sorted(results[name]['splits'].items()))}; the pair "
-                 f"body at 512x{DIM}x{NUM_HASHES}")
+                 f"{dict(sorted(results[name]['splits'].items()))}")
         if "copies" in results[name]:
             extra += (f"; stored tiles' copy bytes used "
                       f"{dict(sorted(results[name]['copies'].items()))}")
@@ -689,11 +729,8 @@ def phase_parity(dev, results):
         check(name, 512, WIDE_DIM, NUM_HASHES)
         for n, d, k in SPLIT_PARITY:
             check(name, n, d, k, zero_rows=(1,))
-        check(name, 512, DIM, NUM_HASHES, body="pair")
-        extra = (f"; split body also at (n, D, k) in {SPLIT_PARITY} (row 1 "
-                 f"all zero), S used "
-                 f"{dict(sorted(results[name]['splits'].items()))}; the pair "
-                 f"body at 512x{DIM}x{NUM_HASHES}")
+        extra = (f"; also at (n, D, k) in {SPLIT_PARITY} (row 1 all zero), "
+                 f"S used {dict(sorted(results[name]['splits'].items()))}")
         if "copies" in results[name]:
             extra += (f"; stored tiles' copy bytes used "
                       f"{dict(sorted(results[name]['copies'].items()))}")
@@ -707,15 +744,14 @@ def phase_parity(dev, results):
     for name in KERNELS:
         missing = set(SPLIT_SIZES) - set(results[name]["splits"])
         if missing:
-            raise AssertionError(f"{name}: the split body's parity cases "
-                                 f"never ran S in {sorted(missing)}")
+            raise AssertionError(f"{name}: the parity cases never ran S "
+                                 f"in {sorted(missing)}")
         if "copies" in results[name]:
             missing = {4, 16} - set(results[name]["copies"])
             if missing:
-                raise AssertionError(f"{name}: the split body's parity cases "
-                                     f"never copied stored tiles "
+                raise AssertionError(f"{name}: the parity cases never "
+                                     f"copied stored tiles "
                                      f"{sorted(missing)} bytes at a time")
-    print(f"parity: launches by CWS body {dict(BODY_LAUNCHES)}")
 
 
 def gram_rows(rng, n, d, zero_rows=()):
@@ -724,16 +760,18 @@ def gram_rows(rng, n, d, zero_rows=()):
     return x * np.exp(rng.standard_normal((n, d))).astype(np.float32)
 
 
-def gram_worst(x, y):
-    """Worst ratio of |cuda - plain| to its bound, for S and for K.  All
+def gram_worst(x, y, plan=None):
+    """(worst ratio of |cuda - plain| to its bound for S, and for K, max
+    |dS|, S from the kernel) on ``plan`` (None: the kernel's own).  All
     terms are nonnegative and two recursive fp32 sums of D terms in other
     orders differ by at most ~2·D·2^-24·S, so |S_cuda - S_plain| <=
     2·D·2^-24·S_plain + 1e-30; K = S / (sum x + sum y - S) then has a
     relative bound of 4·D·2^-24."""
     from repro_torch.kernels import minmax_gram as G
     d = x.shape[1]
-    s_cuda, s_plain = G.min_sum_cuda(x, y), G.min_sum_plain(x, y)
-    k_cuda, k_plain = G.minmax_gram_cuda(x, y), G.minmax_gram_plain(x, y)
+    s_cuda, s_plain = G.min_sum_cuda(x, y, plan=plan), G.min_sum_plain(x, y)
+    k_cuda = G.minmax_gram_cuda(x, y, plan=plan)
+    k_plain = G.minmax_gram_plain(x, y)
     torch.cuda.synchronize()
     for got, want in ((s_cuda, s_plain), (k_cuda, k_plain)):
         if got.shape != want.shape or not torch.isfinite(got).all():
@@ -744,36 +782,78 @@ def gram_worst(x, y):
     ratio_s = float((ds / (2 * d * U32 * s_plain.double() + 1e-30)).max())
     ratio_k = float((dk / (4 * d * U32 * k_plain.double().abs() + 1e-30)
                      ).max())
-    return ratio_s, ratio_k, float(ds.max())
+    return ratio_s, ratio_k, float(ds.max()), s_cuda
 
 
 def phase_gram_parity(dev, results):
-    from repro_torch.kernels.minmax_gram import LAUNCHES
+    """Row 7 against its plain versions on every case, on the plan the
+    kernel chooses and on forced plans; the cases must take both tiles,
+    S in {1, 2, 4, 8} and the small-output mode."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels import minmax_gram as G
     rng = np.random.default_rng(12)
-    shapes = ([((37, 29, 300), (0, 17), (5,))] +
-              [((m, n, d), (), ()) for m in (63, 64, 65)
-               for n in (63, 64, 65) for d in (63, 64, 65)] +
-              [((800, 1200, 256), (), ()), ((64, 64, WIDE_DIM), (), ())])
+    sms = sm_count(0)
     r = results[GRAM[0]]
-    worst = (0.0, 0.0)
-    for (m, n, d), zx, zy in shapes:
-        x = torch.from_numpy(gram_rows(rng, m, d, zx)).to(dev)
-        y = torch.from_numpy(gram_rows(rng, n, d, zy)).to(dev)
-        ratio_s, ratio_k, err = gram_worst(x, y)
+    worst, taken = [0.0, 0.0], {}
+
+    def check(x, y, zero_rows=(), plan=None, label=""):
+        (m, d), n = x.shape, y.shape[0]
+        ratio_s, ratio_k, err, s_cuda = gram_worst(x, y, plan)
+        p = plan or G.gram_plan(m, n, d, sms)
+        kind = "small" if p.small else f"{p.tile[0]}x{p.tile[1]} S={p.splits}"
+        taken[kind] = taken.get(kind, 0) + 1
         r["checked"] += 1
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        worst = (max(worst[0], ratio_s), max(worst[1], ratio_k))
+        worst[0], worst[1] = max(worst[0], ratio_s), max(worst[1], ratio_k)
         if ratio_s > 1 or ratio_k > 1:
-            raise AssertionError(f"min_sum ({m}, {n}, {d}): |cuda - plain| "
-                                 f"at {ratio_s:.3g} (S) / {ratio_k:.3g} (K) "
-                                 f"of the bound")
+            raise AssertionError(f"min_sum ({m}, {n}, {d}){label} on {p}: "
+                                 f"|cuda - plain| at {ratio_s:.3g} (S) / "
+                                 f"{ratio_k:.3g} (K) of the bound")
+        for z in zero_rows:
+            if s_cuda[z].any():
+                raise AssertionError(f"min_sum ({m}, {n}, {d}): all-zero "
+                                     f"row {z} of x gave a nonzero sum")
+
+    def rows(n, d, zero_rows=()):
+        return torch.from_numpy(gram_rows(rng, n, d, zero_rows)).to(dev)
+
+    for m in (63, 64, 65):
+        for n in (63, 64, 65):
+            for d in (63, 64, 65):
+                check(rows(m, d), rows(n, d))
+    for (m, n, d), zx, zy in GRAM_PARITY:
+        check(rows(m, d, zx), rows(n, d, zy), zx)
+    # the estimator's launches: each pair's two rows, at the phase's and at
+    # the K check's document counts
+    for pair in PAIRS:
+        for docs in (N_DOCS, 4096):
+            xd = torch.from_numpy(compacted_pair(pair, docs)).to(dev)
+            check(xd[:1], xd[1:], label=f" {pair} at {docs} documents")
+    # forced plans: each tile at every S on the kernel machine's test Gram,
+    # and the small-output mode on a ragged shape
+    x, y = rows(800, 256), rows(1200, 256)
+    for tile in G.GRAM_TILES:
+        for splits in G.GRAM_SPLITS:
+            check(x, y, plan=G.gram_plan(800, 1200, 256, sms, tile=tile,
+                                         splits=splits), label=" forced")
+    x, y = rows(37, 300, (0,)), rows(29, 300)
+    check(x, y, (0,), plan=G.gram_plan(37, 29, 300, sms, small=True),
+          label=" forced")
+    want = ({"small"} | {f"{t[0]}x{t[1]}" for t in G.GRAM_TILES}
+            | {f"S={s}" for s in G.GRAM_SPLITS})
+    got = {part for kind in taken for part in kind.split()}
+    if want - got:
+        raise AssertionError(f"min_sum: the parity cases never took "
+                             f"{sorted(want - got)} (took {taken})")
     r["worst_ratio_S"], r["worst_ratio_K"] = worst
-    print(f"parity min_sum / minmax_gram: {r['checked']} shapes (ragged "
-          f"37x29x300 with zero rows; 63/64/65 in each dimension; "
-          f"800x1200x256; 64x64x{WIDE_DIM}); worst |cuda - plain| / bound "
-          f"{worst[0]:.4g} (S, bound 2·D·2^-24·S) and {worst[1]:.4g} (K, "
-          f"bound 4·D·2^-24·K); max |dS| {r['max_abs_err']:.4g}; launches "
-          f"{LAUNCHES['min_sum']}")
+    r["parity_plans"] = taken
+    print(f"parity min_sum / minmax_gram: {r['checked']} shapes (63/64/65 "
+          f"in each dimension; {[c[0] for c in GRAM_PARITY]} with zero "
+          f"rows; the estimator's pairs; forced plans at (800, 1200, 256) "
+          f"and small at (37, 29, 300)); plans taken {taken}; worst "
+          f"|cuda - plain| / bound {worst[0]:.4g} (S, bound 2·D·2^-24·S) "
+          f"and {worst[1]:.4g} (K, bound 4·D·2^-24·K); max |dS| "
+          f"{r['max_abs_err']:.4g}; launches {G.LAUNCHES['min_sum']}")
 
 
 def make_bundles(bundle_root):
@@ -878,15 +958,19 @@ def phase_slice(card, results):
             wall = time.perf_counter() - t0
             stats = svc.stats()
         served[mode] = (kernel, xs, outs, wall, stats, batches)
-    launches, bodies = dict(K.LAUNCHES), dict(K.BODY_LAUNCHES)
+    launches = dict(K.LAUNCHES)
     for name in ENCODES:
         results[name]["launches"] = launches[name]
-    # by body: every launch of the four modes on the split body
-    if bodies != {"split": sum(launches.values()), "pair": 0}:
-        raise AssertionError(f"slice: launches by body {bodies} for kernel "
-                             f"launches {launches}")
-    print(f"slice: launches by CWS body {bodies} (all four modes' kernels "
-          f"on the split body, none on the pair body)")
+    # each mode's kernel once per warmed bucket and once per batch, and no
+    # other CWS kernel
+    want = dict.fromkeys(launches, 0)
+    for kernel, _, _, _, stats, _ in served.values():
+        want[kernel] += len(BUCKETS) + stats["batches"]
+    if launches != want:
+        raise AssertionError(f"slice: CWS launches {launches}, expected "
+                             f"{want} (the warmed buckets and the batches)")
+    print(f"slice: CWS launches {launches} (each mode's kernel once per "
+          f"warmed bucket and once per batch)")
 
     for mode, (kernel, xs, outs, wall, stats, batches) in served.items():
         if launches[kernel] == 0:
@@ -994,11 +1078,14 @@ def phase_kernel_machine(dev, card, results):
     wall = time.perf_counter() - t0
     launches = read_launches()
     require_launched("kernel machine", launches, ("min_sum", "cws_hash"))
-    from repro_torch.kernels.cws_hash import BODY_LAUNCHES
-    bodies = dict(BODY_LAUNCHES)
-    if bodies != {"split": launches["cws_hash"], "pair": 0}:
-        raise AssertionError(f"kernel machine: CWS launches by body {bodies} "
-                             f"for {launches['cws_hash']} cws_hash launches")
+    # two Grams (train, test) for each min-sum kernel of Table 1, and the
+    # hashes of the train rows and of the checked test rows
+    gram_launches = 2 * (len(TABLE1_KERNELS) - 1)
+    want = {**dict.fromkeys(launches, 0), "min_sum": gram_launches,
+            "cws_hash": 2}
+    if launches != want:
+        raise AssertionError(f"kernel machine: launches {launches}, "
+                             f"expected {want}")
 
     if accs["min-max"] < accs["linear"]:
         raise AssertionError(f"min-max accuracy {accs['min-max']} below "
@@ -1027,7 +1114,6 @@ def phase_kernel_machine(dev, card, results):
         "gram_s": {k: v[0] for k, v in secs.items()},
         "dual_cd_s": {k: v[1] for k, v in secs.items()},
         "launches": {k: launches[k] for k in ("min_sum", "cws_hash")},
-        "cws_body_launches": bodies,
         "est_bias_full": bias_full, "est_rmse_full": rmse_full,
         "est_rmse_binomial": theory, "est_bias_0bit": bias_0bit}
     for name in ("min_sum", "cws_hash"):
@@ -1045,7 +1131,7 @@ def phase_kernel_machine(dev, card, results):
           f"pairs) full scheme bias {bias_full:.3g} rmse {rmse_full:.4g} "
           f"(binomial {theory:.4g}), 0-bit bias {bias_0bit:.3g}; phase "
           f"{wall:.3f} s; launches min_sum {launches['min_sum']}, "
-          f"cws_hash {launches['cws_hash']}; CWS launches by body {bodies}")
+          f"cws_hash {launches['cws_hash']}, no other kernel")
 
 
 def compacted_pair(pair, n_docs):
@@ -1109,15 +1195,13 @@ def phase_estimator(dev, card, results):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    bodies = dict(CWS.BODY_LAUNCHES)
     require_launched("estimator", launches, ("cws_hash_rng", "min_sum"))
-    if launches["cws_hash_rng"] != len(PAIRS) * REPS:
-        raise AssertionError(f"estimator: cws_hash_rng launched "
-                             f"{launches['cws_hash_rng']} times, not "
-                             f"{len(PAIRS)} x {REPS}")
-    if bodies != {"split": len(PAIRS) * REPS, "pair": 0}:
-        raise AssertionError(f"estimator: launches by CWS body {bodies}, "
-                             f"not all {len(PAIRS) * REPS} on the split body")
+    # each pair's K, then its reps' hashes
+    want = {**dict.fromkeys(launches, 0), "min_sum": len(PAIRS),
+            "cws_hash_rng": len(PAIRS) * REPS}
+    if launches != want:
+        raise AssertionError(f"estimator: launches {launches}, expected "
+                             f"{want}")
     # the phase's wall time beside its launches' device time: one launch
     # of each pair's shape timed with CUDA events, times its launches
     device_s = 0.0
@@ -1144,7 +1228,7 @@ def phase_estimator(dev, card, results):
             raise AssertionError(f"estimator {pair}: K at 4,096 documents "
                                  f"{got} vs stored {want}")
     results["estimator"] = {"pairs": rows, "wall_s": wall,
-                            "hash_device_s": device_s, "bodies": bodies,
+                            "hash_device_s": device_s,
                             "K_4096": k4096, "reps": REPS,
                             "launches": {k: launches[k] for k in
                                          ("cws_hash_rng", "min_sum")}}
@@ -1162,8 +1246,8 @@ def phase_estimator(dev, card, results):
               + " ".join(f"{d['mse_0bit'] / d['theory']:.3f}"
                          for d in row["ks"].values()))
     print(f"slice estimator: {len(PAIRS)} pairs x {REPS} reps in "
-          f"{wall:.3f} s; launches cws_hash_rng {launches['cws_hash_rng']} "
-          f"(by body {bodies}), min_sum {launches['min_sum']}; the "
+          f"{wall:.3f} s; launches cws_hash_rng {launches['cws_hash_rng']}, "
+          f"min_sum {launches['min_sum']}; the "
           f"cws_hash_rng launches' device time (launches x kernel ms at each "
           f"pair's shape) {device_s:.4f} s, {100 * device_s / wall:.1f}% of "
           f"the phase: the rest is the host's loop, the estimators and "
@@ -1614,12 +1698,10 @@ def phase_lm(dev, card, results):
     cws_hash.reset_launches()
     head_logits = cws_head_logits(head, feats, b_i=cfg.cws_b_i)
     cws_launches = cws_hash.LAUNCHES["cws_encode"]
-    cws_bodies = dict(cws_hash.BODY_LAUNCHES)
-    if cws_launches == 0:
-        raise AssertionError("cws head: cws_encode was never launched")
-    if cws_bodies != {"split": cws_launches, "pair": 0}:
-        raise AssertionError(f"cws head: launches by CWS body {cws_bodies},"
-                             f" not all {cws_launches} on the split body")
+    want = {**dict.fromkeys(cws_hash.LAUNCHES, 0), "cws_encode": 1}
+    if cws_hash.LAUNCHES != want:
+        raise AssertionError(f"cws head: CWS launches {cws_hash.LAUNCHES}, "
+                             f"expected {want}")
     idx = head_pipeline(head, b_i=cfg.cws_b_i).features(torch.relu(feats))
     torch.cuda.synchronize()
     cpu_head = head._replace(
@@ -1644,7 +1726,7 @@ def phase_lm(dev, card, results):
             FLASH[0]], "body_launches": bodies,
         "flash_vs_plain_max_abs": err, "max_logit": scale,
         "greedy_agree": agree, "fp32": fp32, "cws_encode_launches":
-        cws_launches, "cws_body_launches": cws_bodies, "peak_gb": peak_gb,
+        cws_launches, "peak_gb": peak_gb,
         "masters_gb": masters_gb,
         "init_s": init_s, "first_ids": gen[0].tolist(),
         "breakdown": breakdown}
@@ -1658,7 +1740,7 @@ def phase_lm(dev, card, results):
           f"{err:.4g} ({err / scale:.3g} of max |logit| {scale:.4g}; limit "
           f"{LM_BF16_TOL:g}), greedy agree {agree:.3f}; CWS head (k = "
           f"{cfg.cws_k}, b_i = {cfg.cws_b_i}, D = {cfg.d_model}) cws_encode "
-          f"launches {cws_launches} (by body {cws_bodies}), codes equal the "
+          f"launches {cws_launches}, codes equal the "
           f"CPU path's; peak "
           f"memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated); "
           f"first ids {gen[0][:8].tolist()}")
@@ -2086,29 +2168,15 @@ def phase_step_times(dev, results, mhz, sms):
     torch.cuda.empty_cache()
 
 
-def time_cws_bodies(case, reps):
-    """A CWS kernel on the split and the pair body on the same inputs, in
-    turns (split, pair, pair, split): ({body: mean ms}, {body: [the two
-    readings]})."""
-    readings = {"split": [], "pair": []}
-    for body in ("split", "pair", "pair", "split"):
-        readings[body].append(time_ms(lambda: case.run(case.cuda, body=body),
-                                      reps=reps))
-    return {b: sum(v) / len(v) for b, v in readings.items()}, readings
-
-
 def cws_times(case, reps, plain_reps, peak_ops, counts):
-    """One CWS kernel's times at one shape: the kernel on the split body,
-    with the pair body beside it and each body's design floor, the plain
-    version, the bound."""
+    """One CWS kernel's times at one shape: the kernel beside its design
+    floor, the plain version and the bound."""
     from repro_torch.kernels.cws_hash import sm_count, split_plan
     t = {"shape": list(case.x.shape) + [case.k], "library_ms": None}
-    ms, readings = time_cws_bodies(case, reps)
     plan = split_plan(*case.x.shape, case.k, sm_count(0),
                       stored=not case.regen)
-    t.update(ms=ms["split"], pair_ms=ms["pair"], readings=readings,
-             floor_ms=case.floor_ms(peak_ops, counts, "split"),
-             pair_floor_ms=case.floor_ms(peak_ops, counts, "pair"),
+    t.update(ms=time_ms(lambda: case.run(case.cuda), reps=reps),
+             floor_ms=case.floor_ms(peak_ops, counts),
              plan={"rows_per_thread": plan.rows_per_thread,
                    "row_warps": plan.row_warps, "splits": plan.splits,
                    "blocks": plan.blocks})
@@ -2118,20 +2186,42 @@ def cws_times(case, reps, plain_reps, peak_ops, counts):
     return t
 
 
+def floor_text(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
 def cws_time_line(name, t, b=None):
     n, d, k = t["shape"]
     head = f"time {name} ({n}, {d}, {k})" + ("" if b is None else f" b={b}")
-    floor = lambda v: "not measured" if v is None else f"{v:.4f} ms"
     p = t["plan"]
-    body = (f"split body {t['ms']:.4f} ms (design floor "
-            f"{floor(t['floor_ms'])}; plan {p['rows_per_thread']} rows a "
-            f"thread x {p['row_warps']} row warps, S = {p['splits']}, "
-            f"{p['blocks']} blocks), pair body {t['pair_ms']:.4f} ms "
-            f"(design floor {floor(t['pair_floor_ms'])}) (in turns: "
-            f"{t['readings']})")
-    return (f"{head}: {body}, plain {t['plain_ms']:.4f} ms, bound "
+    return (f"{head}: kernel {t['ms']:.4f} ms (design floor "
+            f"{floor_text(t['floor_ms'])}; plan {p['rows_per_thread']} rows "
+            f"a thread x {p['row_warps']} row warps, S = {p['splits']}, "
+            f"{p['blocks']} blocks), plain {t['plain_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}); library call: none "
             f"(no PyTorch op computes CWS)")
+
+
+def gram_floor_ms(plan, counts, peak_ops, sms):
+    """Row 7's design floor on ``plan``: its SASS instructions a triple
+    (``gram_sass_counts``) for the busiest SM's triples at one instruction
+    a lane a cycle.  Tiled: SM j runs at least the units u = j mod SMs
+    (its blocks walk them when the grid is a multiple of the SMs; one unit
+    a block spreads them no better), padding included.  Small mode: 256
+    threads x ceil(D / 256) steps a block, ceil(m·n / SMs) blocks an SM.
+    None without counts."""
+    from repro_torch.kernels import minmax_gram as G
+    per = (counts or {}).get("small" if plan.small else plan.tile)
+    if per is None:
+        return None
+    if plan.small:
+        work = (-(-plan.units // sms) * G.GRAM_SMALL_THREADS
+                * -(-plan.d // G.GRAM_SMALL_THREADS))
+    else:
+        work = max(sum(plan.unit_triples(u)
+                       for u in range(j, plan.units, sms))
+                   for j in range(min(sms, plan.units)))
+    return work * per / (peak_ops / sms) * 1e3
 
 
 def time_stored_plans(dev, results):
@@ -2205,19 +2295,13 @@ def phase_times(dev, results, peak_ops, counts):
                               k=NUM_HASHES)
             wide = d == WIDE_DIM
             t = cws_times(case, 5 if wide else 50, 1 if wide else 10,
-                          peak_ops, counts)
+                          peak_ops, counts["cws"])
             r = results[name]
             for key_ in ("ms", "plain_ms", "bound_ms", "bound_by",
-                         "pair_ms", "floor_ms", "pair_floor_ms"):
-                if key_ in t:
-                    r[key_ + tag] = t[key_]
+                         "floor_ms"):
+                r[key_ + tag] = t[key_]
             r.setdefault("times", []).append(t)
             print(cws_time_line(name, t, b_i))
-            if name in SPLIT_FASTER and not wide and t["ms"] >= t["pair_ms"]:
-                raise AssertionError(
-                    f"times: {name} at (512, {d}, {NUM_HASHES}): the split "
-                    f"body ({t['ms']:.4f} ms) is not faster than the pair "
-                    f"body ({t['pair_ms']:.4f} ms)")
 
     time_stored_plans(dev, results)
 
@@ -2235,25 +2319,36 @@ def phase_times(dev, results, peak_ops, counts):
         for name in names:
             case = KernelCase(name, x, params=params, key=key, k=NUM_HASHES)
             t = cws_times(case, reps, 1 if d == WIDE_DIM else 10, peak_ops,
-                          counts)
+                          counts["cws"])
             results[name]["times"].append(t)
             print(cws_time_line(name, t))
-            if (name in SPLIT_FASTER and (n, d) == (512, DIM)
-                    and t["ms"] >= t["pair_ms"]):
-                raise AssertionError(
-                    f"times: {name} at (512, {d}, {NUM_HASHES}): the split "
-                    f"body ({t['ms']:.4f} ms) is not faster than the pair "
-                    f"body ({t['pair_ms']:.4f} ms)")
 
-    # the min-sum Gram: the suite's train Gram and an MNIST-variations
-    # train Gram (Table 1's M-Rotate / M-Image shape, synthetic rows)
+    phase_gram_times(dev, results, peak_ops, counts["gram"], suite, est)
+
+
+def phase_gram_times(dev, results, peak_ops, counts, suite, est):
+    """Row 7 at ``GRAM_TIMING``'s shapes on the plan it chooses, beside its
+    plain version, its bound, its design floor and ``torch.cdist(p=1)``."""
+    from repro_torch.data.synthetic import CLASSIFICATION_SUITES
+    from repro_torch.device import sm_count
     from repro_torch.kernels import minmax_gram as G
-    for m, n, d in GRAM_TIMING:
-        if (m, d) == tuple(suite.shape):
-            x = y = suite.to(dev)
+    rng = np.random.default_rng(7)
+    sms = sm_count(0)
+    suite_test = torch.from_numpy(
+        CLASSIFICATION_SUITES["template"]().x_test).to(dev)
+    suite = suite.to(dev)
+    for shape in GRAM_TIMING:
+        if shape == "estimator":
+            x, y = est[:1], est[1:]
+        elif shape == (suite.shape[0], suite.shape[0], suite.shape[1]):
+            x = y = suite
+        elif shape == (suite_test.shape[0], suite.shape[0], suite.shape[1]):
+            x, y = suite_test, suite
         else:
-            x = torch.from_numpy(gram_rows(rng, m, d)).to(dev)
-            y = x
+            x = y = torch.from_numpy(gram_rows(rng, shape[0], shape[2])
+                                     ).to(dev)
+        (m, d), n = x.shape, y.shape[0]
+        plan = G.gram_plan(m, n, d, sms)
         big = m * n > 10 ** 7
         ms = time_ms(lambda: G.min_sum_cuda(x, y), reps=5 if big else 50)
         plain_ms = time_ms(lambda: G.min_sum_plain(x, y),
@@ -2262,25 +2357,65 @@ def phase_times(dev, results, peak_ops, counts):
                          reps=2 if big else 20, warmup=1)
         bound_ms, by = bound(4 * (m + n) * d + 4 * m * n, 2 * m * n * d,
                              peak_ops)
-        results[GRAM[0]]["times"].append({
-            "shape": [m, n, d], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms})
-        print(f"time min_sum ({m}, {n}, {d}): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}); library "
-              f"call torch.cdist(p=1) {lib_ms:.4f} ms (a yardstick: "
-              f"S = (sum x + sum y - L1) / 2; the port never calls it)")
+        floor_ms = gram_floor_ms(plan, counts, peak_ops, sms)
+        kind = ("small-output mode" if plan.small else
+                f"{plan.tile[0]} x {plan.tile[1]} tiles, S = {plan.splits}, "
+                f"{plan.units} units on {plan.blocks} blocks")
+        entry = {"shape": [m, n, d], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": by, "floor_ms": floor_ms,
+                 "library_ms": lib_ms, "plan": dataclasses.asdict(plan)}
+        results[GRAM[0]]["times"].append(entry)
+        print(f"time min_sum ({m}, {n}, {d}): kernel {ms:.4f} ms ({kind}; "
+              f"design floor {floor_text(floor_ms)}), plain {plain_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({by}); library call "
+              f"torch.cdist(p=1) {lib_ms:.4f} ms (a yardstick: S = (sum x + "
+              f"sum y - L1) / 2; the port never calls it)")
+        if plan.small:
+            continue
+        # the kernel machine's Grams on the chosen plan and on the 128-row
+        # tiles' best plans; the timing shape on each tile at S = 1, and
+        # each tile's rate (the triples it computes, padding included, a
+        # cycle of an SM at the bounds' clock: ``GRAM_RATE``'s source); in
+        # turns (a, b, c, c, b, a)
+        if big:
+            plans = {f"{t[0]}x{t[1]} S=1": G.gram_plan(m, n, d, sms, tile=t,
+                                                       splits=1)
+                     for t in G.GRAM_TILES}
+        else:
+            plans = {"chosen": plan,
+                     "128x128 S=1": G.gram_plan(m, n, d, sms,
+                                                tile=(128, 128), splits=1),
+                     "128x64 S=2": G.gram_plan(m, n, d, sms, tile=(128, 64),
+                                               splits=2)}
+        readings = {k: [] for k in plans}
+        for k in list(plans) + list(plans)[::-1]:
+            readings[k].append(time_ms(
+                lambda p=plans[k]: G.min_sum_cuda(x, y, plan=p),
+                reps=3 if big else 50))
+        entry["plan_times"] = {k: sum(v) / len(v)
+                               for k, v in readings.items()}
+        cycles_s = peak_ops / (sms * LANES_PER_SM)
+        rates = {k: sum(p.unit_triples(u) for u in range(p.units)) / sms
+                 / (entry["plan_times"][k] * 1e-3 * cycles_s)
+                 for k, p in plans.items()}
+        if big:
+            entry["tile_rates"] = rates
+        print(f"time min_sum plans ({m}, {n}, {d}): "
+              + ", ".join(f"{k} {entry['plan_times'][k]:.4f} ms "
+                          f"({rates[k]:.2f} triples an SM-cycle)"
+                          for k in plans)
+              + f" (in turns: {readings})")
 
 
 def build_all():
     """Build every kernel library at once, one nvcc per source; return
-    the two CWS bodies' libraries by body."""
-    from repro_torch.kernels.build import (cws_encode_library,
-                                           cws_split_library,
+    the CWS and the Gram libraries."""
+    from repro_torch.kernels.build import (cws_split_library,
                                            flash_attention_library,
                                            flash_attention_wgmma_library,
                                            minmax_gram_library)
-    libs = (cws_encode_library, cws_split_library, minmax_gram_library,
-            flash_attention_library, flash_attention_wgmma_library)
+    libs = (cws_split_library, minmax_gram_library, flash_attention_library,
+            flash_attention_wgmma_library)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         futs = [pool.submit(f) for f in libs]
@@ -2293,37 +2428,49 @@ def build_all():
                     or "entry function" in line):
                 print("  " + line.strip())
     print(f"build: {len(built)} libraries in {wall:.2f} s")
-    return {"pair": built[0], "split": built[1]}
+    return built[0], built[1]
 
 
-def count_instructions(cws_libs):
-    """SASS instruction counts of the two CWS bodies (``sass_counts``),
-    printed by instantiation; None, and "not measured", where the
-    disassembly fails."""
-    counts = []
-    for body, lib in cws_libs.items():
-        try:
-            got = sass_counts(body, lib.path)
-        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
-            print(f"sass {body} body ({lib.path.name}): not measured ({e})")
-            return None
-        if not got:
-            print(f"sass {body} body ({lib.path.name}): not measured (no "
-                  f"marked region found in the disassembly)")
-            return None
-        for c in got:
-            per, what = ((c["load"], "a stored (d, hash) loaded")
-                         if c["stored"] else
-                         (c["regen"], "a regenerated (d, hash)"))
-            per = "not found" if per is None else f"{per:.2f}"
-            print(f"sass {body} body ({CWS_SOURCES[body]}): "
-                  f"{'stored' if c['stored'] else 'regen'}, emit "
-                  f"{c['emit']}, t* tracked {c['track_t']}, {c['rows']} "
-                  f"rows a thread: {c['step']:.2f} instructions a nonzero "
-                  f"(row, d, hash) step on the division's fast path "
-                  f"({c['step_static']:.1f} static in the step's region a "
-                  f"division), {per} {what}")
-        counts += got
+def count_instructions(cws_lib, gram_lib):
+    """SASS instruction counts of the CWS body (``sass_counts``), printed
+    by instantiation, and of the Gram kernel (``gram_sass_counts``):
+    {"cws": [...], "gram": {...}}, None for either, and "not measured",
+    where the disassembly fails."""
+    counts = {"cws": None, "gram": None}
+    try:
+        got = sass_counts(cws_lib.path)
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        print(f"sass CWS ({cws_lib.path.name}): not measured ({e})")
+        got = None
+    if got == []:
+        print(f"sass CWS ({cws_lib.path.name}): not measured (no marked "
+              f"region found in the disassembly)")
+    for c in got or ():
+        per, what = ((c["load"], "a stored (d, hash) loaded")
+                     if c["stored"] else
+                     (c["regen"], "a regenerated (d, hash)"))
+        per = "not found" if per is None else f"{per:.2f}"
+        print(f"sass CWS ({CWS_SOURCE}): "
+              f"{'stored' if c['stored'] else 'regen'}, emit {c['emit']}, "
+              f"t* tracked {c['track_t']}, {c['rows']} rows a thread: "
+              f"{c['step']:.2f} instructions a nonzero (row, d, hash) step "
+              f"on the division's fast path ({c['step_static']:.1f} static "
+              f"in the step's region a division), {per} {what}")
+    counts["cws"] = got or None
+    try:
+        gram = gram_sass_counts(gram_lib.path)
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        print(f"sass Gram ({gram_lib.path.name}): not measured ({e})")
+        gram = None
+    for key, per in (gram or {}).items():
+        what = ("a step of the small-output loop" if key == "small" else
+                f"an (m, n, d) triple of the inner loop, {key[0]} x "
+                f"{key[1]} tile")
+        print(f"sass Gram ({GRAM[2]}): {per:.3f} instructions {what}")
+    if not gram:
+        print(f"sass Gram ({gram_lib.path.name}): not measured (no marked "
+              f"region found in the disassembly)")
+    counts["gram"] = gram or None
     return counts
 
 
@@ -2355,8 +2502,7 @@ def main():
           f"T operations/s (the bounds' operation rate); memory "
           f"{PEAK_BYTES_S / 1e12:.2f} TB/s")
 
-    cws_libs = build_all()
-    counts = count_instructions(cws_libs)
+    counts = count_instructions(*build_all())
 
     results = {k: {"checked": 0, "mismatches": 0, "max_abs_err": 0,
                    "launches": 0, "splits": {}} for k in KERNELS}
@@ -2387,13 +2533,9 @@ def main():
 
     def cws_entry(k, primary):
         r = results[k]
-        entry = kernel_entry(k, CWS_SOURCES["split"], KERNELS[k][0], r,
-                             primary)
-        entry.update(primary_shape=primary["shape"], body="split",
-                     times=r["times"], sources=CWS_SOURCES,
-                     pair_ms=primary["pair_ms"], floor_ms=primary["floor_ms"],
-                     pair_floor_ms=primary["pair_floor_ms"],
-                     parity_splits=r["splits"])
+        entry = kernel_entry(k, CWS_SOURCE, KERNELS[k][0], r, primary)
+        entry.update(primary_shape=primary["shape"], times=r["times"],
+                     floor_ms=primary["floor_ms"], parity_splits=r["splits"])
         if "copies" in r:
             entry["parity_copy_bytes"] = r["copies"]
         if "plan_times" in r:
@@ -2419,8 +2561,11 @@ def main():
         kernels.append(entry)
     r = results[GRAM[0]]
     entry = kernel_entry(GRAM[0], GRAM[2], GRAM[1], r, r["times"][0])
-    entry.update(worst_ratio_S=r["worst_ratio_S"],
-                 worst_ratio_K=r["worst_ratio_K"], times=r["times"],
+    entry.update(primary_shape=r["times"][0]["shape"],
+                 floor_ms=r["times"][0]["floor_ms"],
+                 worst_ratio_S=r["worst_ratio_S"],
+                 worst_ratio_K=r["worst_ratio_K"],
+                 parity_plans=r["parity_plans"], times=r["times"],
                  kernel_machine=results["kernel_machine"],
                  estimator={k: v for k, v in results["estimator"].items()
                             if k != "pairs"})

@@ -1,6 +1,6 @@
-// Device arithmetic shared by the two CWS bodies (cws_encode.cu and
-// cws_split.cu): the counter-based parameter regeneration, the
-// per-(row, d, hash) step, the t* clip and the b-bit code.
+// Device arithmetic of the CWS kernels (cws_split.cu): the counter-based
+// parameter regeneration, the per-(row, d, hash) step, the t* clip and the
+// b-bit code.
 //
 // Bit-exactness with the reference (integers must match exactly): build
 // WITHOUT --use_fast_math and WITH --fmad=false; the arithmetic below also

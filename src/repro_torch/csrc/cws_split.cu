@@ -17,18 +17,16 @@
 //                                     stored params, raw emit)
 //   cws_regen_split_hash_launch    <- cws_hash_rng_pallas (:395,
 //                                     _cws_hash_rng_kernel; raw emit)
-// No row stays on cws_encode.cu's one-thread-per-pair body, which is kept
-// only as the yardstick this body is timed against.
 //
 // What bounds it on this card: operations.  Each regenerated (d, hash)
 // parameter costs three threefry-2x32 evaluations, four log1p and one log
 // (a few hundred instructions); each (row, d, hash) with x > 0 one IEEE
 // division and about eight fp32 operations.  The bytes (4·n·D in, plus
 // 12·D·k of stored parameters; 4·n·k, n·k·b/8 or 8·n·k out) are a small
-// fraction.  cws_encode.cu regenerates or loads every parameter once per
-// 16-row block and reads it from shared memory once per row, and at a
-// handful of rows (the estimator's n = 2) it fills a few dozen blocks on
-// 132 SMs, each walking all of D alone.
+// fraction.  A one-thread-per-(row, hash) body regenerates or loads every
+// parameter once per 16-row block and reads it from shared memory once
+// per row, and at a handful of rows (the estimator's n = 2) fills a few
+// dozen blocks on 132 SMs, each walking all of D alone.
 //
 // What the design does about it:
 //   * Row-tiled registers.  A block of 16 warps is WN row warps x WD =

@@ -1,9 +1,11 @@
 """Device choice for the port's entry points: CUDA unless told otherwise."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "sm_count"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -25,3 +27,9 @@ def resolve_device(device=None) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, read once (the kernels' plans)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -99,22 +99,6 @@ def _declare(built: BuiltLibrary, signatures) -> BuiltLibrary:
 
 
 @functools.lru_cache(maxsize=None)
-def cws_encode_library() -> BuiltLibrary:
-    """The CWS kernels' one-thread-per-pair body (``csrc/cws_encode.cu``):
-    the four encode launchers and the two raw (i*, t*) launchers, the
-    yardstick the split body is timed against; key words as c_uint32."""
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    return _declare(build("cws_encode.cu"), {
-        "cws_encode_launch": (p, p, p, p, i, i, i, i, i, p, p),
-        "cws_encode_rng_launch": (p, u, u, i, i, i, i, i, p, p),
-        "cws_encode_packed_launch": (p, p, p, p, i, i, i, i, i, p, i, p),
-        "cws_encode_rng_packed_launch": (p, u, u, i, i, i, i, i, p, i, p),
-        "cws_hash_launch": (p, p, p, p, i, i, i, p, p, p),
-        "cws_hash_rng_launch": (p, u, u, i, i, i, p, p, p),
-    })
-
-
-@functools.lru_cache(maxsize=None)
 def cws_split_library() -> BuiltLibrary:
     """The CWS body with rows tiled in registers and D split across a
     cluster (``csrc/cws_split.cu``): rows 1 (index), 3 (packed) and 6
@@ -138,10 +122,15 @@ def cws_split_library() -> BuiltLibrary:
 
 @functools.lru_cache(maxsize=None)
 def minmax_gram_library() -> BuiltLibrary:
-    """The min-sum Gram kernel's library (``csrc/minmax_gram.cu``)."""
+    """The min-sum Gram kernel's library (``csrc/minmax_gram.cu``): one
+    launcher taking the inputs' row strides, the plan (tile rows of x and
+    y, slices, blocks, small mode) and the workspace of the sliced plans;
+    it reaches
+    ``cuTensorMapEncodeTiled`` through the runtime, as the flash body
+    does."""
     p, i = ctypes.c_void_p, ctypes.c_int
     return _declare(build("minmax_gram.cu"), {
-        "min_sum_launch": (p, p, i, i, i, p, p),
+        "min_sum_launch": (p, p, i, i, i, i, i, i, i, i, i, i, p, p, p),
     })
 
 

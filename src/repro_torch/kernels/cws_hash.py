@@ -11,26 +11,20 @@ kernel-machine and estimator paths) this module holds
   * the launcher of the hand-written CUDA kernel, which checks its
     inputs, allocates the output with ``torch.empty``, launches on the
     current stream and raises on a launch error;
-  * a launch counter in ``LAUNCHES``, bumped once per kernel launch, and
-    one by device body in ``BODY_LAUNCHES``.
+  * a launch counter in ``LAUNCHES``, bumped once per kernel launch.
 
-Every row runs on ``csrc/cws_split.cu`` ("split": rows tiled in
-registers, D split across a thread-block cluster, on the plan
-``split_plan`` makes; the stored-parameter rows 2, 4 and 5 on its
-``stored=True`` plan, their parameter tiles copied in with ``cp.async``,
-16 or 4 bytes a copy as ``stored_copy_bytes`` says).  The one-thread-per-
-(row, hash) body of ``csrc/cws_encode.cu`` ("pair") is reached only when a
-caller asks for it (``body="pair"``, the timing comparison of the two
-bodies).
+Every row runs on ``csrc/cws_split.cu``: rows tiled in registers, D split
+across a thread-block cluster, on the plan ``split_plan`` makes; the
+stored-parameter rows 2, 4 and 5 on its ``stored=True`` plan, their
+parameter tiles copied in with ``cp.async``, 16 or 4 bytes a copy as
+``stored_copy_bytes`` says.
 
 ``repro_torch.kernels.ops`` chooses between kernel and plain version by the
-tensor's device; a launcher never falls back to the plain version or to
-the other body.
+tensor's device; a launcher never falls back to the plain version.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
@@ -39,19 +33,18 @@ from repro_torch.core.hashing import (check_packed_bits, encode,
                                       feature_indices, pack_codes,
                                       packed_width)
 from repro_torch.core.regen import key_words
-from repro_torch.kernels.build import cws_encode_library, cws_split_library
+from repro_torch.device import sm_count
+from repro_torch.kernels.build import cws_split_library
 
-# Launches per kernel, and per device body, since the last
-# reset_launches(): how a run shows that it really went through the kernels.
+# Launches per kernel since the last reset_launches(): how a run shows
+# that it really went through the kernels.
 LAUNCHES = {"cws_encode": 0, "cws_encode_rng": 0, "cws_encode_packed": 0,
             "cws_encode_rng_packed": 0, "cws_hash": 0, "cws_hash_rng": 0}
-BODY_LAUNCHES = {"split": 0, "pair": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BODY_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -163,12 +156,6 @@ def split_plan(n: int, d: int, k: int, sms: int, *,
     return dataclasses.replace(plan, splits=splits)
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """The SMs of CUDA device ``index``, read once."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -254,29 +241,18 @@ def _check_bits(b_i: int, b_t: int, packed: bool) -> None:
         check_packed_bits(b_i + b_t)
 
 
-def _launch(name: str, fn, out: torch.Tensor, *args,
-            body: str) -> torch.Tensor:
+def _launch(name: str, fn, out: torch.Tensor, *args) -> torch.Tensor:
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed ({body} body): "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
-    BODY_LAUNCHES[body] += 1
     return out
 
 
 def _lib():
-    return cws_encode_library().lib
-
-
-def _split_body(body) -> str:
-    body = "split" if body is None else body
-    if body not in BODY_LAUNCHES:
-        raise ValueError(f"body must be one of {tuple(BODY_LAUNCHES)}; got "
-                         f"{body!r}")
-    return body
+    return cws_split_library().lib
 
 
 def _plan_args(x: torch.Tensor, k: int, *, stored: bool = False,
@@ -305,13 +281,16 @@ def stored_copy_bytes(params: CWSParams) -> int:
     return 16 if params.num_hashes % 4 == 0 and aligned else 4
 
 
+def _stored_ptrs(x, params: CWSParams):
+    return (x.data_ptr(), params.r.data_ptr(), params.log_c.data_ptr(),
+            params.beta.data_ptr())
+
+
 def cws_encode_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0,
-                    body: str | None = None, plan: SplitPlan | None = None):
+                    plan: SplitPlan | None = None):
     """Stored-parameter encode kernel (replaces ``cws_encode_pallas``) on
-    the split body, or on ``body`` when given; on the split body with
     ``split_plan(..., stored=True)``'s tiles, or ``plan``'s when given (the
     timing comparison of two plans)."""
-    body = _split_body(body)
     x = _check_x(x)
     _check_params(x, params)
     _check_bits(b_i, b_t, packed=False)
@@ -320,24 +299,15 @@ def cws_encode_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0,
     out = torch.empty((n, k), dtype=torch.int32, device=x.device)
     if n == 0 or k == 0:
         return out
-    ptrs = (x.data_ptr(), params.r.data_ptr(), params.log_c.data_ptr(),
-            params.beta.data_ptr())
-    if body == "pair":
-        return _launch("cws_encode", _lib().cws_encode_launch, out, *ptrs,
-                       n, d, k, b_i, b_t, out.data_ptr(), body=body)
-    return _launch("cws_encode",
-                   cws_split_library().lib.cws_split_stored_index_launch,
-                   out, *ptrs, n, d, k, b_i, b_t,
+    return _launch("cws_encode", _lib().cws_split_stored_index_launch, out,
+                   *_stored_ptrs(x, params), n, d, k, b_i, b_t,
                    *_plan_args(x, k, stored=True, plan=plan),
-                   stored_copy_bytes(params), out.data_ptr(), body=body)
+                   stored_copy_bytes(params), out.data_ptr())
 
 
-def cws_encode_rng_cuda(x, key, num_hashes: int, *, b_i: int, b_t: int = 0,
-                        body: str | None = None):
+def cws_encode_rng_cuda(x, key, num_hashes: int, *, b_i: int, b_t: int = 0):
     """Regenerated-parameter encode kernel (replaces
-    ``cws_encode_rng_pallas``): the only input in device memory is x.  On
-    the split body, or on ``body`` when given."""
-    body = _split_body(body)
+    ``cws_encode_rng_pallas``): the only input in device memory is x."""
     x = _check_x(x)
     _check_bits(b_i, b_t, packed=False)
     k0, k1 = key_words(key)
@@ -345,22 +315,15 @@ def cws_encode_rng_cuda(x, key, num_hashes: int, *, b_i: int, b_t: int = 0,
     out = torch.empty((n, num_hashes), dtype=torch.int32, device=x.device)
     if n == 0 or num_hashes == 0:
         return out
-    if body == "pair":
-        return _launch("cws_encode_rng", _lib().cws_encode_rng_launch, out,
-                       x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
-                       out.data_ptr(), body=body)
-    return _launch("cws_encode_rng",
-                   cws_split_library().lib.cws_split_index_launch, out,
+    return _launch("cws_encode_rng", _lib().cws_split_index_launch, out,
                    x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
-                   *_plan_args(x, num_hashes), out.data_ptr(), body=body)
+                   *_plan_args(x, num_hashes), out.data_ptr())
 
 
-def cws_encode_packed_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0,
-                           body: str | None = None):
+def cws_encode_packed_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0):
     """Stored-parameter encode with packed emit (replaces
-    ``cws_encode_packed_pallas``) on the split body, or on ``body`` when
-    given; on ``split_plan(..., stored=True)``'s tiles."""
-    body = _split_body(body)
+    ``cws_encode_packed_pallas``) on ``split_plan(..., stored=True)``'s
+    tiles."""
     x = _check_x(x)
     _check_params(x, params)
     _check_bits(b_i, b_t, packed=True)
@@ -370,26 +333,16 @@ def cws_encode_packed_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0,
     out = torch.empty((n, words), dtype=torch.uint32, device=x.device)
     if n == 0 or k == 0:
         return out
-    ptrs = (x.data_ptr(), params.r.data_ptr(), params.log_c.data_ptr(),
-            params.beta.data_ptr())
-    if body == "pair":
-        return _launch("cws_encode_packed", _lib().cws_encode_packed_launch,
-                       out, *ptrs, n, d, k, b_i, b_t, out.data_ptr(), words,
-                       body=body)
-    return _launch("cws_encode_packed",
-                   cws_split_library().lib.cws_split_stored_packed_launch,
-                   out, *ptrs, n, d, k, b_i, b_t,
+    return _launch("cws_encode_packed", _lib().cws_split_stored_packed_launch,
+                   out, *_stored_ptrs(x, params), n, d, k, b_i, b_t,
                    *_plan_args(x, k, stored=True),
-                   stored_copy_bytes(params), out.data_ptr(), words,
-                   body=body)
+                   stored_copy_bytes(params), out.data_ptr(), words)
 
 
 def cws_encode_rng_packed_cuda(x, key, num_hashes: int, *, b_i: int,
-                               b_t: int = 0, body: str | None = None):
+                               b_t: int = 0):
     """Regenerated-parameter encode with packed emit (replaces
-    ``cws_encode_rng_packed_pallas``) on the split body, or on ``body``
-    when given (the timing comparison of the two bodies)."""
-    body = _split_body(body)
+    ``cws_encode_rng_packed_pallas``)."""
     x = _check_x(x)
     _check_bits(b_i, b_t, packed=True)
     k0, k1 = key_words(key)
@@ -398,25 +351,16 @@ def cws_encode_rng_packed_cuda(x, key, num_hashes: int, *, b_i: int,
     out = torch.empty((n, words), dtype=torch.uint32, device=x.device)
     if n == 0 or num_hashes == 0:
         return out
-    if body == "pair":
-        return _launch("cws_encode_rng_packed",
-                       _lib().cws_encode_rng_packed_launch, out,
-                       x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
-                       out.data_ptr(), words, body=body)
     return _launch("cws_encode_rng_packed",
-                   cws_split_library().lib.cws_regen_split_packed_launch,
-                   out, x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
-                   *_plan_args(x, num_hashes), out.data_ptr(), words,
-                   body=body)
+                   _lib().cws_regen_split_packed_launch, out, x.data_ptr(),
+                   k0, k1, n, d, num_hashes, b_i, b_t,
+                   *_plan_args(x, num_hashes), out.data_ptr(), words)
 
 
-def cws_hash_cuda(x, params: CWSParams, *, body: str | None = None,
-                  plan: SplitPlan | None = None):
+def cws_hash_cuda(x, params: CWSParams, *, plan: SplitPlan | None = None):
     """Stored-parameter raw hash kernel (replaces ``cws_hash_pallas``):
-    x (n, D) -> (i*, t*) each (n, k) int32.  On the split body, or on
-    ``body`` when given; on ``split_plan(..., stored=True)``'s tiles, or
-    ``plan``'s."""
-    body = _split_body(body)
+    x (n, D) -> (i*, t*) each (n, k) int32, on ``split_plan(...,
+    stored=True)``'s tiles, or ``plan``'s."""
     x = _check_x(x)
     _check_params(x, params)
     n, d = x.shape
@@ -425,25 +369,16 @@ def cws_hash_cuda(x, params: CWSParams, *, body: str | None = None,
     t_star = torch.empty_like(i_star)
     if n == 0 or k == 0:
         return i_star, t_star
-    ptrs = (x.data_ptr(), params.r.data_ptr(), params.log_c.data_ptr(),
-            params.beta.data_ptr())
-    if body == "pair":
-        _launch("cws_hash", _lib().cws_hash_launch, i_star, *ptrs, n, d, k,
-                i_star.data_ptr(), t_star.data_ptr(), body=body)
-    else:
-        _launch("cws_hash",
-                cws_split_library().lib.cws_split_stored_hash_launch, i_star,
-                *ptrs, n, d, k, *_plan_args(x, k, stored=True, plan=plan),
-                stored_copy_bytes(params), i_star.data_ptr(),
-                t_star.data_ptr(), body=body)
+    _launch("cws_hash", _lib().cws_split_stored_hash_launch, i_star,
+            *_stored_ptrs(x, params), n, d, k,
+            *_plan_args(x, k, stored=True, plan=plan),
+            stored_copy_bytes(params), i_star.data_ptr(), t_star.data_ptr())
     return i_star, t_star
 
 
-def cws_hash_rng_cuda(x, key, num_hashes: int, *, body: str | None = None):
+def cws_hash_rng_cuda(x, key, num_hashes: int):
     """Regenerated-parameter raw hash kernel (replaces
-    ``cws_hash_rng_pallas``): the only input in device memory is x.  On
-    the split body, or on ``body`` when given."""
-    body = _split_body(body)
+    ``cws_hash_rng_pallas``): the only input in device memory is x."""
     x = _check_x(x)
     k0, k1 = key_words(key)
     n, d = x.shape
@@ -451,14 +386,7 @@ def cws_hash_rng_cuda(x, key, num_hashes: int, *, body: str | None = None):
     t_star = torch.empty_like(i_star)
     if n == 0 or num_hashes == 0:
         return i_star, t_star
-    if body == "pair":
-        _launch("cws_hash_rng", _lib().cws_hash_rng_launch, i_star,
-                x.data_ptr(), k0, k1, n, d, num_hashes, i_star.data_ptr(),
-                t_star.data_ptr(), body=body)
-    else:
-        _launch("cws_hash_rng",
-                cws_split_library().lib.cws_regen_split_hash_launch,
-                i_star, x.data_ptr(), k0, k1, n, d, num_hashes,
-                *_plan_args(x, num_hashes), i_star.data_ptr(),
-                t_star.data_ptr(), body=body)
+    _launch("cws_hash_rng", _lib().cws_regen_split_hash_launch, i_star,
+            x.data_ptr(), k0, k1, n, d, num_hashes,
+            *_plan_args(x, num_hashes), i_star.data_ptr(), t_star.data_ptr())
     return i_star, t_star

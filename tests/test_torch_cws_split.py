@@ -514,19 +514,11 @@ def _launch_args(launcher, d):
     return (CWSParams(*(torch.rand(d, 8) + 0.5 for _ in range(3))),), kw
 
 
-@pytest.mark.parametrize("body", [None, "split", "pair"])
 @pytest.mark.parametrize("launcher", LAUNCHERS)
-def test_split_launchers_refuse_cpu_tensors(launcher, body):
+def test_split_launchers_refuse_cpu_tensors(launcher):
+    K.reset_launches()
     x = torch.from_numpy(_rows(2, 8, seed=0))
     args, kw = _launch_args(launcher, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        getattr(K, launcher)(x, *args, body=body, **kw)
-    assert K.BODY_LAUNCHES == dict.fromkeys(K.BODY_LAUNCHES, 0)
-
-
-def test_unknown_body_is_refused():
-    x = torch.from_numpy(_rows(2, 8, seed=0))
-    for launcher in LAUNCHERS:
-        args, kw = _launch_args(launcher, 8)
-        with pytest.raises(ValueError, match="body must be one of"):
-            getattr(K, launcher)(x, *args, body="simt", **kw)
+        getattr(K, launcher)(x, *args, **kw)
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
