@@ -11,6 +11,12 @@ the counter, so any tiling of the (D, k) grid gives the same parameters.
 Uniforms are the top 24 bits of a word; Exp(1) = -log1p(-u);
 Gamma(2, 1) = Exp(1) + Exp(1).
 
+The same function also reproduces the reference's key arithmetic
+(``jax.random`` on threefry keys, ``jax_threefry_partitionable`` on):
+``prng_key``, ``fold_in``, ``split``, ``random_bits32`` and
+``permutation`` give the reference's words bit for bit, so the port walks
+the reference's epoch shuffles from the same key words.
+
 The words are the same bits as the JAX reference.  The plain path computes
 them in int64 masked to 32 bits, because uint32 ``+``, ``<<``, ``>>`` and
 ``<`` are not implemented for CPU tensors.
@@ -36,10 +42,10 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & _MASK
 
 
-def threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
+def threefry2x32(k0: int, k1: int, x0, x1):
     """Threefry-2x32 (20 rounds).  Keys are Python ints in [0, 2^32),
-    counters int64 tensors holding uint32 values; returns two int64
-    tensors of uint32 words."""
+    counters int64 tensors holding uint32 values (or Python ints);
+    returns two int64 tensors (or ints) of uint32 words."""
     ks = (k0 & _MASK, k1 & _MASK, (k0 ^ k1 ^ _THREEFRY_PARITY) & _MASK)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -101,3 +107,60 @@ def regen_params(key, dim: int, num_hashes: int, *, device=None):
     k0, k1 = key_words(key)
     return CWSParams(*regen_tile(k0, k1, 0, 0, dim, num_hashes,
                                  device=device))
+
+
+# -- the reference's key arithmetic --------------------------------------
+# A key is two uint32 words (numpy ``uint32[2]``, what ``key_words`` reads).
+# Counters are (hi, lo) word pairs of a 64-bit index, hence the zero high
+# words below.
+
+def _key_array(w0: int, w1: int) -> np.ndarray:
+    return np.array([w0 & _MASK, w1 & _MASK], np.uint32)
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)``: the words (seed >> 32, seed & mask)."""
+    seed = int(seed)
+    if not 0 <= seed < 2 ** 64:
+        raise ValueError(f"seed must be in [0, 2^64); got {seed}")
+    return _key_array(seed >> 32, seed)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``: threefry of the counter
+    (0, data)."""
+    return _key_array(*threefry2x32(*key_words(key), 0, int(data) & _MASK))
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)``: (num, 2) words, key j from the
+    counter (0, j)."""
+    k0, k1 = key_words(key)
+    return np.array([threefry2x32(k0, k1, 0, j) for j in range(num)],
+                    np.uint32).reshape(num, 2)
+
+
+def random_bits32(key, n: int) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint32)`` as an int64 CPU tensor of
+    uint32 values: x0 ^ x1 of threefry at the counter (i >> 32,
+    i & mask)."""
+    i = torch.arange(n, dtype=torch.int64)
+    x0, x1 = threefry2x32(*key_words(key), i >> 32, i & _MASK)
+    return x0 ^ x1
+
+
+def permutation(key, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` as an int64 CPU tensor: rounds
+    of a stable sort of the positions by fresh 32-bit keys (compared as
+    unsigned values, which int64 holds), one split of the key a round,
+    with the reference's round count (computed in float64 as it does).
+    A trainer computes it on the host and moves it to its rows' device:
+    a few hundred small operations, which would be as many kernel
+    launches on a card."""
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64)
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[torch.sort(random_bits32(sub, n), stable=True).indices]
+    return x

@@ -19,6 +19,7 @@ from repro_torch.core.regen import key_words as _key_words
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_model
+from repro_torch.optim import AdamState
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -29,6 +30,20 @@ def linear_params(w, b, *, device=None) -> LinearParams:
     """Reference ``LinearParams`` (w (F, C), b (C,)) -> the port's."""
     device = resolve_device(device)
     return LinearParams(_tensor(w, device), _tensor(b, device))
+
+
+def linear_opt_state(state, *, device=None):
+    """Reference ``make_linear_tx`` state, ``((), AdamState(mu, nu))``
+    with ``LinearParams`` moments (leaves as numpy) -> the port's, so both
+    frameworks can take a step from the same (params, state)."""
+    device = resolve_device(device)
+    clip_state, adam = state
+    if tuple(clip_state) != ():
+        raise ValueError(f"clip_by_global_norm carries no state; got "
+                         f"{clip_state!r}")
+    moments = lambda m: LinearParams(_tensor(m[0], device),
+                                     _tensor(m[1], device))
+    return (), AdamState(mu=moments(adam.mu), nu=moments(adam.nu))
 
 
 def cws_params(r, log_c, beta, *, device=None) -> CWSParams:

@@ -5,8 +5,9 @@
     module in a subprocess where both are blocked);
   * an entry point given no device raises when CUDA is absent, instead of
     running quietly on the CPU;
-  * the CPU path (serving, and the min-max kernel and estimator path)
-    runs the plain versions and leaves the kernel launch counters at 0,
+  * the CPU path (serving, training, and the min-max kernel and
+    estimator path) runs the plain versions and leaves the kernel launch
+    counters at 0,
     and a CUDA launcher given a CPU tensor raises rather than falling
     back.
 """
@@ -22,10 +23,12 @@ import torch
 from repro_torch import interop
 from repro_torch.core.cws import CWSParams
 from repro_torch.core import GRAM_FNS
+from repro_torch.core import linear_model as tlm
 from repro_torch.core.kernel_svm import best_accuracy_over_C
 from repro_torch.kernels import cws_hash, minmax_gram, ops, registry
 from repro_torch.pipeline import FeaturePipeline, FeatureSpec
 from repro_torch.serving import ServingService, load_bundle, save_bundle
+from repro_torch.training import fit_linear_streamed, streamed_accuracy
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -97,6 +100,12 @@ def test_entry_points_without_device_raise_when_cuda_absent(tmp_path,
         interop.linear_params(np.ones((3, 2)), np.zeros(2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         interop.svm_model(np.ones((2, 3)), np.ones((2, 3)), np.arange(2))
+    for init, args in ((tlm.init_bag, (8, 2)),
+                       (tlm.init_bag_packed, (8, 2, 2)),
+                       (tlm.init_dense, (6, 2)),
+                       (tlm.init_hashed, (8, 4, 2))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init(*args)
     with pytest.raises(RuntimeError, match="not available"):
         load_bundle(path, device="cuda")
 
@@ -114,6 +123,15 @@ def test_cpu_path_runs_plain_versions_and_no_kernel(tmp_path):
     ops.cws_encode_rng_packed(x, (1, 2), 8, b_i=2)
     with ServingService.from_bundle(path, device="cpu") as svc:
         svc.score(x.numpy())
+    # training: the streamed trainer (tensor and host rows) and fit_linear
+    params, pipe = load_bundle(path, device="cpu")
+    y = torch.arange(5) % 2
+    cfg = tlm.TrainCfg(n_classes=2, steps=3, batch_size=2)
+    for rows in (x, x.numpy()):
+        fit_linear_streamed(params, pipe, rows, y if rows is x else y.numpy(),
+                            cfg=cfg)
+    streamed_accuracy(params, pipe, x, y)
+    tlm.fit_linear(params, pipe.features(x), y, cfg=cfg, kind="bag")
     assert cws_hash.LAUNCHES == dict.fromkeys(cws_hash.LAUNCHES, 0)
 
 
