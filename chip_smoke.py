@@ -117,7 +117,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 launches: cws_hash_rng 600, min_sum 2, no other kernel;
                 the phase's wall time beside its launches' device time (600
                 x kernel ms at each pair's shape);
-  8. lm       - gemma3_12b at full width and depth, attn_impl "flash":
+  8. benchmarks - the paper's benchmarks as twins
+                (``repro_torch.benchmarks``: table2, fig6, fig45, table1,
+                fig78) in --fast mode on the reference's own draws, each
+                held against the reference's --fast record
+                (``src/repro_torch/benchmarks/reference``): table2, fig6
+                and fig45 within 1e-6, table1 and fig78 accuracy cells
+                within 1.0 pp (mean 0.5 pp); the claims its records pass
+                must pass (fig78's streamed gap and approach claims fail
+                in the reference's records too, and are printed beside
+                its numbers); launches as each twin's code implies
+                (cws_hash_rng one a rep, min_sum two Grams a min-sum
+                kernel, cws_hash 2, cws_encode once a streamed step and
+                per features / evaluation pass), no other kernel; then
+                each twin's kernels at its own shapes, rows, keys and
+                parameters against their plain versions (row 6 at fig6's
+                (2, 4,096, 256) and fig45's pairs at k = 1,024, row 7 at
+                table1's and fig78's Grams, row 5 at fig78's 1,200 and
+                800 rows at k = 128, row 2 at its full-batch, streamed
+                600-row and evaluation rows at k = 128, b_i = 8);
+  9. lm       - gemma3_12b at full width and depth, attn_impl "flash":
                 the fp32 prefill + decode logits against one cached forward
                 (prompt 600, 4 steps); then the masters cast once to bf16
                 and the main path, ``serve_lm`` (4 x 2,048-token prompts,
@@ -128,7 +147,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 tolerance; the CWS head on the pooled hidden state (one
                 ``cws_encode`` launch, no other CWS kernel), its codes
                 equal to the CPU path's;
-  9. seq-parallel - gemma3_12b at full width cut to 6 layers, its
+ 10. seq-parallel - gemma3_12b at full width cut to 6 layers, its
                 sequence sharded over four ranks of the ``model`` axis
                 (``torch.multiprocessing``; on one card the ranks share it
                 over gloo, CUDA tensors through host copies, since NCCL
@@ -141,7 +160,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 forward on the same weights; the transport, host bytes and
                 each rank's peak memory.  With four cards, once more over
                 NCCL, one rank a card, at full depth;
- 10. times    - each kernel and its plain version timed with CUDA events
+ 11. times    - each kernel and its plain version timed with CUDA events
                 (rows 8 and 9: the wgmma and the SIMT body on the same
                 inputs, in turns, the wgmma body required to be faster;
                 rows 1-6 beside their design floor from the SASS counts,
@@ -164,9 +183,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the slice's global and local layers and at S = 32,768, and
                 for row 9 on one ring step's q rows and K/V shard).
 
-Phases 4-9 are the main paths: each zeroes the launch counters just
-before it and reads them just after, and fails if a kernel it runs was
-never launched (phase 9 in every rank, and in sum).  The line before the
+Phases 4-10 are the main paths: each zeroes the launch counters just
+before it (phase 8 before each twin) and reads them just after, and
+fails if a kernel it runs was never launched (phase 10 in every rank, and
+in sum).  The line before the
 last is ``nvidia-smi``'s name and power limit, the one before it a JSON
 summary of every kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX.
@@ -242,6 +262,26 @@ PAIRS = ("HONG-KONG", "CREDIT-CARD")
 N_DOCS, SUPPORT_CAP, REPS = 2 ** 16, 2000, 300
 KS = (1, 4, 16, 64, 256, 1024)
 FIG45_JSON = ROOT / "benchmarks" / "results" / "fig45_cws_mse.json"
+# The paper's benchmarks as twins (src/repro_torch/benchmarks), --fast on
+# the reference's own draws, against the reference's --fast records
+# (src/repro_torch/benchmarks/reference, jax 0.9.0 on the CPU).  table2,
+# fig6, fig45: integer hashes and numpy estimators in both, so only K's
+# float32 sum order differs: every number within 1e-6.  table1, fig78:
+# data, parameters and features are the reference's, but the Grams sum
+# and dual CD reduce in other orders and AdamW rounds once a step apart
+# from the jitted reference, so a fit may end a few of its 800 test rows
+# away: each accuracy cell (percent) within 1.0 pp, their mean |diff|
+# within 0.5 pp (the CPU twin: table1 0 on every cell, fig78 at most
+# 0.75 pp, 6 of 800 rows after 1,000 full-batch steps, mean 0.19 pp).
+BENCH_SUITES = ("table2", "fig6", "fig45", "table1", "fig78")
+BENCH_EXACT = ("table2", "fig6", "fig45")
+BENCH_TOL, BENCH_CELL_PP, BENCH_MEAN_PP = 1e-6, 1.0, 0.5
+# A claim is required on the card where the reference's own records pass
+# it (the twin's ``claims`` on them).  Its fast fig78 fails two on today's
+# key stream: the streamed gap (0.625 pp against 0.5; the assert its run
+# raised, reference/claims.json) and, never reached past that assert, the
+# approach to the exact kernel (93.8% against 98.875% - 4 at k = 128);
+# their numbers are held within BENCH_CELL_PP like every other.
 # row 7 timed at the kernel machine's train and test Grams (the suite's
 # rows), the estimator's (1, 1, D) (CREDIT-CARD's D, read at run time) and
 # an MNIST-variations train Gram (Table 1's M-Rotate / M-Image shape,
@@ -699,10 +739,34 @@ def clip_case(rng, dev):
     return to(x), CWSParams(to(r), to(log_c), to(beta))
 
 
-def phase_parity(dev, results):
-    from repro_torch.kernels.cws_hash import (LAUNCHES, SPLIT_SIZES,
-                                              sm_count, split_plan,
+def hold_case(case, results, where):
+    """``case``'s kernel against its plain version, exactly: counted in
+    ``results`` with the split S and (stored parameters) the tiles' copy
+    width its plan used; a difference raises, naming ``where``."""
+    from repro_torch.kernels.cws_hash import (sm_count, split_plan,
                                               stored_copy_bytes)
+    bad, err = case.compare()
+    r = results[case.name]
+    s = split_plan(case.x.shape[0], case.x.shape[1], case.k, sm_count(0),
+                   stored=not case.regen).splits
+    r["splits"][s] = r["splits"].get(s, 0) + 1
+    if not case.regen:   # the stored tiles' copy width
+        w = stored_copy_bytes(case.args[1])
+        r["copies"][w] = r["copies"].get(w, 0) + 1
+    r["checked"] += 1
+    r["mismatches"] += sum(bad)
+    if len(bad) == 2:
+        r["mismatches_i"] += bad[0]
+        r["mismatches_t"] += bad[1]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    if sum(bad):
+        raise AssertionError(f"{case.name} ({where}): {bad} outputs differ "
+                             f"from the plain version")
+    return case
+
+
+def phase_parity(dev, results):
+    from repro_torch.kernels.cws_hash import LAUNCHES, SPLIT_SIZES
     rng = np.random.default_rng(11)
     key = tuple(int(w) for w in rng.integers(0, 2 ** 32, 2, dtype=np.uint64))
 
@@ -714,25 +778,8 @@ def phase_parity(dev, results):
         if params is None and not KERNELS[name][1]:
             params = stored_params(rng, d, k, dev)
         case = KernelCase(name, x, b_i, b_t, params=params, key=key, k=k)
-        bad, err = case.compare()
-        s = split_plan(x.shape[0], x.shape[1], k, sm_count(0),
-                       stored=params is not None).splits
-        results[name]["splits"][s] = results[name]["splits"].get(s, 0) + 1
-        if params is not None:   # the stored tiles' copy width
-            w = stored_copy_bytes(params)
-            results[name]["copies"][w] = results[name]["copies"].get(w, 0) + 1
-        r = results[name]
-        r["checked"] += 1
-        r["mismatches"] += sum(bad)
-        if len(bad) == 2:
-            r["mismatches_i"] += bad[0]
-            r["mismatches_t"] += bad[1]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if sum(bad):
-            raise AssertionError(f"{name} (n={n}, D={d}, k={k}, b_i={b_i}, "
-                                 f"b_t={b_t}): {bad} outputs differ from "
-                                 f"the plain version")
-        return case
+        return hold_case(case, results, f"n={n}, D={d}, k={k}, b_i={b_i}, "
+                                        f"b_t={b_t}")
 
     ragged = dict(n=37, d=300, k=70, zero_rows=(0, 5, 36))
     for name in ENCODES:
@@ -1710,6 +1757,229 @@ def phase_estimator(dev, card, results):
           f"pair's shape) {device_s:.4f} s, {100 * device_s / wall:.1f}% of "
           f"the phase: the rest is the host's loop, the estimators and "
           f"their copies")
+
+
+def bench_launches(name, records):
+    """The kernel launches a --fast twin's code implies, by kernel."""
+    from repro_torch.benchmarks import fig78_linear_svm as F78
+    from repro_torch.benchmarks import table1_kernel_svm as T1
+    if name == "fig6":
+        return {"cws_hash_rng": records["fig6_tstar_only"]["reps"]}
+    if name == "fig45":
+        rows = records["fig45_cws_mse"].values()
+        return {"cws_hash_rng": sum(r["reps"] for r in rows
+                                    if isinstance(r, dict) and "reps" in r)}
+    if name == "table1":
+        suites = [s for s in records["table1_kernel_svm"] if s in T1.SUITES]
+        # a train and a test Gram for each min-sum kernel of each suite
+        return {"min_sum": 2 * (len(T1.KERNELS) - 1) * len(suites)}
+    if name == "fig78":
+        bench = records["BENCH_linear_stream"]
+        return {"min_sum": 2,           # the exact min-max machine's Grams
+                "cws_hash": 2,          # one hash pass of train and test
+                # full batch: train and test features; the streamed fit
+                # one a step, its evaluation one (800 rows, one chunk)
+                "cws_encode": 2 + bench["steps"] + 1}
+    return {}
+
+
+def bench_reference_records(mod):
+    """The reference's --fast records of a twin, read as the twin's."""
+    from repro_torch.benchmarks import common
+    return {r: dict(common.load_reference(r), fast=True)
+            for r in mod.RECORDS}
+
+
+def bench_compare(name, mod, records):
+    """(worst |diff|, mean |diff|, n) of the reference's numbers against
+    the twin's, wall times aside; integers (sizes, counts) exactly."""
+    from repro_torch.benchmarks import common
+    diffs = []
+    for rec in mod.RECORDS:
+        ref = {k: v for k, v in common.load_reference(rec).items()
+               if not k.startswith("us_")}
+        for path, a, b in common.numeric_leaves(ref, common.as_json(
+                records[rec])):
+            if path[-1] in ("k", "b_i", "batch_size", "steps", "n_train",
+                            "f1", "f2"):
+                if a != b:
+                    raise AssertionError(f"benchmarks {name}: "
+                                         f"{'/'.join(path)} {b} vs {a}")
+                continue
+            diffs.append((abs(a - b), "/".join(path), a, b))
+    worst = max(diffs)
+    mean = sum(d[0] for d in diffs) / len(diffs)
+    return worst, mean, len(diffs)
+
+
+def bench_parity(name, records, dev, results):
+    """Every kernel launch of a --fast twin, at the twin's own shapes and
+    on its own rows, keys and parameters, against the plain versions: the
+    CWS rows exactly (rows 6's first and last rep key of each run), row 7
+    within its bound (``gram_worst``).  After the counted run, so these
+    launches are not the path's.  Returns the shapes held, by kernel."""
+    from repro_torch.benchmarks import fig78_linear_svm as F78
+    from repro_torch.benchmarks import table1_kernel_svm as T1
+    from repro_torch.benchmarks.fig45_cws_mse import compacted_pair
+    from repro_torch.core import CWSParams, make_cws_params_jax
+    from repro_torch.core.kernels import sum_to_one
+    from repro_torch.core.regen import fold_in, permutation, prng_key, split
+    from repro_torch.data.synthetic import classification_suite, word_pair
+    T = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    held = {}
+
+    def note(kernel, shape):
+        held.setdefault(kernel, []).append(tuple(shape))
+
+    def reps(x, seed, n_reps, k):
+        keys = split(prng_key(seed), n_reps)
+        for r in (0, n_reps - 1):
+            hold_case(KernelCase("cws_hash_rng", x, key=keys[r], k=k),
+                      results, f"benchmarks {name}, {tuple(x.shape)} k={k} "
+                               f"rep {r}")
+        note("cws_hash_rng", (*x.shape, k))
+
+    def grams(xtr, xte, label):
+        r = results[GRAM[0]]
+        for x, y in ((xtr, xtr), (xte, xtr)):
+            ratio_s, ratio_k, err, _ = gram_worst(x, y)
+            r["checked"] += 1
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["worst_ratio_S"] = max(r.get("worst_ratio_S", 0.0), ratio_s)
+            r["worst_ratio_K"] = max(r.get("worst_ratio_K", 0.0), ratio_k)
+            if ratio_s > 1 or ratio_k > 1:
+                raise AssertionError(f"min_sum (benchmarks {name}, {label} "
+                                     f"{tuple(x.shape)} x {tuple(y.shape)}):"
+                                     f" |cuda - plain| at {ratio_s:.3g} (S) "
+                                     f"/ {ratio_k:.3g} (K) of the bound")
+            note("min_sum", (x.shape[0], y.shape[0], x.shape[1]))
+
+    if name == "fig6":
+        rec = records["fig6_tstar_only"]
+        u, v = word_pair("CREDIT-CARD", n_docs=4096)
+        reps(T(np.stack([u, v])), 1, rec["reps"], 256)
+    elif name == "fig45":
+        for pair, row in records["fig45_cws_mse"].items():
+            if isinstance(row, dict) and "reps" in row:
+                reps(T(compacted_pair(pair, 4096)), 0, row["reps"], 1024)
+    elif name == "table1":
+        for suite in records["table1_kernel_svm"]:
+            if suite in T1.SUITES:
+                ds = classification_suite(suite,
+                                          draws=T1.SUITE_DRAWS[suite])
+                xtr, xte = T(ds.x_train), T(ds.x_test)
+                grams(xtr, xte, f"{suite} min-max")
+                grams(sum_to_one(xtr), sum_to_one(xte),
+                      f"{suite} n-min-max / intersection")
+    elif name == "fig78":
+        ds, bench = F78.dataset(), records["BENCH_linear_stream"]
+        xtr, xte = T(ds.x_train), T(ds.x_test)
+        grams(xtr, xte, "template-hard min-max")
+        kmax = max(int(c.split("_k")[1])
+                   for c in records["fig78_linear_svm"]["fig7"]["grid"])
+        p = make_cws_params_jax(prng_key(0), xtr.shape[1], kmax)
+        params = CWSParams(*(T(m) for m in (p.r, p.log_c, p.beta)))
+        for x in (xtr, xte):   # the one hash pass
+            hold_case(KernelCase("cws_hash", x, params=params), results,
+                      f"benchmarks fig78 hash pass, {tuple(x.shape)}")
+            note("cws_hash", (*x.shape, kmax))
+        # the streamed record's encode: full batch's train and test rows,
+        # the streamed fit's batches (epoch 0's windows of its shuffle),
+        # its evaluation's test rows
+        k, b_i, bs = bench["k"], bench["b_i"], bench["batch_size"]
+        stream = params if k == kmax else params.slice_hashes(0, k)
+        perm = permutation(fold_in(prng_key(0), 0), xtr.shape[0]).to(dev)
+        batches = [xtr.index_select(0, perm[lo:lo + bs])
+                   for lo in range(0, xtr.shape[0] - bs + 1, bs)]
+        for x in [xtr, xte] + batches:
+            hold_case(KernelCase("cws_encode", x, b_i, 0, params=stream),
+                      results, f"benchmarks fig78 streamed record, "
+                               f"{tuple(x.shape)} k={k} b_i={b_i}")
+            note("cws_encode", (*x.shape, k, b_i))
+    return held
+
+
+def phase_benchmarks(dev, card, results):
+    """The five paper benchmarks' twins in --fast mode on the card, each
+    held against the reference's own --fast record, its claims against
+    the reference's verdicts, its launches against its code's."""
+    import tempfile
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks import run as bench_run
+    ref_failed = json.loads((common.REFERENCE / "claims.json").read_text())[
+        "claims_failed"]
+    out, gates = {}, []
+    with tempfile.TemporaryDirectory(prefix="bench_") as tmp:
+        for name in BENCH_SUITES:
+            mod = bench_run.SUITES[name]
+            reset_all_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            records = mod.run(fast=True, device=dev, out=tmp)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            want = {**dict.fromkeys(launches, 0),
+                    **bench_launches(name, records)}
+            if launches != want:
+                raise AssertionError(f"benchmarks {name}: launches "
+                                     f"{launches}, expected {want}")
+            require_launched(f"benchmarks {name}", launches,
+                             [k for k, v in want.items() if v])
+            worst, mean, n = bench_compare(name, mod, records)
+            if name in BENCH_EXACT:
+                if worst[0] > BENCH_TOL:
+                    gates.append(f"{name}: {worst[1]} {worst[3]} vs "
+                                 f"reference {worst[2]}")
+            elif worst[0] > BENCH_CELL_PP or mean > BENCH_MEAN_PP:
+                gates.append(f"{name}: worst cell {worst[1]} {worst[3]} vs "
+                             f"reference {worst[2]}, mean |diff| "
+                             f"{mean:.4f} pp over {n} cells")
+            held = bench_parity(name, records, dev, results)
+            claims = mod.claims(records)
+            ref_claims = mod.claims(bench_reference_records(mod))
+            gates += [f"{name}: claim '{c}' fails (the reference passes it)"
+                      for c, ok in claims.items() if ref_claims[c] and not ok]
+            if name in ref_failed and all(ref_claims.values()):
+                gates.append(f"{name}: the reference's run failed a claim "
+                             f"({ref_failed[name]}) its records pass")
+            for k, v in launches.items():
+                if v:
+                    results[k]["launches"] += v
+            out[name] = {"wall_s": wall, "launches": {
+                k: v for k, v in launches.items() if v},
+                "worst": worst, "mean_abs_diff": mean, "numbers": n,
+                "claims": claims, "reference_claims": ref_claims,
+                "held_vs_plain": held}
+            print(f"benchmarks {name} [{card}]: --fast in {wall:.2f} s; "
+                  f"{n} numbers vs the reference's record: worst "
+                  f"{worst[1]} {worst[3]!r} vs {worst[2]!r} (|diff| "
+                  f"{worst[0]:.3g}), mean |diff| {mean:.3g}; launches "
+                  + (", ".join(f"{k} {v}" for k, v in launches.items() if v)
+                     or "none")
+                  + "; claims: " + "; ".join(
+                      f"{c}: {'pass' if ok else 'FAIL'} (reference "
+                      f"{'pass' if ref_claims[c] else 'fail'})"
+                      for c, ok in claims.items()))
+            if held:
+                how = {k: "within 2·D·2^-24·S" if k == GRAM[0] else
+                       "exactly" for k in held}
+                print(f"benchmarks {name} kernels vs plain [{card}]: "
+                      + "; ".join(f"{k} at {v} {how[k]}"
+                                  for k, v in held.items()))
+            if name == "fig78":
+                bench = records["BENCH_linear_stream"]
+                ref = bench_reference_records(mod)["BENCH_linear_stream"]
+                print(f"benchmarks fig78 streamed gap [{card}]: "
+                      f"{bench['gap_pp']} pp (streamed "
+                      f"{bench['acc_streamed']}%, full batch "
+                      f"{bench['acc_fullbatch']}%) vs the reference's "
+                      f"{ref['gap_pp']} pp ({ref['acc_streamed']}% / "
+                      f"{ref['acc_fullbatch']}%); streaming's cost is "
+                      f"gated by the train phase's 16-key mean")
+    results["benchmarks"] = out
+    if gates:
+        raise AssertionError("benchmarks: " + "; ".join(gates))
 
 
 def flash_inputs(rng, b, sq, sk, h, g, d, dtype, dev):
@@ -2986,6 +3256,7 @@ def main():
                         (phase_train, (dev, smi, results)),
                         (phase_kernel_machine, (dev, smi, results)),
                         (phase_estimator, (dev, smi, results)),
+                        (phase_benchmarks, (dev, smi, results)),
                         (phase_lm, (dev, smi, results)),
                         (phase_seq_parallel, (smi, results)),
                         (phase_times, (dev, results, peak_ops, counts)),

@@ -69,6 +69,26 @@ def make_cws_params(generator: torch.Generator, dim: int,
     return CWSParams(r, torch.log(c), beta)
 
 
+def make_cws_params_jax(key, dim: int, num_hashes: int) -> CWSParams:
+    """``repro.core.cws.make_cws_params(key, dim, num_hashes)``'s draws,
+    float32 on the CPU: r and c Gamma(2,1) as the sum of two
+    ``jax.random.exponential`` draws from the halves of their keys, beta
+    ``jax.random.uniform``.  ``key`` is two key words (``prng_key``).
+    beta is the reference's bits; r and log c differ from them by a few
+    float32 roundings (PyTorch's log1p and log against XLA's), far below
+    the gaps between CWS candidates."""
+    from repro_torch.core import regen as R
+    kr, kc, kb = R.split(key, 3)
+    shape = (dim, num_hashes)
+
+    def gamma21(k):
+        k1, k2 = R.split(k)
+        return R.exponential(k1, shape) + R.exponential(k2, shape)
+
+    return CWSParams(gamma21(kr), torch.log(gamma21(kc)),
+                     R.uniform(kb, shape))
+
+
 def log_u(x: torch.Tensor) -> torch.Tensor:
     """log of the positive entries, -inf elsewhere (zeros never win)."""
     x = x.to(torch.float32)

@@ -23,6 +23,7 @@ them in int64 masked to 32 bits, because uint32 ``+``, ``<<``, ``>>`` and
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -119,11 +120,15 @@ def _key_array(w0: int, w1: int) -> np.ndarray:
 
 
 def prng_key(seed: int) -> np.ndarray:
-    """``jax.random.PRNGKey(seed)``: the words (seed >> 32, seed & mask)."""
+    """``jax.random.PRNGKey(seed)`` as the reference runs it (64-bit
+    types off): the seed is an int64, of which the key keeps the low 32
+    bits, so the words are (0, seed mod 2^32); a negative seed is taken
+    in two's complement (-1 gives (0, 2^32 - 1)).  A seed outside int64
+    raises ``OverflowError``, as the reference does."""
     seed = int(seed)
-    if not 0 <= seed < 2 ** 64:
-        raise ValueError(f"seed must be in [0, 2^64); got {seed}")
-    return _key_array(seed >> 32, seed)
+    if not -2 ** 63 <= seed < 2 ** 63:
+        raise OverflowError(f"seed {seed} does not fit in int64")
+    return _key_array(0, seed)
 
 
 def fold_in(key, data: int) -> np.ndarray:
@@ -147,6 +152,99 @@ def random_bits32(key, n: int) -> torch.Tensor:
     i = torch.arange(n, dtype=torch.int64)
     x0, x1 = threefry2x32(*key_words(key), i >> 32, i & _MASK)
     return x0 ^ x1
+
+
+# -- the reference's samplers ----------------------------------------------
+# ``jax.random``'s float32 samplers on these bits, each a float32 CPU tensor
+# (the reference's datasets are numpy arrays made on the host).  uniform,
+# bernoulli and randint are integer arithmetic and exact IEEE steps, so
+# they equal the reference bit for bit; exponential and normal go through
+# log1p (and erfinv's polynomial), where PyTorch's CPU math and XLA's
+# differ in the last bits on a few per cent of draws.
+
+def _size(shape) -> tuple:
+    return (int(shape),) if np.ndim(shape) == 0 else tuple(map(int, shape))
+
+
+def _bits(key, shape) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)``: the row-major index of each
+    element is its counter."""
+    shape = _size(shape)
+    return random_bits32(key, int(np.prod(shape))).reshape(shape)
+
+
+def uniform(key, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the
+    top 23 bits as the mantissa of a float in [1, 2), minus 1, then
+    ``u * (maxval - minval) + minval`` in float32, floored at minval."""
+    bits = (_bits(key, shape) >> 9) | 0x3F800000
+    u = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    lo_t = torch.tensor(lo)
+    return torch.maximum(u * float(hi - lo) + lo_t, lo_t)
+
+
+def bernoulli(key, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (mode "low"): a bool
+    tensor, uniform < p in float32."""
+    return uniform(key, shape) < torch.tensor(np.float32(p))
+
+
+def randint(key, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` as int32: two
+    32-bit draws from the two halves of a split key, combined modulo the
+    span in uint32 arithmetic (``2^32 mod span`` as ``(2^16 mod span)^2
+    mod span``)."""
+    lo, hi = int(minval), int(maxval)
+    if not (-2 ** 31 <= lo and hi <= 2 ** 31 - 1):
+        raise ValueError(f"randint bounds [{lo}, {hi}) must fit in int32")
+    shape = _size(shape)
+    k_hi, k_lo = split(key)
+    span = (hi - lo) & _MASK if hi > lo else 1
+    mult = ((2 ** 16 % span) ** 2 & _MASK) % span     # uint32 product
+    off = ((_bits(k_hi, shape) % span) * mult + _bits(k_lo, shape) % span)
+    off = (off & _MASK) % span
+    return (lo + off).to(torch.int32)
+
+
+def exponential(key, shape) -> torch.Tensor:
+    """``jax.random.exponential(key, shape)``: -log1p(-u)."""
+    return -torch.log1p(-uniform(key, shape))
+
+
+# XLA's float32 erfinv (M. Giles, "Approximating the erfinv function",
+# GPU Computing Gems, 2010): a degree-8 polynomial in w - 2.5 where
+# w = -log1p(-x^2) < 5, else in sqrt(w) - 3, times x.
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv``, step by step in its order (float32
+    tensors; ``torch.special.erfinv`` is another approximation)."""
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    coef = [torch.where(lt, torch.tensor(np.float32(a)),
+                        torch.tensor(np.float32(b)))
+            for a, b in zip(_ERFINV_W_LT_5, _ERFINV_W_GE_5)]
+    p = coef[0]
+    for c in coef[1:]:
+        p = c + p * w
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(key, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape)``: sqrt(2) erfinv(u), u uniform on
+    (nextafter(-1, 0), 1)."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    return float(np.float32(np.sqrt(2))) * erfinv(uniform(key, shape, lo,
+                                                          1.0))
 
 
 def permutation(key, n: int) -> torch.Tensor:

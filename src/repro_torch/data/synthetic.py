@@ -7,20 +7,35 @@ heavy-tailed magnitudes, with class structure carried by which
 coordinates are active and by their relative magnitudes; and word-count
 vector pairs over 2^16 documents (Table 2 / Figs 4-5).
 
-Everything is drawn from ``numpy.random.default_rng(seed)``, so a dataset
-is the same on any machine and framework-free.  ``Dataset``,
-``make_word_pair``, ``WORD_PAIRS`` and ``word_pair`` are numpy-only in the
-reference too, and these copies give the same bits.  The classification
-generators draw the reference's distributions, but the reference draws
-them from ``jax.random``: the datasets are not bit twins, so parity tests
-hand the reference's datasets over as arrays.
+``Dataset``, ``make_word_pair``, ``WORD_PAIRS`` and ``word_pair`` are
+numpy-only in the reference too, and these copies give the same bits.
+The reference draws its classification data from ``jax.random``; here each
+classification generator takes ``draws``:
+
+* ``"numpy"`` (the default) draws the same distributions from
+  ``numpy.random.default_rng(seed)``: not the reference's data;
+* ``"jax"`` draws the reference's own streams through
+  ``repro_torch.core.regen``'s samplers, line by line in the reference's
+  order and float32 arithmetic: labels, zero patterns and the uniform and
+  Bernoulli draws are the reference's bits, and values go through
+  exp / log1p / erfinv, where PyTorch's CPU math and XLA's differ in the
+  last bits of a few per cent of draws.  ``make_histogram_mixture``
+  draws Dirichlet and Gamma variates by rejection, not rebuilt yet.
+
+Either way a dataset is made on the host, as numpy arrays.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.core import regen as R
+
+DRAWS = ("numpy", "jax")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +57,16 @@ def _heavy_tailed(rng, shape, tail: float = 1.2):
     return np.exp(rng.standard_exponential(shape) / tail) - 1.0
 
 
+def _heavy_tailed_jax(key, shape, tail: float = 1.2) -> torch.Tensor:
+    e = R.exponential(key, shape)
+    return torch.exp(e / tail) - 1.0
+
+
+def _check_draws(draws: str) -> None:
+    if draws not in DRAWS:
+        raise ValueError(f"draws must be one of {DRAWS}; got {draws!r}")
+
+
 def _split(name, x, y, n_train, n_classes) -> Dataset:
     x = np.asarray(x, np.float32)
     y = np.asarray(y, np.int32)
@@ -52,13 +77,18 @@ def _split(name, x, y, n_train, n_classes) -> Dataset:
 def make_template_classification(seed: int, *, n_train=1200, n_test=800,
                                  dim=256, n_classes=6, density=0.25,
                                  mult_noise=1.3, spike_prob=0.10,
-                                 spike_scale=12.0, name="template") -> Dataset:
+                                 spike_scale=12.0, name="template",
+                                 draws: str = "numpy") -> Dataset:
     """Sparse nonneg class templates + heavy multiplicative noise + spikes.
 
     The spikes and multiplicative noise dominate <u,v>, while min-max (a
     bounded ratio) stays informative: the paper's min-max > intersection >
     linear ordering.
     """
+    _check_draws(draws)
+    if draws == "jax":
+        return _template_jax(seed, n_train, n_test, dim, n_classes, density,
+                             mult_noise, spike_prob, spike_scale, name)
     rng = np.random.default_rng(seed)
     n = n_train + n_test
     tmpl_mask = rng.random((n_classes, dim)) < density
@@ -72,12 +102,34 @@ def make_template_classification(seed: int, *, n_train=1200, n_test=800,
     return _split(name, x + spikes, labels, n_train, n_classes)
 
 
+def _template_jax(seed, n_train, n_test, dim, n_classes, density,
+                  mult_noise, spike_prob, spike_scale, name) -> Dataset:
+    """``repro.data.synthetic.make_template_classification``'s draws."""
+    k_t, k_m, k_s = R.split(R.prng_key(seed), 3)
+    n = n_train + n_test
+    tmpl_mask = R.bernoulli(k_t, density, (n_classes, dim))
+    tmpl_mag = _heavy_tailed_jax(R.fold_in(k_t, 1), (n_classes, dim))
+    templates = tmpl_mask.to(torch.float32) * (0.5 + tmpl_mag)
+    labels = R.randint(R.fold_in(k_m, 0), (n,), 0, n_classes)
+    base = templates[labels.long()]
+    mnoise = torch.exp(mult_noise * R.normal(R.fold_in(k_m, 1), (n, dim)))
+    keep = R.bernoulli(R.fold_in(k_m, 2), 0.9, (n, dim))
+    x = base * mnoise * keep.to(torch.float32)
+    spikes = (R.bernoulli(k_s, spike_prob, (n, dim)).to(torch.float32)
+              * spike_scale * _heavy_tailed_jax(R.fold_in(k_s, 1), (n, dim)))
+    return _split(name, (x + spikes).numpy(), labels.numpy(), n_train,
+                  n_classes)
+
+
 def make_ratio_xor(seed: int, *, n_train=1200, n_test=800, dim=16,
-                   name="ratio-xor") -> Dataset:
+                   name="ratio-xor", draws: str = "numpy") -> Dataset:
     """Binary labels from an XOR over coordinate-pair dominance:
     label = {x_0 > x_1} XOR {x_2 > x_3}.  Linearly inseparable by
     construction; the four dominance patterns form four clusters under
     min-max similarity."""
+    _check_draws(draws)
+    if draws == "jax":
+        return _ratio_xor_jax(seed, n_train, n_test, dim, name)
     rng = np.random.default_rng(seed)
     n = n_train + n_test
     n_pairs = 2
@@ -93,12 +145,35 @@ def make_ratio_xor(seed: int, *, n_train=1200, n_test=800, dim=16,
     return _split(name, x, y, n_train, 2)
 
 
+def _ratio_xor_jax(seed, n_train, n_test, dim, name) -> Dataset:
+    """``repro.data.synthetic.make_ratio_xor``'s draws."""
+    key = R.prng_key(seed)
+    n = n_train + n_test
+    n_pairs = 2
+    x = 0.3 * torch.abs(R.normal(key, (n, dim))) + 0.05
+    flips = R.bernoulli(R.fold_in(key, 7), 0.5, (n, n_pairs))
+    for p in range(n_pairs):
+        hi = 3.0 + R.uniform(R.fold_in(key, 10 + p), (n,))
+        lo = 0.2 + 0.2 * R.uniform(R.fold_in(key, 20 + p), (n,))
+        x[:, 2 * p] = torch.where(flips[:, p], hi, lo)
+        x[:, 2 * p + 1] = torch.where(flips[:, p], lo, hi)
+    y = flips.sum(dim=1) % 2
+    return _split(name, x.numpy(), y.numpy(), n_train, 2)
+
+
 def make_histogram_mixture(seed: int, *, n_train=1200, n_test=800, dim=128,
                            n_classes=10, conc_scale=6.0,
-                           name="hist-mix") -> Dataset:
+                           name="hist-mix", draws: str = "numpy") -> Dataset:
     """Dirichlet histograms per class with heavy-tailed total mass
     (bag-of-words / visual-word histograms; total counts vary by 2-3
-    orders of magnitude per sample)."""
+    orders of magnitude per sample).  Numpy draws only: the reference's
+    ``jax.random.dirichlet`` and ``gamma`` sample by rejection, not
+    rebuilt yet."""
+    _check_draws(draws)
+    if draws == "jax":
+        raise NotImplementedError(
+            "make_histogram_mixture(draws='jax') needs jax.random's gamma "
+            "and dirichlet rejection samplers (ROADMAP A15)")
     rng = np.random.default_rng(seed)
     n = n_train + n_test
     protos = rng.dirichlet(0.25 * np.ones(dim), n_classes)
@@ -110,14 +185,25 @@ def make_histogram_mixture(seed: int, *, n_train=1200, n_test=800, dim=128,
     return _split(name, p * mass * 100.0, labels, n_train, n_classes)
 
 
-CLASSIFICATION_SUITES = {
-    "template": lambda: make_template_classification(0),
-    "template-hard": lambda: make_template_classification(
-        1, n_classes=10, density=0.15, mult_noise=1.2, spike_prob=0.08,
-        name="template-hard"),
-    "ratio-xor": lambda: make_ratio_xor(2),
-    "hist-mix": lambda: make_histogram_mixture(3),
+# Table 1's suites: (generator, seed, keyword arguments), as the reference.
+_SUITES = {
+    "template": (make_template_classification, 0, {}),
+    "template-hard": (make_template_classification, 1, dict(
+        n_classes=10, density=0.15, mult_noise=1.2, spike_prob=0.08,
+        name="template-hard")),
+    "ratio-xor": (make_ratio_xor, 2, {}),
+    "hist-mix": (make_histogram_mixture, 3, {}),
 }
+
+
+def classification_suite(name: str, draws: str = "numpy") -> Dataset:
+    """Table 1's suite ``name`` on the given draws."""
+    fn, seed, kw = _SUITES[name]
+    return fn(seed, draws=draws, **kw)
+
+
+CLASSIFICATION_SUITES = {name: functools.partial(classification_suite, name)
+                         for name in _SUITES}
 
 
 # ---------------------------------------------------------------------------

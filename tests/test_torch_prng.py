@@ -16,7 +16,9 @@ import torch
 
 from repro_torch.core import regen as R
 
-SEEDS = (0, 7, 2 ** 31 - 1)
+# 2^32, 2^40 + 5 and -1: the reference keeps a seed's low 32 bits (64-bit
+# types off), in two's complement below 0
+SEEDS = (0, 7, 2 ** 31 - 1, 2 ** 32, 2 ** 40 + 5, -1)
 
 
 def _jkey(seed):
@@ -83,5 +85,24 @@ def test_permutation_is_a_permutation():
 
 
 def test_prng_key_rejects_negative_seed():
-    with pytest.raises(ValueError, match="seed"):
-        R.prng_key(-1)
+    # a negative seed within int64 is taken in two's complement (-1 is in
+    # SEEDS); one below int64 is refused, as the reference refuses it
+    for seed in (-2 ** 63 - 1, -2 ** 64):
+        with pytest.raises(OverflowError):
+            _jkey(seed)
+        with pytest.raises(OverflowError, match="int64"):
+            R.prng_key(seed)
+
+
+@pytest.mark.parametrize("seed", (2 ** 63, 2 ** 64 - 1))
+def test_prng_key_rejects_seeds_beyond_int64(seed):
+    with pytest.raises(OverflowError):
+        _jkey(seed)
+    with pytest.raises(OverflowError, match="int64"):
+        R.prng_key(seed)
+
+
+@pytest.mark.parametrize("seed", (-2 ** 63, 2 ** 63 - 1, 2 ** 32 - 1))
+def test_prng_key_int64_edges(seed):
+    np.testing.assert_array_equal(R.prng_key(seed),
+                                  np.asarray(_jkey(seed)))
