@@ -98,7 +98,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 time, steps/s, rows/s and CWS device time (launches x the
                 kernel's CUDA-event time), and a 100-step fit A under
                 ``torch.profiler``: the card's busy share;
-  6. kernel machine - Table 1 on the "template" suite at full size (1,200
+  6. resume   - preemption on the train phase's fits and inputs, each
+                result held bit for bit against the train phase's
+                uninterrupted fit (table, and for fit A both Adam
+                moments): fit A checkpointed every 50 steps and killed
+                before step 333, resumed from 300 (which the CPU restores
+                to the same bits as the card) and checkpointing every 10;
+                fit B under ``fit_linear_streamed_resilient`` through a
+                raise at 120, a 60 s hang at 260 cut by a 5 s hard
+                timeout in under 10 s, and a failed async write at 400
+                (restarts FaultInjected, TrainingAborted, OSError); fit B'
+                killed inside step 200's commit window (latest_step 150,
+                the uncommitted step swept by the next Checkpointer);
+                fit A's step-490 checkpoint finished on the CPU's plain
+                path; fit A's test rows scored 128 rows a chunk, killed
+                before chunk 5 and resumed to the uninterrupted count;
+                row 1 at the chunks' shapes against its plain version;
+                the fault-tolerance twin (``bench_fault_tolerance``) at
+                --fast against the reference's record and at full size,
+                with its gates; launches by kernel as the runs imply; the
+                checkpoint's bytes, snapshot, writer-thread and restore
+                times and fit A's wall at ckpt_every=50 against the bare
+                fit, in turns;
+  7. kernel machine - Table 1 on the "template" suite at full size (1,200
                 train / 800 test rows, D = 256, 6 classes): the four
                 Grams through ``GRAM_FNS`` and ``best_accuracy_over_C``
                 over C in 0.01 ... 1000 with 20 sweeps, then the staged
@@ -108,7 +130,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 agree with the plain path on the CPU within 0.5 pp;
                 launches: min_sum 6 (two Grams each for min-max, n-min-max
                 and intersection), cws_hash 2, no other kernel;
-  7. estimator - Figs 4-5 at 2^16-document word pairs (HONG-KONG,
+  8. estimator - Figs 4-5 at 2^16-document word pairs (HONG-KONG,
                 CREDIT-CARD): K from the min-sum kernel, 300 Monte-Carlo
                 reps of ``pipe.with_key(key).hashes(x)`` at k = 1024, and
                 the full / 0-bit / 1-bit bias and MSE at k in
@@ -117,7 +139,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 launches: cws_hash_rng 600, min_sum 2, no other kernel;
                 the phase's wall time beside its launches' device time (600
                 x kernel ms at each pair's shape);
-  8. benchmarks - the paper's benchmarks as twins
+  9. benchmarks - the paper's benchmarks as twins
                 (``repro_torch.benchmarks``: table2, fig6, fig45, table1,
                 fig78) in --fast mode on the reference's own draws, each
                 held against the reference's --fast record
@@ -136,7 +158,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 table1's and fig78's Grams, row 5 at fig78's 1,200 and
                 800 rows at k = 128, row 2 at its full-batch, streamed
                 600-row and evaluation rows at k = 128, b_i = 8);
-  9. lm       - gemma3_12b at full width and depth, attn_impl "flash":
+ 10. lm       - gemma3_12b at full width and depth, attn_impl "flash":
                 the fp32 prefill + decode logits against one cached forward
                 (prompt 600, 4 steps); then the masters cast once to bf16
                 and the main path, ``serve_lm`` (4 x 2,048-token prompts,
@@ -147,7 +169,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 tolerance; the CWS head on the pooled hidden state (one
                 ``cws_encode`` launch, no other CWS kernel), its codes
                 equal to the CPU path's;
- 10. seq-parallel - gemma3_12b at full width cut to 6 layers, its
+ 11. seq-parallel - gemma3_12b at full width cut to 6 layers, its
                 sequence sharded over four ranks of the ``model`` axis
                 (``torch.multiprocessing``; on one card the ranks share it
                 over gloo, CUDA tensors through host copies, since NCCL
@@ -160,7 +182,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 forward on the same weights; the transport, host bytes and
                 each rank's peak memory.  With four cards, once more over
                 NCCL, one rank a card, at full depth;
- 11. times    - each kernel and its plain version timed with CUDA events
+ 12. times    - each kernel and its plain version timed with CUDA events
                 (rows 8 and 9: the wgmma and the SIMT body on the same
                 inputs, in turns, the wgmma body required to be faster;
                 rows 1-6 beside their design floor from the SASS counts,
@@ -183,9 +205,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the slice's global and local layers and at S = 32,768, and
                 for row 9 on one ring step's q rows and K/V shard).
 
-Phases 4-10 are the main paths: each zeroes the launch counters just
-before it (phase 8 before each twin) and reads them just after, and
-fails if a kernel it runs was never launched (phase 10 in every rank, and
+Phases 4-11 are the main paths: each zeroes the launch counters just
+before it (phase 9 before each twin) and reads them just after, and
+fails if a kernel it runs was never launched (phase 11 in every rank, and
 in sum).  The line before the
 last is ``nvidia-smi``'s name and power limit, the one before it a JSON
 summary of every kernel; the last line is ``{"ok": true, "device":
@@ -203,6 +225,8 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -251,6 +275,26 @@ TRAIN_SEED = 2020
 GAP_KEYS = tuple(range(1, 16))
 GAP_EXTRA_ROWS = 20_000
 PROFILE_STEPS = 100        # the profiled streamed fit A
+# The resume phase (ROADMAP A9) on the train phase's fits and inputs: fit
+# A checkpointed every RESUME_EVERY steps and killed before step
+# RESUME_KILL_A (mid-epoch: two batches an epoch); fit B under the
+# resilient wrapper with a raise, a RESUME_HANG_S hang (cut by a
+# RESUME_HARD_TIMEOUT_S watchdog, in under RESUME_HANG_CUT_S) and a failed
+# async write; fit B' killed inside step RESUME_KILL_COMMIT's commit
+# window; fit A's step-300 checkpoint trained on the CPU's plain path to
+# step RESUME_CPU_TO (a checkpoint every RESUME_CPU_EVERY steps), then
+# finished on the card; fit A's wall at ckpt_every=RESUME_EVERY against
+# the bare fit in RESUME_PAIRS pairs; fit A's test rows scored EVAL_CHUNK
+# rows a chunk, a checkpoint every EVAL_EVERY chunks, killed before chunk
+# EVAL_KILL.
+RESUME_EVERY = 50
+RESUME_KILL_A = 333
+RESUME_FAULTS_B = (120, 260, 400)     # raise, hang, failed async write
+RESUME_HANG_S, RESUME_HARD_TIMEOUT_S, RESUME_HANG_CUT_S = 60.0, 5.0, 10.0
+RESUME_KILL_COMMIT = 200
+RESUME_CPU_EVERY, RESUME_CPU_TO = 10, 320
+RESUME_PAIRS = 10
+EVAL_CHUNK, EVAL_EVERY, EVAL_KILL = 128, 2, 5
 
 # Table 1 (benchmarks/table1_kernel_svm.py) and Figs 4-5
 # (benchmarks/fig45_cws_mse.py) as the reference's benchmarks run them.
@@ -1245,9 +1289,9 @@ def phase_train(dev, card, results):
     bundle_root = ROOT / "build" / "chip_smoke_trained"
     shutil.rmtree(bundle_root, ignore_errors=True)
 
-    def fit(name, x=xtr, y=ytr):
+    def fit(name, x=xtr, y=ytr, **kw):
         return fit_linear_streamed(p0[name], pipes[name], x, y, cfg=cfg_st,
-                                   shuffle_key=key)
+                                   shuffle_key=key, **kw)
 
     def full_batch():
         f_tr = pipes["A"].features(xtr)
@@ -1257,10 +1301,10 @@ def phase_train(dev, card, results):
     t_phase = time.perf_counter()
     reset_all_launches()
     torch.cuda.synchronize()
-    fits, walls, accs = {}, {}, {}
+    fits, states, walls, accs = {}, {}, {}, {}
     for name in pipes:
         t0 = time.perf_counter()
-        fits[name] = fit(name)
+        fits[name], states[name] = fit(name, return_state=True)
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
         accs[name] = streamed_accuracy(fits[name], pipes[name], xte, yte)
@@ -1495,6 +1539,13 @@ def phase_train(dev, card, results):
                              "cws_s": cws_n * cws_ms / 1e3}
     out["profile_A"] = profile_a
     results["train"] = out
+    # what phase_resume holds its kills and resumes against: the
+    # uninterrupted fits with their Adam state, and the inputs they saw
+    results["train_fits"] = {
+        "pipes": pipes, "kernel_of": kernel_of, "fits": fits,
+        "states": states, "p0": p0, "cfg": cfg_st, "key": key,
+        "key_words": key_words, "data": (xtr, ytr, xte, yte), "ds": ds,
+        "accuracy": accs, "wall_A": walls["A"]}
     for name, kernel in kernel_of.items():
         results[kernel]["launches"] += launches[kernel]
         results[kernel]["train"] = {"fit": name,
@@ -1540,6 +1591,376 @@ def phase_train(dev, card, results):
               f"max |served - offline| logit {s_['max_abs_err']:.3g}")
     print("train phase s: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                         out["phase_s"].items()))
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def manifest_bytes(path, step):
+    """The bytes of a checkpoint's leaves, from its manifest."""
+    m = json.loads((pathlib.Path(path) / f"step_{step:08d}" /
+                    "manifest.json").read_text())
+    item = lambda d: 2 if d == "bfloat16" else np.dtype(d).itemsize
+    return sum(int(np.prod(l["shape"])) * item(l["dtype"])
+               for l in m["leaves"])
+
+
+def ft_launches(rec):
+    """Row 2's launches in one run of the fault-tolerance twin: a warm-up,
+    a bare and a checkpointed fit, the killed fit up to its kill, the
+    resume from its last commit, and two one-chunk evaluations."""
+    cfg, res = rec["config"], rec["resume"]
+    return (3 * cfg["steps"] + cfg["kill_step"]
+            + cfg["steps"] - res["resumed_from_step"] + 2)
+
+
+def ft_parity(fast, dev, results):
+    """Row 2 at the fault-tolerance twin's own launch shapes, on its rows
+    and parameters, against its plain version: each batch of the first
+    epoch of its shuffle, and its test rows.  After the counted run, so
+    these launches are not the path's.  Returns the shapes held."""
+    from repro_torch.benchmarks import bench_fault_tolerance as FT
+    from repro_torch.core.regen import fold_in, permutation, prng_key
+    (xtr, _, xte, _), pipe, cfg, _ = FT.problem(fast, dev)
+    bs, spec = cfg.batch_size, pipe.spec
+    perm = permutation(fold_in(prng_key(0), 0), xtr.shape[0]).to(dev)
+    rows = [xtr.index_select(0, perm[lo:lo + bs])
+            for lo in range(0, xtr.shape[0] - bs + 1, bs)] + [xte]
+    for x in rows:
+        hold_case(KernelCase("cws_encode", x, spec.b_i, spec.b_t,
+                             params=pipe.params), results,
+                  f"resume twin {'fast' if fast else 'full'}, "
+                  f"{tuple(x.shape)} k={spec.num_hashes} b_i={spec.b_i}")
+    return sorted({(*x.shape, spec.num_hashes, spec.b_i) for x in rows})
+
+
+def phase_resume(dev, card, results):
+    """Checkpointed, killed and resumed training and evaluation on the
+    train phase's paper configuration, each held against the train
+    phase's uninterrupted fits; then the fault-tolerance twin."""
+    from repro_torch.benchmarks import bench_fault_tolerance as FT
+    from repro_torch.checkpoint import (Checkpointer, latest_step,
+                                        restore_checkpoint)
+    from repro_torch.core.linear_model import make_linear_tx
+    from repro_torch.optim import tree_leaves
+    from repro_torch.pipeline import FeaturePipeline, FeatureSpec
+    from repro_torch.runtime import (ChaosKill, ChaosPlan, RetryingTrainer,
+                                     fail_async_write, hang_at, kill_at,
+                                     kill_between_snapshot_and_commit,
+                                     kill_eval_at, raise_at)
+    from repro_torch.training import (fit_linear_streamed,
+                                      fit_linear_streamed_resilient,
+                                      resume_linear_streamed,
+                                      resume_streamed_accuracy,
+                                      streamed_accuracy)
+    T = results["train_fits"]
+    pipes, fits, states, p0 = T["pipes"], T["fits"], T["states"], T["p0"]
+    cfg, key, kernel_of = T["cfg"], T["key"], T["kernel_of"]
+    xtr, ytr, xte, yte = T["data"]
+    steps, every = cfg.steps, RESUME_EVERY
+    committed = lambda k: k // every * every   # the last commit at step k
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    failed = []
+    same = lambda a, b: all(torch.equal(x, y) for x, y in
+                            zip(tree_leaves(a), tree_leaves(b)))
+    sync = lambda: torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def run(name, **kw):
+        return fit_linear_streamed(p0[name], pipes[name], xtr, ytr, cfg=cfg,
+                                   shuffle_key=key, **kw)
+
+    threads = threading.active_count()
+    # the main path: counters zeroed just before, read just after
+    t_phase = time.perf_counter()
+    reset_all_launches()
+    sync()
+
+    # a. fit A killed mid-epoch, then resumed from its last commit
+    ck = Checkpointer(root / "A")
+    try:
+        run("A", ckpt=ck, ckpt_every=every,
+            chaos=ChaosPlan(kill_at(RESUME_KILL_A)))
+        failed.append(f"resume a: kill_at({RESUME_KILL_A}) did not fire")
+    except ChaosKill:
+        pass
+    ck.join()
+    snap_a, write_a = ck.last_snapshot_s, ck.last_write_s
+    from_a = latest_step(root / "A")
+    if from_a != committed(RESUME_KILL_A):
+        failed.append(f"resume a: latest_step {from_a}, expected "
+                      f"{committed(RESUME_KILL_A)}")
+    bytes_a = manifest_bytes(root / "A", from_a)
+    shutil.copytree(root / "A", root / "A_cpu")     # d's own copy
+    # d, first part: the card's checkpoint restored on the CPU equals its
+    # restore on the card
+    template = {"params": p0["A"], "opt_state": make_linear_tx(cfg).init(
+        p0["A"])}
+    on_card, restore_s = timed(lambda: restore_checkpoint(
+        root / "A", from_a, template, device=dev))
+    on_cpu = restore_checkpoint(root / "A", from_a, template, device="cpu")
+    ident = {f"step-{from_a} restore: CPU = card": all(
+        torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(on_card),
+                                                tree_leaves(on_cpu)))}
+    del on_card, on_cpu
+    (p_a, s_a), resume_a_s = timed(lambda: resume_linear_streamed(
+        root / "A", pipes["A"], xtr, ytr, cfg=cfg, shuffle_key=key,
+        ckpt_every=every, return_state=True))
+    ident["A resumed"] = same(p_a, fits["A"]) and same(s_a, states["A"])
+
+    # d. the same step-300 checkpoint trained on the CPU's plain path to
+    # step RESUME_CPU_TO (killed there after its commit), that checkpoint
+    # finished on the card: table and moments equal the uninterrupted fit's
+    ds = T["ds"]
+    cpu_pipe = FeaturePipeline.create_regen(T["key_words"], DIM,
+                                            FeatureSpec(NUM_HASHES, B_I),
+                                            device="cpu")
+    ck = Checkpointer(root / "A_cpu")
+    t_cpu = time.perf_counter()
+    try:
+        resume_linear_streamed(ck, cpu_pipe, ds.x_train, ds.y_train, cfg=cfg,
+                               shuffle_key=key, ckpt_every=RESUME_CPU_EVERY,
+                               chaos=ChaosPlan(kill_at(RESUME_CPU_TO)))
+        failed.append(f"resume d: kill_at({RESUME_CPU_TO}) did not fire on "
+                      f"the CPU")
+    except ChaosKill:
+        pass
+    ck.join()
+    cpu_s = time.perf_counter() - t_cpu
+    from_d = latest_step(root / "A_cpu")
+    if from_d != RESUME_CPU_TO:
+        failed.append(f"resume d: the CPU's latest_step {from_d}, expected "
+                      f"{RESUME_CPU_TO}")
+    p_d, s_d = resume_linear_streamed(root / "A_cpu", pipes["A"], xtr, ytr,
+                                      cfg=cfg, shuffle_key=key,
+                                      return_state=True)
+    ident[f"A: card to {from_a}, CPU to {from_d}, card to {steps}"] = (
+        same(p_d, fits["A"]) and same(s_d, states["A"]))
+
+    # fit A's wall at ckpt_every=RESUME_EVERY against the bare fit, in
+    # RESUME_PAIRS adjacent pairs in alternating order (bare, ckpt, ckpt,
+    # bare, ...); each fit's main-thread CPU time, each checkpointed fit's
+    # saves taken apart by its Checkpointer
+    walls = {"bare": [], "ckpt": []}
+    cpus = {"bare": [], "ckpt": []}
+    saves = []
+    for i in range(2 * RESUME_PAIRS):
+        turn = ("bare", "ckpt")[(i + i // 2) % 2]
+        ck = Checkpointer(root / f"overhead_{i}") if turn == "ckpt" else None
+        kw = {} if ck is None else dict(ckpt=ck, ckpt_every=every)
+        c0 = time.thread_time()
+        walls[turn].append(timed(lambda: run("A", **kw))[1])
+        cpus[turn].append(time.thread_time() - c0)
+        if ck is not None:
+            saves.append(ck.totals)
+            shutil.rmtree(ck.ckpt_dir)
+    pair_pct = [100 * (c / b - 1) for b, c in zip(walls["bare"],
+                                                  walls["ckpt"])]
+    split = {k: float(np.mean([t[k] for t in saves])) for k in saves[0]}
+    off_cpu = {k: float(np.mean(walls[k]) - np.mean(cpus[k]))
+               for k in walls}
+
+    # b. fit B (packed, stored) surviving three in-process faults
+    plan_b = ChaosPlan(raise_at(RESUME_FAULTS_B[0]),
+                       hang_at(RESUME_FAULTS_B[1], RESUME_HANG_S),
+                       fail_async_write(RESUME_FAULTS_B[2]))
+    tr = RetryingTrainer(backoff_s=0.0)
+    p_b, b_s = timed(lambda: fit_linear_streamed_resilient(
+        p0["B"], pipes["B"], xtr, ytr, cfg=cfg, shuffle_key=key,
+        ckpt=root / "B", ckpt_every=every, trainer=tr,
+        hard_timeout_s=RESUME_HARD_TIMEOUT_S, chaos=plan_b))
+    errors = [e["error"] for e in tr.restart_log]
+    if errors != ["FaultInjected", "TrainingAborted", "OSError"]:
+        failed.append(f"resume b: restart log {errors}")
+    hung = [e["t"] for e in plan_b.log("step") if e["action"] == "hang"]
+    aborted = [e["t"] for e in tr.restart_log
+               if e["error"] == "TrainingAborted"]
+    hang_cut_s = aborted[0] - hung[0] if hung and aborted else math.inf
+    if not hang_cut_s < RESUME_HANG_CUT_S:
+        failed.append(f"resume b: the hang was cut after {hang_cut_s:.2f} s "
+                      f"(limit {RESUME_HANG_CUT_S})")
+    ident["B resilient"] = same(p_b, fits["B"])
+    bytes_b = manifest_bytes(root / "B", steps)
+
+    # c. fit B' killed inside a checkpoint's commit window
+    plan_c = ChaosPlan(kill_between_snapshot_and_commit(RESUME_KILL_COMMIT))
+    ck = Checkpointer(root / "B2", chaos=plan_c)
+    try:
+        run("B'", ckpt=ck, ckpt_every=every)
+        failed.append("resume c: the commit-window kill did not surface")
+    except ChaosKill:
+        pass
+    ck.join()
+    from_c = latest_step(root / "B2")
+    window = root / "B2" / f"step_{RESUME_KILL_COMMIT:08d}"
+    left = window.exists() and not (window / "COMMIT").exists()
+    if from_c != RESUME_KILL_COMMIT - every or not left:
+        failed.append(f"resume c: latest_step {from_c} (expected "
+                      f"{RESUME_KILL_COMMIT - every}), uncommitted "
+                      f"{window.name} left: {left}")
+    Checkpointer(root / "B2")                 # a restart sweeps it
+    if window.exists():
+        failed.append(f"resume c: a new Checkpointer left {window.name}")
+    p_c = resume_linear_streamed(root / "B2", pipes["B'"], xtr, ytr,
+                                 cfg=cfg, shuffle_key=key)
+    ident["B' after the commit window"] = same(p_c, fits["B'"])
+
+    # e. fit A's evaluation in chunks, killed and resumed
+    pipe_e = FeaturePipeline.create_regen(T["key_words"], DIM,
+                                          FeatureSpec(NUM_HASHES, B_I),
+                                          row_chunk=EVAL_CHUNK, device=dev)
+    acc_e = streamed_accuracy(fits["A"], pipe_e, xte, yte)
+    ck = Checkpointer(root / "eval")
+    try:
+        streamed_accuracy(fits["A"], pipe_e, xte, yte, ckpt=ck,
+                          ckpt_every=EVAL_EVERY,
+                          chaos=ChaosPlan(kill_eval_at(EVAL_KILL)))
+        failed.append(f"resume e: kill_eval_at({EVAL_KILL}) did not fire")
+    except ChaosKill:
+        pass
+    ck.join()
+    from_e = latest_step(root / "eval")
+    acc_e_resumed = resume_streamed_accuracy(root / "eval", fits["A"], pipe_e,
+                                             xte, yte)
+    if acc_e_resumed != acc_e:
+        failed.append(f"resume e: resumed accuracy {acc_e_resumed} vs "
+                      f"{acc_e} uninterrupted")
+
+    # g. the fault-tolerance twin, --fast against the reference's record
+    # and at full size, each with its gates
+    twin = {}
+    with tempfile.TemporaryDirectory() as d:
+        for fast in (True, False):
+            rec = FT.run(fast=fast, device=dev, out=d)
+            twin["fast" if fast else "full"] = rec[FT.RECORDS[0]]
+            FT.check_claims(rec)
+    launches = read_launches()
+    main_s = time.perf_counter() - t_phase
+
+    # f. launches: fit A killed, resumed, finished on the card after the
+    # CPU's leg, the overhead pairs, the evaluation (the uninterrupted
+    # walk, the killed one through its kill chunk, the resumed one from its
+    # last commit); fit B's attempts up to each fault (the failed write
+    # raises at the next save) and the last from the commit before; fit B'
+    # up to the save after its commit window, then from the commit before;
+    # the twin's runs
+    n_chunks = -(-xte.shape[0] // EVAL_CHUNK)
+    want = dict.fromkeys(launches, 0)
+    want[kernel_of["A"]] = (RESUME_KILL_A + steps - from_a + steps - from_d
+                            + 2 * RESUME_PAIRS * steps
+                            + n_chunks + EVAL_KILL + 1 + n_chunks - from_e)
+    r, h, w = RESUME_FAULTS_B
+    want[kernel_of["B"]] = (r + h - committed(r) + (w + every) - committed(h)
+                            + steps - (w - every))
+    want[kernel_of["B'"]] = (RESUME_KILL_COMMIT + every
+                             + steps - (RESUME_KILL_COMMIT - every))
+    want[kernel_of["B'"]] += sum(ft_launches(t) for t in twin.values())
+    if launches != want:
+        failed.append(f"resume: launches {launches}, expected {want}")
+    require_launched("resume", launches, set(kernel_of.values()))
+
+    # the new launch shapes against their plain versions: row 1 at the
+    # evaluation's chunks, row 2 at the twin's batches and test rows
+    held = {kernel_of["A"]: []}
+    for n_rows in sorted({EVAL_CHUNK, xte.shape[0] % EVAL_CHUNK} - {0}):
+        hold_case(KernelCase(kernel_of["A"], xte[:n_rows], B_I,
+                             key=T["key_words"], k=NUM_HASHES), results,
+                  f"resume evaluation, ({n_rows}, {DIM}) k={NUM_HASHES}")
+        held[kernel_of["A"]].append((n_rows, DIM, NUM_HASHES, B_I))
+    held[kernel_of["B'"]] = [shape for fast in (True, False)
+                             for shape in ft_parity(fast, dev, results)]
+    for k, ok in ident.items():
+        if not ok:
+            failed.append(f"resume: {k} is not bit-identical")
+    # every writer thread and watchdog monitor joined
+    if threading.active_count() != threads:
+        failed.append(f"resume: {threading.active_count()} threads alive "
+                      f"after the phase, {threads} before it")
+
+    out = {"card": card, "launches": {k: launches[k] for k in
+                                      set(kernel_of.values())},
+           "identical": ident, "resumed_from": {"A": from_a, "B'": from_c,
+                                                "eval": from_e},
+           "restarts": tr.restart_log, "hang_cut_s": hang_cut_s,
+           "checkpoint_bytes": {"A": bytes_a, "B": bytes_b},
+           "snapshot_ms_A": 1e3 * snap_a, "write_ms_A": 1e3 * write_a,
+           "restore_ms_A": 1e3 * restore_s, "resume_wall_s_A": resume_a_s,
+           "fit_A_s": walls, "fit_A_main_cpu_s": cpus,
+           "overhead_pct_pairs": pair_pct,
+           "overhead_pct": float(np.median(pair_pct)),
+           "saves_split_s": split, "off_cpu_s": off_cpu,
+           "fit_B_resilient_s": b_s, "cpu_leg_s": cpu_s,
+           "held_vs_plain": held,
+           "eval_accuracy": acc_e, "twin": twin,
+           "phase_s": {"main_path": main_s,
+                       "total": time.perf_counter() - t_phase}}
+    results["resume"] = out
+    for kernel in set(kernel_of.values()):
+        results[kernel]["launches"] += launches[kernel]
+        results[kernel]["resume"] = launches[kernel]
+    print(f"resume checkpoint [{card}]: fit A {bytes_a / 1e6:.2f} MB "
+          f"(table + mu + nu + key words), fit B {bytes_b / 1e6:.2f} MB "
+          f"(table + mu + nu + CWS matrices); fit A's step {from_a}: "
+          f"snapshot {1e3 * snap_a:.2f} ms (synchronous), writer thread "
+          f"{1e3 * write_a:.2f} ms, restore on the card "
+          f"{1e3 * restore_s:.2f} ms; resume {steps - from_a} steps "
+          f"{resume_a_s:.3f} s")
+    print(f"resume overhead [{card}]: fit A {steps} steps, "
+          f"{RESUME_PAIRS} pairs in turns: bare "
+          + ", ".join(f"{v:.3f}" for v in walls["bare"]) + " s; at "
+          f"ckpt_every={every} " + ", ".join(f"{v:.3f}" for v in
+                                             walls["ckpt"])
+          + " s; overhead a pair " + ", ".join(f"{v:+.2f}" for v in pair_pct)
+          + f" %, median {out['overhead_pct']:+.2f}%, of the means "
+          f"{100 * (np.mean(walls['ckpt']) / np.mean(walls['bare']) - 1):+.2f}"
+          f"%")
+    print(f"resume overhead split [{card}]: a checkpointed fit's "
+          f"{split['saves']:.0f} saves: snapshots {1e3 * split['snapshot_s']:.2f}"
+          f" ms, blocked on the writer {1e3 * split['blocked_s']:.2f} ms, "
+          f"writer thread {1e3 * split['write_s']:.2f} ms wall "
+          f"({1e3 * split['write_cpu_s']:.2f} ms CPU); the main thread off "
+          f"its CPU (wall - CPU time) {1e3 * off_cpu['bare']:.2f} ms a bare "
+          f"fit, {1e3 * off_cpu['ckpt']:.2f} ms a checkpointed one")
+    print(f"resume faults [{card}]: fit B restarts {', '.join(errors)}"
+          f"; the {RESUME_HANG_S:.0f} s hang cut after {hang_cut_s:.2f} s "
+          f"(hard timeout {RESUME_HARD_TIMEOUT_S} s); fit B {b_s:.3f} s; "
+          f"fit B' resumed from {from_c} after the commit-window kill; "
+          f"evaluation resumed from chunk {from_e}: {acc_e_resumed} = "
+          f"{acc_e}; fit A's step {from_a} trained on the CPU to step "
+          f"{from_d} in {cpu_s:.1f} s, finished on the card; bit-identical: "
+          + ", ".join(f"{k} {v}" for k, v in ident.items())
+          + f"; launches {out['launches']}")
+    for name, rec in twin.items():
+        a, io, res = rec["async_ckpt"], rec["io"], rec["resume"]
+        print(f"resume twin bench_fault_tolerance {name} [{card}]: "
+              f"{rec['config']['n_train']} rows, {rec['config']['steps']} "
+              f"steps: {a['bare_us_per_step']:.1f} us a step bare, "
+              f"{a['ckpt_us_per_step']:.1f} checkpointed "
+              f"({a['overhead_pct']:+.2f}%); save {1e3 * io['save_wall_s']:.2f}"
+              f" ms, restore {1e3 * io['restore_wall_s']:.2f} ms, "
+              f"{io['checkpoint_bytes']} bytes; resumed from "
+              f"{res['resumed_from_step']}, acc {res['acc_clean']} = "
+              f"{res['acc_resumed']}, gap {res['resume_gap_pp']} pp, "
+              f"bit-identical {res['bit_identical_params']}")
+        sp = rec["async_split"]
+        print(f"resume twin {name} overhead split [{card}]: "
+              f"{sp['saves']} saves: snapshots {sp['snapshot_ms']:.2f} ms, "
+              f"blocked {sp['blocked_ms']:.2f} ms, writer "
+              f"{sp['write_ms']:.2f} ms wall ({sp['write_cpu_ms']:.2f} ms "
+              f"CPU); main thread CPU {sp['main_cpu_ms_bare']:.2f} ms bare, "
+              f"{sp['main_cpu_ms_ckpt']:.2f} ms checkpointed")
+    print(f"resume kernels vs plain [{card}]: "
+          + "; ".join(f"{k} at {sorted(set(v))} exactly"
+                      for k, v in held.items()))
+    print("resume phase s: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                         out["phase_s"].items()))
+    shutil.rmtree(root, ignore_errors=True)
     if failed:
         raise AssertionError("; ".join(failed))
 
@@ -1903,7 +2324,6 @@ def phase_benchmarks(dev, card, results):
     """The five paper benchmarks' twins in --fast mode on the card, each
     held against the reference's own --fast record, its claims against
     the reference's verdicts, its launches against its code's."""
-    import tempfile
     from repro_torch.benchmarks import common
     from repro_torch.benchmarks import run as bench_run
     ref_failed = json.loads((common.REFERENCE / "claims.json").read_text())[
@@ -3254,6 +3674,7 @@ def main():
                         (phase_step_parity, (dev, results)),
                         (phase_slice, (smi, results)),
                         (phase_train, (dev, smi, results)),
+                        (phase_resume, (dev, smi, results)),
                         (phase_kernel_machine, (dev, smi, results)),
                         (phase_estimator, (dev, smi, results)),
                         (phase_benchmarks, (dev, smi, results)),
@@ -3286,6 +3707,8 @@ def main():
                      bound_by_wide=r["bound_by_wide"], slice=r["slice"])
         if "train" in r:
             entry["train"] = r["train"]
+        if "resume" in r:
+            entry["resume"] = r["resume"]
         kernels.append(entry)
     for k in RAW:
         r = results[k]

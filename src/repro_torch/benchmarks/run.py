@@ -7,7 +7,8 @@ the reference's asserts do.  ``--fast`` runs the reference's reduced
 sizes.  Runs on the card unless ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [--fast]
-      [--only table1|table2|fig45|fig6|fig78] [--device cuda|cpu]
+      [--only table1|table2|fig45|fig6|fig78|fault_tolerance]
+      [--device cuda|cpu]
       [--out DIR]
 """
 from __future__ import annotations
@@ -16,9 +17,9 @@ import argparse
 import time
 import traceback
 
-from repro_torch.benchmarks import (fig45_cws_mse, fig6_tstar_only,
-                                    fig78_linear_svm, table1_kernel_svm,
-                                    table2_wordpairs)
+from repro_torch.benchmarks import (bench_fault_tolerance, fig45_cws_mse,
+                                    fig6_tstar_only, fig78_linear_svm,
+                                    table1_kernel_svm, table2_wordpairs)
 from repro_torch.device import resolve_device
 
 SUITES = {
@@ -27,6 +28,7 @@ SUITES = {
     "fig45": fig45_cws_mse,
     "fig6": fig6_tstar_only,
     "fig78": fig78_linear_svm,
+    "fault_tolerance": bench_fault_tolerance,
 }
 
 

@@ -1,15 +1,26 @@
-"""Deterministic fault injection for the serving path (the port's copy of
-the ``Fault``/``ChaosPlan`` machinery and the serve faults of
-``repro.runtime.chaos``).
+"""Deterministic fault injection for preemption-grade training and for
+serving (the port's copy of ``repro.runtime.chaos``).
 
-Injection site: ``"serve_step"``, fired by ``serving.BucketRunner.run``
-before dispatch i.  A hang there models a stuck card under a live gateway,
-a kill models replica death mid-request, a raise a software fault.
+Injection sites (where the code calls ``plan.fire(site, i)``):
 
-  * ``raise`` — raises ``FaultInjected`` (an ``Exception``);
-  * ``kill``  — raises ``ChaosKill``, a ``BaseException`` so no retry loop
-    can catch it, exactly like SIGKILL;
-  * ``hang``  — blocks for ``seconds``.
+    "step"             fit_linear_streamed, before update step i
+    "eval_chunk"       streamed_accuracy, before chunk i
+    "ckpt_io"          Checkpointer write, before any file IO
+    "ckpt_pre_rename"  write dir fully written, before tmp -> step rename
+    "ckpt_pre_commit"  renamed, before the COMMIT marker is written
+    "serve_step"       serving.BucketRunner.run, before dispatch i
+
+Fault actions:
+
+  * ``raise``    — raises ``FaultInjected`` (an ``Exception``), which a
+    ``RetryingTrainer`` restarts from;
+  * ``kill``     — raises ``ChaosKill``, a ``BaseException`` so no retry
+    loop can catch it, exactly like SIGKILL: surviving it means a new
+    call resuming from the last committed checkpoint;
+  * ``hang``     — blocks for ``seconds`` (a stuck step or card), what the
+    watchdog's background monitor must cut;
+  * ``io_error`` — the checkpoint write raises ``OSError``, surfaced by
+    the ``Checkpointer`` on its next ``save_async`` or ``wait``.
 
 Every firing is recorded in ``plan.fired``.
 """
@@ -40,6 +51,43 @@ class Fault:
     once: bool = True
 
 
+def raise_at(step: int) -> Fault:
+    """Software fault in update step ``step`` (restartable in process)."""
+    return Fault("step", step, "raise")
+
+
+def kill_at(step: int) -> Fault:
+    """Preemption right before update step ``step`` runs."""
+    return Fault("step", step, "kill")
+
+
+def hang_at(step: int, seconds: float) -> Fault:
+    """Step ``step`` hangs for ``seconds``."""
+    return Fault("step", step, "hang", seconds=seconds)
+
+
+def kill_eval_at(chunk: int) -> Fault:
+    """Preemption before evaluation chunk ``chunk`` of
+    ``streamed_accuracy``."""
+    return Fault("eval_chunk", chunk, "kill")
+
+
+def fail_async_write(step: int) -> Fault:
+    """The async checkpoint write of ``step`` raises ``OSError``."""
+    return Fault("ckpt_io", step, "io_error")
+
+
+def kill_between_snapshot_and_commit(step: int,
+                                     phase: str = "pre_commit") -> Fault:
+    """Kill the writer inside the commit window of checkpoint ``step``:
+    ``phase="pre_rename"`` leaves a fully written ``step_*.tmp`` dir,
+    ``phase="pre_commit"`` a renamed dir without COMMIT.  Either way the
+    checkpoint must stay invisible to ``latest_step``."""
+    if phase not in ("pre_rename", "pre_commit"):
+        raise ValueError(f"phase must be pre_rename|pre_commit; got {phase}")
+    return Fault(f"ckpt_{phase}", step, "kill")
+
+
 def serve_raise_at(dispatch: int) -> Fault:
     """Software fault in serving dispatch ``dispatch``."""
     return Fault("serve_step", dispatch, "raise")
@@ -57,8 +105,9 @@ def serve_hang_at(dispatch: int, seconds: float) -> Fault:
 
 class ChaosPlan:
     """A set of deterministic faults and the structured log of firings.
-    Each once-fault is disarmed before its action runs, so it can never
-    fire twice."""
+    The trainer and the Checkpointer's writer thread share one plan; each
+    once-fault is disarmed before its action runs, so it can never fire
+    twice, not even across a kill and its resume."""
 
     def __init__(self, *faults: Fault):
         self.faults = list(faults)

@@ -1,5 +1,6 @@
-"""Step watchdog (the port's copy of ``TrainingAborted`` and
-``StepWatchdog`` from ``repro.runtime.fault_tolerance``).
+"""Step watchdog and restart loop (the port's copy of ``TrainingAborted``,
+``StepWatchdog`` and ``RetryingTrainer`` from
+``repro.runtime.fault_tolerance``).
 
 Two detection tiers.  Statistical: a completed step slower than
 ``timeout_factor`` x the trailing median is a straggler; ``max_strays``
@@ -12,6 +13,9 @@ calls ``on_timeout(elapsed)``, or else interrupts the main thread
 ``statistical=False`` turns the straggler tier off: the serving gateway
 dispatches to buckets of different sizes, so a slow big-bucket step after
 fast small ones is not a straggler.
+
+``RetryingTrainer`` restarts a failed attempt from durable state, with
+exponential backoff and a structured restart log.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import statistics
 import threading
 import time
 from typing import Callable, Optional
+
+import torch
 
 
 class TrainingAborted(RuntimeError):
@@ -178,3 +184,99 @@ class StepWatchdog:
             if len(self.history) > 100:
                 self.history.pop(0)
         return dt
+
+
+class RetryingTrainer:
+    """Restart-from-checkpoint loop.
+
+    Any ``Exception``, ``TrainingAborted`` included, restarts the attempt
+    after a backoff of ``backoff_s * backoff_factor ** (restarts - 1)``,
+    capped at ``max_backoff_s``, until ``max_restarts`` are used up; then
+    the failure re-raises.  Every restart appends an event to
+    ``restart_log`` (and calls ``on_restart``).  ``ChaosKill`` (simulated
+    SIGKILL) is a ``BaseException`` and passes straight through.
+
+      * ``run(n_steps)``: ``build_fn() -> (state, loader, step_fn,
+        start_step)`` must restore from the latest checkpoint itself;
+      * ``call(fn)``: call ``fn()`` until it returns; ``fn`` must resume
+        from durable state when called again
+        (``fit_linear_streamed_resilient``).
+    """
+
+    def __init__(self, build_fn=None, *, max_restarts: int = 3,
+                 backoff_s: float = 0.5, backoff_factor: float = 2.0,
+                 max_backoff_s: float = 30.0,
+                 on_restart: Optional[Callable[[dict], None]] = None,
+                 sleep_fn: Callable[[float], None] = time.sleep,
+                 watchdog_factory: Optional[Callable[[], StepWatchdog]] = None):
+        self.build_fn = build_fn
+        self.max_restarts = max_restarts
+        self.backoff_s = backoff_s
+        self.backoff_factor = backoff_factor
+        self.max_backoff_s = max_backoff_s
+        self.on_restart = on_restart
+        self.sleep_fn = sleep_fn
+        self.watchdog_factory = watchdog_factory or StepWatchdog
+        self.restarts = 0
+        self.restart_log: list[dict] = []
+
+    def _backoff(self) -> float:
+        return min(self.backoff_s * self.backoff_factor ** (self.restarts - 1),
+                   self.max_backoff_s)
+
+    def _note_failure(self, exc: Exception, step: Optional[int]) -> None:
+        """Log the failure, then sleep the backoff, or re-raise when the
+        restarts are used up.  Returning means: retry."""
+        self.restarts += 1
+        out_of_restarts = self.restarts > self.max_restarts
+        backoff = 0.0 if out_of_restarts else self._backoff()
+        event = {"restart": self.restarts, "step": step,
+                 "error": type(exc).__name__, "message": str(exc),
+                 "t": time.time(), "backoff_s": backoff,
+                 "gave_up": out_of_restarts}
+        self.restart_log.append(event)
+        if self.on_restart:
+            self.on_restart(event)
+        if out_of_restarts:
+            raise exc
+        if backoff > 0:
+            self.sleep_fn(backoff)
+
+    def call(self, fn: Callable[[], object]):
+        """Call ``fn`` until it returns, restarting on an ``Exception``."""
+        while True:
+            try:
+                return fn()
+            except Exception as e:      # ChaosKill is a BaseException:
+                self._note_failure(e, step=None)   # it falls through
+
+    def run(self, n_steps: int, *, hooks=()):
+        """Drive ``build_fn``'s step function to ``n_steps``, rebuilding
+        from the latest checkpoint after a failure.  Each step is waited
+        for (``metrics["loss"]`` on the card) inside the watchdog."""
+        while True:
+            step = None
+            watchdog = self.watchdog_factory()
+            try:
+                state, loader, step_fn, start_step = self.build_fn()
+                step = start_step
+                while step < n_steps:
+                    batch = next(loader)
+                    watchdog.start_step()
+                    try:
+                        state, metrics = step_fn(state, batch)
+                        loss = metrics["loss"]
+                        if isinstance(loss, torch.Tensor) and loss.is_cuda:
+                            torch.cuda.synchronize(loss.device)
+                    except KeyboardInterrupt as e:
+                        watchdog.reraise_if_fired(e)
+                        raise
+                    watchdog.end_step()
+                    step += 1
+                    for h in hooks:
+                        h(step, state, metrics, loader)
+                return state
+            except Exception as e:
+                self._note_failure(e, step=step)
+            finally:
+                watchdog.stop()

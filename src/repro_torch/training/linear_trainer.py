@@ -20,42 +20,54 @@ gradient is order-invariant, and is then bit-identical to full-batch
 ``fit_linear`` on precomputed features.  Gradients go through
 ``trainer.microbatch_grads``.
 
-Not yet ported: the data-parallel ``mesh=`` path (ROADMAP A11), and
-checkpointed, resumed and chaos-tested training and evaluation (A9).
+Preemption: ``ckpt=`` with ``ckpt_every=N`` saves (params, opt state,
+pipeline state) every N steps in the reference's checkpoint format, with
+the stream position, shuffle key, pipeline fingerprint, ``TrainCfg`` and
+row count in the manifest's ``extra.stream``, key for key the
+reference's.  ``resume_linear_streamed`` continues such a run (one the
+reference wrote too) bit-identically: the batch walk is a pure function
+of (shuffle key, epoch, step) and the gradient is deterministic, so step
+s of the resumed run takes the rows and the state of step s of an
+uninterrupted one, on the card or on the CPU.
+``fit_linear_streamed_resilient`` wraps both in a ``RetryingTrainer``;
+``chaos=`` threads a deterministic fault plan through the step,
+evaluation-chunk and checkpoint-write sites.
+
+Not yet ported: the data-parallel ``mesh=`` path (ROADMAP A11).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import json
+import zlib
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import optim
+from repro_torch.checkpoint import (Checkpointer, latest_step,
+                                    restore_checkpoint)
 from repro_torch.core.linear_model import (LinearParams, TrainCfg, _loss_fn,
                                            bag_logits, bag_logits_packed,
-                                           make_linear_tx, same_device,
-                                           validate_bag_features)
+                                           init_bag, make_linear_tx,
+                                           same_device, validate_bag_features)
 from repro_torch.core.regen import fold_in, permutation, prng_key
 from repro_torch.pipeline import FeaturePipeline
-from repro_torch.runtime.fault_tolerance import StepWatchdog
+from repro_torch.runtime.fault_tolerance import RetryingTrainer, StepWatchdog
 from repro_torch.training.trainer import microbatch_grads
 
 __all__ = ["fit_linear_streamed", "resume_linear_streamed",
            "fit_linear_streamed_resilient", "streamed_accuracy",
-           "resume_streamed_accuracy", "export_served_model"]
+           "resume_streamed_accuracy", "export_served_model",
+           "checkpoint_tree"]
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
-def _refuse(mesh, ckpt=None, ckpt_every=0, chaos=None) -> None:
+def _refuse_mesh(mesh) -> None:
     if mesh is not None:
-        _not_ported("data-parallel training (mesh=)", "A11")
-    if ckpt is not None or ckpt_every or chaos is not None:
-        _not_ported("checkpointed training (ckpt=, ckpt_every=, chaos=)",
-                    "A9")
+        raise NotImplementedError("data-parallel training (mesh=) is not "
+                                  "ported yet (ROADMAP A11)")
 
 
 def _bag_logits_fn(pipe: FeaturePipeline):
@@ -91,9 +103,72 @@ def _labels_on(labels, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(labels)).to(device)
 
 
+# -- checkpoint helpers ------------------------------------------------
+
+
+def _as_checkpointer(ckpt, chaos=None) -> Checkpointer:
+    if isinstance(ckpt, Checkpointer):
+        return ckpt
+    return Checkpointer(ckpt, chaos=chaos)
+
+
+def _key_data_list(key) -> list:
+    """Key words -> the JSON list of two uint32 the reference stores."""
+    return np.asarray(key, np.uint32).tolist()
+
+
+def _params_digest(params) -> str:
+    """crc32 over the leaves' float32 bytes in the reference's leaf order:
+    the reference's digest of the same table."""
+    data = b"".join(t.detach().cpu().numpy().tobytes()
+                    for t in optim.tree_leaves(params))
+    return f"{zlib.crc32(data) & 0xFFFFFFFF:08x}"
+
+
+def _check_match(what: str, stored, current) -> None:
+    if stored != current:
+        raise ValueError(
+            f"checkpoint {what} mismatch: resume must replay the exact "
+            f"run that was checkpointed.\n  checkpointed: {stored}\n"
+            f"  current:      {current}")
+
+
+def checkpoint_tree(params, state, pipe: FeaturePipeline) -> dict:
+    """The tree a streamed fit checkpoints: (params, opt state, pipeline
+    key words or CWS matrices), the reference's.  The stream position
+    rides in the manifest's ``extra``."""
+    launch = pipe._state()
+    if pipe.param_free:
+        launch = np.asarray(launch, np.uint32)
+    return {"params": params, "opt_state": state, "pipeline": launch}
+
+
+def _guard_fresh_dir(ck: Checkpointer, resume_fn: str) -> None:
+    existing = latest_step(ck.ckpt_dir)
+    if existing is not None:
+        raise ValueError(
+            f"checkpoint dir {ck.ckpt_dir} already holds committed step "
+            f"{existing}; a fresh fit would interleave its step numbers "
+            f"with the old run's. Use {resume_fn} to continue it, or "
+            f"point ckpt= at a fresh directory")
+
+
+def _manifest_section(ck: Checkpointer, step: int, section: str,
+                      writer: str) -> dict:
+    manifest = json.loads(
+        (ck.ckpt_dir / f"step_{step:08d}" / "manifest.json").read_text())
+    got = manifest.get("extra", {}).get(section)
+    if got is None:
+        raise ValueError(
+            f"checkpoint step {step} under {ck.ckpt_dir} carries no "
+            f"{section} state: not a {writer} checkpoint")
+    return got
+
+
 class _StreamSetup:
     """Everything the streamed loop needs, derived once from the call
-    arguments (all validation lives here)."""
+    arguments (all validation lives here), shared by fresh fits and
+    resumes, so the two walk the same stream."""
 
     def __init__(self, pipe: FeaturePipeline, x, labels, cfg: TrainCfg,
                  shuffle_key, n_microbatches: int):
@@ -127,6 +202,7 @@ class _StreamSetup:
 
         self.pipe, self.x, self.labels = pipe, x, labels
         self.cfg, self.n, self.bs = cfg, n, bs
+        self.n_micro = n_microbatches
         self.tx = make_linear_tx(cfg)
         self.steps_per_epoch = max(n // bs, 1)
         self.key = shuffle_key if shuffle_key is not None else prng_key(0)
@@ -154,11 +230,37 @@ class _StreamSetup:
         idx = perm[lo:hi]
         return self.x.index_select(0, idx), self.labels.index_select(0, idx)
 
+    # -- the checkpoint payload ----------------------------------------
+
+    def ckpt_tree(self, params, state) -> dict:
+        return checkpoint_tree(params, state, self.pipe)
+
+    def ckpt_extra(self, next_step: int) -> dict:
+        return {"stream": {
+            "next_step": int(next_step),
+            "shuffle_key": _key_data_list(self.key),
+            "fingerprint": self.pipe.fingerprint(),
+            "cfg": dataclasses.asdict(self.cfg),
+            "n": int(self.n),
+            "n_microbatches": int(self.n_micro),
+        }}
+
+    def template(self):
+        """(params, opt state) as shapes and dtypes (tensors on the meta
+        device), rebuilt from (pipe, cfg) alone."""
+        p0 = init_bag(self.pipe.num_features, self.cfg.n_classes,
+                      device="meta")
+        return {"params": p0, "opt_state": self.tx.init(p0)}
+
 
 def _stream_loop(S: _StreamSetup, params: LinearParams, state, start: int,
-                 *, watchdog: Optional[StepWatchdog], return_state: bool):
-    """Run update steps ``start .. cfg.steps``.  The epoch permutation is
-    derived from ``(shuffle_key, epoch)`` on entry to each epoch."""
+                 *, ckpt: Optional[Checkpointer], ckpt_every: int,
+                 watchdog: Optional[StepWatchdog], chaos,
+                 return_state: bool):
+    """Run update steps ``start .. cfg.steps``: the loop behind fresh fits
+    and resumes.  The epoch permutation is derived from ``(shuffle_key,
+    epoch)`` on entry to each epoch, so starting mid-epoch walks the
+    batches an uninterrupted run walks."""
     perm, cur_epoch = None, -1
     try:
         for i in range(start, S.cfg.steps):
@@ -166,6 +268,8 @@ def _stream_loop(S: _StreamSetup, params: LinearParams, state, start: int,
             if watchdog is not None:
                 watchdog.start_step(i)
             try:
+                if chaos is not None:
+                    chaos.fire("step", i)
                 if S.shuffle:
                     if epoch != cur_epoch:
                         perm = permutation(fold_in(S.key, epoch), S.n)
@@ -188,6 +292,13 @@ def _stream_loop(S: _StreamSetup, params: LinearParams, state, start: int,
                 raise
             if watchdog is not None:
                 watchdog.end_step()
+            done = i + 1
+            if (ckpt is not None and ckpt_every > 0
+                    and (done % ckpt_every == 0 or done == S.cfg.steps)):
+                ckpt.save_async(done, S.ckpt_tree(params, state),
+                                extra=S.ckpt_extra(done))
+        if ckpt is not None:
+            ckpt.wait()   # raise a trailing write's error here
     finally:
         if watchdog is not None:
             watchdog.stop()
@@ -209,26 +320,114 @@ def fit_linear_streamed(params: LinearParams, pipe: FeaturePipeline, x,
     (``batch_size=0`` belongs to ``fit_linear``, which this function
     matches bit for bit at ``batch_size == n``).  ``shuffle_key`` is two
     key words (``prng_key(0)`` by default), the reference's key.
-    ``watchdog=`` arms a StepWatchdog around every step.
+
+    ``ckpt=`` (a ``Checkpointer`` or a directory) with ``ckpt_every=N``
+    saves the training state asynchronously every N steps and at the end;
+    ``resume_linear_streamed`` continues such a run bit-identically.  The
+    directory must hold no committed step (one that does wants the
+    resume).  ``watchdog=`` arms a StepWatchdog around every step;
+    ``chaos=`` threads a fault plan through the step site.
     ``return_state=True`` returns ``(params, opt_state)``.  ``params`` is
     not modified."""
-    _refuse(mesh, ckpt, ckpt_every, chaos)
+    _refuse_mesh(mesh)
     validate_bag_features(params, pipe.num_features, spec=pipe.spec)
     if same_device("fit_linear_streamed table", params.w,
                    params.b) != pipe.device:
         raise ValueError(f"table on {params.w.device} but the pipeline on "
                          f"{pipe.device}; move them to one device")
     S = _StreamSetup(pipe, x, labels, cfg, shuffle_key, n_microbatches)
-    return _stream_loop(S, params, S.tx.init(params), 0, watchdog=watchdog,
-                        return_state=return_state)
+    ck = _as_checkpointer(ckpt, chaos) if ckpt is not None else None
+    if ck is not None and ckpt_every > 0:
+        _guard_fresh_dir(ck, "resume_linear_streamed")
+    return _stream_loop(S, params, S.tx.init(params), 0, ckpt=ck,
+                        ckpt_every=ckpt_every, watchdog=watchdog,
+                        chaos=chaos, return_state=return_state)
 
 
-def resume_linear_streamed(*args, **kwargs):
-    _not_ported("resume_linear_streamed", "A9")
+def resume_linear_streamed(ckpt, pipe: FeaturePipeline, x, labels, *,
+                           cfg: TrainCfg, shuffle_key=None,
+                           n_microbatches: int = 1, mesh=None,
+                           step: Optional[int] = None, ckpt_every: int = 0,
+                           watchdog: Optional[StepWatchdog] = None,
+                           chaos=None, return_state: bool = False):
+    """Continue a checkpointed ``fit_linear_streamed`` run (of either
+    package) from its latest committed step, or ``step=``, bit-identically
+    to the run never having been interrupted.  The state is restored on
+    the pipeline's device, so a run checkpointed on the card finishes on
+    the CPU, or the reverse.
+
+    Guards: the checkpoint's pipeline fingerprint (spec, dim and a digest
+    of the CWS key or matrices), ``TrainCfg``, row count,
+    ``n_microbatches`` and, if one is passed, ``shuffle_key`` must match
+    the checkpointed run; each mismatch raises ``ValueError``."""
+    _refuse_mesh(mesh)
+    ck = _as_checkpointer(ckpt, chaos)
+    target = latest_step(ck.ckpt_dir) if step is None else step
+    if target is None:
+        raise FileNotFoundError(
+            f"no committed checkpoint under {ck.ckpt_dir}; start with "
+            f"fit_linear_streamed(..., ckpt=, ckpt_every=)")
+    stream = _manifest_section(ck, target, "stream", "fit_linear_streamed")
+    _check_match("pipeline fingerprint", stream["fingerprint"],
+                 pipe.fingerprint())
+    _check_match("TrainCfg", stream["cfg"], dataclasses.asdict(cfg))
+    _check_match("dataset rows", stream["n"], int(x.shape[0]))
+    _check_match("n_microbatches", stream["n_microbatches"],
+                 int(n_microbatches))
+    if shuffle_key is not None:
+        _check_match("shuffle_key", stream["shuffle_key"],
+                     _key_data_list(shuffle_key))
+    stored_key = np.asarray(stream["shuffle_key"], np.uint32)
+    S = _StreamSetup(pipe, x, labels, cfg, stored_key, n_microbatches)
+    restored = restore_checkpoint(ck.ckpt_dir, target, S.template(),
+                                  device=pipe.device)
+    return _stream_loop(S, restored["params"], restored["opt_state"],
+                        int(stream["next_step"]), ckpt=ck,
+                        ckpt_every=ckpt_every, watchdog=watchdog,
+                        chaos=chaos, return_state=return_state)
 
 
-def fit_linear_streamed_resilient(*args, **kwargs):
-    _not_ported("fit_linear_streamed_resilient", "A9")
+def fit_linear_streamed_resilient(params: LinearParams,
+                                  pipe: FeaturePipeline, x, labels, *,
+                                  cfg: TrainCfg, ckpt, ckpt_every: int,
+                                  shuffle_key=None, n_microbatches: int = 1,
+                                  mesh=None,
+                                  trainer: Optional[RetryingTrainer] = None,
+                                  hard_timeout_s: float = 0.0, chaos=None,
+                                  return_state: bool = False):
+    """Checkpointed streamed training under a ``RetryingTrainer`` and, with
+    ``hard_timeout_s``, a hard-timeout ``StepWatchdog``.
+
+    Each attempt resumes from the latest committed checkpoint if there is
+    one, else starts fresh, so it survives in-process faults (a step that
+    raises, a hung step the watchdog aborts, a failed checkpoint write)
+    with backoff and a restart log (``trainer.restart_log``).  After
+    process death, the same call in a new process resumes where the old
+    one committed."""
+    _refuse_mesh(mesh)
+    ck = _as_checkpointer(ckpt, chaos)
+    trainer = trainer or RetryingTrainer()
+    kw = dict(cfg=cfg, shuffle_key=shuffle_key,
+              n_microbatches=n_microbatches, ckpt_every=ckpt_every,
+              chaos=chaos, return_state=return_state)
+
+    def attempt():
+        wd = (StepWatchdog(hard_timeout_s=hard_timeout_s)
+              if hard_timeout_s > 0 else None)
+        # a failed attempt's last write may still be in flight: resume from
+        # the newest commit, whatever the thread's timing
+        ck.join()
+        try:
+            if latest_step(ck.ckpt_dir) is None:
+                return fit_linear_streamed(params, pipe, x, labels, ckpt=ck,
+                                           watchdog=wd, **kw)
+            return resume_linear_streamed(ck, pipe, x, labels, watchdog=wd,
+                                          **kw)
+        finally:
+            if wd is not None:
+                wd.stop()
+
+    return trainer.call(attempt)
 
 
 def export_served_model(params: LinearParams, pipe: FeaturePipeline,
@@ -245,29 +444,89 @@ def streamed_accuracy(params: LinearParams, pipe: FeaturePipeline, x,
                       chaos=None) -> float:
     """Accuracy over pipeline features without materializing (n, k):
     walks ``pipe.feature_chunks`` and accumulates the correct count on
-    the device.  Packed pipelines score through ``bag_logits_packed``."""
-    _refuse(mesh, ckpt, ckpt_every, chaos)
+    the device.  Packed pipelines score through ``bag_logits_packed``.
+
+    ``ckpt=`` with ``ckpt_every=N`` (chunks) checkpoints the partial count
+    and the position, so ``resume_streamed_accuracy`` finishes a killed
+    evaluation exactly.  Use a directory of its own: its steps are chunk
+    indices."""
+    _refuse_mesh(mesh)
     validate_bag_features(params, pipe.num_features, spec=pipe.spec)
+    ck = _as_checkpointer(ckpt, chaos) if ckpt is not None else None
+    if ck is not None and ckpt_every > 0:
+        _guard_fresh_dir(ck, "resume_streamed_accuracy")
     n = x.shape[0]
     if n == 0:
         return 0.0
-    return _eval_loop(params, pipe, x, labels, total=n)
+    return _eval_loop(params, pipe, x, labels, ck=ck, ckpt_every=ckpt_every,
+                      chaos=chaos, base_lo=0, base_chunk=0, correct=0,
+                      total=n)
 
 
 @torch.no_grad()
 def _eval_loop(params: LinearParams, pipe: FeaturePipeline, x, labels, *,
+               ck: Optional[Checkpointer], ckpt_every: int, chaos,
+               base_lo: int, base_chunk: int, correct: int,
                total: int) -> float:
+    """Score ``x`` chunk by chunk, counting from ``correct``; positions in
+    checkpoints are global (offset by ``base_lo`` and ``base_chunk``)."""
     logits_fn = _bag_logits_fn(pipe)
     labels = _labels_on(labels, pipe.device)
     same_device("streamed_accuracy", params.w, labels)
+    fingerprint = digest = None
+    if ck is not None and ckpt_every > 0:
+        fingerprint, digest = pipe.fingerprint(), _params_digest(params)
     # accumulate on the device: a host int() per chunk would serialize
     # each chunk's compute against the next chunk's launch
-    correct = torch.zeros((), dtype=torch.int64, device=labels.device)
-    for lo, hi, fb in pipe.feature_chunks(x):
+    count = torch.full((), correct, dtype=torch.int64, device=labels.device)
+    for c, (lo, hi, fb) in enumerate(pipe.feature_chunks(x)):
+        if chaos is not None:
+            chaos.fire("eval_chunk", base_chunk + c)
         pred = torch.argmax(logits_fn(params, fb), dim=-1)
-        correct += (pred == labels[lo:hi]).sum()
-    return int(correct) / total
+        count += (pred == labels[lo:hi]).sum()
+        done = c + 1
+        if digest is not None and hi > lo and done % ckpt_every == 0:
+            # the reference's int32 count
+            ck.save_async(base_chunk + done,
+                          {"correct": count.to(torch.int32)},
+                          extra={"eval": {
+                              "next_lo": int(base_lo + hi),
+                              "next_chunk": int(base_chunk + done),
+                              "n": int(total),
+                              "fingerprint": fingerprint,
+                              "table_digest": digest,
+                          }})
+    if ck is not None:
+        ck.wait()
+    return int(count) / total
 
 
-def resume_streamed_accuracy(*args, **kwargs):
-    _not_ported("resume_streamed_accuracy", "A9")
+def resume_streamed_accuracy(ckpt, params: LinearParams,
+                             pipe: FeaturePipeline, x, labels, *, mesh=None,
+                             chaos=None) -> float:
+    """Finish a killed ``streamed_accuracy(ckpt=...)`` run: restore the
+    committed partial count and score only the remaining rows.  Exact:
+    featurization and scoring are per row.  Guards the fingerprint, the
+    table digest and the row count."""
+    _refuse_mesh(mesh)
+    validate_bag_features(params, pipe.num_features, spec=pipe.spec)
+    ck = _as_checkpointer(ckpt, chaos)
+    target = latest_step(ck.ckpt_dir)
+    if target is None:
+        raise FileNotFoundError(
+            f"no committed eval checkpoint under {ck.ckpt_dir}")
+    ev = _manifest_section(ck, target, "eval", "streamed_accuracy")
+    _check_match("pipeline fingerprint", ev["fingerprint"],
+                 pipe.fingerprint())
+    _check_match("table digest", ev["table_digest"], _params_digest(params))
+    _check_match("dataset rows", ev["n"], int(x.shape[0]))
+    restored = restore_checkpoint(ck.ckpt_dir, target,
+                                  {"correct": ((), torch.int32)},
+                                  device="cpu")
+    correct, lo, n = int(restored["correct"]), int(ev["next_lo"]), int(ev["n"])
+    if lo >= n:
+        return correct / n
+    return _eval_loop(params, pipe, x[lo:], labels[lo:], ck=None,
+                      ckpt_every=0, chaos=chaos, base_lo=lo,
+                      base_chunk=int(ev["next_chunk"]), correct=correct,
+                      total=n)

@@ -449,18 +449,26 @@ def test_validation_and_unported_paths(problem, tmp_path):
     _, cfg = _cfgs(steps=2, batch_size=32)
     with pytest.raises(NotImplementedError, match="A11"):
         fit_linear_streamed(p0, pipe, x, y, cfg=cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        fit_linear_streamed(p0, pipe, x, y, cfg=cfg, ckpt=tmp_path)
-    with pytest.raises(NotImplementedError, match="A9"):
-        streamed_accuracy(p0, pipe, x, y, ckpt=tmp_path)
-    with pytest.raises(NotImplementedError, match="A9"):
-        fit_linear_streamed(p0, pipe, x, y, cfg=cfg, ckpt_every=5)
-    with pytest.raises(NotImplementedError, match="A9"):
-        streamed_accuracy(p0, pipe, x, y, ckpt_every=5)
-    for fn in (resume_linear_streamed, fit_linear_streamed_resilient,
-               resume_streamed_accuracy):
-        with pytest.raises(NotImplementedError, match="A9"):
-            fn(tmp_path, pipe, x, y, cfg=cfg)
+    with pytest.raises(NotImplementedError, match="A11"):
+        resume_linear_streamed(tmp_path, pipe, x, y, cfg=cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="A11"):
+        fit_linear_streamed_resilient(p0, pipe, x, y, cfg=cfg, ckpt=tmp_path,
+                                      ckpt_every=1, mesh=object())
+    # checkpointed training: a dir holding a committed step wants the
+    # resume, and a resume needs a committed step
+    with pytest.raises(FileNotFoundError, match="no committed"):
+        resume_linear_streamed(tmp_path / "empty", pipe, x, y, cfg=cfg)
+    with pytest.raises(FileNotFoundError, match="no committed eval"):
+        resume_streamed_accuracy(tmp_path / "empty", p0, pipe, x, y)
+    fit_linear_streamed(p0, pipe, x, y, cfg=cfg, ckpt=tmp_path / "fit",
+                        ckpt_every=1)
+    with pytest.raises(ValueError, match="resume_linear_streamed"):
+        fit_linear_streamed(p0, pipe, x, y, cfg=cfg, ckpt=tmp_path / "fit",
+                            ckpt_every=5)
+    streamed_accuracy(p0, pipe, x, y, ckpt=tmp_path / "eval", ckpt_every=1)
+    with pytest.raises(ValueError, match="resume_streamed_accuracy"):
+        streamed_accuracy(p0, pipe, x, y, ckpt=tmp_path / "eval",
+                          ckpt_every=5)
     with pytest.raises(ValueError, match="batch_size"):
         fit_linear_streamed(p0, pipe, x, y, cfg=_cfgs(batch_size=0)[1])
     with pytest.raises(ValueError, match="exceeds"):
