@@ -157,7 +157,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 (2, 4,096, 256) and fig45's pairs at k = 1,024, row 7 at
                 table1's and fig78's Grams, row 5 at fig78's 1,200 and
                 800 rows at k = 128, row 2 at its full-batch, streamed
-                600-row and evaluation rows at k = 128, b_i = 8);
+                600-row and evaluation rows at k = 128, b_i = 8); then
+                the twins of the reference's other benchmarks
+                (``BENCH_TWINS``: bench_packed_features, bench_serve,
+                bench_cws_kernel, bench_ring_attention) at --fast, each
+                with its gates (packed >= 8x at b = 4 and b = 8 packed
+                bit-identical to unpacked; serve compile_count == 3 and
+                dispatched = submitted rows in every mode; fused ==
+                staged and row 1 bit-exact at (64, 128, 64); ring vs
+                all-gather < 1e-3), its record against the reference's
+                (packed accuracies within 1.0 pp a cell, 0.5 pp mean;
+                serve's requests, rows and compile counts equal; latencies
+                reported), launches as its code implies (the ring twin's
+                four gloo ranks on the card count their own), and every
+                launch shape held against its plain version (row 4 at
+                b = 1, 2, 4 and 8; the serving buckets of rows 1-3; rows
+                8 and 9 at the ring's rank shapes, step by step);
+                autotune: the autotune tool's measured sweep of
+                cws_packed and min_sum at (256, 256, 128) into a
+                temporary plan table, the table loaded, both launchers
+                required to take the tuned plans and held against their
+                plain versions, the table cleared;
  10. lm       - gemma3_12b at full width and depth, attn_impl "flash":
                 the fp32 prefill + decode logits against one cached forward
                 (prompt 600, 4 steps); then the masters cast once to bf16
@@ -188,8 +208,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 rows 1-6 beside their design floor from the SASS counts,
                 at (512, 256, 1024), (512, 65,536, 1024), for rows 5 and 6
                 the estimator's (2, 2,000, 1,024) and for row 5 the kernel
-                machine's suite rows (1,200, 256, 1,024); rows 2 and 5 also
-                on their stored plan and on the regenerated-parameter plan,
+                machine's suite rows (1,200, 256, 1,024), row 4 also at
+                the packed twin's (800, 256, 128) at b = 1, 2, 4, 8; rows 2
+                and 5 also on their stored plan and on the regenerated-parameter plan,
                 in turns, row 2 at n in {12, 17, 32, 64, 128, 256}, row 5
                 at 1,200 (sparse rows), the stored plan required to be
                 faster at the buckets 32 and 128 and at 1,200 rows; row 7
@@ -320,6 +341,17 @@ FIG45_JSON = ROOT / "benchmarks" / "results" / "fig45_cws_mse.json"
 BENCH_SUITES = ("table2", "fig6", "fig45", "table1", "fig78")
 BENCH_EXACT = ("table2", "fig6", "fig45")
 BENCH_TOL, BENCH_CELL_PP, BENCH_MEAN_PP = 1e-6, 1.0, 0.5
+# The twins of the reference's other benchmarks, after the five above;
+# each module's ``claims`` hold its gates and, at --fast, its record
+# against the reference's (packed accuracies also within BENCH_CELL_PP /
+# BENCH_MEAN_PP here), its ``launches`` the launches its code implies.
+BENCH_TWINS = ("packed_features", "serve", "cws_kernel", "ring_attention")
+# the autotune sweep on the card: one CWS family and the Gram at one
+# small shape (n x D x k; m x D x n), into a table that is loaded, held
+# against the plain versions and cleared
+AUTOTUNE_FAMILIES = ("cws_packed", "min_sum")
+AUTOTUNE_SHAPE = (256, 256, 128)
+AUTOTUNE_B_I = 8
 # A claim is required on the card where the reference's own records pass
 # it (the twin's ``claims`` on them).  Its fast fig78 fails two on today's
 # key stream: the streamed gap (0.625 pp against 0.5; the assert its run
@@ -2320,10 +2352,305 @@ def bench_parity(name, records, dev, results):
     return held
 
 
+def twin_parity(name, records, dev, results):
+    """Every kernel launch shape of one of ``BENCH_TWINS``' --fast runs, on
+    the twin's own rows, keys and parameters, against the plain versions:
+    the CWS rows exactly (``hold_case``), row 7 within its bound
+    (``gram_worst``), rows 8 and 9 within the flash tolerances (each
+    rank's all-gather launch and ring steps in the ring's order, fed the
+    kernel's own carry).  After the counted run, so these launches are
+    not the path's.  Returns the shapes held, by kernel."""
+    from repro_torch.benchmarks import bench_cws_kernel as BCK
+    from repro_torch.benchmarks import bench_packed_features as BPF
+    from repro_torch.benchmarks import bench_ring_attention as BRA
+    from repro_torch.benchmarks import bench_serve as BS
+    from repro_torch.benchmarks.common import rand_nonneg
+    from repro_torch.benchmarks.fig78_linear_svm import dataset
+    from repro_torch.core.regen import fold_in, permutation, prng_key
+    from repro_torch.kernels import flash_attention as fa
+    held = {}
+
+    def hold(case, where):
+        hold_case(case, results, f"benchmarks {name}, {where}")
+        held.setdefault(case.name, []).append(
+            (*case.x.shape, case.k, case.b_i))
+
+    if name == "packed_features":
+        ds = dataset()
+        xtr, xte = (torch.from_numpy(a).to(dev) for a in (ds.x_train,
+                                                          ds.x_test))
+        params = BPF.params_for(xtr.shape[1], dev)
+        # epoch 0's batches of the shuffle from prng_key(7), the test rows
+        perm = permutation(fold_in(prng_key(7), 0), xtr.shape[0]).to(dev)
+        rows = [xtr.index_select(0, perm[lo:lo + BPF.BATCH]) for lo in
+                range(0, xtr.shape[0] - BPF.BATCH + 1, BPF.BATCH)] + [xte]
+        for x in rows:
+            hold(KernelCase("cws_encode", x, max(BPF.BS), params=params),
+                 f"{tuple(x.shape)} b_i={max(BPF.BS)}")
+            for b in BPF.BS:        # row 4 at 32, 16, 8 and 4 codes a word
+                hold(KernelCase("cws_encode_packed", x, b, params=params),
+                     f"{tuple(x.shape)} packed b={b}")
+    elif name == "serve":
+        stream = torch.from_numpy(np.concatenate(BS.requests(
+            records["BENCH_serve"]["requests_per_mode"]))).to(dev)
+        for mode in BS.MODES:
+            pipe = BS.make_pipeline(mode, dev)
+            for bucket in BS.BUCKETS:
+                # a full bucket of requests' rows, and one half padded
+                # with the all-zero rows the gateway pads with
+                half = torch.zeros_like(stream[:bucket])
+                half[:bucket // 2] = stream[:bucket // 2]
+                for x in (stream[:bucket], half):
+                    state = (dict(params=pipe.params) if mode == "stored"
+                             else dict(key=prng_key(0), k=BS.K))
+                    hold(KernelCase(BS.KERNEL[mode], x, BS.B_I, **state),
+                         f"{mode} bucket {bucket}")
+    elif name == "cws_kernel":
+        for n, d, k in BCK.grid(True):
+            x = rand_nonneg(prng_key(n + k), (n, d), device=dev)
+            for seed in (7, 11):
+                p = BCK.stored_params(prng_key(seed), d, k, dev)
+                hold(KernelCase("cws_encode", x, BCK.B_I, params=p),
+                     f"fused / stored on prng_key({seed})")
+                if seed == 7:
+                    hold(KernelCase("cws_hash", x, params=p), "staged")
+            hold(KernelCase("cws_encode_rng", x, BCK.B_I, key=prng_key(11),
+                            k=k), "regen")
+        n, d, k = BCK.SMALL
+        hold(KernelCase("cws_encode_rng", rand_nonneg(
+            prng_key(3), (n, d), device=dev), BCK.B_I, key=prng_key(12),
+            k=k), "the bit-exact check")
+        n, d, k = BCK.run_shape(True)
+        x = rand_nonneg(prng_key(0), (n, d), device=dev)
+        hold(KernelCase("cws_hash", x, params=BCK.stored_params(
+            prng_key(1), d, k, dev)), "run()")
+        hold(KernelCase("cws_hash_rng", x, key=prng_key(2), k=k), "run()")
+        y = rand_nonneg(prng_key(5), (BCK.gram_rows(True), d), device=dev)
+        r = results[GRAM[0]]
+        ratio_s, ratio_k, err, _ = gram_worst(x, y)
+        r["checked"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["worst_ratio_S"] = max(r.get("worst_ratio_S", 0.0), ratio_s)
+        r["worst_ratio_K"] = max(r.get("worst_ratio_K", 0.0), ratio_k)
+        if ratio_s > 1 or ratio_k > 1:
+            raise AssertionError(f"min_sum (benchmarks cws_kernel): |cuda - "
+                                 f"plain| at {ratio_s:.3g} (S) / "
+                                 f"{ratio_k:.3g} (K) of the bound")
+        held[GRAM[0]] = [(n, y.shape[0], d)]
+    elif name == "ring_attention":
+        rec = records["BENCH_ring_attention"]
+        world, shape = rec["ndev"], rec["shape"]
+        q, k, v = (t.to(dev) for t in BRA.inputs(shape))
+        sl = shape["s_q"] // world
+        w = shape["window"]
+        for me in range(world):
+            ql = q[:, me * sl:(me + 1) * sl]
+            ratio, err = flash_worst(ql, k, v, w, me * sl)   # all-gather
+            results[FLASH[0]]["checked"] += 1
+            results[FLASH[0]]["max_abs_err"] = max(
+                results[FLASH[0]]["max_abs_err"], err)
+            if ratio > 1:
+                raise AssertionError(f"flash (benchmarks ring_attention, "
+                                     f"rank {me}): |cuda - plain| at "
+                                     f"{ratio:.3g} of the tolerance")
+            carry = None
+            for step in range(world):           # the ring's order
+                j = (me - step) % world
+                ks, vs = (t[:, j * sl:(j + 1) * sl] for t in (k, v))
+                args = dict(q_base=me * sl, k_base=j * sl, window=w)
+                got = fa.flash_attention_step_cuda(ql, ks, vs, carry, **args)
+                want = fa.flash_attention_step_plain(ql, ks, vs, carry,
+                                                     **args)
+                torch.cuda.synchronize()
+                ratio, err = carry_ratio(got, want, torch.float32)
+                results[STEP[0]]["checked"] += 1
+                results[STEP[0]]["max_abs_err"] = max(
+                    results[STEP[0]]["max_abs_err"], err)
+                if ratio > 1:
+                    raise AssertionError(f"step (benchmarks ring_attention, "
+                                         f"rank {me}, shard {j}): |cuda - "
+                                         f"plain| at {ratio:.3g} of the "
+                                         f"tolerance")
+                carry = got
+        held[FLASH[0]] = [(shape["b"], sl, shape["s_k"], shape["h"],
+                           shape["g"], shape["d"])] * world
+        held[STEP[0]] = [(shape["b"], sl, sl, shape["h"], shape["g"],
+                          shape["d"])] * world * world
+    return held
+
+
+def bench_twin(name, dev, card, tmp, results):
+    """One of ``BENCH_TWINS`` at --fast on the card: launches as its code
+    implies (the ring twin's counted in its ranks), its claims, the
+    packed accuracies within BENCH_CELL_PP / BENCH_MEAN_PP of the
+    reference's record, then its launch shapes against the plain
+    versions.  Returns (its summary, failed gates)."""
+    from repro_torch.benchmarks import run as bench_run
+    mod = bench_run.SUITES[name]
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = mod.run(fast=True, device=dev, out=tmp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if name == "ring_attention":
+        if any(launches.values()):
+            raise AssertionError(f"benchmarks {name}: the parent launched "
+                                 f"{launches}; the ranks launch")
+        launches.update(mod.rank_launches(records))
+    want = {**dict.fromkeys(launches, 0), **mod.launches(records)}
+    if launches != want:
+        raise AssertionError(f"benchmarks {name}: launches {launches}, "
+                             f"expected {want}")
+    require_launched(f"benchmarks {name}", launches,
+                     [k for k, v in want.items() if v])
+    gates = []
+    claims = mod.claims(records)
+    gates += [f"{name}: claim '{c}' fails" for c, ok in claims.items()
+              if not ok]
+    summary = {"wall_s": wall, "launches": {k: v for k, v in
+                                            launches.items() if v},
+               "claims": claims}
+    print(f"benchmarks {name} [{card}]: --fast in {wall:.2f} s; launches "
+          + ", ".join(f"{k} {v}" for k, v in summary["launches"].items())
+          + "; claims: " + "; ".join(f"{c}: {'pass' if ok else 'FAIL'}"
+                                     for c, ok in claims.items()))
+    if name == "packed_features":
+        cells = mod.reference_cells(records)
+        diffs = [abs(a - g) for _, a, g in cells]
+        mean = sum(diffs) / len(diffs)
+        summary["cells"], summary["mean_abs_diff_pp"] = cells, mean
+        if max(diffs) > BENCH_CELL_PP or mean > BENCH_MEAN_PP:
+            gates.append(f"{name}: accuracies {cells} against the "
+                         f"reference's, mean |diff| {mean:.4f} pp")
+        rec = records["BENCH_packed_features"]
+        print(f"benchmarks {name} accuracies [{card}] (twin vs reference, "
+              f"%): " + ", ".join(f"{c} {g:.3f} vs {a:.3f}"
+                                  for c, a, g in cells)
+              + f"; mean |diff| {mean:.4f} pp; featurize us: baseline "
+              f"{rec['baseline']['featurize_us']:.1f}, "
+              + ", ".join(f"b={b} {r['featurize_us']:.1f}"
+                          for b, r in rec["per_b"].items()))
+    elif name == "serve":
+        for mode, r in records["BENCH_serve"]["modes"].items():
+            print(f"benchmarks serve {mode} [{card}]: {r['requests']} "
+                  f"requests, {r['rows']} rows, compile_count "
+                  f"{r['compile_count']}; warmup {r['warmup_ms']:.2f} ms, "
+                  f"p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, max "
+                  f"{r['max_ms']:.3f} ms, {r['qps']:.1f} req/s, "
+                  f"{r['rows_per_s']:.0f} rows/s, pad rows {r['pad_rows']}, "
+                  f"buckets {r['buckets']} (latencies reported, not "
+                  f"compared)")
+    elif name == "ring_attention":
+        rec = records["BENCH_ring_attention"]
+        print(f"benchmarks ring_attention [{card}]: {rec['ndev']} gloo "
+              f"ranks sharing one card (not a speed of the ring): ring "
+              f"{rec['wall_us_ring']:.1f} us, all-gather "
+              f"{rec['wall_us_allgather']:.1f} us a call; ring vs "
+              f"all-gather max |diff| {rec['parity_max_abs_diff']:.3g}; "
+              f"per-rank peak K/V {rec['peak_kv_bytes_ring']} vs "
+              f"{rec['peak_kv_bytes_allgather']} bytes")
+    elif name == "cws_kernel":
+        for key, e in records["BENCH_cws_regen"]["grid"].items():
+            print(f"benchmarks cws_kernel {key} [{card}]: fused "
+                  f"{records['BENCH_cws_fused']['grid'][key]['fused_us']:.1f}"
+                  f" us, staged "
+                  f"{records['BENCH_cws_fused']['grid'][key]['staged_us']:.1f}"
+                  f" us; stored {e['stored']['wall_us']:.1f} us on "
+                  f"{e['stored']['plan']}, regen {e['regen']['wall_us']:.1f} "
+                  f"us on {e['regen']['plan']}; modelled input bytes "
+                  f"{e['stored']['total_in_bytes']} vs "
+                  f"{e['regen']['total_in_bytes']}")
+    held = twin_parity(name, records, dev, results)
+    for k, v in launches.items():
+        if v:
+            results[k]["launches"] += v
+    summary["held_vs_plain"] = held
+    print(f"benchmarks {name} kernels vs plain [{card}]: "
+          + "; ".join(f"{k} at {len(v)} shapes {sorted(set(v))}"
+                      for k, v in held.items()))
+    return summary, gates
+
+
+def phase_autotune(dev, card, results):
+    """The autotune tool's measured sweep on the card: one CWS family and
+    the Gram at ``AUTOTUNE_SHAPE`` into a temporary plan table (the tool
+    holds every candidate to the default plan's output); the table
+    loaded, each family relaunched at that shape through its launcher,
+    which must take the tuned plan, and held against its plain version;
+    the table cleared before any later phase."""
+    from repro_torch.benchmarks.common import rand_nonneg
+    from repro_torch.core import CWSParams, make_cws_params_jax
+    from repro_torch.core.regen import prng_key
+    from repro_torch.kernels import cws_hash, minmax_gram, registry
+    from repro_torch.tools import autotune_blocks as tool
+    n, d, k = AUTOTUNE_SHAPE
+    shape = f"{n}x{d}x{k}"
+    sms = cws_hash.sm_count(0)
+    registry.clear_block_table()
+    try:
+        with tempfile.TemporaryDirectory(prefix="plan_table_") as tmp:
+            out = tool.main(["--families", ",".join(AUTOTUNE_FAMILIES),
+                             "--shapes", shape, "--out",
+                             str(pathlib.Path(tmp) / "plan_table.json")])
+            loaded = registry.load_block_table(out["path"])
+        tuned = {}
+        for op in AUTOTUNE_FAMILIES:
+            default = registry.check_entry(
+                op, tool.default_entry(op, n, d, k, sms))
+            rows = [(registry.check_entry(op, e), t)
+                    for e, t in out["sweeps"][(op, shape)]]
+            tuned[op] = {"entry": loaded[registry.table_key(op, n, d, k)],
+                         "default": default, "candidates": len(rows),
+                         "ms": min(t for _, t in rows),
+                         "default_ms": next(t for e, t in rows
+                                            if e == default)}
+        x = rand_nonneg(prng_key(0), (n, d), device=dev)
+        mp = make_cws_params_jax(prng_key(1), d, k)
+        params = CWSParams(*(m.to(dev) for m in (mp.r, mp.log_c, mp.beta)))
+        plan = cws_hash.split_plan(n, d, k, sms, stored=True,
+                                   op="cws_encode_packed")
+        if plan != cws_hash.SplitPlan(n, d, k,
+                                      **tuned["cws_packed"]["entry"]):
+            raise AssertionError(f"autotune: the loaded table did not steer "
+                                 f"cws_encode_packed ({plan})")
+        for b in (1, AUTOTUNE_B_I):
+            hold_case(KernelCase("cws_encode_packed", x, b, params=params),
+                      results, f"autotune, the tuned plan {plan}")
+        y = rand_nonneg(prng_key(2), (k, d), device=dev)
+        gplan = minmax_gram.gram_plan(n, k, d, sms, op="min_sum")
+        if {"tile": gplan.tile, "splits": gplan.splits,
+                "small": gplan.small} != tuned["min_sum"]["entry"]:
+            raise AssertionError(f"autotune: the loaded table did not steer "
+                                 f"min_sum ({gplan})")
+        ratio_s, ratio_k, err, _ = gram_worst(x, y)
+        r = results[GRAM[0]]
+        r["checked"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if ratio_s > 1 or ratio_k > 1:
+            raise AssertionError(f"min_sum (autotune, the tuned plan "
+                                 f"{gplan}): |cuda - plain| at "
+                                 f"{ratio_s:.3g} (S) / {ratio_k:.3g} (K) of "
+                                 f"the bound")
+    finally:
+        registry.clear_block_table()
+    results["autotune"] = tuned
+    for op, t in tuned.items():
+        print(f"autotune {op} at {shape} [{card}]: {t['candidates']} "
+              f"candidates, each held to the default plan's output; winner "
+              f"{t['entry']} {t['ms'] * 1e3:.2f} us, the default "
+              f"{t['default']} {t['default_ms'] * 1e3:.2f} us (CUDA events "
+              f"over the tool's repeats); the launchers took the loaded "
+              f"table's plan, held against the plain version; table "
+              f"cleared")
+
+
 def phase_benchmarks(dev, card, results):
     """The five paper benchmarks' twins in --fast mode on the card, each
     held against the reference's own --fast record, its claims against
-    the reference's verdicts, its launches against its code's."""
+    the reference's verdicts, its launches against its code's; then the
+    twins of the reference's other benchmarks (``BENCH_TWINS``)."""
     from repro_torch.benchmarks import common
     from repro_torch.benchmarks import run as bench_run
     ref_failed = json.loads((common.REFERENCE / "claims.json").read_text())[
@@ -2397,6 +2724,9 @@ def phase_benchmarks(dev, card, results):
                       f"{ref['gap_pp']} pp ({ref['acc_streamed']}% / "
                       f"{ref['acc_fullbatch']}%); streaming's cost is "
                       f"gated by the train phase's 16-key mean")
+        for name in BENCH_TWINS:
+            out[name], failed = bench_twin(name, dev, card, tmp, results)
+            gates += failed
     results["benchmarks"] = out
     if gates:
         raise AssertionError("benchmarks: " + "; ".join(gates))
@@ -2807,7 +3137,7 @@ def phase_lm(dev, card, results):
         raise AssertionError(f"lm: {launches[FLASH[0]]} flash launches in "
                              f"one prefill, by body {bodies}; want {n_attn}, "
                              f"all on the wgmma body")
-    results[FLASH[0]]["launches"] = launches[FLASH[0]]
+    results[FLASH[0]]["launches"] += launches[FLASH[0]]
     results[FLASH[0]]["body_launches"] = bodies
     gen = out["generated"]
     if gen.shape != (LM_BATCH, LM_GEN) or not (
@@ -3109,7 +3439,7 @@ def phase_seq_parallel(card, results):
     report_seq_parallel(out, card)
     ring_bf16 = next(r for r in out["ranks"][0]["runs"]
                      if r["route"] == "ring" and r["dtype"] == "bfloat16")
-    results[STEP[0]]["launches"] = ring_bf16["total_launches"][STEP[0]]
+    results[STEP[0]]["launches"] += ring_bf16["total_launches"][STEP[0]]
     results[STEP[0]]["body_launches"] = ring_bf16["total_body_launches"]
     if torch.cuda.device_count() >= SP_RANKS:
         nccl = run_seq_parallel("nccl", SP_RANKS, SP_FULL_DEPTH)
@@ -3453,6 +3783,19 @@ def phase_times(dev, results, peak_ops, counts):
             r.setdefault("times", []).append(t)
             print(cws_time_line(name, t, b_i))
 
+    # row 4 at the packed twin's widths: its 800 test rows (D = 256,
+    # k = 128) at b = 1, 2, 4 and 8 (32, 16, 8 and 4 codes a word)
+    from repro_torch.benchmarks import bench_packed_features as BPF
+    from repro_torch.benchmarks.fig78_linear_svm import dataset
+    xte = torch.from_numpy(dataset().x_test).to(dev)
+    params = BPF.params_for(xte.shape[1], dev)
+    for b in BPF.BS:
+        case = KernelCase("cws_encode_packed", xte, b, params=params)
+        t = dict(cws_times(case, 50, 10, peak_ops, counts["cws"]), b=b)
+        results["cws_encode_packed"].setdefault("width_times", []).append(t)
+        print(cws_time_line("cws_encode_packed", t, b) + " (the packed "
+              "twin's test rows)")
+
     time_stored_plans(dev, results)
 
     # the raw hashes: serving and wide shapes, the estimator's pair, and
@@ -3678,6 +4021,7 @@ def main():
                         (phase_kernel_machine, (dev, smi, results)),
                         (phase_estimator, (dev, smi, results)),
                         (phase_benchmarks, (dev, smi, results)),
+                        (phase_autotune, (dev, smi, results)),
                         (phase_lm, (dev, smi, results)),
                         (phase_seq_parallel, (smi, results)),
                         (phase_times, (dev, results, peak_ops, counts)),
@@ -3709,6 +4053,8 @@ def main():
             entry["train"] = r["train"]
         if "resume" in r:
             entry["resume"] = r["resume"]
+        if "width_times" in r:
+            entry["width_times"] = r["width_times"]
         kernels.append(entry)
     for k in RAW:
         r = results[k]

@@ -12,6 +12,8 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.regen import bernoulli, normal, split
+
 HERE = pathlib.Path(__file__).resolve().parent
 RESULTS = HERE / "results"       # the card's full-size records
 REFERENCE = HERE / "reference"   # the reference's --fast records
@@ -79,6 +81,27 @@ class Timer:
     def __exit__(self, *exc):
         sync(self.dev)
         self.us = (time.perf_counter() - self._t0) * 1e6
+
+
+def timed(dev: torch.device, fn, *args, repeats: int = 1, **kw):
+    """(fn's last output, mean wall microseconds of ``repeats`` calls)
+    after one untimed call, the device drained before and after the
+    timed calls (``benchmarks/common.py:timed``)."""
+    out = fn(*args, **kw)
+    with Timer(dev) as t:
+        for _ in range(repeats):
+            out = fn(*args, **kw)
+    return out, t.us / repeats
+
+
+def rand_nonneg(key, shape, sparsity: float = 0.5,
+                device=None) -> torch.Tensor:
+    """exp(N(0, 1)) entries, each kept with probability 1 - sparsity, on
+    the reference's draws (``bench_cws_kernel.py:rand_nonneg``): the same
+    float32 rows from the same key."""
+    k1, k2 = split(key)
+    x = torch.exp(normal(k1, shape)) * bernoulli(k2, 1 - sparsity, shape)
+    return x if device is None else x.to(device)
 
 
 def f32_share(count: int, n: int) -> float:

@@ -1,4 +1,5 @@
-"""Benchmark harness of the twins: one module per paper table / figure.
+"""Benchmark harness of the twins: one module per paper table / figure
+and per benchmark of the reference's ``benchmarks/``.
 
 Prints ``name,us_per_call,derived`` CSV rows and writes each suite's JSON
 records under ``--out`` (default ``src/repro_torch/benchmarks/results``),
@@ -7,7 +8,8 @@ the reference's asserts do.  ``--fast`` runs the reference's reduced
 sizes.  Runs on the card unless ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [--fast]
-      [--only table1|table2|fig45|fig6|fig78|fault_tolerance]
+      [--only table1|table2|fig45|fig6|fig78|fault_tolerance|
+              packed_features|serve|cws_kernel|ring_attention]
       [--device cuda|cpu]
       [--out DIR]
 """
@@ -17,9 +19,12 @@ import argparse
 import time
 import traceback
 
-from repro_torch.benchmarks import (bench_fault_tolerance, fig45_cws_mse,
-                                    fig6_tstar_only, fig78_linear_svm,
-                                    table1_kernel_svm, table2_wordpairs)
+from repro_torch.benchmarks import (bench_cws_kernel, bench_fault_tolerance,
+                                    bench_packed_features,
+                                    bench_ring_attention, bench_serve,
+                                    fig45_cws_mse, fig6_tstar_only,
+                                    fig78_linear_svm, table1_kernel_svm,
+                                    table2_wordpairs)
 from repro_torch.device import resolve_device
 
 SUITES = {
@@ -29,6 +34,10 @@ SUITES = {
     "fig6": fig6_tstar_only,
     "fig78": fig78_linear_svm,
     "fault_tolerance": bench_fault_tolerance,
+    "packed_features": bench_packed_features,
+    "serve": bench_serve,
+    "cws_kernel": bench_cws_kernel,
+    "ring_attention": bench_ring_attention,
 }
 
 

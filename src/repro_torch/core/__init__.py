@@ -6,7 +6,8 @@ from repro_torch.core.cws import (CWSParams, cws_hash, cws_hash_reference,
 from repro_torch.core.hashing import (collision_estimate, encode,
                                       encode_tstar_only, feature_indices,
                                       full_collision_estimate, hashed_dim,
-                                      pack_codes, unpack_codes)
+                                      one_hot_features, pack_codes,
+                                      unpack_codes)
 from repro_torch.core.kernels import (GRAM_FNS, intersection_gram,
                                       linear_gram, minmax_gram, minmax_pair,
                                       nminmax_gram, resemblance_gram,
@@ -15,6 +16,6 @@ from repro_torch.core.kernels import (GRAM_FNS, intersection_gram,
 __all__ = ["CWSParams", "cws_hash", "cws_hash_reference", "cws_hash_regen",
            "make_cws_params", "make_cws_params_jax", "collision_estimate", "encode",
            "encode_tstar_only", "feature_indices", "full_collision_estimate",
-           "hashed_dim", "pack_codes", "unpack_codes", "GRAM_FNS",
+           "hashed_dim", "one_hot_features", "pack_codes", "unpack_codes", "GRAM_FNS",
            "intersection_gram", "linear_gram", "minmax_gram", "minmax_pair",
            "nminmax_gram", "resemblance_gram", "resemblance_pair"]

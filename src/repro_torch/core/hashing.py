@@ -124,3 +124,15 @@ def unpack_codes(packed: torch.Tensor, k: int, *, b: int) -> torch.Tensor:
 
 def hashed_dim(k: int, b_i: int, b_t: int = 0) -> int:
     return k * (1 << (b_i + b_t))
+
+
+def one_hot_features(codes: torch.Tensor, *, b_i: int,
+                     b_t: int = 0) -> torch.Tensor:
+    """Dense 0/1 float32 matrix (n, k * 2^{b_i+b_t}): row r holds a 1 at
+    each of its k feature indices (sentinel codes at bucket 0 of their
+    hash).  For small problems and tests only."""
+    idx = feature_indices(codes, b_i=b_i, b_t=b_t).to(torch.int64)
+    dim = codes.shape[-1] * (1 << (b_i + b_t))
+    out = torch.zeros(codes.shape[:-1] + (dim,), dtype=torch.float32,
+                      device=codes.device)
+    return out.scatter_add_(-1, idx, torch.ones_like(idx, dtype=out.dtype))

@@ -57,6 +57,7 @@ SPLIT_WARPS = 16                       # warps per block
 SPLIT_CHUNK = 64                       # dimensions per shared-memory chunk
 SPLIT_ROWS_PER_THREAD = (1, 2, 4, 8)   # its instantiations
 SPLIT_SIZES = (1, 2, 4, 8)             # CTAs per cluster
+SPLIT_ROW_WARPS = (1, 2, 4, 8, 16)     # row warps a block may take
 SPLIT_BLOCKS_PER_SM = 2                # resident blocks an SM holds
 # the least rows a stored-parameter block is cut to: below it the tiles'
 # loads and the block's fixed costs outweigh its rows' steps
@@ -121,8 +122,45 @@ def short_tail(blocks: int, wave: int) -> bool:
     return blocks > wave and 0 < blocks % wave < wave / 2
 
 
+def check_plan_fields(rows_per_thread: int, row_warps: int,
+                      splits: int) -> None:
+    """Raise unless the split body has an instantiation of these fields:
+    rows per thread in ``SPLIT_ROWS_PER_THREAD``, a power of two of row
+    warps up to ``SPLIT_WARPS``, splits in ``SPLIT_SIZES``."""
+    if (rows_per_thread not in SPLIT_ROWS_PER_THREAD
+            or row_warps not in SPLIT_ROW_WARPS or splits not in SPLIT_SIZES):
+        raise ValueError(
+            f"split plan (rows per thread {rows_per_thread}, row warps "
+            f"{row_warps}, splits {splits}): rows per thread one of "
+            f"{SPLIT_ROWS_PER_THREAD}, row warps one of {SPLIT_ROW_WARPS}, "
+            f"splits one of {SPLIT_SIZES}")
+
+
+def check_plan(plan: SplitPlan) -> SplitPlan:
+    """``plan`` if the split body can launch it at its shape (the
+    launcher's own checks: D of at least one dimension a rank, at most
+    65,535 row tiles), else raise."""
+    check_plan_fields(plan.rows_per_thread, plan.row_warps, plan.splits)
+    if plan.splits > 1 and plan.d < plan.splits:
+        raise ValueError(f"{plan}: {plan.splits} ranks for D = {plan.d}")
+    if plan.grid[1] > 65535:
+        raise ValueError(f"{plan}: {plan.grid[1]} row tiles, more than "
+                         f"the grid's 65,535")
+    return plan
+
+
+def table_plan(op: str, n: int, d: int, k: int):
+    """The plan table's plan for ``op`` at (n, D, k), checked for the
+    shape, or None where the table has no entry."""
+    from repro_torch.kernels import registry   # registry imports this module
+    entry = registry.plan_entry(op, n, d, k)
+    if entry is None:
+        return None
+    return check_plan(SplitPlan(n, d, k, **entry))
+
+
 def split_plan(n: int, d: int, k: int, sms: int, *,
-               stored: bool = False) -> SplitPlan:
+               stored: bool = False, op: str | None = None) -> SplitPlan:
     """The split body's tiles for x (n, D) and k hashes on a card with
     ``sms`` SMs.  Row warps and rows per thread: the fewest of each, in
     that order, that cover n up to 16 x 8 = 128 rows a block (so at
@@ -138,7 +176,15 @@ def split_plan(n: int, d: int, k: int, sms: int, *,
     ``SPLIT_STORED_MIN_ROWS`` rows, while the grid keeps room for two CTAs
     a cluster within the wave, or while it runs past one wave with its
     last wave less than half full (``short_tail``: at 1,200 rows on 132
-    SMs, 128-row tiles make 320 blocks, 1.21 waves)."""
+    SMs, 128-row tiles make 320 blocks, 1.21 waves).
+
+    ``op`` (a CWS op or family): where the plan table has an entry for
+    it at this shape, that entry's plan instead, raising if it cannot
+    launch here."""
+    if op is not None:
+        tuned = table_plan(op, n, d, k)
+        if tuned is not None:
+            return tuned
     plan = SplitPlan(n, d, k, *_row_tile(n), 1)
     wave = SPLIT_BLOCKS_PER_SM * sms
     while stored and plan.block_rows > SPLIT_STORED_MIN_ROWS:
@@ -255,20 +301,22 @@ def _lib():
     return cws_split_library().lib
 
 
-def _plan_args(x: torch.Tensor, k: int, *, stored: bool = False,
+def _plan_args(x: torch.Tensor, k: int, op: str, *, stored: bool = False,
                plan: SplitPlan | None = None):
     """The split body's (rows per thread, row warps, splits) for x and k:
-    ``plan`` if given (it must be a plan for this (n, D, k)), else
-    ``split_plan``'s on x's card."""
+    ``plan`` if given (it must be a legal plan for this (n, D, k)), else
+    ``split_plan``'s for ``op`` on x's card."""
     n, d = x.shape
     if plan is None:
         index = x.device.index
         plan = split_plan(n, d, k, sm_count(
             torch.cuda.current_device() if index is None else index),
-            stored=stored)
+            stored=stored, op=op)
     elif (plan.n, plan.d, plan.k) != (n, d, k):
         raise ValueError(f"plan for (n, D, k) = {(plan.n, plan.d, plan.k)} "
                          f"given for {(n, d, k)}")
+    else:
+        check_plan(plan)
     return plan.rows_per_thread, plan.row_warps, plan.splits
 
 
@@ -301,13 +349,15 @@ def cws_encode_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0,
         return out
     return _launch("cws_encode", _lib().cws_split_stored_index_launch, out,
                    *_stored_ptrs(x, params), n, d, k, b_i, b_t,
-                   *_plan_args(x, k, stored=True, plan=plan),
+                   *_plan_args(x, k, "cws_encode", stored=True, plan=plan),
                    stored_copy_bytes(params), out.data_ptr())
 
 
-def cws_encode_rng_cuda(x, key, num_hashes: int, *, b_i: int, b_t: int = 0):
+def cws_encode_rng_cuda(x, key, num_hashes: int, *, b_i: int, b_t: int = 0,
+                        plan: SplitPlan | None = None):
     """Regenerated-parameter encode kernel (replaces
-    ``cws_encode_rng_pallas``): the only input in device memory is x."""
+    ``cws_encode_rng_pallas``): the only input in device memory is x.
+    ``plan`` forces a plan (the autotune sweep's candidates)."""
     x = _check_x(x)
     _check_bits(b_i, b_t, packed=False)
     k0, k1 = key_words(key)
@@ -317,13 +367,15 @@ def cws_encode_rng_cuda(x, key, num_hashes: int, *, b_i: int, b_t: int = 0):
         return out
     return _launch("cws_encode_rng", _lib().cws_split_index_launch, out,
                    x.data_ptr(), k0, k1, n, d, num_hashes, b_i, b_t,
-                   *_plan_args(x, num_hashes), out.data_ptr())
+                   *_plan_args(x, num_hashes, "cws_encode_rng", plan=plan),
+                   out.data_ptr())
 
 
-def cws_encode_packed_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0):
+def cws_encode_packed_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0,
+                           plan: SplitPlan | None = None):
     """Stored-parameter encode with packed emit (replaces
     ``cws_encode_packed_pallas``) on ``split_plan(..., stored=True)``'s
-    tiles."""
+    tiles, or ``plan``'s."""
     x = _check_x(x)
     _check_params(x, params)
     _check_bits(b_i, b_t, packed=True)
@@ -335,14 +387,15 @@ def cws_encode_packed_cuda(x, params: CWSParams, *, b_i: int, b_t: int = 0):
         return out
     return _launch("cws_encode_packed", _lib().cws_split_stored_packed_launch,
                    out, *_stored_ptrs(x, params), n, d, k, b_i, b_t,
-                   *_plan_args(x, k, stored=True),
+                   *_plan_args(x, k, "cws_encode_packed", stored=True,
+                               plan=plan),
                    stored_copy_bytes(params), out.data_ptr(), words)
 
 
 def cws_encode_rng_packed_cuda(x, key, num_hashes: int, *, b_i: int,
-                               b_t: int = 0):
+                               b_t: int = 0, plan: SplitPlan | None = None):
     """Regenerated-parameter encode with packed emit (replaces
-    ``cws_encode_rng_packed_pallas``)."""
+    ``cws_encode_rng_packed_pallas``); ``plan`` forces a plan."""
     x = _check_x(x)
     _check_bits(b_i, b_t, packed=True)
     k0, k1 = key_words(key)
@@ -354,7 +407,9 @@ def cws_encode_rng_packed_cuda(x, key, num_hashes: int, *, b_i: int,
     return _launch("cws_encode_rng_packed",
                    _lib().cws_regen_split_packed_launch, out, x.data_ptr(),
                    k0, k1, n, d, num_hashes, b_i, b_t,
-                   *_plan_args(x, num_hashes), out.data_ptr(), words)
+                   *_plan_args(x, num_hashes, "cws_encode_rng_packed",
+                               plan=plan),
+                   out.data_ptr(), words)
 
 
 def cws_hash_cuda(x, params: CWSParams, *, plan: SplitPlan | None = None):
@@ -371,7 +426,7 @@ def cws_hash_cuda(x, params: CWSParams, *, plan: SplitPlan | None = None):
         return i_star, t_star
     _launch("cws_hash", _lib().cws_split_stored_hash_launch, i_star,
             *_stored_ptrs(x, params), n, d, k,
-            *_plan_args(x, k, stored=True, plan=plan),
+            *_plan_args(x, k, "cws_hash", stored=True, plan=plan),
             stored_copy_bytes(params), i_star.data_ptr(), t_star.data_ptr())
     return i_star, t_star
 
@@ -388,5 +443,6 @@ def cws_hash_rng_cuda(x, key, num_hashes: int):
         return i_star, t_star
     _launch("cws_hash_rng", _lib().cws_regen_split_hash_launch, i_star,
             x.data_ptr(), k0, k1, n, d, num_hashes,
-            *_plan_args(x, num_hashes), i_star.data_ptr(), t_star.data_ptr())
+            *_plan_args(x, num_hashes, "cws_hash_rng"), i_star.data_ptr(),
+            t_star.data_ptr())
     return i_star, t_star

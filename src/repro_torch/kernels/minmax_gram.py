@@ -161,10 +161,9 @@ def _cycles(plan: GramPlan, sms: int) -> float:
     return cycles
 
 
-@functools.lru_cache(maxsize=1024)
 def gram_plan(m: int, n: int, d: int, sms: int, *, tile: tuple | None = None,
-              splits: int | None = None,
-              small: bool | None = None) -> GramPlan:
+              splits: int | None = None, small: bool | None = None,
+              op: str | None = None) -> GramPlan:
     """The kernel's plan for x (m, D), y (n, D) on a card with ``sms``
     SMs.  Small mode where m * n < ``GRAM_SMALL_OUTPUTS``.  Otherwise the
     tile and the number of slices S (a power of two, every slice at least
@@ -173,7 +172,25 @@ def gram_plan(m: int, n: int, d: int, sms: int, *, tile: tuple | None = None,
     occupancy x sms) blocks.  ``tile``, ``splits`` and ``small`` force a
     choice (the tests' and the chip check's forced plans); a forced S may
     not exceed the chunks of D.  Plans are cached: the search costs more
-    host time than a small Gram's launch."""
+    host time than a small Gram's launch.
+
+    ``op`` (``"min_sum"``): where nothing is forced and the plan table
+    has an entry at (m, D, n), that entry's choice, forced as above (so
+    an entry this shape cannot take raises)."""
+    if op is not None and tile is None and splits is None and small is None:
+        from repro_torch.kernels import registry  # it imports this module
+        entry = registry.plan_entry(op, m, d, n)
+        if entry is not None:
+            if entry["small"]:
+                return _gram_plan(m, n, d, sms, None, None, True)
+            return _gram_plan(m, n, d, sms, entry["tile"], entry["splits"],
+                              False)
+    return _gram_plan(m, n, d, sms, tile, splits, small)
+
+
+@functools.lru_cache(maxsize=1024)
+def _gram_plan(m: int, n: int, d: int, sms: int, tile, splits,
+               small) -> GramPlan:
     if min(m, n) <= 0 or d <= 0:
         raise ValueError(f"min-sum plan for an empty problem ({m}, {n}, "
                          f"{d})")
@@ -280,7 +297,8 @@ def min_sum_cuda(x, y, *, plan: GramPlan | None = None):
     if plan is None:
         index = x.device.index
         plan = gram_plan(m, n, d, sm_count(
-            torch.cuda.current_device() if index is None else index))
+            torch.cuda.current_device() if index is None else index),
+            op="min_sum")
     elif (plan.m, plan.n, plan.d) != (m, n, d):
         raise ValueError(f"plan for (m, n, D) = {(plan.m, plan.n, plan.d)} "
                          f"given for {(m, n, d)}")
