@@ -71,7 +71,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 batch, no other CWS kernel;
   5. train    - featurize -> train -> score at CONFIG's full width on
                 examples/cws_classification.py's dataset (1,200 train /
-                800 test rows, 10 classes), fig78's streamed-versus-full-
+                800 test rows, 10 classes; the generator's numpy stream,
+                TRAIN_DRAWS; on its reference draws fit A's card features
+                against the CPU's are counted, not gated), fig78's
+                streamed-versus-full-
                 batch recipe: ``fit_linear_streamed`` (600-row batches, 500
                 steps, the reference's shuffle from ``prng_key(0)``) for
                 fit A (regen, b_i = 8, row 1), fit B (stored, packed b_i =
@@ -119,8 +122,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 with its gates; launches by kernel as the runs imply; the
                 checkpoint's bytes, snapshot, writer-thread and restore
                 times and fit A's wall at ckpt_every=50 against the bare
-                fit, in turns;
-  7. kernel machine - Table 1 on the "template" suite at full size (1,200
+                fit, in 5 pairs in turns;
+  7. data-parallel - the data axis (ROADMAP A11) on the train phase's
+                recipe and dataset, ranks as ``torch.multiprocessing``
+                processes over gloo sharing the card (CUDA tensors through
+                host copies): fit A on a one-rank mesh (no process group)
+                bit-identical to the train phase's (table and moments); fit
+                A on 4 ranks (150 rows a rank) with the same table on every
+                rank (digests), the same evaluation counts on every rank,
+                the count over the 800 test rows and 20,000 more rows of
+                the same templates within 0.5 pp of the unsharded fit A's,
+                row 1 launched 500 + 4 times a rank; its first 20 steps on
+                the CPU's plain path over the same ranks, bit-identical to
+                the card's; fit B on 2 ranks alike (row 4); fit A killed on
+                4 ranks before step 333 (every rank's shard files, one
+                COMMIT) and resumed on 4 (bit-identical), on 2 and with no
+                mesh (within 0.5 pp on the test rows); fig78's twin at
+                --fast with mesh=True on 4 ranks (the same record on every
+                rank, launches as its code implies, the record and its
+                claims printed); rows 1, 2 and 4 at every rank's shapes
+                against their plain versions; with four cards, fit A once
+                more over NCCL, one rank a card, its table equal to
+                gloo's; each fit's wall a rank and host bytes;
+  8. kernel machine - Table 1 on the "template" suite at full size (1,200
                 train / 800 test rows, D = 256, 6 classes): the four
                 Grams through ``GRAM_FNS`` and ``best_accuracy_over_C``
                 over C in 0.01 ... 1000 with 20 sweeps, then the staged
@@ -129,8 +153,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 min-max Gram; min-max accuracy must reach linear's and
                 agree with the plain path on the CPU within 0.5 pp;
                 launches: min_sum 6 (two Grams each for min-max, n-min-max
-                and intersection), cws_hash 2, no other kernel;
-  8. estimator - Figs 4-5 at 2^16-document word pairs (HONG-KONG,
+                and intersection), cws_hash 2, no other kernel; then
+                Table 1's hist-mix suite at full size on the reference's
+                draws against the reference's own row
+                (``reference/table1_hist_mix.json``, within 1.0 pp a cell,
+                0.5 pp mean), min_sum 6 launches, its Grams at (1,200 |
+                800, 1,200, 128) against the plain version;
+  9. estimator - Figs 4-5 at 2^16-document word pairs (HONG-KONG,
                 CREDIT-CARD): K from the min-sum kernel, 300 Monte-Carlo
                 reps of ``pipe.with_key(key).hashes(x)`` at k = 1024, and
                 the full / 0-bit / 1-bit bias and MSE at k in
@@ -139,7 +168,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 launches: cws_hash_rng 600, min_sum 2, no other kernel;
                 the phase's wall time beside its launches' device time (600
                 x kernel ms at each pair's shape);
-  9. benchmarks - the paper's benchmarks as twins
+ 10. benchmarks - the paper's benchmarks as twins
                 (``repro_torch.benchmarks``: table2, fig6, fig45, table1,
                 fig78) in --fast mode on the reference's own draws, each
                 held against the reference's --fast record
@@ -178,7 +207,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 temporary plan table, the table loaded, both launchers
                 required to take the tuned plans and held against their
                 plain versions, the table cleared;
- 10. lm       - gemma3_12b at full width and depth, attn_impl "flash":
+ 11. lm       - gemma3_12b at full width and depth, attn_impl "flash":
                 the fp32 prefill + decode logits against one cached forward
                 (prompt 600, 4 steps); then the masters cast once to bf16
                 and the main path, ``serve_lm`` (4 x 2,048-token prompts,
@@ -189,7 +218,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 tolerance; the CWS head on the pooled hidden state (one
                 ``cws_encode`` launch, no other CWS kernel), its codes
                 equal to the CPU path's;
- 11. seq-parallel - gemma3_12b at full width cut to 6 layers, its
+ 12. seq-parallel - gemma3_12b at full width cut to 6 layers, its
                 sequence sharded over four ranks of the ``model`` axis
                 (``torch.multiprocessing``; on one card the ranks share it
                 over gloo, CUDA tensors through host copies, since NCCL
@@ -202,7 +231,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 forward on the same weights; the transport, host bytes and
                 each rank's peak memory.  With four cards, once more over
                 NCCL, one rank a card, at full depth;
- 12. times    - each kernel and its plain version timed with CUDA events
+ 13. times    - each kernel and its plain version timed with CUDA events
                 (rows 8 and 9: the wgmma and the SIMT body on the same
                 inputs, in turns, the wgmma body required to be faster;
                 rows 1-6 beside their design floor from the SASS counts,
@@ -226,10 +255,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the slice's global and local layers and at S = 32,768, and
                 for row 9 on one ring step's q rows and K/V shard).
 
-Phases 4-11 are the main paths: each zeroes the launch counters just
-before it (phase 9 before each twin) and reads them just after, and
-fails if a kernel it runs was never launched (phase 11 in every rank, and
-in sum).  The line before the
+Phases 4-12 are the main paths: each zeroes the launch counters just
+before it (phase 10 before each twin, phase 7 in every rank before each
+fit) and reads them just after, and fails if a kernel it runs was never
+launched (phases 7 and 12 in every rank).  The line before the
 last is ``nvidia-smi``'s name and power limit, the one before it a JSON
 summary of every kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX.
@@ -289,6 +318,12 @@ DEVICE = "cuda"
 # GAP_EXTRA_ROWS): the templates are the generator's first draws), which
 # measure the gap itself to about 0.3 pp a key (reported, not gated).
 TRAIN_DATA = {"n_train": 1200, "n_test": 800}
+# The numpy stream of that generator (not the reference's data): on the
+# reference's draws the card's regenerated features differ from the CPU
+# plain path's, so the bit-identity gates below stay on the numpy rows
+# they were recorded on; the phase counts the reference draws' features
+# that differ (ROADMAP A16)
+TRAIN_DRAWS = "numpy"
 TRAIN_BATCH, TRAIN_STEPS, FULL_STEPS, TRAIN_B_PACKED = 600, 500, 1000, 4
 IDENTITY_STEPS = 20       # the batch_size == n check
 TRAIN_GAP_PP = 0.5
@@ -314,8 +349,15 @@ RESUME_FAULTS_B = (120, 260, 400)     # raise, hang, failed async write
 RESUME_HANG_S, RESUME_HARD_TIMEOUT_S, RESUME_HANG_CUT_S = 60.0, 5.0, 10.0
 RESUME_KILL_COMMIT = 200
 RESUME_CPU_EVERY, RESUME_CPU_TO = 10, 320
-RESUME_PAIRS = 10
+RESUME_PAIRS = 5
 EVAL_CHUNK, EVAL_EVERY, EVAL_KILL = 128, 2, 5
+# The data axis (ROADMAP A11) on the train phase's recipe and dataset:
+# fit A over DP_RANKS gloo ranks (150 rows a rank), fit B over DP_RANKS_B,
+# fit A's first DP_CPU_STEPS steps on the CPU's plain path over the same
+# ranks, fit A killed before DP_KILL and resumed; accuracies within
+# DP_GAP_PP (fig78's streamed limit) of the unsharded fits'.
+DP_RANKS, DP_RANKS_B, DP_CPU_STEPS = 4, 2, 20
+DP_KILL, DP_GAP_PP = RESUME_KILL_A, TRAIN_GAP_PP
 
 # Table 1 (benchmarks/table1_kernel_svm.py) and Figs 4-5
 # (benchmarks/fig45_cws_mse.py) as the reference's benchmarks run them.
@@ -1284,16 +1326,13 @@ def phase_train(dev, card, results):
                                                linear_accuracy,
                                                value_and_grad)
     from repro_torch.core.regen import fold_in, permutation, prng_key
-    from repro_torch.data.synthetic import make_template_classification
     from repro_torch.kernels.cws_hash import (cws_encode_packed_plain,
                                               cws_encode_plain,
                                               cws_encode_rng_plain)
     from repro_torch.pipeline import FeaturePipeline, FeatureSpec
     from repro_torch.training import (export_served_model,
                                       fit_linear_streamed, streamed_accuracy)
-    gen = dict(n_classes=N_CLASSES, density=0.15, mult_noise=1.2,
-               spike_prob=0.08, dim=DIM)
-    ds = make_template_classification(1, **gen, **TRAIN_DATA)
+    ds = train_dataset()
     T = lambda a: torch.from_numpy(a).to(dev)
     xtr, ytr, xte, yte = map(T, (ds.x_train, ds.y_train, ds.x_test,
                                  ds.y_test))
@@ -1448,8 +1487,7 @@ def phase_train(dev, card, results):
 
     # the same recipe at more CWS keys: each key's signed gap on the test
     # rows and on the extra rows
-    extra = make_template_classification(
-        1, **gen, n_train=TRAIN_DATA["n_train"], n_test=GAP_EXTRA_ROWS)
+    extra = train_dataset(n_test=GAP_EXTRA_ROWS)
     x_ex, y_ex = T(extra.x_test), T(extra.y_test)
     pct = lambda p, pipe, x, y: 100 * streamed_accuracy(p, pipe, x, y)
     t_sweep = time.perf_counter()
@@ -1483,6 +1521,14 @@ def phase_train(dev, card, results):
             torch.equal(f_te_cpu, f_te.cpu())):
         raise AssertionError("train: card features differ from the CPU "
                              "plain path's")
+    # the reference's draws of the same dataset: card features against
+    # the CPU plain path's, counted (not gated: ROADMAP A16)
+    ds_j = train_dataset(draws="jax")
+    x_j = np.concatenate([ds_j.x_train, ds_j.x_test])
+    diff_j = pipes["A"].features(T(x_j)).cpu() != cpu_pipe.features(x_j)
+    where_j = diff_j.nonzero()[:8].tolist()
+    jax_draws = {"entries": int(diff_j.sum()), "of": diff_j.numel(),
+                 "rows": int(diff_j.any(1).sum()), "first": where_j}
     ytr_cpu = torch.from_numpy(ds.y_train)
     zero = init_bag(cpu_pipe.num_features, N_CLASSES, device="cpu")
     grad_cpu = value_and_grad(_loss_fn, zero, f_tr_cpu.index_select(0, first),
@@ -1557,6 +1603,7 @@ def phase_train(dev, card, results):
            "gap_sd_pp": gap_sd, "gaps_extra_pp_by_key": gaps_extra,
            "gap_extra_mean_pp": extra_mean, "gap_extra_sd_pp": extra_sd,
            "cpu_gap_pp": cpu_gap_pp, "cpu_s": cpu_s, "identical": ident,
+           "jax_draws_feature_mismatch": jax_draws,
            "served": serve_out, "fits": {},
            "phase_s": {"main_path": main_s, "profiled_fit": prof_s,
                        "key_sweep": sweep_s, "cpu_plain": cpu_s,
@@ -1612,7 +1659,11 @@ def phase_train(dev, card, results):
           f"{100 * acc_b2:.2f}%; bit-identical: " + ", ".join(
               f"{k} {v}" for k, v in ident.items())
           + f"; rows 1, 2, 4 equal to their plain versions at the path's "
-          f"shapes; launches {out['launches']}")
+          f"shapes; launches {out['launches']}; on the reference's draws "
+          f"of the dataset (not gated, ROADMAP A16) fit A's card features "
+          f"differ from the CPU plain path's in {jax_draws['entries']} of "
+          f"{jax_draws['of']} (row, hash) entries, {jax_draws['rows']} "
+          f"rows, first {jax_draws['first']}")
     for name, s_ in serve_out.items():
         print(f"train served {name} [{card}]: {s_['requests']} requests of "
               f"1-{MAX_ROWS} rows ({n_test} rows, {s_['batches']} batches) "
@@ -1997,6 +2048,542 @@ def phase_resume(dev, card, results):
         raise AssertionError("; ".join(failed))
 
 
+def train_dataset(n_test=None, draws=TRAIN_DRAWS):
+    """The train phase's dataset: examples/cws_classification.py's
+    template-hard suite (``n_test`` test rows, TRAIN_DATA's by default) on
+    ``draws``."""
+    from repro_torch.data.synthetic import make_template_classification
+    return make_template_classification(
+        1, n_classes=N_CLASSES, density=0.15, mult_noise=1.2,
+        spike_prob=0.08, dim=DIM, n_train=TRAIN_DATA["n_train"],
+        n_test=TRAIN_DATA["n_test"] if n_test is None else n_test,
+        draws=draws)
+
+
+def table_digest(params, state=None):
+    """crc32 of a table's (and its Adam moments') float32 bytes."""
+    import zlib
+    from repro_torch.optim import tree_leaves
+    leaves = tree_leaves(params) + ([] if state is None else
+                                    tree_leaves(state))
+    data = b"".join(t.detach().cpu().numpy().tobytes() for t in leaves)
+    return f"{zlib.crc32(data) & 0xFFFFFFFF:08x}"
+
+
+def dp_rank(rank, world, init_method, spec):
+    """One rank of the data-parallel phase, in a process of its own:
+    writes its report to ``spec["outdir"]/rank{rank}.json``."""
+    import datetime
+    import torch.distributed as dist
+    torch.set_num_threads(max(1, 8 // world))
+    dev = (torch.device(DEVICE, rank if spec["backend"] == "nccl" else 0)
+           if DEVICE == "cuda" else torch.device(DEVICE))
+    torch.cuda.set_device(dev)
+    dist.init_process_group(spec["backend"], init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(minutes=10))
+    try:
+        report = dp_rank_body(rank, world, dev, spec)
+        pathlib.Path(spec["outdir"], f"rank{rank}.json").write_text(
+            json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_rank_body(rank, world, dev, spec):
+    import torch.distributed as dist
+    from repro_torch.benchmarks import fig78_linear_svm as F78
+    from repro_torch.checkpoint import Checkpointer, latest_step
+    from repro_torch.core.linear_model import TrainCfg, init_bag
+    from repro_torch.core.regen import prng_key
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.optim import tree_leaves
+    from repro_torch.pipeline import FeaturePipeline, FeatureSpec
+    from repro_torch.runtime import ChaosKill, ChaosPlan, kill_at
+    from repro_torch.training import (fit_linear_streamed,
+                                      resume_linear_streamed,
+                                      streamed_accuracy)
+    mesh = make_data_mesh(world)
+    ds = train_dataset()
+    T = lambda a: torch.from_numpy(a).to(dev)
+    xtr, ytr, xte, yte = map(T, (ds.x_train, ds.y_train, ds.x_test,
+                                 ds.y_test))
+    extra = train_dataset(n_test=GAP_EXTRA_ROWS)
+    x_ex, y_ex = T(extra.x_test), T(extra.y_test)
+    key = prng_key(0)
+    cfg = TrainCfg(n_classes=N_CLASSES, steps=TRAIN_STEPS, lr=CONFIG.lr,
+                   l2=CONFIG.l2, batch_size=TRAIN_BATCH)
+    sync = lambda: torch.cuda.synchronize(dev)
+    same = lambda a, b: all(torch.equal(x.cpu(), y.cpu()) for x, y in
+                            zip(tree_leaves(a), tree_leaves(b)))
+    n_test = xte.shape[0]
+    report = {"rank": rank, "world": world, "device": str(dev),
+              "transport": collectives.transport(
+                  dist.get_backend(mesh.group("data")), dev)}
+
+    def main_fit(name, pipe, **kw):
+        """The fit and its evaluation, counted: launches, host bytes,
+        walls, the correct count and the table's digest."""
+        p0 = init_bag(pipe.num_features, N_CLASSES, device=dev)
+        reset_all_launches()
+        collectives.reset_host_copies()
+        sync()
+        t0 = time.perf_counter()
+        p, s = fit_linear_streamed(p0, pipe, xtr, ytr, cfg=cfg,
+                                   shuffle_key=key, mesh=mesh,
+                                   return_state=True, **kw)
+        sync()
+        fit_s = time.perf_counter() - t0
+        host = dict(collectives.HOST_COPIES)
+        t0 = time.perf_counter()
+        acc = streamed_accuracy(p, pipe, xte, yte, mesh=mesh)
+        eval_s = time.perf_counter() - t0
+        acc_ex = streamed_accuracy(p, pipe, x_ex, y_ex, mesh=mesh)
+        report[name] = {"launches": read_launches(), "fit_s": fit_s,
+                        "eval_s": eval_s, "host_bytes": host["bytes"],
+                        "host_tensors": host["tensors"],
+                        "correct": round(acc * n_test),
+                        "correct_extra": round(acc_ex * GAP_EXTRA_ROWS),
+                        "digest": table_digest(p, s)}
+        return p0, p, s
+
+    job = spec["job"]
+    if job in ("A4", "nccl"):
+        pipe = FeaturePipeline.create_regen(key, DIM,
+                                            FeatureSpec(NUM_HASHES, B_I),
+                                            device=dev)
+        p0, p_b, s_b = main_fit("b", pipe)
+        if job == "nccl":
+            return report
+        # (c) the first DP_CPU_STEPS steps on the card and on the CPU's
+        # plain path, over the same ranks (host tensors over gloo)
+        cfg_c = dataclasses.replace(cfg, steps=DP_CPU_STEPS)
+        p_c = fit_linear_streamed(p0, pipe, xtr, ytr, cfg=cfg_c,
+                                  shuffle_key=key, mesh=mesh)
+        cpu_pipe = FeaturePipeline.create_regen(
+            key, DIM, FeatureSpec(NUM_HASHES, B_I), device="cpu")
+        t0 = time.perf_counter()
+        p_cpu = fit_linear_streamed(
+            init_bag(cpu_pipe.num_features, N_CLASSES, device="cpu"),
+            cpu_pipe, ds.x_train, ds.y_train, cfg=cfg_c, shuffle_key=key,
+            mesh=mesh)
+        report["c"] = {"equal": same(p_c, p_cpu),
+                       "cpu_s": time.perf_counter() - t0,
+                       "digest": table_digest(p_c)}
+        # (e) killed before step DP_KILL, resumed on the same ranks
+        reset_all_launches()
+        ck = Checkpointer(spec["ckpt"], mesh=mesh)
+        fired = False
+        try:
+            fit_linear_streamed(p0, pipe, xtr, ytr, cfg=cfg, shuffle_key=key,
+                                mesh=mesh, ckpt=ck, ckpt_every=RESUME_EVERY,
+                                chaos=ChaosPlan(kill_at(DP_KILL)))
+        except ChaosKill:
+            fired = True
+        ck.join()
+        latest = latest_step(spec["ckpt"])
+        t0 = time.perf_counter()
+        p_e, s_e = resume_linear_streamed(spec["ckpt"], pipe, xtr, ytr,
+                                          cfg=cfg, shuffle_key=key,
+                                          mesh=mesh, return_state=True)
+        sync()
+        report["e"] = {"fired": fired, "latest": latest,
+                       "resume_s": time.perf_counter() - t0,
+                       "equal_b": same(p_e, p_b) and same(s_e, s_b),
+                       "launches": read_launches(),
+                       "files": sorted(p.name for p in pathlib.Path(
+                           spec["ckpt"], f"step_{latest:08d}").iterdir())}
+        # (f) fig78's twin at --fast over the same ranks
+        reset_all_launches()
+        collectives.reset_host_copies()
+        t0 = time.perf_counter()
+        rec = F78.run(fast=True, mesh=True, device=dev, out=spec["fig78"])
+        sync()
+        report["f"] = {"wall_s": time.perf_counter() - t0,
+                       "launches": read_launches(),
+                       "host_bytes": collectives.HOST_COPIES["bytes"],
+                       "bench": rec[F78.RECORDS[1]],
+                       "claims": F78.claims(rec)}
+    elif job == "B2":
+        stored = stored_params(np.random.default_rng(TRAIN_SEED), DIM,
+                               NUM_HASHES, dev)
+        pipe = FeaturePipeline(stored, FeatureSpec(NUM_HASHES, TRAIN_B_PACKED,
+                                                   packed=True))
+        main_fit("d", pipe)
+        # (e) fit A's 4-rank checkpoint resumed on 2 ranks
+        pipe_a = FeaturePipeline.create_regen(key, DIM,
+                                              FeatureSpec(NUM_HASHES, B_I),
+                                              device=dev)
+        reset_all_launches()
+        p_e = resume_linear_streamed(spec["ckpt"], pipe_a, xtr, ytr, cfg=cfg,
+                                     shuffle_key=key, mesh=mesh)
+        acc = streamed_accuracy(p_e, pipe_a, xte, yte, mesh=mesh)
+        report["e2"] = {"correct": round(acc * n_test),
+                        "launches": read_launches(),
+                        "digest": table_digest(p_e)}
+    return report
+
+
+def run_data_parallel(job, backend, world, ckpt):
+    """Spawn ``world`` ranks of the data-parallel phase's ``job``; their
+    reports and the spawn's wall time."""
+    outdir = ROOT / "build" / "data_parallel" / f"{job}_{backend}"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    spec = {"job": job, "backend": backend, "outdir": str(outdir),
+            "ckpt": str(ckpt), "fig78": str(outdir / "fig78")}
+    import torch.multiprocessing
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(
+        dp_rank, args=(world, f"tcp://localhost:{free_port()}", spec),
+        nprocs=world, join=True)
+    wall = time.perf_counter() - t0
+    reports = [json.loads((outdir / f"rank{r}.json").read_text())
+               for r in range(world)]
+    shutil.rmtree(outdir, ignore_errors=True)
+    return reports, wall
+
+
+def phase_data_parallel(dev, card, results):
+    """The data axis (ROADMAP A11) on the train phase's recipe at CONFIG's
+    full width: fit A on a one-rank mesh (a), on 4 ranks (b), its first
+    20 steps on CPU ranks (c), fit B on 2 ranks (d), fit A killed on 4
+    ranks and resumed on 4, 2 and no mesh (e), fig78's twin over 4 ranks
+    (f), rows 1, 2 and 4 at every rank's shapes against their plain
+    versions (g).  Ranks are ``torch.multiprocessing`` processes over
+    gloo sharing the one card (CUDA tensors through host copies); with as
+    many cards as ranks, (b) runs once more over NCCL, one rank a card."""
+    from repro_torch.benchmarks import fig78_linear_svm as F78
+    from repro_torch.core import CWSParams, make_cws_params_jax
+    from repro_torch.core.regen import fold_in, permutation, prng_key
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.optim import tree_leaves
+    from repro_torch.training import (fit_linear_streamed,
+                                      resume_linear_streamed,
+                                      streamed_accuracy)
+    T = results["train_fits"]
+    pipes, fits, states, p0 = T["pipes"], T["fits"], T["states"], T["p0"]
+    cfg, key, accs = T["cfg"], T["key"], T["accuracy"]
+    xtr, ytr, xte, yte = T["data"]
+    n_test = xte.shape[0]
+    right = lambda acc: round(acc * n_test)
+    limit_rows = DP_GAP_PP * n_test / 100
+    same = lambda a, b: all(torch.equal(x, y) for x, y in
+                            zip(tree_leaves(a), tree_leaves(b)))
+    root = ROOT / "build" / "chip_smoke_dp"
+    shutil.rmtree(root, ignore_errors=True)
+    failed = []
+    t_phase = time.perf_counter()
+
+    # (a) one rank, no process group
+    p_a, s_a = fit_linear_streamed(p0["A"], pipes["A"], xtr, ytr, cfg=cfg,
+                                   shuffle_key=key, mesh=make_data_mesh(1),
+                                   return_state=True)
+    ident = {"(a) 1-rank mesh = fit A": same(p_a, fits["A"])
+             and same(s_a, states["A"])}
+
+    # (b), (c), (e) and (f) on 4 ranks; (d) and (e)'s 2-rank resume on 2
+    runs = {}
+    a4, runs["A4"] = run_data_parallel("A4", "gloo", DP_RANKS, root / "A")
+    b2, runs["B2"] = run_data_parallel("B2", "gloo", DP_RANKS_B, root / "A")
+    # one launch a rank a chunk of lcm(row_chunk, ranks) rows, over the
+    # test rows and the extra rows
+    chunk = math.lcm(pipes["A"].row_chunk, DP_RANKS)
+    eval_launches = -(-n_test // chunk) + -(-GAP_EXTRA_ROWS // chunk)
+    # the accuracy gate reads the test rows and GAP_EXTRA_ROWS more rows of
+    # the same templates: a sharded fit differs from the unsharded one by
+    # the gradient's order of summation, and on 800 rows alone the two
+    # models' disagreements move the count by several rows either way
+    extra = train_dataset(n_test=GAP_EXTRA_ROWS)
+    x_ex, y_ex = (torch.from_numpy(a).to(dev) for a in (extra.x_test,
+                                                        extra.y_test))
+    n_gate = n_test + GAP_EXTRA_ROWS
+    unsharded = {name: right(accs[name]) + round(GAP_EXTRA_ROWS *
+                 streamed_accuracy(fits[name], pipes[name], x_ex, y_ex))
+                 for name in ("A", "B")}
+
+    def agree(reports, what, name, kernel, label):
+        """Every rank's digest and counts equal; the count over the test
+        and extra rows within DP_GAP_PP of the unsharded fit ``name``'s;
+        the launches of ``kernel`` a rank."""
+        digests = {r[what]["digest"] for r in reports}
+        counts = {(r[what]["correct"], r[what]["correct_extra"])
+                  for r in reports}
+        if len(digests) != 1:
+            failed.append(f"data-parallel {label}: tables differ across "
+                          f"ranks {digests}")
+        if len(counts) != 1:
+            failed.append(f"data-parallel {label}: counts differ across "
+                          f"ranks {counts}")
+        count = reports[0][what]["correct"] + reports[0][what][
+            "correct_extra"]
+        if abs(count - unsharded[name]) > DP_GAP_PP * n_gate / 100:
+            failed.append(f"data-parallel {label}: {count} of {n_gate} "
+                          f"right vs {unsharded[name]} unsharded (limit "
+                          f"{DP_GAP_PP} pp)")
+        want = dict.fromkeys(reports[0][what]["launches"], 0)
+        want[kernel] = TRAIN_STEPS + eval_launches
+        for r in reports:
+            if r[what]["launches"] != want:
+                failed.append(f"data-parallel {label}: rank {r['rank']} "
+                              f"launches {r[what]['launches']}, expected "
+                              f"{want}")
+        return reports[0][what]["correct"]
+
+    count_b = agree(a4, "b", "A", "cws_encode_rng",
+                    f"(b) fit A on {DP_RANKS} ranks")
+    count_d = agree(b2, "d", "B", "cws_encode_packed",
+                    f"(d) fit B on {DP_RANKS_B} ranks")
+    for r in a4:
+        if not r["c"]["equal"]:
+            failed.append(f"data-parallel (c): rank {r['rank']}'s step-"
+                          f"{DP_CPU_STEPS} table on the card differs from "
+                          f"the CPU ranks'")
+    ident[f"(c) first {DP_CPU_STEPS} steps: card = CPU"] = all(
+        r["c"]["equal"] for r in a4)
+
+    # (e): killed at DP_KILL, the last commit resumed on 4, 2, no mesh
+    e = a4[0]["e"]
+    latest = e["latest"]
+    if not e["fired"] or latest != DP_KILL // RESUME_EVERY * RESUME_EVERY:
+        failed.append(f"data-parallel (e): kill fired {e['fired']}, "
+                      f"latest_step {latest}")
+    files = [f"{k}_p{r}.{x}" for r in range(DP_RANKS)
+             for k, x in (("index", "json"), ("shard", "npz"))]
+    if sorted(files + ["COMMIT", "manifest.json"]) != e["files"]:
+        failed.append(f"data-parallel (e): step {latest} holds {e['files']}")
+    ident[f"(e) {DP_RANKS} ranks resumed on {DP_RANKS} = (b)"] = all(
+        r["e"]["equal_b"] for r in a4)
+    want_e = dict.fromkeys(e["launches"], 0)
+    want_e["cws_encode_rng"] = DP_KILL + TRAIN_STEPS - latest
+    for r in a4:
+        if r["e"]["launches"] != want_e:
+            failed.append(f"data-parallel (e): rank {r['rank']} launches "
+                          f"{r['e']['launches']}, expected {want_e}")
+    p_none = resume_linear_streamed(root / "A", pipes["A"], xtr, ytr,
+                                    cfg=cfg, shuffle_key=key)
+    gaps = {DP_RANKS_B: b2[0]["e2"]["correct"] - count_b,
+            "none": right(streamed_accuracy(p_none, pipes["A"], xte, yte))
+            - count_b}
+    if len({r["e2"]["correct"] for r in b2}) != 1:
+        failed.append("data-parallel (e): the 2-rank resume's counts "
+                      "differ across ranks")
+    for where, g in gaps.items():
+        if abs(g) > limit_rows:
+            failed.append(f"data-parallel (e): resumed on {where} ranks: "
+                          f"{g:+d} rows vs (b) (limit {DP_GAP_PP} pp)")
+
+    # (f) fig78's twin over 4 ranks: the same record on every rank, the
+    # sharded gap within 0.5 pp, its launches as its code implies
+    f = a4[0]["f"]
+    bench = f["bench"]
+    if any(r["f"]["bench"]["acc_sharded"] != bench["acc_sharded"]
+           for r in a4):
+        failed.append("data-parallel (f): the ranks' sharded accuracies "
+                      "differ")
+    rec = {F78.RECORDS[1]: bench}
+    want_f = {**dict.fromkeys(f["launches"], 0),
+              **bench_launches("fig78", rec)}
+    # the sharded fit, its evaluation and the unsharded one it is held to
+    want_f["cws_encode"] += bench["steps"] + 2
+    for r in a4:
+        if r["f"]["launches"] != want_f:
+            failed.append(f"data-parallel (f): rank {r['rank']} launches "
+                          f"{r['f']['launches']}, expected {want_f}")
+
+    # NCCL, one rank a card, where there are the cards
+    nccl = None
+    if torch.cuda.device_count() >= DP_RANKS:
+        nccl, runs["nccl"] = run_data_parallel("A4", "nccl", DP_RANKS,
+                                               root / "nccl")
+        agree(nccl, "b", "A", "cws_encode_rng",
+              f"(b) over NCCL on {DP_RANKS} cards")
+        ident["(b) NCCL = gloo"] = nccl[0]["b"]["digest"] == \
+            a4[0]["b"]["digest"]
+    main_s = time.perf_counter() - t_phase
+
+    # (g) rows 1, 2 and 4 at every rank's shapes, on its rows
+    held = {}
+    first = permutation(fold_in(key, 0), xtr.shape[0]).to(dev)
+
+    def hold(name, world, bs, n_rows, state, b_i, label):
+        lb, le = bs // world, n_rows // world
+        for r in range(world):
+            for x in (xtr.index_select(0, first[r * lb:(r + 1) * lb]),
+                      xte[r * le:(r + 1) * le]):
+                case = (KernelCase(name, x, b_i, key=state, k=NUM_HASHES)
+                        if KERNELS[name][1] else
+                        KernelCase(name, x, b_i, params=state))
+                hold_case(case, results, f"data-parallel {label} rank "
+                                         f"{r}, {tuple(x.shape)}")
+                held.setdefault(name, set()).add((*x.shape, case.k, b_i))
+
+    hold("cws_encode_rng", DP_RANKS, TRAIN_BATCH, n_test,
+         T["key_words"], B_I, "fit A")
+    hold("cws_encode_packed", DP_RANKS_B, TRAIN_BATCH, n_test,
+         pipes["B"].params, TRAIN_B_PACKED, "fit B")
+    p78 = make_cws_params_jax(prng_key(0), DIM, bench["k"])
+    hold("cws_encode", DP_RANKS, bench["batch_size_sharded"], n_test,
+         CWSParams(*(m.to(dev) for m in (p78.r, p78.log_c, p78.beta))),
+         bench["b_i"], "fig78")
+
+    for k, ok in ident.items():
+        if not ok:
+            failed.append(f"data-parallel: {k} is not bit-identical")
+    # every rank's counted launches: (b), (e) and (f) on 4 ranks, (d) and
+    # the 2-rank resume
+    launches = {}
+    for rep, parts in ((a4, ("b", "e", "f")), (b2, ("d", "e2"))):
+        for r in rep:
+            for part in parts:
+                for k, v in r[part]["launches"].items():
+                    if v:
+                        launches[k] = launches.get(k, 0) + v
+    for k, v in launches.items():
+        results[k]["launches"] += v
+        results[k]["data_parallel"] = v
+    steps_s = lambda rep, w: TRAIN_STEPS / max(r[w]["fit_s"] for r in rep)
+    out = {"card": card, "identical": ident, "launches": launches,
+           "spawn_wall_s": runs, "resume_gap_rows": gaps,
+           "correct": {"A": right(accs["A"]), "b": count_b,
+                       "B": right(accs["B"]), "d": count_d},
+           "correct_with_extra": {
+               "of": n_gate, "A": unsharded["A"], "B": unsharded["B"],
+               "b": count_b + a4[0]["b"]["correct_extra"],
+               "d": count_d + b2[0]["d"]["correct_extra"]},
+           "fit_s": {"b": [r["b"]["fit_s"] for r in a4],
+                     "d": [r["d"]["fit_s"] for r in b2]},
+           "host_bytes": {"b": [r["b"]["host_bytes"] for r in a4],
+                          "d": [r["d"]["host_bytes"] for r in b2]},
+           "cpu_s": [r["c"]["cpu_s"] for r in a4],
+           "fig78": {"bench": bench, "wall_s": [r["f"]["wall_s"]
+                                                for r in a4]},
+           "held_vs_plain": {k: sorted(v) for k, v in held.items()},
+           "phase_s": {"main_path": main_s,
+                       "total": time.perf_counter() - t_phase}}
+    if nccl is not None:
+        out["nccl"] = {"fit_s": [r["b"]["fit_s"] for r in nccl],
+                       "digest": nccl[0]["b"]["digest"]}
+    results["data_parallel"] = out
+    grad_mb = 4 * (pipes["A"].num_features + 1) * N_CLASSES / 1e6
+    for label, rep, w, ranks in (("b: fit A", a4, "b", DP_RANKS),
+                                 ("d: fit B", b2, "d", DP_RANKS_B)):
+        fit_s = [r[w]["fit_s"] for r in rep]
+        host = rep[0][w]["host_bytes"]
+        print(f"data-parallel ({label}) [{card}]: {ranks} gloo ranks on one "
+              f"card ({rep[0]['transport']}), {TRAIN_STEPS} steps x "
+              f"{TRAIN_BATCH // ranks} rows a rank: fit "
+              + ", ".join(f"{v:.3f}" for v in fit_s)
+              + f" s a rank ({steps_s(rep, w):.1f} steps/s), evaluation "
+              + ", ".join(f"{r[w]['eval_s']:.3f}" for r in rep)
+              + f" s; host copies {host / 1e6:.1f} MB a rank "
+              f"({host / TRAIN_STEPS / 1e6:.2f} MB a step; the gradient "
+              f"{grad_mb:.2f} MB out, its mean back, plus the evaluation's "
+              f"features); {rep[0][w]['correct']} of {n_test} test rows "
+              f"right on every rank (unsharded "
+              f"{right(accs['A' if w == 'b' else 'B'])}), with the "
+              f"{GAP_EXTRA_ROWS} extra rows "
+              f"{rep[0][w]['correct'] + rep[0][w]['correct_extra']} of "
+              f"{n_gate} (unsharded {unsharded['A' if w == 'b' else 'B']}, "
+              f"gate {DP_GAP_PP} pp); launches a rank "
+              f"{ {k: v for k, v in rep[0][w]['launches'].items() if v} }")
+    print(f"data-parallel [{card}]: bit-identical: "
+          + ", ".join(f"{k} {v}" for k, v in ident.items())
+          + f"; (c) CPU ranks' {DP_CPU_STEPS} plain steps "
+          + ", ".join(f"{s:.1f}" for s in out["cpu_s"])
+          + f" s; (e) killed at {DP_KILL}, resumed from {latest}: "
+          f"{DP_RANKS_B} ranks {gaps[DP_RANKS_B]:+d} rows, no mesh "
+          f"{gaps['none']:+d} rows vs (b) "
+          f"({100 * gaps[DP_RANKS_B] / n_test:+.3f} / "
+          f"{100 * gaps['none'] / n_test:+.3f} pp); spawns "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in runs.items()))
+    print(f"data-parallel (f) fig78 --fast mesh=True [{card}]: "
+          + json.dumps(bench) + f"; wall a rank "
+          + ", ".join(f"{r['f']['wall_s']:.2f}" for r in a4) + " s; claims: "
+          + "; ".join(f"{c}: {'pass' if ok else 'FAIL'}"
+                      for c, ok in f["claims"].items())
+          + " (printed, not gated: one fit's gap on 800 rows)")
+    if nccl is not None:
+        print(f"data-parallel (b) over NCCL [{card}]: fit "
+              + ", ".join(f"{r['b']['fit_s']:.3f}" for r in nccl)
+              + f" s a rank; table equal to gloo's: "
+              f"{ident['(b) NCCL = gloo']}")
+    else:
+        print(f"data-parallel nccl: not run: {torch.cuda.device_count()} "
+              f"card(s); the NCCL run (one rank a card) needs {DP_RANKS}")
+    print(f"data-parallel kernels vs plain [{card}]: "
+          + "; ".join(f"{k} at {sorted(v)} exactly" for k, v in held.items()))
+    print("data-parallel phase s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["phase_s"].items()))
+    shutil.rmtree(root, ignore_errors=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def hist_mix(dev, card, results):
+    """Table 1's hist-mix suite at full size on the reference's draws
+    (Dirichlet and Gamma through ``regen``): the twin's row against the
+    reference's own (``reference/table1_hist_mix.json``, within 1.0 pp a
+    cell and 0.5 pp on the mean, as the table1 twin's cells), launches
+    (two Grams for each min-sum kernel), and row 7 at its shapes against
+    its plain version."""
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks import table1_kernel_svm as T1
+    from repro_torch.core.kernels import sum_to_one
+    from repro_torch.data.synthetic import CLASSIFICATION_SUITES
+    ds = CLASSIFICATION_SUITES["hist-mix"]()
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    row = T1.kernel_accuracies(ds.x_train, ds.y_train, ds.x_test, ds.y_test,
+                               ds.n_classes, dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0),
+            "min_sum": 2 * (len(T1.KERNELS) - 1)}
+    if launches != want:
+        raise AssertionError(f"hist-mix: launches {launches}, expected "
+                             f"{want}")
+    results["min_sum"]["launches"] += launches["min_sum"]
+    ref = common.load_reference("table1_hist_mix")["hist-mix"]
+    diffs = [abs(row[k] - ref[k]) for k in T1.KERNELS]
+    if max(diffs) > BENCH_CELL_PP or np.mean(diffs) > BENCH_MEAN_PP:
+        raise AssertionError(f"hist-mix: {row} vs the reference's {ref}")
+    r = results[GRAM[0]]
+    xtr, xte = (torch.from_numpy(a).to(dev) for a in (ds.x_train,
+                                                      ds.x_test))
+    shapes = []
+    for a, b in ((xtr, xte), (sum_to_one(xtr), sum_to_one(xte))):
+        for x, y in ((a, a), (b, a)):
+            ratio_s, ratio_k, err, _ = gram_worst(x, y)
+            r["checked"] += 1
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["worst_ratio_S"] = max(r.get("worst_ratio_S", 0.0), ratio_s)
+            r["worst_ratio_K"] = max(r.get("worst_ratio_K", 0.0), ratio_k)
+            if ratio_s > 1 or ratio_k > 1:
+                raise AssertionError(f"min_sum (hist-mix {tuple(x.shape)} x "
+                                     f"{tuple(y.shape)}): |cuda - plain| at "
+                                     f"{ratio_s:.3g} (S) / {ratio_k:.3g} (K) "
+                                     f"of the bound")
+            shapes.append((x.shape[0], y.shape[0], x.shape[1]))
+    zeros = float((ds.x_train == 0).mean())
+    print(f"slice kernel machine hist-mix [{card}]: "
+          f"{tuple(ds.x_train.shape)} train / {tuple(ds.x_test.shape)} test "
+          f"on the reference's draws ({100 * zeros:.2f}% zero entries); "
+          f"best accuracy over C " + ", ".join(f"{k} {v}%" for k, v in
+                                               row.items())
+          + f" vs the reference's " + ", ".join(f"{k} {v}%" for k, v in
+                                               ref.items())
+          + f" (worst |diff| {max(diffs):.1f} pp); {wall:.2f} s; launches "
+          f"min_sum {launches['min_sum']}; min_sum at {sorted(set(shapes))} "
+          f"within 2·D·2^-24·S")
+    return {"accuracy": row, "reference": ref, "wall_s": wall,
+            "zero_share": zeros, "launches": launches["min_sum"],
+            "held_vs_plain": sorted(set(shapes))}
+
+
 def phase_kernel_machine(dev, card, results):
     """Table 1's exact-kernel SVM on the template suite, then the staged
     hash pass of Figs 7-8 on the same rows."""
@@ -2076,6 +2663,7 @@ def phase_kernel_machine(dev, card, results):
         "est_rmse_binomial": theory, "est_bias_0bit": bias_0bit}
     for name in ("min_sum", "cws_hash"):
         results[name]["launches"] += launches[name]
+    results["kernel_machine"]["hist_mix"] = hist_mix(dev, card, results)
     print(f"slice kernel machine [{card}]: template suite "
           f"{tuple(ds.x_train.shape)} train / {tuple(ds.x_test.shape)} test, "
           f"{ds.n_classes} classes; best accuracy over C "
@@ -2277,7 +2865,7 @@ def bench_parity(name, records, dev, results):
     from repro_torch.core import CWSParams, make_cws_params_jax
     from repro_torch.core.kernels import sum_to_one
     from repro_torch.core.regen import fold_in, permutation, prng_key, split
-    from repro_torch.data.synthetic import classification_suite, word_pair
+    from repro_torch.data.synthetic import CLASSIFICATION_SUITES, word_pair
     T = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
     held = {}
 
@@ -2318,8 +2906,7 @@ def bench_parity(name, records, dev, results):
     elif name == "table1":
         for suite in records["table1_kernel_svm"]:
             if suite in T1.SUITES:
-                ds = classification_suite(suite,
-                                          draws=T1.SUITE_DRAWS[suite])
+                ds = CLASSIFICATION_SUITES[suite]()
                 xtr, xte = T(ds.x_train), T(ds.x_test)
                 grams(xtr, xte, f"{suite} min-max")
                 grams(sum_to_one(xtr), sum_to_one(xte),
@@ -4018,6 +4605,7 @@ def main():
                         (phase_slice, (smi, results)),
                         (phase_train, (dev, smi, results)),
                         (phase_resume, (dev, smi, results)),
+                        (phase_data_parallel, (dev, smi, results)),
                         (phase_kernel_machine, (dev, smi, results)),
                         (phase_estimator, (dev, smi, results)),
                         (phase_benchmarks, (dev, smi, results)),
@@ -4053,6 +4641,8 @@ def main():
             entry["train"] = r["train"]
         if "resume" in r:
             entry["resume"] = r["resume"]
+        if "data_parallel" in r:
+            entry["data_parallel"] = r["data_parallel"]
         if "width_times" in r:
             entry["width_times"] = r["width_times"]
         kernels.append(entry)

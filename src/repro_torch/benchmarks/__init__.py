@@ -3,7 +3,7 @@
 
 Each twin keeps its script's sizes, keys, seeds, ``--fast`` reductions,
 CSV rows and JSON keys, and draws the reference's own data
-(``data.synthetic``'s ``draws="jax"``, ``core.cws.make_cws_params_jax``).
+(``data.synthetic``, ``core.cws.make_cws_params_jax``).
 Its ``run(fast, device=, out=)`` saves the JSON records (plus ``device``,
 ``draws`` and ``fast`` entries) and returns them by record name;
 ``check_claims(records)`` asserts the script's paper claims with their

@@ -10,8 +10,8 @@ of ``benchmarks/bench_fault_tolerance.py``).
     uninterrupted run.  The resume contract is bit-identity, so the gap
     must be exactly 0.00 pp.
 
-On the reference's own draws: ``make_template_classification(3, ...,
-draws="jax")`` and stored CWS parameters ``make_cws_params_jax(
+On the reference's own draws: ``make_template_classification(3, ...)``
+and stored CWS parameters ``make_cws_params_jax(
 prng_key(7), 64, 32)`` at b_i = 6 (TPU row 2, ``cws_encode``, a launch a
 step).  The reference's sizes: ``--fast`` 640 rows and 60 steps, else
 4,096 rows and 300 steps; batch 64, a checkpoint every 10 steps, the kill
@@ -54,8 +54,7 @@ def problem(fast: bool, dev: torch.device):
     """(ds, rows and labels on ``dev``, pipe, cfg, p0)."""
     n_train = 640 if fast else 4096
     ds = make_template_classification(3, n_train=n_train, n_test=400,
-                                      dim=64, n_classes=4, density=0.3,
-                                      draws="jax")
+                                      dim=64, n_classes=4, density=0.3)
     p = make_cws_params_jax(prng_key(7), 64, 32)
     pipe = FeaturePipeline(CWSParams(*(m.to(dev) for m in (
         p.r, p.log_c, p.beta))), FeatureSpec(num_hashes=32, b_i=6))

@@ -11,7 +11,7 @@ baseline at b = 8 (TPU row 2, ``cws_encode``):
   * feature bytes, modelled (exact counts) and measured (wall time of a
     featurization pass over the test split).
 
-On the reference's own draws: ``template-hard`` seed 1 (``draws="jax"``),
+On the reference's own draws: ``template-hard`` seed 1,
 stored parameters ``make_cws_params_jax(prng_key(0), D, 128)`` for every
 pipeline, zero tables, ``TrainCfg(lr=0.05, l2=1e-5)`` at batch 256 for 60
 (``--fast``) or 250 steps, shuffled from ``prng_key(7)``.  Gates, checked

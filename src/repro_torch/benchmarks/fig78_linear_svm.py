@@ -7,13 +7,20 @@ Fig 8: b_t = 2 vs b_t = 0.  Then the streamed-versus-full-batch record
 ``BENCH_linear_stream``: the streamed minibatch trainer must match full
 batch within 0.5 pp.
 
-On the reference's own data (``template-hard``, ``draws="jax"``) and
+On the reference's own data (``template-hard``) and
 stored CWS parameters (``make_cws_params_jax(prng_key(0), 256, kmax)``):
 one raw hash pass (``cws_hash``, stored) of the train and test rows,
 whose (i*, t*) every (k, b_i, b_t) cell encodes; each cell fits
 ``fit_linear`` (bag, 250 steps) at three l2.  The streamed record
 featurizes each batch inside ``fit_linear_streamed`` (the stored encode
-kernel, ``cws_encode``)."""
+kernel, ``cws_encode``).
+
+``mesh=True`` (the reference's ``--mesh``) adds the data-parallel run:
+the same streamed fit over the process group's ``data`` axis
+(``make_local_mesh``; one rank without a process group), the batch cut
+down to a multiple of the axis, held against the unsharded streamed run
+at that batch (``gap_sharded_pp``, within 0.5 pp).  Every rank of the
+group calls ``run``; rank 0 saves the records."""
 from __future__ import annotations
 
 import torch
@@ -27,6 +34,7 @@ from repro_torch.core.linear_model import (TrainCfg, fit_linear, init_bag,
 from repro_torch.core.regen import prng_key
 from repro_torch.data.synthetic import make_template_classification
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import data_axis_size, make_local_mesh
 from repro_torch.pipeline import FeaturePipeline, FeatureSpec
 from repro_torch.training import fit_linear_streamed, streamed_accuracy
 
@@ -41,7 +49,7 @@ STREAM_K, STREAM_BATCH, STREAM_STEPS, FULL_STEPS = 128, 600, 500, 1000
 def dataset():
     return make_template_classification(
         1, n_classes=10, density=0.15, mult_noise=1.2, spike_prob=0.08,
-        name="template-hard", draws="jax")
+        name="template-hard")
 
 
 def hashed_accuracy(params, hashes_tr, hashes_te, y_tr, y_te, *, k: int,
@@ -74,9 +82,10 @@ def exact_accuracy(kernel: str, xtr, xte, ytr, yte, n_classes: int) -> float:
 
 
 def stream_record(params, xtr, ytr, xte, yte, *, k: int, b_i: int,
-                  n_classes: int) -> dict:
+                  n_classes: int, mesh=None) -> dict:
     """Streamed minibatch training (featurization inside the loop) against
-    full batch on materialized features, both to convergence."""
+    full batch on materialized features, both to convergence; with
+    ``mesh`` also the data-parallel fit (``sharded_record``)."""
     dev = xtr.device
     pipe = FeaturePipeline(params, FeatureSpec(num_hashes=k, b_i=b_i))
     cfg_fb = TrainCfg(n_classes=n_classes, steps=FULL_STEPS, lr=0.05,
@@ -96,20 +105,46 @@ def stream_record(params, xtr, ytr, xte, yte, *, k: int, b_i: int,
     emit(f"fig78/streamed/k={k}/b_i={b_i}", t_st.us,
          f"acc_streamed={acc_st*100:.1f} acc_fullbatch={acc_fb*100:.1f} "
          f"gap_pp={gap_pp:.2f}")
-    return {"k": k, "b_i": b_i, "batch_size": cfg_st.batch_size,
-            "steps": cfg_st.steps, "n_train": int(xtr.shape[0]),
-            "acc_fullbatch": round(acc_fb * 100, 2),
-            "acc_streamed": round(acc_st * 100, 2),
-            "gap_pp": round(gap_pp, 3),
-            "us_fullbatch": round(t_fb.us), "us_streamed": round(t_st.us)}
+    bench = {"k": k, "b_i": b_i, "batch_size": cfg_st.batch_size,
+             "steps": cfg_st.steps, "n_train": int(xtr.shape[0]),
+             "acc_fullbatch": round(acc_fb * 100, 2),
+             "acc_streamed": round(acc_st * 100, 2),
+             "gap_pp": round(gap_pp, 3),
+             "us_fullbatch": round(t_fb.us), "us_streamed": round(t_st.us)}
+    if mesh is not None:
+        bench.update(sharded_record(mesh, pipe, p0, p_st, cfg_st, xtr, ytr,
+                                    xte, yte, k=k, b_i=b_i))
+    return bench
+
+
+def sharded_record(mesh, pipe, p0, p_st, cfg_st, xtr, ytr, xte, yte, *,
+                   k: int, b_i: int) -> dict:
+    """The streamed fit over ``mesh``'s ``data`` axis against the
+    unsharded streamed fit at the same batch (the axis's multiple)."""
+    ndev = data_axis_size(mesh)
+    bs_m = cfg_st.batch_size - (cfg_st.batch_size % ndev)
+    cfg_m = TrainCfg(n_classes=cfg_st.n_classes, steps=cfg_st.steps,
+                     lr=cfg_st.lr, l2=cfg_st.l2, batch_size=bs_m)
+    p_u = (p_st if bs_m == cfg_st.batch_size else
+           fit_linear_streamed(p0, pipe, xtr, ytr, cfg=cfg_m))
+    acc_u = streamed_accuracy(p_u, pipe, xte, yte)
+    with Timer(xtr.device) as t_m:
+        p_m = fit_linear_streamed(p0, pipe, xtr, ytr, cfg=cfg_m, mesh=mesh)
+        acc_m = streamed_accuracy(p_m, pipe, xte, yte, mesh=mesh)
+    gap_m = abs(acc_m - acc_u) * 100
+    emit(f"fig78/sharded/ndev={ndev}/k={k}/b_i={b_i}", t_m.us,
+         f"acc_sharded={acc_m*100:.1f} acc_streamed={acc_u*100:.1f} "
+         f"gap_sharded_pp={gap_m:.2f}")
+    return {"ndev": ndev, "batch_size_sharded": bs_m,
+            "acc_sharded": round(acc_m * 100, 2),
+            "gap_sharded_pp": round(gap_m, 3), "us_sharded": round(t_m.us)}
 
 
 def run(fast: bool = False, mesh: bool = False, *, device=None,
         out=None) -> dict:
-    if mesh:
-        raise NotImplementedError("data-parallel streamed training (mesh=) "
-                                  "is not ported yet (ROADMAP A11)")
     dev = resolve_device(device)
+    mesh = make_local_mesh() if mesh else None
+    saving = mesh is None or mesh.rank == 0
     ds = dataset()
     xtr, xte, ytr, yte = (torch.from_numpy(a).to(dev) for a in (
         ds.x_train, ds.x_test, ds.y_train, ds.y_test))
@@ -157,14 +192,16 @@ def run(fast: bool = False, mesh: bool = False, *, device=None,
 
     draws = {"data": "jax", "cws_params": "jax"}
     fig78 = {"fig7": fig7, "fig8": fig8, **meta(dev, draws, fast)}
-    save_json(RECORDS[0], fig78, out)
+    if saving:
+        save_json(RECORDS[0], fig78, out)
 
     # streamed vs full batch at a fixed (k, b_i): the trainer's gap
     bench = stream_record(params, xtr, ytr, xte, yte,
                           k=min(STREAM_K, kmax), b_i=max(bis),
-                          n_classes=n_classes)
+                          n_classes=n_classes, mesh=mesh)
     bench.update(meta(dev, draws, fast))
-    save_json(RECORDS[1], bench, out)
+    if saving:
+        save_json(RECORDS[1], bench, out)
     return {RECORDS[0]: fig78, RECORDS[1]: bench}
 
 
@@ -174,6 +211,8 @@ def claims(records: dict) -> dict:
     best_hashed = max(fig7["grid"].values())
     out = {
         "streamed within 0.5 pp of full batch": bench["gap_pp"] <= 0.5,
+        **({"sharded within 0.5 pp of streamed":
+            bench["gap_sharded_pp"] <= 0.5} if "ndev" in bench else {}),
         "hashed beats raw linear": best_hashed >= fig7["linear_ref"],
         "hashed within 4 pp of exact min-max":
             best_hashed >= fig7["minmax_ref"] - 4.0}

@@ -3,12 +3,11 @@ intersection kernels, best over the paper's C grid (twin of
 ``benchmarks/table1_kernel_svm.py``).
 
 The claim under test is the ordering min-max >= linear on nonnegative data
-with heavy-tailed, relational class structure.  The suites are the
-reference's own draws (``draws="jax"``), except ``hist-mix``, whose
-Dirichlet and Gamma draws are not rebuilt yet: it runs on the numpy
-draws, and its record says so.  The min-sum Grams (min-max, n-min-max,
-intersection) go through the min-sum kernel on the card; dual coordinate
-descent solves the C grid."""
+with heavy-tailed, relational class structure.  Every suite is the
+reference's own draws (``hist-mix`` through ``regen``'s Dirichlet and
+Gamma samplers), and the record's ``draws`` says so.  The min-sum Grams
+(min-max, n-min-max, intersection) go through the min-sum kernel on the
+card; dual coordinate descent solves the C grid."""
 from __future__ import annotations
 
 import torch
@@ -17,14 +16,12 @@ from repro_torch.benchmarks.common import (Timer, check, emit, meta,
                                            save_json)
 from repro_torch.core import GRAM_FNS
 from repro_torch.core.kernel_svm import best_accuracy_over_C
-from repro_torch.data.synthetic import classification_suite
+from repro_torch.data.synthetic import CLASSIFICATION_SUITES
 from repro_torch.device import resolve_device
 
 RECORDS = ("table1_kernel_svm",)
 KERNELS = ("linear", "min-max", "n-min-max", "intersection")
 SUITES = ("template", "template-hard", "ratio-xor", "hist-mix")
-SUITE_DRAWS = {"template": "jax", "template-hard": "jax", "ratio-xor": "jax",
-               "hist-mix": "numpy"}
 C_GRID = (0.01, 0.1, 1.0, 10.0, 100.0, 1000.0)
 SWEEPS = 20
 
@@ -51,14 +48,14 @@ def run(fast: bool = False, *, device=None, out=None) -> dict:
     rows = {}
     suites = SUITES[:2] if fast else SUITES
     for name in suites:
-        ds = classification_suite(name, draws=SUITE_DRAWS[name])
+        ds = CLASSIFICATION_SUITES[name]()
         with Timer(dev) as t:
             row = kernel_accuracies(ds.x_train, ds.y_train, ds.x_test,
                                     ds.y_test, ds.n_classes, dev)
         rows[name] = row
         emit(f"table1/{name}", t.us,
              " ".join(f"{k}={v}" for k, v in row.items()))
-    rows.update(meta(dev, {s: SUITE_DRAWS[s] for s in suites}, fast))
+    rows.update(meta(dev, dict.fromkeys(suites, "jax"), fast))
     save_json(RECORDS[0], rows, out)
     return {RECORDS[0]: rows}
 

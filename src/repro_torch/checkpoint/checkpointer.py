@@ -1,13 +1,13 @@
 """Async checkpoints in the reference's on-disk format (port of
-``repro.checkpoint.checkpointer``, one process, unsharded restore).
+``repro.checkpoint.checkpointer``).
 
 Layout, one directory per step, byte-compatible with the reference:
 
     ckpt_dir/step_00000100/
         manifest.json     # step, leaves (name, shape, dtype, spec), extra,
                           # n_processes
-        shard_p0.npz      # slots a0, a1, ...: this process's slices
-        index_p0.json     # "<leaf name>::<i>" -> slot, index, dtype
+        shard_p{i}.npz    # slots a0, a1, ...: process i's slices
+        index_p{i}.json   # "<leaf name>::<j>" -> slot, index, dtype
         COMMIT            # written last: the commit point
 
 Leaf names are the reference's ``_tree_paths``: a dict key is
@@ -33,8 +33,22 @@ a ``Checkpointer`` is built.
 ``Checkpointer.save_async`` copies every leaf to host memory before it
 returns, so the next training step may overwrite the live tensors while
 the background thread writes the files.  Restore assembles each leaf from
-the slices the index lists, so a checkpoint written as several shards
-reads too; restoring onto a mesh (``shardings=``) waits for ROADMAP A11.
+the slices the indexes list, so a checkpoint written as several shards, by
+several processes, reads too.
+
+Under a data mesh (``mesh=``, ``repro_torch.launch.mesh``) the leaves are
+replicated on every rank, and each of the mesh's ndev ranks writes its
+1/ndev of every leaf's rows (scalars on rank 0) to its own
+``shard_p{rank}.npz`` / ``index_p{rank}.json``, so the checkpoint holds
+each leaf once and ``n_processes`` is ndev, as the reference writes from
+ndev processes.  The ranks agree at each stage over the mesh's
+``host_group`` (a gloo all-reduce of a failure flag, on the writer
+threads): the write dir is made, every rank's files are written, then
+rank 0 renames and writes ``COMMIT``, so ``COMMIT`` follows every rank's
+writes, and a failure on any rank fails the save on every rank.  Restore
+(``shardings=``, the mesh that exists now, or None) reads the whole of
+every leaf on every rank: the trainer's state is replicated, so a
+checkpoint written by any number of ranks restores onto any other.
 """
 from __future__ import annotations
 
@@ -48,6 +62,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
@@ -207,39 +222,81 @@ def gc_incomplete(ckpt_dir) -> list[str]:
     return sorted(removed)
 
 
-def _extract_shards(step: int, tree: Tree, extra: Optional[dict]):
-    """Copy every leaf to host memory (the snapshot).  Returns (manifest,
-    {"<name>::0": (index, numpy bits, dtype name)}): one slice a leaf,
-    the whole of it."""
+def _dtype_name(leaf) -> str:
+    if isinstance(leaf, torch.Tensor):
+        return str(leaf.dtype).removeprefix("torch.")
+    return str(np.asarray(leaf).dtype)
+
+
+def _writer(mesh):
+    """(this process's index, process count, agreement group) for a save
+    under ``mesh``: (0, 1, None) without one, or on one rank."""
+    if mesh is None or mesh.size == 1 or mesh.host_group is None:
+        return 0, 1, None
+    return mesh.rank, mesh.size, mesh.host_group
+
+
+def _extract_shards(step: int, tree: Tree, extra: Optional[dict],
+                    proc: int = 0, nproc: int = 1):
+    """Copy this process's slices of every leaf to host memory (the
+    snapshot): the whole leaf for one process; for ``nproc`` processes,
+    process ``proc``'s rows ``[s0 * proc // nproc, s0 * (proc + 1) //
+    nproc)`` of a leaf of s0 rows (a scalar on process 0).  Returns
+    (manifest, {"<name>::<proc>": (index, numpy bits, dtype name)})."""
     manifest = {"step": step, "leaves": [], "extra": extra or {},
-                "n_processes": 1}
+                "n_processes": nproc}
     shards = {}
     for name, leaf in _flatten(tree):
-        arr, dtype = _host_copy(leaf)
-        manifest["leaves"].append({"name": name, "shape": list(arr.shape),
-                                   "dtype": dtype, "spec": None})
-        shards[f"{name}::0"] = ([[0, s] for s in arr.shape], arr, dtype)
+        shape = list(leaf.shape) if hasattr(leaf, "shape") else \
+            list(np.shape(leaf))
+        manifest["leaves"].append({"name": name, "shape": shape,
+                                   "dtype": _dtype_name(leaf),
+                                   "spec": None})
+        if not shape:
+            if proc == 0:
+                arr, dtype = _host_copy(leaf)
+                shards[f"{name}::{proc}"] = ([], arr, dtype)
+            continue
+        lo, hi = (shape[0] * proc // nproc, shape[0] * (proc + 1) // nproc)
+        if hi == lo:
+            continue
+        arr, dtype = _host_copy(leaf[lo:hi])
+        index = [[lo, hi]] + [[0, s] for s in shape[1:]]
+        shards[f"{name}::{proc}"] = (index, arr, dtype)
     return manifest, shards
 
 
-def _write_shards(ckpt_dir, step: int, manifest: dict, shards: dict,
-                  keep: int, chaos=None) -> None:
-    """Write one checkpoint under the commit protocol; ``chaos`` (a
-    ``repro_torch.runtime.ChaosPlan``) fires at the three crash sites."""
-    if chaos is not None:
-        chaos.fire("ckpt_io", step)
-    d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
-    tmp = d.with_suffix(".tmp")
-    shutil.rmtree(tmp, ignore_errors=True)
-    tmp.mkdir(parents=True, exist_ok=True)
+def _agreed(group, what: str, fn) -> None:
+    """Run ``fn`` on this rank, then agree with the group's other ranks
+    on whether every rank's ``fn`` succeeded: this rank's own error is
+    raised here, another rank's as an ``OSError`` naming the stage."""
+    err = None
+    try:
+        fn()
+    except BaseException as e:    # agreed on first, raised below
+        err = e
+    flag = torch.tensor([int(err is not None)], dtype=torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    if err is not None:
+        raise err
+    if int(flag):
+        raise OSError(f"checkpoint {what} failed on another rank")
 
+
+def _write_files(tmp: pathlib.Path, proc: int, shards: dict) -> None:
     payload, index = {}, {}
     for key, (idx, arr, dtype) in shards.items():
         slot = f"a{len(payload)}"
         payload[slot] = arr
         index[key] = {"slot": slot, "index": idx, "dtype": dtype}
-    np.savez(tmp / "shard_p0.npz", **payload)
-    (tmp / "index_p0.json").write_text(json.dumps(index))
+    np.savez(tmp / f"shard_p{proc}.npz", **payload)
+    (tmp / f"index_p{proc}.json").write_text(json.dumps(index))
+
+
+def _commit(ckpt_dir, step: int, tmp: pathlib.Path, manifest: dict,
+            keep: int, chaos=None) -> None:
+    """The manifest, the rename and ``COMMIT``, then retention."""
+    d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
     if chaos is not None:
         chaos.fire("ckpt_pre_rename", step)     # .tmp dir, fully written
@@ -256,20 +313,77 @@ def _write_shards(ckpt_dir, step: int, manifest: dict, shards: dict,
         shutil.rmtree(old, ignore_errors=True)
 
 
+def _write_shards(ckpt_dir, step: int, manifest: dict, shards: dict,
+                  keep: int, chaos=None, mesh=None) -> None:
+    """Write one checkpoint under the commit protocol; ``chaos`` (a
+    ``repro_torch.runtime.ChaosPlan``) fires at the three crash sites.
+    Under a mesh of several ranks every rank calls this with its own
+    shards, and the ranks agree after each stage."""
+    proc, _, group = _writer(mesh)
+    tmp = (pathlib.Path(ckpt_dir) / f"step_{step:08d}").with_suffix(".tmp")
+
+    def prepare():
+        if chaos is not None:
+            chaos.fire("ckpt_io", step)
+        if proc == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir(parents=True, exist_ok=True)
+
+    def write():
+        tmp.mkdir(parents=True, exist_ok=True)
+        _write_files(tmp, proc, shards)
+
+    def commit():
+        if proc == 0:
+            _commit(ckpt_dir, step, tmp, manifest, keep, chaos)
+
+    if group is None:
+        prepare()
+        write()
+        commit()
+        return
+    _agreed(group, "setup", prepare)
+    _agreed(group, "write", write)
+    _agreed(group, "commit", commit)
+
+
 def save_checkpoint(ckpt_dir, step: int, tree: Tree, *,
                     extra: Optional[dict] = None, keep: int = 3,
-                    chaos=None) -> None:
-    """Synchronous save of ``tree`` (tensors on any device, or numpy)."""
-    manifest, shards = _extract_shards(step, tree, extra)
-    _write_shards(ckpt_dir, step, manifest, shards, keep, chaos=chaos)
+                    chaos=None, mesh=None) -> None:
+    """Synchronous save of ``tree`` (tensors on any device, or numpy);
+    under ``mesh`` every rank of it calls this with the same tree."""
+    proc, nproc, _ = _writer(mesh)
+    manifest, shards = _extract_shards(step, tree, extra, proc, nproc)
+    _write_shards(ckpt_dir, step, manifest, shards, keep, chaos=chaos,
+                  mesh=mesh)
+
+
+def _check_shardings(template: Tree, shardings) -> None:
+    """``shardings`` is None, a mesh, or a tree of meshes shaped like
+    ``template``: every leaf replicated over the mesh that exists now."""
+    from repro_torch.launch.mesh import Mesh
+    if shardings is None or isinstance(shardings, Mesh):
+        return
+    want = tree_paths(template)
+    got = _flatten(shardings)
+    if [n for n, _ in got] != want or not all(isinstance(m, Mesh)
+                                              for _, m in got):
+        raise ValueError(
+            "shardings= must be a mesh or a tree of meshes shaped like the "
+            "template (the port restores every leaf replicated)")
 
 
 def restore_checkpoint(ckpt_dir, step: int, template: Tree, *,
-                       device=None) -> Tree:
+                       device=None, shardings=None) -> Tree:
     """Read step ``step`` into ``template``'s structure: its leaves are
     tensors or ``(shape, dtype)`` specs, each restored on ``device`` (the
     card unless told otherwise) with the template's dtype.  Each leaf is
-    assembled from whichever saved slices cover it."""
+    assembled from whichever saved slices cover it, from every process's
+    files.  ``shardings`` (a mesh, or a tree of meshes like the template)
+    restores onto the mesh that exists now: each of its ranks reads the
+    whole of every leaf onto its own device, whatever number of
+    processes wrote the checkpoint."""
+    _check_shardings(template, shardings)
     dev = resolve_device(device)
     d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
     by_name: dict[str, list] = {}
@@ -311,20 +425,26 @@ class Checkpointer:
     halves; ``totals`` sums, over every save: the time ``wait`` (and so
     ``save_async``) blocked on the write in flight (``blocked_s``), the
     snapshots (``snapshot_s``), the writer's wall (``write_s``) and its
-    thread's CPU time (``write_cpu_s``)."""
+    thread's CPU time (``write_cpu_s``).
+
+    ``mesh`` makes every save a save of the mesh's ranks, each writing
+    its slices; every rank of the mesh then saves the same steps, in the
+    same order.  Rank 0 sweeps the crash leftovers."""
 
     def __init__(self, ckpt_dir, keep: int = 3, *, chaos=None,
-                 gc_on_init: bool = True):
+                 gc_on_init: bool = True, mesh=None):
         self.ckpt_dir = pathlib.Path(ckpt_dir)
         self.keep = keep
         self.chaos = chaos
+        self.mesh = mesh
         self.last_snapshot_s = self.last_write_s = None
         self.totals = {"saves": 0, "blocked_s": 0.0, "snapshot_s": 0.0,
                        "write_s": 0.0, "write_cpu_s": 0.0}
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
-        if gc_on_init:
+        if gc_on_init and _writer(mesh)[0] == 0:
             gc_incomplete(self.ckpt_dir)
+
 
     def wait(self):
         """Join the write in flight; raise if it (or the one before)
@@ -347,7 +467,8 @@ class Checkpointer:
                    extra: Optional[dict] = None):
         self.wait()
         t0 = time.perf_counter()
-        manifest, shards = _extract_shards(step, tree, extra)
+        proc, nproc, _ = _writer(self.mesh)
+        manifest, shards = _extract_shards(step, tree, extra, proc, nproc)
         self.last_snapshot_s = time.perf_counter() - t0
         tot = self.totals
         tot["saves"] += 1
@@ -357,7 +478,7 @@ class Checkpointer:
             t1, c1 = time.perf_counter(), time.thread_time()
             try:
                 _write_shards(self.ckpt_dir, step, manifest, shards,
-                              self.keep, chaos=self.chaos)
+                              self.keep, chaos=self.chaos, mesh=self.mesh)
                 self.last_write_s = time.perf_counter() - t1
             except BaseException as e:   # raised on the next wait()
                 self._error = e
@@ -367,13 +488,14 @@ class Checkpointer:
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
 
-    def restore_latest(self, template: Tree, *, device=None):
+    def restore_latest(self, template: Tree, *, device=None,
+                       shardings=None):
         """(tree, manifest) of the latest committed step, or (None, None)."""
         step = latest_step(self.ckpt_dir)
         if step is None:
             return None, None
         tree = restore_checkpoint(self.ckpt_dir, step, template,
-                                  device=device)
+                                  device=device, shardings=shardings)
         manifest = json.loads(
             (self.ckpt_dir / f"step_{step:08d}" / "manifest.json")
             .read_text())

@@ -173,16 +173,21 @@ def _bits(key, shape) -> torch.Tensor:
     return random_bits32(key, int(np.prod(shape))).reshape(shape)
 
 
+def _uniform_of(bits: torch.Tensor, minval: float = 0.0,
+                maxval: float = 1.0) -> torch.Tensor:
+    """uint32 words (int64) -> ``jax.random.uniform``'s float32 values."""
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    lo_t = torch.tensor(lo)
+    return torch.maximum(u * float(hi - lo) + lo_t, lo_t)
+
+
 def uniform(key, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the
     top 23 bits as the mantissa of a float in [1, 2), minus 1, then
     ``u * (maxval - minval) + minval`` in float32, floored at minval."""
-    bits = (_bits(key, shape) >> 9) | 0x3F800000
-    u = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo, hi = np.float32(minval), np.float32(maxval)
-    lo_t = torch.tensor(lo)
-    return torch.maximum(u * float(hi - lo) + lo_t, lo_t)
+    return _uniform_of(_bits(key, shape), minval, maxval)
 
 
 def bernoulli(key, p: float, shape) -> torch.Tensor:
@@ -239,12 +244,14 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
+_NORMAL_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
+_SQRT2 = float(np.float32(np.sqrt(2)))
+
+
 def normal(key, shape) -> torch.Tensor:
     """``jax.random.normal(key, shape)``: sqrt(2) erfinv(u), u uniform on
     (nextafter(-1, 0), 1)."""
-    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    return float(np.float32(np.sqrt(2))) * erfinv(uniform(key, shape, lo,
-                                                          1.0))
+    return _SQRT2 * erfinv(uniform(key, shape, _NORMAL_LO, 1.0))
 
 
 def permutation(key, n: int) -> torch.Tensor:
@@ -262,3 +269,132 @@ def permutation(key, n: int) -> torch.Tensor:
         key, sub = split(key)
         x = x[torch.sort(random_bits32(sub, n), stable=True).indices]
     return x
+
+
+# -- Gamma and Dirichlet (jax.random.gamma / loggamma / dirichlet) ---------
+# jax's sampler draws one key a element (``split(key, a.size)``, row-major)
+# and runs Marsaglia and Tsang's rejection loop on each element with its
+# own key (``jax._src.random._gamma_one``).  Here the loop runs on every
+# element at once, a mask holding the elements still looping, so each
+# element takes its own trips on its own key stream.  The float32
+# arithmetic follows ``_gamma_one`` operation by operation.  The
+# reference's CPU backend flushes subnormal results to zero, which decides
+# which small draws come out as exact zeros, so ``flush_subnormal`` flushes
+# every result that can fall below the smallest normal float32.
+
+_TINY = float(np.finfo(np.float32).tiny)
+_THIRD = np.float32(1.0 / 3.0)
+_SQUEEZE = np.float32(0.0331)
+
+
+def flush_subnormal(t: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 values to zero (the reference backend's mode)."""
+    return torch.where(t.abs() < _TINY, torch.zeros_like(t), t)
+
+
+def _div(num: float, t: torch.Tensor) -> torch.Tensor:
+    """float32 ``num / t`` as a true division (a Python number over a
+    tensor is a reciprocal times the number in PyTorch)."""
+    return torch.div(torch.full_like(t, num), t)
+
+
+def _split_each(k0: torch.Tensor, k1: torch.Tensor, num: int):
+    """``split(key, num)`` of every key of a batch: num (k0, k1) pairs."""
+    return [threefry2x32(k0, k1, 0, j) for j in range(num)]
+
+
+def _bits_each(k0: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
+    """``bits(key, (), uint32)`` of every key of a batch."""
+    x0, x1 = threefry2x32(k0, k1, 0, 0)
+    return x0 ^ x1
+
+
+def _gamma_each(k0: torch.Tensor, k1: torch.Tensor, alpha: torch.Tensor,
+                log_space: bool) -> torch.Tensor:
+    """``_gamma_one`` on every (key, alpha) of a batch, float32."""
+    boost_mask = alpha >= 1.0
+    alpha_orig = alpha
+    alpha = torch.where(boost_mask, alpha, alpha + 1.0)
+    d = alpha - float(_THIRD)
+    c = _div(float(_THIRD), torch.sqrt(d))
+    (k0, k1), (s0, s1) = _split_each(k0, k1, 2)
+    X = torch.zeros_like(alpha)
+    V = torch.ones_like(alpha)
+    U = torch.full_like(alpha, 2.0)
+
+    def looping(X, V, U, d):
+        return ((U >= 1.0 - float(_SQUEEZE) * (X * X))
+                & (torch.log(U) >= X * 0.5 + d * ((1.0 - V) + torch.log(V))))
+
+    live = torch.arange(alpha.numel())
+    while live.numel():
+        # the outer body on the elements still looping
+        (k0l, k1l), (x0, x1), (u0, u1) = _split_each(k0[live], k1[live], 3)
+        cl = c[live]
+        x = torch.zeros_like(cl)
+        v = torch.full_like(cl, -1.0)
+        inner = torch.arange(live.numel())
+        while inner.numel():
+            (x0i, x1i), (g0, g1) = _split_each(x0[inner], x1[inner], 2)
+            x0[inner], x1[inner] = x0i, x1i
+            xi = _SQRT2 * erfinv(_uniform_of(_bits_each(g0, g1),
+                                             _NORMAL_LO, 1.0))
+            x[inner] = xi
+            v[inner] = 1.0 + xi * cl[inner]
+            inner = inner[v[inner] <= 0.0]
+        k0[live], k1[live] = k0l, k1l
+        X[live] = x * x
+        V[live] = flush_subnormal(v * v * v)
+        U[live] = _uniform_of(_bits_each(u0, u1))
+        live = live[looping(X[live], V[live], U[live], d[live])]
+    if log_space:
+        log_samples = torch.log1p(-_uniform_of(_bits_each(s0, s1)))
+        log_boost = torch.where(boost_mask | (log_samples == 0.0),
+                                torch.zeros_like(alpha),
+                                log_samples * _div(1.0, alpha_orig))
+        return torch.log(d) + torch.log(V) + log_boost
+    samples = 1.0 - _uniform_of(_bits_each(s0, s1))
+    boost = torch.where(boost_mask, torch.ones_like(alpha),
+                        flush_subnormal(torch.pow(samples,
+                                                  _div(1.0, alpha_orig))))
+    return flush_subnormal(flush_subnormal(d * V) * boost)
+
+
+def _gamma(key, a, shape, log_space: bool) -> torch.Tensor:
+    a = torch.as_tensor(np.asarray(a, np.float32) if not
+                        isinstance(a, torch.Tensor) else a,
+                        dtype=torch.float32).cpu()
+    if shape is not None:
+        a = a.broadcast_to(_size(shape))
+    flat = a.reshape(-1).contiguous()
+    i = torch.arange(flat.numel(), dtype=torch.int64)
+    k0, k1 = threefry2x32(*key_words(key), i >> 32, i & _MASK)
+    return _gamma_each(k0, k1, flat, log_space).reshape(a.shape)
+
+
+def gamma(key, a, shape=None) -> torch.Tensor:
+    """``jax.random.gamma(key, a, shape)``: Gamma(a, 1) float32 draws, one
+    key an element."""
+    return _gamma(key, a, shape, log_space=False)
+
+
+def loggamma(key, a, shape=None) -> torch.Tensor:
+    """``jax.random.loggamma(key, a, shape)``: the log of the Gamma draws,
+    the boost for a < 1 taken in log space."""
+    return _gamma(key, a, shape, log_space=True)
+
+
+def dirichlet(key, alpha, shape=None) -> torch.Tensor:
+    """``jax.random.dirichlet(key, alpha, shape)``: ``loggamma`` at shape
+    ``shape + alpha.shape[-1:]``, then softmax over the last axis (the max
+    subtracted, exp, divided by the sum)."""
+    alpha = torch.as_tensor(np.asarray(alpha, np.float32) if not
+                            isinstance(alpha, torch.Tensor) else alpha,
+                            dtype=torch.float32)
+    if alpha.dim() < 1:
+        raise ValueError(f"dirichlet requires alpha.ndim >= 1, got "
+                         f"alpha.ndim == {alpha.dim()}")
+    shape = tuple(alpha.shape[:-1]) if shape is None else _size(shape)
+    logs = loggamma(key, alpha, shape + tuple(alpha.shape[-1:]))
+    e = flush_subnormal(torch.exp(logs - logs.amax(dim=-1, keepdim=True)))
+    return flush_subnormal(e / e.sum(dim=-1, keepdim=True))

@@ -9,33 +9,30 @@ vector pairs over 2^16 documents (Table 2 / Figs 4-5).
 
 ``Dataset``, ``make_word_pair``, ``WORD_PAIRS`` and ``word_pair`` are
 numpy-only in the reference too, and these copies give the same bits.
-The reference draws its classification data from ``jax.random``; here each
-classification generator takes ``draws``:
+The classification generators draw the reference's own ``jax.random``
+streams through ``repro_torch.core.regen``'s samplers, line by line in
+the reference's order and float32 arithmetic: labels, zero patterns and
+the uniform and Bernoulli draws are the reference's bits, and values go
+through exp / log1p / erfinv / pow, where PyTorch's CPU math and XLA's
+differ in the last bits of some draws.  A dataset is made on the host,
+as numpy arrays.
 
-* ``"numpy"`` (the default) draws the same distributions from
-  ``numpy.random.default_rng(seed)``: not the reference's data;
-* ``"jax"`` draws the reference's own streams through
-  ``repro_torch.core.regen``'s samplers, line by line in the reference's
-  order and float32 arithmetic: labels, zero patterns and the uniform and
-  Bernoulli draws are the reference's bits, and values go through
-  exp / log1p / erfinv, where PyTorch's CPU math and XLA's differ in the
-  last bits of a few per cent of draws.  ``make_histogram_mixture``
-  draws Dirichlet and Gamma variates by rejection, not rebuilt yet.
-
-Either way a dataset is made on the host, as numpy arrays.
+``make_template_classification`` alone keeps a second stream,
+``draws="numpy"`` (``numpy.random.default_rng(seed)``, the same
+distributions, not the reference's data): ``chip_smoke.py``'s train
+phase holds the card's features to the CPU's bit for bit, and on the
+reference's draws of its dataset that gate fails (ROADMAP A16), so the
+phase keeps the numpy dataset its gates were recorded on.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import regen as R
-
-DRAWS = ("numpy", "jax")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,19 +49,10 @@ class Dataset:
 # classification data
 # ---------------------------------------------------------------------------
 
-def _heavy_tailed(rng, shape, tail: float = 1.2):
+def _heavy_tailed(key, shape, tail: float = 1.2) -> torch.Tensor:
     """Pareto-ish magnitudes: exp of exponential => polynomial tail."""
-    return np.exp(rng.standard_exponential(shape) / tail) - 1.0
-
-
-def _heavy_tailed_jax(key, shape, tail: float = 1.2) -> torch.Tensor:
     e = R.exponential(key, shape)
     return torch.exp(e / tail) - 1.0
-
-
-def _check_draws(draws: str) -> None:
-    if draws not in DRAWS:
-        raise ValueError(f"draws must be one of {DRAWS}; got {draws!r}")
 
 
 def _split(name, x, y, n_train, n_classes) -> Dataset:
@@ -78,37 +66,24 @@ def make_template_classification(seed: int, *, n_train=1200, n_test=800,
                                  dim=256, n_classes=6, density=0.25,
                                  mult_noise=1.3, spike_prob=0.10,
                                  spike_scale=12.0, name="template",
-                                 draws: str = "numpy") -> Dataset:
+                                 draws: str = "jax") -> Dataset:
     """Sparse nonneg class templates + heavy multiplicative noise + spikes.
 
     The spikes and multiplicative noise dominate <u,v>, while min-max (a
     bounded ratio) stays informative: the paper's min-max > intersection >
-    linear ordering.
+    linear ordering.  ``draws="numpy"``: the numpy stream (module
+    docstring).
     """
-    _check_draws(draws)
-    if draws == "jax":
-        return _template_jax(seed, n_train, n_test, dim, n_classes, density,
-                             mult_noise, spike_prob, spike_scale, name)
-    rng = np.random.default_rng(seed)
-    n = n_train + n_test
-    tmpl_mask = rng.random((n_classes, dim)) < density
-    templates = tmpl_mask * (0.5 + _heavy_tailed(rng, (n_classes, dim)))
-    labels = rng.integers(0, n_classes, n)
-    mnoise = np.exp(mult_noise * rng.standard_normal((n, dim)))
-    keep = rng.random((n, dim)) < 0.9
-    x = templates[labels] * mnoise * keep
-    spikes = ((rng.random((n, dim)) < spike_prob) * spike_scale *
-              _heavy_tailed(rng, (n, dim)))
-    return _split(name, x + spikes, labels, n_train, n_classes)
-
-
-def _template_jax(seed, n_train, n_test, dim, n_classes, density,
-                  mult_noise, spike_prob, spike_scale, name) -> Dataset:
-    """``repro.data.synthetic.make_template_classification``'s draws."""
+    if draws == "numpy":
+        return _template_numpy(seed, n_train, n_test, dim, n_classes,
+                               density, mult_noise, spike_prob, spike_scale,
+                               name)
+    if draws != "jax":
+        raise ValueError(f"draws must be 'jax' or 'numpy'; got {draws!r}")
     k_t, k_m, k_s = R.split(R.prng_key(seed), 3)
     n = n_train + n_test
     tmpl_mask = R.bernoulli(k_t, density, (n_classes, dim))
-    tmpl_mag = _heavy_tailed_jax(R.fold_in(k_t, 1), (n_classes, dim))
+    tmpl_mag = _heavy_tailed(R.fold_in(k_t, 1), (n_classes, dim))
     templates = tmpl_mask.to(torch.float32) * (0.5 + tmpl_mag)
     labels = R.randint(R.fold_in(k_m, 0), (n,), 0, n_classes)
     base = templates[labels.long()]
@@ -116,37 +91,33 @@ def _template_jax(seed, n_train, n_test, dim, n_classes, density,
     keep = R.bernoulli(R.fold_in(k_m, 2), 0.9, (n, dim))
     x = base * mnoise * keep.to(torch.float32)
     spikes = (R.bernoulli(k_s, spike_prob, (n, dim)).to(torch.float32)
-              * spike_scale * _heavy_tailed_jax(R.fold_in(k_s, 1), (n, dim)))
+              * spike_scale * _heavy_tailed(R.fold_in(k_s, 1), (n, dim)))
     return _split(name, (x + spikes).numpy(), labels.numpy(), n_train,
                   n_classes)
 
 
+def _template_numpy(seed, n_train, n_test, dim, n_classes, density,
+                    mult_noise, spike_prob, spike_scale, name) -> Dataset:
+    rng = np.random.default_rng(seed)
+    heavy = lambda shape: np.exp(rng.standard_exponential(shape) / 1.2) - 1.0
+    n = n_train + n_test
+    tmpl_mask = rng.random((n_classes, dim)) < density
+    templates = tmpl_mask * (0.5 + heavy((n_classes, dim)))
+    labels = rng.integers(0, n_classes, n)
+    mnoise = np.exp(mult_noise * rng.standard_normal((n, dim)))
+    keep = rng.random((n, dim)) < 0.9
+    x = templates[labels] * mnoise * keep
+    spikes = ((rng.random((n, dim)) < spike_prob) * spike_scale *
+              heavy((n, dim)))
+    return _split(name, x + spikes, labels, n_train, n_classes)
+
+
 def make_ratio_xor(seed: int, *, n_train=1200, n_test=800, dim=16,
-                   name="ratio-xor", draws: str = "numpy") -> Dataset:
+                   name="ratio-xor") -> Dataset:
     """Binary labels from an XOR over coordinate-pair dominance:
     label = {x_0 > x_1} XOR {x_2 > x_3}.  Linearly inseparable by
     construction; the four dominance patterns form four clusters under
     min-max similarity."""
-    _check_draws(draws)
-    if draws == "jax":
-        return _ratio_xor_jax(seed, n_train, n_test, dim, name)
-    rng = np.random.default_rng(seed)
-    n = n_train + n_test
-    n_pairs = 2
-    x = (0.3 * np.abs(rng.standard_normal((n, dim))) + 0.05).astype(
-        np.float32)
-    flips = rng.random((n, n_pairs)) < 0.5
-    for p in range(n_pairs):
-        hi = 3.0 + rng.random(n)
-        lo = 0.2 + 0.2 * rng.random(n)
-        x[:, 2 * p] = np.where(flips[:, p], hi, lo)
-        x[:, 2 * p + 1] = np.where(flips[:, p], lo, hi)
-    y = flips.sum(axis=1) % 2
-    return _split(name, x, y, n_train, 2)
-
-
-def _ratio_xor_jax(seed, n_train, n_test, dim, name) -> Dataset:
-    """``repro.data.synthetic.make_ratio_xor``'s draws."""
     key = R.prng_key(seed)
     n = n_train + n_test
     n_pairs = 2
@@ -163,47 +134,36 @@ def _ratio_xor_jax(seed, n_train, n_test, dim, name) -> Dataset:
 
 def make_histogram_mixture(seed: int, *, n_train=1200, n_test=800, dim=128,
                            n_classes=10, conc_scale=6.0,
-                           name="hist-mix", draws: str = "numpy") -> Dataset:
+                           name="hist-mix") -> Dataset:
     """Dirichlet histograms per class with heavy-tailed total mass
     (bag-of-words / visual-word histograms; total counts vary by 2-3
-    orders of magnitude per sample).  Numpy draws only: the reference's
-    ``jax.random.dirichlet`` and ``gamma`` sample by rejection, not
-    rebuilt yet."""
-    _check_draws(draws)
-    if draws == "jax":
-        raise NotImplementedError(
-            "make_histogram_mixture(draws='jax') needs jax.random's gamma "
-            "and dirichlet rejection samplers (ROADMAP A15)")
-    rng = np.random.default_rng(seed)
+    orders of magnitude per sample).  The Gamma boost underflows for the
+    smallest concentrations (alpha about 0.05), which leaves some entries
+    exactly zero; the reference's backend flushes subnormal results, and
+    ``regen``'s samplers do the same, so the zero pattern is the
+    reference's."""
+    key = R.prng_key(seed)
     n = n_train + n_test
-    protos = rng.dirichlet(0.25 * np.ones(dim), n_classes)
-    labels = rng.integers(0, n_classes, n)
-    alpha = conc_scale * protos[labels] + 0.05
-    gam = rng.standard_gamma(alpha)
-    p = gam / gam.sum(axis=1, keepdims=True)
-    mass = np.exp(3.0 * rng.standard_normal((n, 1)))
-    return _split(name, p * mass * 100.0, labels, n_train, n_classes)
+    conc = torch.full((dim,), 0.25, dtype=torch.float32)
+    protos = R.dirichlet(key, conc, (n_classes,))
+    labels = R.randint(R.fold_in(key, 1), (n,), 0, n_classes)
+    alpha = conc_scale * protos[labels.long()] + 0.05
+    gam = R.gamma(R.fold_in(key, 2), alpha)
+    p = R.flush_subnormal(gam / gam.sum(dim=1, keepdim=True))
+    mass = torch.exp(3.0 * R.normal(R.fold_in(key, 3), (n, 1)))
+    x = R.flush_subnormal(R.flush_subnormal(p * mass) * 100.0)
+    return _split(name, x.numpy(), labels.numpy(), n_train, n_classes)
 
 
-# Table 1's suites: (generator, seed, keyword arguments), as the reference.
-_SUITES = {
-    "template": (make_template_classification, 0, {}),
-    "template-hard": (make_template_classification, 1, dict(
-        n_classes=10, density=0.15, mult_noise=1.2, spike_prob=0.08,
-        name="template-hard")),
-    "ratio-xor": (make_ratio_xor, 2, {}),
-    "hist-mix": (make_histogram_mixture, 3, {}),
+# Table 1's suites, as the reference's
+CLASSIFICATION_SUITES = {
+    "template": lambda: make_template_classification(0),
+    "template-hard": lambda: make_template_classification(
+        1, n_classes=10, density=0.15, mult_noise=1.2, spike_prob=0.08,
+        name="template-hard"),
+    "ratio-xor": lambda: make_ratio_xor(2),
+    "hist-mix": lambda: make_histogram_mixture(3),
 }
-
-
-def classification_suite(name: str, draws: str = "numpy") -> Dataset:
-    """Table 1's suite ``name`` on the given draws."""
-    fn, seed, kw = _SUITES[name]
-    return fn(seed, draws=draws, **kw)
-
-
-CLASSIFICATION_SUITES = {name: functools.partial(classification_suite, name)
-                         for name in _SUITES}
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""The two collectives the sequence-parallel attention needs, over a mesh
-axis: a ring shift of a tuple of tensors and an all-gather along one
-dimension (the sequence's, for K/V).
+"""Collectives over a mesh axis: the ring shift of a tuple of tensors and
+the all-gather along one dimension that the sequence-parallel attention
+needs (the sequence's, for K/V), and the mean over the ``data`` axis that
+the data-parallel trainer takes of its loss and gradients.
 
 The group's backend decides how a tensor moves:
   * ``nccl``: CUDA tensors move directly between cards (one rank a card);
@@ -119,3 +120,59 @@ def all_gather_dim(x: torch.Tensor, mesh, axes,
     dist.all_gather(parts, src, group=mesh.group(axes))
     out = torch.cat(parts, dim)
     return _to_card(out, x.device) if route == "gloo+host" else out
+
+
+def axis_mean(tensors: Sequence[torch.Tensor], mesh,
+              axes) -> List[torch.Tensor]:
+    """The mean of each tensor over the ranks along ``axes``, the same bits
+    on every rank (``jax.lax.pmean``'s counterpart).
+
+    Every rank's tensors, flattened into one buffer, are cut into N slices
+    (N ranks); slice j of every rank goes to rank j (``all_to_all``), which
+    adds them in rank order, ``((s_0 + s_1) + s_2) + ...``, and divides by
+    N; the N mean slices are then all-gathered.  Every element is summed
+    in rank order whatever the transport, so the bits are fixed by N
+    alone: the same over gloo on host tensors, over gloo through host
+    copies and over NCCL, from run to run and across a kill and a resume.
+    An ``all_reduce(SUM)`` moves as many bytes, but adds in its
+    algorithm's order (gloo's ring and NCCL's differ), so a run's bits
+    would depend on the transport; an all-gather of the whole buffers
+    would fix the order too, at twice the bytes.  Over a gloo group the
+    slices are added on the host, where float32 addition and division
+    give the card's bits, and only the mean goes back to the card.  One
+    rank returns the tensors unchanged (``x / 1`` is ``x``).
+    """
+    tensors = list(tensors)
+    ranks = mesh.ranks(axes)
+    n = len(ranks)
+    if n == 1:
+        return tensors
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise ValueError(f"axis_mean takes tensors of one dtype; got "
+                         f"{sorted(map(str, dtypes))}")
+    device = tensors[0].device
+    group = mesh.group(axes)
+    route = transport(_backend(mesh, axes), device)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    size = flat.numel()
+    if size % n:
+        flat = torch.cat([flat, flat.new_zeros(n - size % n)])
+    src = _to_host(flat) if route == "gloo+host" else flat
+    received = torch.empty_like(src)
+    dist.all_to_all_single(received, src, group=group)
+    slices = received.view(n, -1)          # row j: rank j's slice of ours
+    total = slices[0].clone()
+    for s in slices[1:]:
+        total += s
+    mean = total / torch.full((), n, dtype=total.dtype, device=total.device)
+    parts = [torch.empty_like(mean) for _ in ranks]
+    dist.all_gather(parts, mean, group=group)
+    mean = torch.cat(parts)[:size]
+    if route == "gloo+host":
+        mean = _to_card(mean, device)
+    out, lo = [], 0
+    for t in tensors:
+        out.append(mean[lo:lo + t.numel()].view(t.shape))
+        lo += t.numel()
+    return out

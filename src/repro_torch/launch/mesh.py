@@ -11,9 +11,10 @@ size (``mesh.shape[a]``).
 
 Nothing here initializes a process group: the caller runs
 ``torch.distributed.init_process_group`` (its backend, address, world size
-and rank) first, and the mesh's groups take that backend.  Without an
-initialized process group the only mesh is the one of a single rank,
-which holds no groups and needs no communication.  Building a mesh
+and rank) first, and the mesh's groups take that backend; ``host_group``
+is a gloo group over all the mesh's ranks for host-side agreement.
+Without an initialized process group the only mesh is the one of a
+single rank, which holds no groups and needs no communication.  Building a mesh
 creates its groups, which is collective: every rank of the default group
 builds the same mesh, in the same order.
 """
@@ -59,6 +60,13 @@ class Mesh:
         for n_ax in range(1, len(self.axis_names) + 1):
             for axes in itertools.combinations(self.axis_names, n_ax):
                 self._build(axes)
+        # a gloo group over every rank of the mesh for host-side agreement
+        # (checkpoint commits), used from writer threads as well: a group
+        # of its own, so it never interleaves with the axes' collectives
+        self.host_group = None
+        if dist.is_initialized():
+            self.host_group = dist.new_group(list(range(self.size)),
+                                             backend="gloo")
         if self.rank >= self.size:
             raise ValueError(f"rank {self.rank} lies outside a mesh of "
                              f"{self.size} ranks {self.shape}")

@@ -1,5 +1,5 @@
 """CWS sampling -> b-bit encoding -> embedding-bag indices, as one pipeline
-(port of ``repro.pipeline.featurize``, without the mesh paths).
+(port of ``repro.pipeline.featurize``).
 
     pipe = FeaturePipeline.create_regen(key_words, dim, FeatureSpec(1024, 8))
     idx  = pipe.features(x)          # (n, k) int32 into pipe.num_features
@@ -10,10 +10,21 @@ kernel launch.  PyTorch runs eagerly, so a ragged last chunk needs no
 padding to avoid a recompile: each launch is sized to its rows.  The
 pipeline lives on one device; its kernels are the CUDA ones for a CUDA
 pipeline and the plain versions for a CPU pipeline.
+
+Data axis: ``mesh=`` (``repro_torch.launch.mesh``) on ``launch_chunk``,
+``feature_chunks`` and ``features`` splits each chunk's rows over the
+mesh's ``data`` ranks in contiguous blocks, as ``P("data")`` lays them
+out: every rank featurizes its block with the same kernel on the same
+(replicated) launch state, and the blocks come back to every rank in
+rank order through ``collectives.all_gather_dim``.  The outputs are
+integers, so the result equals the unsharded one bit for bit.  A chunk
+whose rows do not divide over the axis is padded with all-zero rows
+(bucket 0), which are cut off again.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 from typing import Optional
 
@@ -28,6 +39,7 @@ from repro_torch.core.hashing import (check_packed_bits, encode,
 from repro_torch.core.regen import key_words
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, registry
+from repro_torch.launch.mesh import data_axis_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,31 +197,85 @@ class FeaturePipeline:
 
     # -- public API ----------------------------------------------------
 
-    def launch_chunk(self, xc) -> torch.Tensor:
-        """ONE kernel launch: xc (m, D) nonneg -> (m, k) int32 indices
-        (or (m, words) uint32 in packed mode)."""
+    def chunk_rows(self, mesh=None) -> int:
+        """The streaming chunk: ``row_chunk`` rows, or under a mesh
+        ``lcm(row_chunk, ndev)``, so every full chunk splits evenly over
+        the ``data`` axis."""
+        if mesh is None:
+            return self.row_chunk
+        return math.lcm(self.row_chunk, data_axis_size(mesh))
+
+    def launch_chunk(self, xc, *, mesh=None) -> torch.Tensor:
+        """ONE kernel launch (a rank): xc (m, D) nonneg -> (m, k) int32
+        indices (or (m, words) uint32 in packed mode).  With ``mesh`` each
+        rank launches on its block of m / ndev rows and the blocks are
+        gathered; m must divide by the axis."""
         self._require_bucketed("launch_chunk")
-        return self._launch_with(self._as_rows(xc), self._state())
+        if mesh is None:
+            return self._launch_with(self._as_rows(xc), self._state())
+        ndev = data_axis_size(mesh)
+        if xc.shape[0] % ndev:
+            raise ValueError(
+                f"launch_chunk under mesh= needs rows divisible by the "
+                f"data axis ({ndev}); got {xc.shape[0]} — pad the chunk "
+                f"(chunk_rows(mesh) gives the streaming shape)")
+        return self._sharded(xc, 0, xc.shape[0], mesh)
 
-    def feature_chunks(self, x):
-        """Yields ``(lo, hi, features[lo:hi])`` per ``row_chunk`` rows, so
-        a consumer never holds the whole (n, k) feature matrix; host rows
-        cross to the device one chunk at a time."""
+    def _local_rows(self, x, lo: int, hi: int, mesh) -> torch.Tensor:
+        """This rank's block of rows ``[lo, hi)`` of ``x`` (host or device
+        rows) on the pipeline's device, the span padded with all-zero rows
+        to a multiple of the ``data`` axis: rank r of ndev takes the r-th
+        of ndev equal blocks."""
+        ndev = data_axis_size(mesh)
+        m = hi - lo
+        block = (m + (-m) % ndev) // ndev
+        a = min(lo + mesh.axis_index("data") * block, hi)
+        b = min(a + block, hi)
+        rows = self._as_rows(x[a:b])
+        if b - a < block:
+            rows = torch.cat([rows, rows.new_zeros((block - (b - a),
+                                                    rows.shape[1]))])
+        return rows
+
+    def _sharded(self, x, lo: int, hi: int, mesh) -> torch.Tensor:
+        """Rows ``[lo, hi)`` featurized over the ``data`` axis: one launch
+        on this rank's block, the blocks gathered in rank order, the pad
+        rows cut off."""
+        from repro_torch.launch.collectives import all_gather_dim
+        local = self._launch_with(self._local_rows(x, lo, hi, mesh),
+                                  self._state())
+        words = local.view(torch.int32) if self.spec.packed else local
+        out = all_gather_dim(words, mesh, "data", dim=0)[:hi - lo]
+        return out.view(torch.uint32) if self.spec.packed else out
+
+    def feature_chunks(self, x, *, mesh=None):
+        """Yields ``(lo, hi, features[lo:hi])`` per ``chunk_rows(mesh)``
+        rows, so a consumer never holds the whole (n, k) feature matrix;
+        host rows cross to the device one chunk (a rank: one block) at a
+        time."""
         self._require_bucketed("feature_chunks")
-        for lo in range(0, x.shape[0], self.row_chunk):
-            hi = min(lo + self.row_chunk, x.shape[0])
-            yield lo, hi, self.launch_chunk(x[lo:hi])
+        rows = self.chunk_rows(mesh)
+        for lo in range(0, x.shape[0], rows):
+            hi = min(lo + rows, x.shape[0])
+            if mesh is None:
+                yield lo, hi, self.launch_chunk(x[lo:hi])
+            else:
+                yield lo, hi, self._sharded(x, lo, hi, mesh)
 
-    def features(self, x) -> torch.Tensor:
+    def features(self, x, *, mesh=None) -> torch.Tensor:
         """x (n, D) nonneg -> (n, k) int32 indices into ``num_features``,
-        or (n, ``spec.packed_words``) uint32 in packed mode."""
+        or (n, ``spec.packed_words``) uint32 in packed mode; with ``mesh``
+        every launch is split over its ``data`` axis (n below the axis
+        size leaves some ranks nothing but pad rows)."""
         self._require_bucketed("features")
         if x.shape[0] == 0:
             return self._empty()
-        if x.shape[0] <= self.row_chunk:
-            return self.launch_chunk(x)
-        return torch.cat([out for _, _, out in self.feature_chunks(x)],
-                         dim=0)
+        if x.shape[0] <= self.chunk_rows(mesh):
+            if mesh is None:
+                return self.launch_chunk(x)
+            return self._sharded(x, 0, x.shape[0], mesh)
+        return torch.cat([out for _, _, out in
+                          self.feature_chunks(x, mesh=mesh)], dim=0)
 
     def hashes(self, x):
         """Stage 1 alone, for estimator sweeps that reuse one hash pass

@@ -1,5 +1,5 @@
 """Streaming minibatch training over the featurization pipeline (port of
-``repro.training.linear_trainer``, unsharded).
+``repro.training.linear_trainer``).
 
 Each minibatch is featurized INSIDE the training loop by one pipeline
 kernel launch (``FeaturePipeline.launch_chunk``), so the full (n, k)
@@ -33,7 +33,24 @@ uninterrupted one, on the card or on the CPU.
 ``chaos=`` threads a deterministic fault plan through the step,
 evaluation-chunk and checkpoint-write sites.
 
-Not yet ported: the data-parallel ``mesh=`` path (ROADMAP A11).
+Data parallelism: ``mesh=`` (a ``repro_torch.launch.mesh`` mesh with a
+``data`` axis of ndev ranks, one process a rank, every rank making the
+same call) runs the hot loop data-parallel.  Every rank holds the
+dataset and walks the same epoch permutation; each takes its contiguous
+block of bs / ndev rows of every batch, featurizes it with one launch
+(so no rank ever holds the batch's (bs, k) index matrix), and computes
+its block's gradient through ``microbatch_grads``, which averages loss
+and gradients over the axis (``collectives.axis_mean``: the same bits on
+every rank, fixed by ndev alone).  The optimizer then runs on every
+rank on the same gradient, so the table stays replicated.  A one-rank
+mesh is the unsharded path bit for bit; at the same ndev the run is
+bit-identical from run to run and across a kill and a resume; across
+ndev only the gradient's order of summation differs.  Checkpoints are
+written by every rank (``Checkpointer`` under the mesh: each rank its
+slices, one ``COMMIT``), and ``resume_linear_streamed`` restores them
+onto whatever mesh exists now, or none: 4 ranks resume at 2, 1 or 4.
+``streamed_accuracy(mesh=)`` featurizes each chunk over the axis and
+counts on every rank the same integer.
 """
 from __future__ import annotations
 
@@ -54,6 +71,7 @@ from repro_torch.core.linear_model import (LinearParams, TrainCfg, _loss_fn,
                                            init_bag, make_linear_tx,
                                            same_device, validate_bag_features)
 from repro_torch.core.regen import fold_in, permutation, prng_key
+from repro_torch.launch.mesh import data_axis_size
 from repro_torch.pipeline import FeaturePipeline
 from repro_torch.runtime.fault_tolerance import RetryingTrainer, StepWatchdog
 from repro_torch.training.trainer import microbatch_grads
@@ -62,12 +80,6 @@ __all__ = ["fit_linear_streamed", "resume_linear_streamed",
            "fit_linear_streamed_resilient", "streamed_accuracy",
            "resume_streamed_accuracy", "export_served_model",
            "checkpoint_tree"]
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training (mesh=) is not "
-                                  "ported yet (ROADMAP A11)")
 
 
 def _bag_logits_fn(pipe: FeaturePipeline):
@@ -82,14 +94,20 @@ def _bag_logits_fn(pipe: FeaturePipeline):
                              b=spec.bits)
 
 
-def _make_update_step(cfg: TrainCfg, tx, n_micro: int, logits_fn=bag_logits):
-    """One update on a featurized minibatch: (params, state, loss)."""
+def _make_update_step(cfg: TrainCfg, tx, n_micro: int, logits_fn=bag_logits,
+                      mesh=None):
+    """One update on a featurized minibatch, or under ``mesh`` on this
+    rank's block of it (the gradient then averaged over the ``data``
+    axis): (params, state, loss)."""
     def loss_fn(p, inputs, labels):
         return _loss_fn(p, inputs, labels, cfg, logits_fn), {}
 
+    axis = None if mesh is None else "data"
+
     def update(params, state, fb, yb, i):
         loss, _, grads = microbatch_grads(
-            loss_fn, params, {"inputs": fb, "labels": yb}, n_micro=n_micro)
+            loss_fn, params, {"inputs": fb, "labels": yb}, n_micro=n_micro,
+            axis_name=axis, mesh=mesh)
         with torch.no_grad():
             updates, state = tx.update(grads, state, params, i)
             return optim.apply_updates(params, updates), state, loss
@@ -106,10 +124,14 @@ def _labels_on(labels, device) -> torch.Tensor:
 # -- checkpoint helpers ------------------------------------------------
 
 
-def _as_checkpointer(ckpt, chaos=None) -> Checkpointer:
-    if isinstance(ckpt, Checkpointer):
-        return ckpt
-    return Checkpointer(ckpt, chaos=chaos)
+def _as_checkpointer(ckpt, chaos=None, mesh=None) -> Checkpointer:
+    if not isinstance(ckpt, Checkpointer):
+        return Checkpointer(ckpt, chaos=chaos, mesh=mesh)
+    if mesh is not None and mesh.size > 1 and ckpt.mesh is not mesh:
+        # every rank would write one process's files into the same dir
+        raise ValueError(f"a Checkpointer for a run over {mesh} must be "
+                         f"built with mesh= that mesh")
+    return ckpt
 
 
 def _key_data_list(key) -> list:
@@ -171,7 +193,7 @@ class _StreamSetup:
     resumes, so the two walk the same stream."""
 
     def __init__(self, pipe: FeaturePipeline, x, labels, cfg: TrainCfg,
-                 shuffle_key, n_microbatches: int):
+                 shuffle_key, n_microbatches: int, mesh=None):
         n = x.shape[0]
         bs = cfg.batch_size
         if bs <= 0:
@@ -182,9 +204,15 @@ class _StreamSetup:
         if bs > n:
             raise ValueError(
                 f"batch_size {bs} exceeds the {n} available rows")
-        if n_microbatches < 1 or bs % n_microbatches:
-            raise ValueError(f"batch {bs} must divide into "
-                             f"{n_microbatches} microbatches")
+        ndev = 1 if mesh is None else data_axis_size(mesh)
+        if bs % ndev:
+            raise ValueError(
+                f"batch_size {bs} must divide by the mesh data axis "
+                f"({ndev}) so every device sees the same local batch shape")
+        local_bs = bs // ndev
+        if n_microbatches < 1 or local_bs % n_microbatches:
+            raise ValueError(f"per-device batch {local_bs} must divide "
+                             f"into {n_microbatches} microbatches")
         if labels.shape[0] != n:
             raise ValueError(
                 f"labels {tuple(labels.shape)} do not match x "
@@ -202,27 +230,35 @@ class _StreamSetup:
 
         self.pipe, self.x, self.labels = pipe, x, labels
         self.cfg, self.n, self.bs = cfg, n, bs
+        self.mesh, self.local_bs = mesh, local_bs
+        # this rank's block of every batch: rows [lo, lo + local_bs)
+        self.offset = 0 if mesh is None else \
+            mesh.axis_index("data") * local_bs
         self.n_micro = n_microbatches
         self.tx = make_linear_tx(cfg)
         self.steps_per_epoch = max(n // bs, 1)
         self.key = shuffle_key if shuffle_key is not None else prng_key(0)
         self.shuffle = bs < n
         self.update = _make_update_step(cfg, self.tx, n_microbatches,
-                                        _bag_logits_fn(pipe))
+                                        _bag_logits_fn(pipe), mesh)
         self.labels_host = None
         self.fb_full = self.yb_full = None
         if not self.shuffle:
             # batch_size == n: the gradient is order-invariant, so skip the
             # permutation and the per-step featurization: one sweep up front
-            self.fb_full = pipe.features(x)
-            self.yb_full = _labels_on(labels, pipe.device)
+            # (of this rank's block under a mesh)
+            lo, hi = self.offset, self.offset + local_bs
+            self.fb_full = pipe.features(x[lo:hi])
+            self.yb_full = _labels_on(labels[lo:hi], pipe.device)
         elif self.host_data:
             self.labels_host = np.asarray(labels)
 
     def batch(self, perm: torch.Tensor, pos: int):
-        """The (bs, D) rows and (bs,) labels at window ``pos`` of ``perm``:
-        gathered on the host for numpy rows, else on the rows' device."""
-        lo, hi = pos * self.bs, (pos + 1) * self.bs
+        """This rank's (local_bs, D) rows and labels of the batch at window
+        ``pos`` of ``perm`` (the whole batch without a mesh): gathered on
+        the host for numpy rows, else on the rows' device."""
+        lo = pos * self.bs + self.offset
+        hi = lo + self.local_bs
         if self.host_data:
             sel = perm[lo:hi].numpy()
             return self.x[sel], _labels_on(self.labels_host[sel],
@@ -251,6 +287,12 @@ class _StreamSetup:
         p0 = init_bag(self.pipe.num_features, self.cfg.n_classes,
                       device="meta")
         return {"params": p0, "opt_state": self.tx.init(p0)}
+
+    def shardings(self):
+        """(params, opt state) are replicated on every rank of the mesh:
+        the restore targets whatever mesh exists now (None: this
+        process alone)."""
+        return self.mesh
 
 
 def _stream_loop(S: _StreamSetup, params: LinearParams, state, start: int,
@@ -328,15 +370,20 @@ def fit_linear_streamed(params: LinearParams, pipe: FeaturePipeline, x,
     resume).  ``watchdog=`` arms a StepWatchdog around every step;
     ``chaos=`` threads a fault plan through the step site.
     ``return_state=True`` returns ``(params, opt_state)``.  ``params`` is
-    not modified."""
-    _refuse_mesh(mesh)
+    not modified.
+
+    ``mesh=`` runs the loop data-parallel over the mesh's ``data`` axis
+    (every rank of it makes this call): ``batch_size`` must divide by the
+    axis, and the per-rank batch by ``n_microbatches``; a ``ckpt=``
+    Checkpointer saves for the mesh."""
     validate_bag_features(params, pipe.num_features, spec=pipe.spec)
     if same_device("fit_linear_streamed table", params.w,
                    params.b) != pipe.device:
         raise ValueError(f"table on {params.w.device} but the pipeline on "
                          f"{pipe.device}; move them to one device")
-    S = _StreamSetup(pipe, x, labels, cfg, shuffle_key, n_microbatches)
-    ck = _as_checkpointer(ckpt, chaos) if ckpt is not None else None
+    S = _StreamSetup(pipe, x, labels, cfg, shuffle_key, n_microbatches,
+                     mesh)
+    ck = _as_checkpointer(ckpt, chaos, mesh) if ckpt is not None else None
     if ck is not None and ckpt_every > 0:
         _guard_fresh_dir(ck, "resume_linear_streamed")
     return _stream_loop(S, params, S.tx.init(params), 0, ckpt=ck,
@@ -354,14 +401,16 @@ def resume_linear_streamed(ckpt, pipe: FeaturePipeline, x, labels, *,
     package) from its latest committed step, or ``step=``, bit-identically
     to the run never having been interrupted.  The state is restored on
     the pipeline's device, so a run checkpointed on the card finishes on
-    the CPU, or the reverse.
+    the CPU, or the reverse.  Elastic: ``mesh=`` restores onto the mesh
+    that exists now, whatever number of ranks wrote the checkpoint (or
+    none, ``mesh=None``); at the same number of ranks the resumed run is
+    bit-identical to the uninterrupted one.
 
     Guards: the checkpoint's pipeline fingerprint (spec, dim and a digest
     of the CWS key or matrices), ``TrainCfg``, row count,
     ``n_microbatches`` and, if one is passed, ``shuffle_key`` must match
     the checkpointed run; each mismatch raises ``ValueError``."""
-    _refuse_mesh(mesh)
-    ck = _as_checkpointer(ckpt, chaos)
+    ck = _as_checkpointer(ckpt, chaos, mesh)
     target = latest_step(ck.ckpt_dir) if step is None else step
     if target is None:
         raise FileNotFoundError(
@@ -378,9 +427,11 @@ def resume_linear_streamed(ckpt, pipe: FeaturePipeline, x, labels, *,
         _check_match("shuffle_key", stream["shuffle_key"],
                      _key_data_list(shuffle_key))
     stored_key = np.asarray(stream["shuffle_key"], np.uint32)
-    S = _StreamSetup(pipe, x, labels, cfg, stored_key, n_microbatches)
+    S = _StreamSetup(pipe, x, labels, cfg, stored_key, n_microbatches,
+                     mesh)
     restored = restore_checkpoint(ck.ckpt_dir, target, S.template(),
-                                  device=pipe.device)
+                                  device=pipe.device,
+                                  shardings=S.shardings())
     return _stream_loop(S, restored["params"], restored["opt_state"],
                         int(stream["next_step"]), ckpt=ck,
                         ckpt_every=ckpt_every, watchdog=watchdog,
@@ -403,13 +454,12 @@ def fit_linear_streamed_resilient(params: LinearParams,
     raises, a hung step the watchdog aborts, a failed checkpoint write)
     with backoff and a restart log (``trainer.restart_log``).  After
     process death, the same call in a new process resumes where the old
-    one committed."""
-    _refuse_mesh(mesh)
-    ck = _as_checkpointer(ckpt, chaos)
+    one committed, on any number of ranks (``mesh=``)."""
+    ck = _as_checkpointer(ckpt, chaos, mesh)
     trainer = trainer or RetryingTrainer()
     kw = dict(cfg=cfg, shuffle_key=shuffle_key,
               n_microbatches=n_microbatches, ckpt_every=ckpt_every,
-              chaos=chaos, return_state=return_state)
+              mesh=mesh, chaos=chaos, return_state=return_state)
 
     def attempt():
         wd = (StepWatchdog(hard_timeout_s=hard_timeout_s)
@@ -449,23 +499,24 @@ def streamed_accuracy(params: LinearParams, pipe: FeaturePipeline, x,
     ``ckpt=`` with ``ckpt_every=N`` (chunks) checkpoints the partial count
     and the position, so ``resume_streamed_accuracy`` finishes a killed
     evaluation exactly.  Use a directory of its own: its steps are chunk
-    indices."""
-    _refuse_mesh(mesh)
+    indices.  ``mesh=`` featurizes each chunk over the mesh's ``data``
+    axis (``feature_chunks(mesh=)``); every rank then scores the chunk and
+    returns the same count.  Under a mesh every rank makes the call."""
     validate_bag_features(params, pipe.num_features, spec=pipe.spec)
-    ck = _as_checkpointer(ckpt, chaos) if ckpt is not None else None
+    ck = _as_checkpointer(ckpt, chaos, mesh) if ckpt is not None else None
     if ck is not None and ckpt_every > 0:
         _guard_fresh_dir(ck, "resume_streamed_accuracy")
     n = x.shape[0]
     if n == 0:
         return 0.0
-    return _eval_loop(params, pipe, x, labels, ck=ck, ckpt_every=ckpt_every,
-                      chaos=chaos, base_lo=0, base_chunk=0, correct=0,
-                      total=n)
+    return _eval_loop(params, pipe, x, labels, mesh=mesh, ck=ck,
+                      ckpt_every=ckpt_every, chaos=chaos, base_lo=0,
+                      base_chunk=0, correct=0, total=n)
 
 
 @torch.no_grad()
 def _eval_loop(params: LinearParams, pipe: FeaturePipeline, x, labels, *,
-               ck: Optional[Checkpointer], ckpt_every: int, chaos,
+               mesh, ck: Optional[Checkpointer], ckpt_every: int, chaos,
                base_lo: int, base_chunk: int, correct: int,
                total: int) -> float:
     """Score ``x`` chunk by chunk, counting from ``correct``; positions in
@@ -479,7 +530,7 @@ def _eval_loop(params: LinearParams, pipe: FeaturePipeline, x, labels, *,
     # accumulate on the device: a host int() per chunk would serialize
     # each chunk's compute against the next chunk's launch
     count = torch.full((), correct, dtype=torch.int64, device=labels.device)
-    for c, (lo, hi, fb) in enumerate(pipe.feature_chunks(x)):
+    for c, (lo, hi, fb) in enumerate(pipe.feature_chunks(x, mesh=mesh)):
         if chaos is not None:
             chaos.fire("eval_chunk", base_chunk + c)
         pred = torch.argmax(logits_fn(params, fb), dim=-1)
@@ -508,9 +559,8 @@ def resume_streamed_accuracy(ckpt, params: LinearParams,
     committed partial count and score only the remaining rows.  Exact:
     featurization and scoring are per row.  Guards the fingerprint, the
     table digest and the row count."""
-    _refuse_mesh(mesh)
     validate_bag_features(params, pipe.num_features, spec=pipe.spec)
-    ck = _as_checkpointer(ckpt, chaos)
+    ck = _as_checkpointer(ckpt, chaos, mesh)
     target = latest_step(ck.ckpt_dir)
     if target is None:
         raise FileNotFoundError(
@@ -526,7 +576,7 @@ def resume_streamed_accuracy(ckpt, params: LinearParams,
     correct, lo, n = int(restored["correct"]), int(ev["next_lo"]), int(ev["n"])
     if lo >= n:
         return correct / n
-    return _eval_loop(params, pipe, x[lo:], labels[lo:], ck=None,
+    return _eval_loop(params, pipe, x[lo:], labels[lo:], mesh=mesh, ck=None,
                       ckpt_every=0, chaos=chaos, base_lo=lo,
                       base_chunk=int(ev["next_chunk"]), correct=correct,
                       total=n)

@@ -35,6 +35,7 @@ from repro.pipeline import FeaturePipeline as JPipe
 from repro.pipeline import FeatureSpec as JSpec
 from repro_torch.benchmarks import common, fig78_linear_svm
 from repro_torch.core import CWSParams
+from repro_torch.launch.mesh import make_local_mesh
 from test_torch_bench_small import (few_threads, read,  # noqa: F401
                                     ref_results, untouched_results)
 
@@ -137,6 +138,27 @@ def test_stream_record_keys_and_gap(small_case, monkeypatch,
         abs(rec["acc_streamed"] - rec["acc_fullbatch"]), abs=0.01)
 
 
+def test_stream_record_on_a_one_rank_mesh(small_case, monkeypatch,
+                                          untouched_results):
+    """``mesh=``: the reference's sharded keys; one rank (no process
+    group) takes the unsharded steps, so the gap is exactly 0."""
+    monkeypatch.setattr(fig78_linear_svm, "STREAM_STEPS", 4)
+    monkeypatch.setattr(fig78_linear_svm, "FULL_STEPS", 6)
+    monkeypatch.setattr(fig78_linear_svm, "STREAM_BATCH", 100)
+    n_classes, jparams, (xtr, ytr, xte, yte), _, _ = small_case
+    params = CWSParams(*(torch.from_numpy(np.array(m)) for m in (
+        jparams.r, jparams.log_c, jparams.beta)))
+    rec = fig78_linear_svm.stream_record(
+        params, *(torch.from_numpy(a) for a in (xtr, ytr, xte, yte)),
+        k=32, b_i=8, n_classes=n_classes, mesh=make_local_mesh())
+    assert set(rec) == set(common.load_reference("BENCH_linear_stream")) | {
+        "ndev", "batch_size_sharded", "acc_sharded", "gap_sharded_pp",
+        "us_sharded"}
+    assert (rec["ndev"], rec["batch_size_sharded"]) == (1, 100)
+    assert rec["acc_sharded"] == rec["acc_streamed"]
+    assert rec["gap_sharded_pp"] == 0.0
+
+
 def test_dataset_is_the_reference_draw():
     ds = fig78_linear_svm.dataset()
     ref = jsyn.make_template_classification(
@@ -160,5 +182,10 @@ def test_claims_and_refusals():
                       "hashed within 4 pp of exact min-max": False}
     with pytest.raises(AssertionError, match="streamed"):
         fig78_linear_svm.check_claims(records)
-    with pytest.raises(NotImplementedError, match="A11"):
-        fig78_linear_svm.run(fast=True, mesh=True, device="cpu")
+    # mesh=True adds the sharded record and its gate
+    records["BENCH_linear_stream"].update(ndev=4, gap_sharded_pp=0.75)
+    claims = fig78_linear_svm.claims(records)
+    assert claims["sharded within 0.5 pp of streamed"] is False
+    records["BENCH_linear_stream"]["gap_sharded_pp"] = 0.25
+    assert fig78_linear_svm.claims(records)[
+        "sharded within 0.5 pp of streamed"]

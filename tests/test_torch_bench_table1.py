@@ -8,6 +8,11 @@ reference's ``GRAM_FNS`` and ``best_accuracy_over_C`` on the same arrays:
 the Grams differ by float32 sum order and dual coordinate descent reduces
 in another order, so each accuracy may move by a test row or two.  Stated
 tolerance: 1.0 pp a cell (2 of 200 rows), 0.5 pp mean over the four.
+
+``hist-mix`` at full size, on the reference's draws (``regen``'s
+Dirichlet and Gamma), against the reference's own row for it
+(``reference/table1_hist_mix.json``, recorded by the command in
+CHANGES.md): equal on every cell.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +23,7 @@ from repro.core import GRAM_FNS as J_GRAMS
 from repro.core.kernel_svm import best_accuracy_over_C as j_best
 from repro.data import synthetic as jsyn
 from repro_torch.benchmarks import common, table1_kernel_svm
+from repro_torch.data import synthetic as tsyn
 from test_torch_bench_small import (few_threads, read,  # noqa: F401
                                     ref_results, untouched_results)
 
@@ -49,9 +55,21 @@ def test_row_matches_reference_on_same_arrays(suite, untouched_results):
     assert diffs.max() <= CELL_PP and diffs.mean() <= MEAN_PP, (got, want)
 
 
-def test_suites_and_claims():
+def test_hist_mix_equals_reference_record(untouched_results):
+    ds = tsyn.CLASSIFICATION_SUITES["hist-mix"]()
+    got = table1_kernel_svm.kernel_accuracies(
+        ds.x_train, ds.y_train, ds.x_test, ds.y_test, ds.n_classes, "cpu")
+    assert got == common.load_reference("table1_hist_mix")["hist-mix"]
+
+
+def test_suites_and_claims(monkeypatch, tmp_path):
     assert table1_kernel_svm.SUITES == tuple(jsyn.CLASSIFICATION_SUITES)
-    assert table1_kernel_svm.SUITE_DRAWS["hist-mix"] == "numpy"
+    # every suite is the reference's draws, and the record says so
+    monkeypatch.setattr(table1_kernel_svm, "kernel_accuracies",
+                        lambda *a: {"linear": 1.0, "min-max": 1.0})
+    rec = table1_kernel_svm.run(device="cpu", out=tmp_path)
+    assert rec["table1_kernel_svm"]["draws"] == dict.fromkeys(
+        table1_kernel_svm.SUITES, "jax")
     rows = {"template": {"linear": 80.0, "min-max": 99.0},
             "hist-mix": {"linear": 90.0, "min-max": 89.0},
             "device": "cpu", "draws": {}, "fast": False}

@@ -1,12 +1,12 @@
 """Port parity: chaos tests of preemption-grade streamed training
-(``tests/test_chaos.py``'s counterparts, but the mesh reshards, ROADMAP
-A11).
+(``tests/test_chaos.py``'s counterparts, the mesh reshards over gloo
+ranks included: ``TestElasticReshard``).
 
 Kill a streamed run at an exact point, resume it, and demand bit-identity
 with the uninterrupted run: the port's gradient is deterministic and its
 shuffle is the reference's, so a resumed run takes the same rows with the
 same state at every step.  On the reference tests' problem at their
-sizes: ``make_template_classification(3, ..., draws="jax")`` (160 train /
+sizes: ``make_template_classification(3, ...)`` (160 train /
 80 test rows, D = 32, 3 classes), ``make_cws_params_jax(prng_key(7), 32,
 24)`` at b_i = 4, ``row_chunk=32`` (the evaluation walks 3 chunks), 40
 steps of 32 rows.  Hang faults and hard timeouts keep the reference
@@ -84,7 +84,7 @@ def make_pipe(packed=False, seed=7):
 
 @pytest.fixture(scope="module")
 def problem():
-    ds = make_template_classification(3, **DATA, draws="jax")
+    ds = make_template_classification(3, **DATA)
     pipe = make_pipe()
     cfg = TrainCfg(**CFG)
     p0 = init_bag(pipe.num_features, 3, device="cpu")
@@ -614,3 +614,208 @@ def test_eval_digest_and_checkpoint_across_packages(xproblem, tmp_path):
                             ds.y_test) == want
     assert resume_streamed_accuracy(tmp_path, params, pipe, ds.x_test,
                                     ds.y_test) == want
+
+
+# ---------------------------------------------------------------------------
+# TestElasticReshard: the data axis over gloo ranks
+# ---------------------------------------------------------------------------
+# The reference's 8 -> 4 / 1 / 8 (a world of 8 gloo ranks fits this
+# file's time: about 10 s a world): fit A's problem checkpointed every 5
+# steps on 8 ranks (4 rows a rank) and killed before step 17, resumed on
+# 8, 4 and 1 ranks and with no mesh.  Across the packages, on xproblem's
+# rows and matrices: the port killed at 25 on 4 ranks (latest 20) and the
+# reference resuming that checkpoint unsharded; the reference killed at 25
+# and the port resuming its checkpoint at 4, 2 and 1 ranks.
+
+ELASTIC_WORLDS = (8, 4, 2)
+
+
+def _elastic_rank(rank, world, init, spec):
+    import datetime
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_data_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_data_mesh(world)
+        ds = make_template_classification(3, **DATA)
+        pipe, cfg = make_pipe(), TrainCfg(**CFG)
+        p0 = init_bag(pipe.num_features, 3, device="cpu")
+        res = {}
+
+        def fit(pipe, x, y, **kw):
+            return fit_linear_streamed(p0, pipe, x, y, cfg=cfg, mesh=mesh,
+                                       **kw)
+
+        if world == 8:
+            clean = fit(pipe, ds.x_train, ds.y_train)
+            res["clean"] = torch.cat([clean.w.reshape(-1), clean.b]).numpy()
+            res["acc"] = streamed_accuracy(clean, pipe, ds.x_test, ds.y_test,
+                                           mesh=mesh)
+            ck = Checkpointer(spec["elastic"], mesh=mesh)
+            try:
+                fit(pipe, ds.x_train, ds.y_train, ckpt=ck, ckpt_every=5,
+                    chaos=ChaosPlan(kill_at(17)))
+            except ChaosKill:
+                res["killed"] = True
+            ck.join()
+            res["latest"] = latest_step(spec["elastic"])
+            again = resume_linear_streamed(spec["elastic"], pipe, ds.x_train,
+                                           ds.y_train, cfg=cfg, mesh=mesh)
+            res["resumed"] = torch.cat([again.w.reshape(-1),
+                                        again.b]).numpy()
+        else:
+            if world == 4:
+                p = resume_linear_streamed(spec["elastic"], pipe, ds.x_train,
+                                           ds.y_train, cfg=cfg, mesh=mesh)
+                res["acc"] = streamed_accuracy(p, pipe, ds.x_test, ds.y_test,
+                                               mesh=mesh)
+            x = spec["xdata"]
+            xpipe = FeaturePipeline(interop.cws_params(*spec["xparams"],
+                                                       device="cpu"),
+                                    FeatureSpec(24, 4), row_chunk=32)
+            if world == 4:
+                ck = Checkpointer(spec["port4"], mesh=mesh)
+                try:
+                    fit(xpipe, x[0], x[1], ckpt=ck, ckpt_every=20,
+                        chaos=ChaosPlan(kill_at(25)))
+                except ChaosKill:
+                    res["killed"] = True
+                ck.join()
+            p = resume_linear_streamed(spec["ref"], xpipe, x[0], x[1],
+                                       cfg=cfg, mesh=mesh,
+                                       shuffle_key=prng_key(0))
+            res["xacc"] = streamed_accuracy(p, xpipe, x[2], x[3], mesh=mesh)
+        np.save(f"{spec['out']}/{world}_{rank}.npy", res, allow_pickle=True)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def elastic(xproblem, tmp_path_factory):
+    """Every rank's results of the three worlds, the reference's killed
+    checkpoint, and the port's 4-rank one."""
+    import numpy as np
+    import torch.multiprocessing as mp
+    ds, jpipe, _, jcfg, _ = xproblem
+    d = tmp_path_factory.mktemp("elastic")
+    jp0 = jlm.init_bag(jax.random.PRNGKey(1), jpipe.num_features, 3)
+    with pytest.raises(JChaosKill):
+        jfit_streamed(jp0, jpipe, ds.x_train, ds.y_train, cfg=jcfg,
+                      ckpt=d / "ref", ckpt_every=20,
+                      chaos=JChaosPlan(jkill_at(25)))
+    deadline = time.monotonic() + 30.0   # the reference's writer thread
+    while latest_step(d / "ref") != 20 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    s = jpipe._state()
+    spec = {"elastic": str(d / "elastic"), "port4": str(d / "port4"),
+            "ref": str(d / "ref"), "out": str(d),
+            "xdata": (ds.x_train, ds.y_train, ds.x_test, ds.y_test),
+            "xparams": tuple(np.asarray(m) for m in (s.r, s.log_c, s.beta))}
+    for world in ELASTIC_WORLDS:
+        mp.spawn(_elastic_rank, args=(world, f"file://{d}/rdv{world}", spec),
+                 nprocs=world, join=True)
+    ranks = {w: [np.load(d / f"{w}_{r}.npy", allow_pickle=True).item()
+                 for r in range(w)] for w in ELASTIC_WORLDS}
+    return ranks, d
+
+
+class TestElasticReshard:
+    """Checkpointed at 8 ranks, resumed at 4 / 1 / 8: the checkpoint holds
+    each leaf once, written as 8 processes' row slices, and restore
+    reads it onto whatever mesh exists now.  The same rank count resumes
+    bit-identically; across rank counts only the gradient's order of
+    summation differs, and the final accuracy must not."""
+
+    def test_checkpoint_written_by_every_rank(self, elastic):
+        ranks, d = elastic
+        assert all(r["killed"] and r["latest"] == 15 for r in ranks[8])
+        step = d / "elastic" / "step_00000015"
+        names = sorted(p.name for p in step.iterdir())
+        assert names == sorted(["COMMIT", "manifest.json"]
+                               + [f"shard_p{i}.npz" for i in range(8)]
+                               + [f"index_p{i}.json" for i in range(8)])
+        assert json.loads((step / "manifest.json").read_text())[
+            "n_processes"] == 8
+
+    def test_resume_same_mesh_bit_identical(self, elastic):
+        ranks, _ = elastic
+        import numpy as np
+        for r in ranks[8]:
+            np.testing.assert_array_equal(r["resumed"], r["clean"])
+            np.testing.assert_array_equal(r["clean"], ranks[8][0]["clean"])
+
+    @pytest.mark.parametrize("ndev", [4, 1])
+    def test_resume_fewer_devices_equal_accuracy(self, elastic, problem,
+                                                 ndev):
+        """8 -> 4 (gloo ranks) and 8 -> 1 (a one-rank mesh, no process
+        group) finish the run at the 8-rank accuracy exactly."""
+        from repro_torch.launch.mesh import make_data_mesh
+        ranks, d = elastic
+        acc8 = ranks[8][0]["acc"]
+        if ndev == 4:
+            assert [r["acc"] for r in ranks[4]] == [acc8] * 4
+            return
+        ds, pipe, cfg, _ = problem
+        mesh = make_data_mesh(1)
+        p = resume_linear_streamed(d / "elastic", pipe, ds.x_train,
+                                   ds.y_train, cfg=cfg, mesh=mesh)
+        assert streamed_accuracy(p, pipe, ds.x_test, ds.y_test,
+                                 mesh=mesh) == acc8
+
+    def test_resume_on_unsharded_path(self, elastic, problem):
+        ranks, d = elastic
+        ds, pipe, cfg, _ = problem
+        p = resume_linear_streamed(d / "elastic", pipe, ds.x_train,
+                                   ds.y_train, cfg=cfg)
+        assert streamed_accuracy(p, pipe, ds.x_test,
+                                 ds.y_test) == ranks[8][0]["acc"]
+
+    def test_reference_resumes_the_ports_4_rank_checkpoint(self, elastic,
+                                                           xproblem):
+        """The port killed at 25 on 4 ranks (latest 20, four processes'
+        files); the reference, unsharded, resumes it within ``ACC_PP`` of
+        its own uninterrupted run."""
+        ranks, d = elastic
+        ds, jpipe, _, jcfg, _ = xproblem
+        assert all(r["killed"] for r in ranks[4])
+        assert jlatest_step(d / "port4") == 20
+        assert sorted(p.name for p in (d / "port4" / "step_00000020")
+                      .glob("index_p*.json")) == [f"index_p{i}.json"
+                                                  for i in range(4)]
+        jp0 = jlm.init_bag(jax.random.PRNGKey(1), jpipe.num_features, 3)
+        jacc = jstreamed_accuracy(
+            jfit_streamed(jp0, jpipe, ds.x_train, ds.y_train, cfg=jcfg),
+            jpipe, ds.x_test, ds.y_test)
+        jp = jresume(d / "port4", jpipe, ds.x_train, ds.y_train, cfg=jcfg,
+                     shuffle_key=jax.random.PRNGKey(0))
+        got = jstreamed_accuracy(jp, jpipe, ds.x_test, ds.y_test)
+        assert abs(got - jacc) * 100 <= ACC_PP, (got, jacc)
+
+    @pytest.mark.parametrize("ndev", [4, 2, 1])
+    def test_port_resumes_the_references_checkpoint(self, elastic, xproblem,
+                                                    ndev):
+        """The reference killed at 25 (latest 20); the port resumes its
+        checkpoint on 4, 2 and 1 ranks within ``ACC_PP`` of the
+        reference's uninterrupted run, the same count on every rank."""
+        from repro_torch.launch.mesh import make_data_mesh
+        ranks, d = elastic
+        ds, jpipe, pipe, jcfg, cfg = xproblem
+        jp0 = jlm.init_bag(jax.random.PRNGKey(1), jpipe.num_features, 3)
+        jacc = jstreamed_accuracy(
+            jfit_streamed(jp0, jpipe, ds.x_train, ds.y_train, cfg=jcfg),
+            jpipe, ds.x_test, ds.y_test)
+        if ndev == 1:
+            mesh = make_data_mesh(1)
+            p = resume_linear_streamed(d / "ref", pipe, ds.x_train,
+                                       ds.y_train, cfg=cfg, mesh=mesh,
+                                       shuffle_key=prng_key(0))
+            accs = [streamed_accuracy(p, pipe, ds.x_test, ds.y_test,
+                                      mesh=mesh)]
+        else:
+            accs = [r["xacc"] for r in ranks[ndev]]
+        assert len(set(accs)) == 1
+        assert abs(accs[0] - jacc) * 100 <= ACC_PP, (accs, jacc)

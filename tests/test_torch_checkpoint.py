@@ -1,8 +1,11 @@
 """Port parity: checkpoints (``repro.checkpoint.checkpointer``).
 
 The port's counterparts of ``tests/test_fault_tolerance.py``'s
-``TestCheckpoint`` (but the mesh restore, ROADMAP A11) and
-``TestCommitProtocol``, on the CPU; then the format across the packages,
+``TestCheckpoint`` (the mesh restore onto a one-rank mesh) and
+``TestCommitProtocol``, on the CPU; saves under a mesh of two gloo ranks
+(each rank its rows of every leaf, ``n_processes`` 2, one ``COMMIT``; a
+failed write on one rank fails the save on both); then the format across
+the packages,
 on the linear trainer's tree in regen and in stored mode: each package
 restores the other's checkpoint with every tensor equal, the leaf names
 equal the reference's ``_tree_paths``, the manifests and indexes carry the
@@ -33,6 +36,7 @@ from repro_torch.checkpoint import (Checkpointer, committed_steps,
 from repro_torch.checkpoint import checkpointer as tck
 from repro_torch.core import linear_model as tlm
 from repro_torch.core.cws import CWSParams
+from repro_torch.launch.mesh import make_data_mesh
 
 CPU = "cpu"
 
@@ -165,6 +169,21 @@ class TestCheckpoint:
                                                       torch.float32)},
                                   device=CPU)
         assert torch.equal(back["w"], w)
+
+    def test_restore_with_sharding(self, tmp_path):
+        """Restore onto the mesh that exists now: a mesh, or a tree of
+        meshes shaped like the template (every leaf replicated)."""
+        mesh = make_data_mesh(1)
+        tree = self._tree(6)
+        save_checkpoint(tmp_path, 1, tree, mesh=mesh)
+        tree_eq(tree, restore_checkpoint(tmp_path, 1, specs(tree),
+                                         device=CPU, shardings=mesh))
+        per_leaf = tck._rebuild(tree, iter([mesh] * len(leaves(tree))))
+        tree_eq(tree, restore_checkpoint(tmp_path, 1, specs(tree),
+                                         device=CPU, shardings=per_leaf))
+        with pytest.raises(ValueError, match="shardings"):
+            restore_checkpoint(tmp_path, 1, specs(tree), device=CPU,
+                               shardings={"params": mesh})
 
     def test_restore_casts_to_the_template_and_names_missing_leaves(
             self, tmp_path):
@@ -424,3 +443,108 @@ def test_port_tree_types_name_like_the_references():
         "['b']/[0]", "['b']/[1]/.w", "['b']/[1]/.b",
         "['c']/[<flat index 0>]", "['c']/[<flat index 1>]",
         "['c']/[<flat index 2>]"]
+
+
+# ---------------------------------------------------------------------------
+# saves under a mesh of two gloo ranks
+# ---------------------------------------------------------------------------
+
+def _mesh_tree():
+    g = torch.Generator().manual_seed(11)
+    return {"params": {"w": torch.randn(7, 3, generator=g),
+                       "b": torch.randn(3, generator=g)},
+            "count": torch.tensor(5, dtype=torch.int32),
+            "key": np.array([3, 2 ** 32 - 1], np.uint32)}
+
+
+def _mesh_rank(rank, world, init, out):
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.runtime import ChaosPlan, fail_async_write
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_data_mesh(world)
+        tree = _mesh_tree()
+        save_checkpoint(f"{out}/sync", 3, tree, mesh=mesh)
+        ck = Checkpointer(f"{out}/async", mesh=mesh)
+        ck.save_async(4, tree, extra={"rank_count": world})
+        ck.wait()
+        # rank 1's write fails: the save fails on both, nothing commits
+        ck = Checkpointer(f"{out}/failed", mesh=mesh, chaos=ChaosPlan(
+            *([fail_async_write(6)] if rank == 1 else [])))
+        ck.save_async(5, tree)
+        ck.wait()
+        ck.save_async(6, tree)
+        try:
+            ck.wait()
+            outcome = "saved"
+        except OSError as e:
+            outcome = str(e)
+        with open(f"{out}/failed_{rank}.txt", "w") as f:
+            f.write(outcome)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh_saves(tmp_path_factory):
+    import torch.multiprocessing as mp
+    d = tmp_path_factory.mktemp("mesh_saves")
+    mp.spawn(_mesh_rank, args=(2, f"file://{d}/rdv", str(d)), nprocs=2,
+             join=True)
+    return d
+
+
+def test_mesh_save_writes_each_rank_its_rows(mesh_saves):
+    tree = _mesh_tree()
+    for sub, step in (("sync", 3), ("async", 4)):
+        d = mesh_saves / sub / f"step_{step:08d}"
+        assert sorted(p.name for p in d.iterdir()) == [
+            "COMMIT", "index_p0.json", "index_p1.json", "manifest.json",
+            "shard_p0.npz", "shard_p1.npz"]
+        assert json.loads((d / "manifest.json").read_text())[
+            "n_processes"] == 2
+        index = [json.loads((d / f"index_p{i}.json").read_text())
+                 for i in range(2)]
+        # rows [0, 3) and [3, 7) of w; the scalar on rank 0; each leaf once
+        assert index[0]["['params']/['w']::0"]["index"] == [[0, 3], [0, 3]]
+        assert index[1]["['params']/['w']::1"]["index"] == [[3, 7], [0, 3]]
+        assert "['count']::0" in index[0] and not any(
+            k.startswith("['count']") for k in index[1])
+        back = restore_checkpoint(mesh_saves / sub, step, specs(
+            {k: v for k, v in tree.items() if k != "key"}) | {
+                "key": ((2,), torch.uint32)}, device=CPU)
+        for name in ("params", "count"):
+            tree_eq(tree[name], back[name])
+        assert back["key"].view(torch.int32).tolist() == \
+            torch.from_numpy(tree["key"].view(np.int32)).tolist()
+    assert json.loads((mesh_saves / "async" / "step_00000004" /
+                       "manifest.json").read_text())["extra"] == {
+        "rank_count": 2}
+
+
+def test_reference_restores_a_two_rank_save(mesh_saves):
+    tree = _mesh_tree()
+    template = {"params": {"w": jax.ShapeDtypeStruct((7, 3), jnp.float32),
+                           "b": jax.ShapeDtypeStruct((3,), jnp.float32)},
+                "count": jax.ShapeDtypeStruct((), jnp.int32),
+                "key": jax.ShapeDtypeStruct((2,), jnp.uint32)}
+    back = jck.restore_checkpoint(mesh_saves / "sync", 3, template)
+    np.testing.assert_array_equal(np.asarray(back["params"]["w"]),
+                                  tree["params"]["w"].numpy())
+    np.testing.assert_array_equal(np.asarray(back["params"]["b"]),
+                                  tree["params"]["b"].numpy())
+    assert int(back["count"]) == 5
+    np.testing.assert_array_equal(np.asarray(back["key"]), tree["key"])
+
+
+def test_a_failed_write_on_one_rank_fails_every_rank(mesh_saves):
+    outcomes = [(mesh_saves / f"failed_{r}.txt").read_text()
+                for r in range(2)]
+    assert "another rank" in outcomes[0]
+    assert outcomes[1] != "saved" and "another rank" not in outcomes[1]
+    assert latest_step(mesh_saves / "failed") == 5
+    assert not (mesh_saves / "failed" / "step_00000006").exists()

@@ -220,8 +220,8 @@ def test_word_pairs_bit_identical():
 
 @pytest.mark.parametrize("name", sorted(tsyn.CLASSIFICATION_SUITES))
 def test_classification_suites_have_reference_shapes(name):
-    """numpy-drawn suites: same shapes, dtypes, class counts and
-    nonnegativity as the reference's, and deterministic."""
+    """The suites: same shapes, dtypes, class counts and nonnegativity as
+    the reference's, and deterministic."""
     got = tsyn.CLASSIFICATION_SUITES[name]()
     again = tsyn.CLASSIFICATION_SUITES[name]()
     want = jsyn.CLASSIFICATION_SUITES[name]()

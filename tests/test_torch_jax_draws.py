@@ -6,8 +6,17 @@ integer arithmetic and single IEEE float32 steps.  ``exponential`` and
 ``normal`` go through log1p (and XLA's erfinv polynomial), where
 PyTorch's CPU math and XLA's differ in the last bits: within 1 and 3
 float32 ulps, with the share of bit-exact draws above a floor (measured
-at 92.7% and 95.3%).  The datasets of ``draws="jax"``: labels and zero
-patterns exact, values within 4e-5 relative (measured: 1.6e-5).
+at 92.7% and 95.3%).  ``gamma`` / ``loggamma`` / ``dirichlet`` (the
+Marsaglia-Tsang loop, one key an element) at alpha in {0.05, 0.3, 1, 2.5,
+30}, scalar and batched: zeros exact, values within ``GAMMA_RTOL``
+relative (``loggamma`` within ``GAMMA_ATOL``; measured 1.5e-5 at worst,
+at alpha 0.05 where the boost raises a uniform to the 20th power), and
+the draws that took another trip of the rejection loop than the
+reference's (an ulp of ``log`` near the accept boundary; seen as a
+relative error above 1e-3) counted: none of 300,000.  The datasets:
+labels and zero patterns exact, values within 4e-5 relative (measured:
+1.6e-5); ``make_histogram_mixture`` within ``MIX_ULPS`` float32 ulps,
+the differing entries counted (``MIX_DIFFS``).
 ``make_cws_params_jax``: beta exact, r within 2 ulps, log c within
 2^-21 (measured 2^-22), and the CWS i* of fig78's 2,000 rows at
 k = 1,024 equal to the reference's on every (row, hash).
@@ -29,6 +38,17 @@ SEEDS = (0, 7, 2 ** 31 - 1, 2 ** 40 + 5)
 SHAPES = ((1000,), (37, 29), (3, 5, 7))
 N_FLOAT = 200_000
 DATA_RTOL = 4e-5
+ALPHAS = (0.05, 0.3, 1.0, 2.5, 30.0)
+N_GAMMA = 20_000
+GAMMA_RTOL, GAMMA_ATOL = 3e-5, 3e-5
+ANOTHER_TRIP = 0          # of 5 alphas x 3 seeds x 20,000 draws
+# make_histogram_mixture(3, **kw): entries (train and test) that differ
+# from the reference's in the last bits, all within MIX_ULPS; the Gamma
+# draws' pow boost and exp(3 * normal) masses carry the samplers' ulps
+MIX_ULPS = 512
+MIX_DIFFS = {(): 185_184,
+             (("dim", 16), ("n_classes", 4), ("n_test", 30),
+              ("n_train", 50)): 835}
 
 
 def _keys(seed):
@@ -120,7 +140,7 @@ def _assert_dataset(j, t):
 @pytest.mark.parametrize("suite", ("template", "template-hard", "ratio-xor"))
 def test_classification_suites_jax_draws(suite):
     _assert_dataset(jsyn.CLASSIFICATION_SUITES[suite](),
-                    tsyn.classification_suite(suite, draws="jax"))
+                    tsyn.CLASSIFICATION_SUITES[suite]())
 
 
 @pytest.mark.parametrize("kw", (
@@ -132,29 +152,105 @@ def test_template_classification_jax_draws(kw):
     kw = dict(kw)
     seed = kw.pop("seed")
     _assert_dataset(jsyn.make_template_classification(seed, **kw),
-                    tsyn.make_template_classification(seed, draws="jax",
-                                                      **kw))
+                    tsyn.make_template_classification(seed, **kw))
 
 
 @pytest.mark.parametrize("seed", (2, 5))
 def test_ratio_xor_jax_draws(seed):
-    _assert_dataset(jsyn.make_ratio_xor(seed), tsyn.make_ratio_xor(
-        seed, draws="jax"))
+    _assert_dataset(jsyn.make_ratio_xor(seed), tsyn.make_ratio_xor(seed))
 
 
 def test_draws_default_and_refusals():
+    """Table 1's suites are the generators at the reference's seeds, on
+    the reference's draws; only ``make_template_classification`` keeps
+    its numpy stream (the train phase's dataset, ROADMAP A16)."""
     a = tsyn.CLASSIFICATION_SUITES["template"]()
-    b = tsyn.make_template_classification(0, draws="numpy")
+    b = tsyn.make_template_classification(0)
     np.testing.assert_array_equal(a.x_train, b.x_train)
     np.testing.assert_array_equal(
-        tsyn.classification_suite("ratio-xor").x_test,
+        tsyn.CLASSIFICATION_SUITES["ratio-xor"]().x_test,
         tsyn.make_ratio_xor(2).x_test)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tsyn.make_histogram_mixture(3, draws="jax")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tsyn.classification_suite("hist-mix", draws="jax")
+    assert sorted(tsyn.CLASSIFICATION_SUITES) == \
+        sorted(jsyn.CLASSIFICATION_SUITES)
+    for fn in (tsyn.make_ratio_xor, tsyn.make_histogram_mixture):
+        with pytest.raises(TypeError, match="draws"):
+            fn(2, draws="numpy")
+    c = tsyn.make_template_classification(0, draws="numpy")
+    assert c.x_train.shape == a.x_train.shape
+    assert not np.array_equal(c.x_train, a.x_train)
+    np.testing.assert_array_equal(
+        c.x_test, tsyn.make_template_classification(0, draws="numpy").x_test)
     with pytest.raises(ValueError, match="draws"):
-        tsyn.make_ratio_xor(2, draws="torch")
+        tsyn.make_template_classification(0, draws="torch")
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_gamma_samplers_match_jax(seed):
+    """``gamma`` and ``loggamma`` at each alpha, scalar alpha broadcast to
+    N_GAMMA draws: zeros exact, values within the stated tolerances, the
+    draws that took another trip counted."""
+    jk, tk = _keys(seed)
+    another = 0
+    for alpha in ALPHAS:
+        want = np.asarray(jax.random.gamma(jk, jnp.float32(alpha),
+                                           (N_GAMMA,)))
+        got = R.gamma(tk, alpha, (N_GAMMA,))
+        assert got.dtype == torch.float32 and got.shape == (N_GAMMA,)
+        got = got.numpy()
+        np.testing.assert_array_equal(got == 0, want == 0)
+        nz = want > 0
+        rel = np.abs(got - want)[nz] / want[nz]
+        another += int((rel > 1e-3).sum())
+        assert (rel[rel <= 1e-3] <= GAMMA_RTOL).all(), (alpha, rel.max())
+        lwant = np.asarray(jax.random.loggamma(jk, jnp.float32(alpha),
+                                               (N_GAMMA,)))
+        lgot = R.loggamma(tk, alpha, (N_GAMMA,)).numpy()
+        assert np.abs(lgot - lwant).max() <= GAMMA_ATOL, alpha
+    assert another == ANOTHER_TRIP
+
+
+@pytest.mark.parametrize("seed", SEEDS[:2])
+def test_batched_gamma_and_dirichlet_match_jax(seed):
+    """A (40, 17) array of alphas drawn from ALPHAS: ``gamma``,
+    ``loggamma``, ``dirichlet`` over its last axis, and the hist-mix
+    prototypes' Dirichlet (0.25 x 128, ten rows)."""
+    jk, tk = _keys(seed)
+    a = np.random.default_rng(seed).choice(np.float32(ALPHAS),
+                                           (40, 17)).astype(np.float32)
+    want = np.asarray(jax.random.gamma(jk, jnp.asarray(a)))
+    got = R.gamma(tk, a).numpy()
+    np.testing.assert_array_equal(got == 0, want == 0)
+    np.testing.assert_allclose(got, want, rtol=GAMMA_RTOL, atol=0)
+    np.testing.assert_allclose(R.loggamma(tk, torch.from_numpy(a)).numpy(),
+                               np.asarray(jax.random.loggamma(
+                                   jk, jnp.asarray(a))),
+                               rtol=0, atol=GAMMA_ATOL)
+    for alpha, shape in ((a, None), (np.full(128, 0.25, np.float32), (10,))):
+        want = np.asarray(jax.random.dirichlet(jk, jnp.asarray(alpha),
+                                               shape))
+        got = R.dirichlet(tk, alpha, shape).numpy()
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got == 0, want == 0)
+        np.testing.assert_allclose(got, want, rtol=GAMMA_RTOL, atol=0)
+    with pytest.raises(ValueError, match="ndim"):
+        R.dirichlet(tk, np.float32(1.0))
+
+
+@pytest.mark.parametrize("kw", [dict(k) for k in MIX_DIFFS],
+                         ids=["hist-mix", "small"])
+def test_histogram_mixture_jax_draws(kw):
+    """``make_histogram_mixture(3)``: labels and the zero pattern (the
+    Gamma boost's underflow, flushed as the reference's backend flushes)
+    equal, every value within MIX_ULPS, the differing entries counted."""
+    j, t = jsyn.make_histogram_mixture(3, **kw), \
+        tsyn.make_histogram_mixture(3, **kw)
+    _assert_dataset(j, t)
+    got = np.concatenate([t.x_train, t.x_test])
+    want = np.concatenate([j.x_train, j.x_test])
+    np.testing.assert_array_max_ulp(got, want, maxulp=MIX_ULPS)
+    assert int((got != want).sum()) == MIX_DIFFS[tuple(sorted(kw.items()))]
+    if not kw:
+        assert (want == 0).sum() == 2058     # 0.80% of the entries
 
 
 @pytest.fixture(scope="module")
@@ -183,7 +279,7 @@ def test_fig78_istar_equal_at_full_width(fig78_params):
     # both rebuilt: every (row, hash) i* is the reference's
     want_p, got_p = fig78_params
     j = jsyn.CLASSIFICATION_SUITES["template-hard"]()
-    t = tsyn.classification_suite("template-hard", draws="jax")
+    t = tsyn.CLASSIFICATION_SUITES["template-hard"]()
     xj = np.concatenate([j.x_train, j.x_test])
     xt = np.concatenate([t.x_train, t.x_test])
     assert xt.shape == (2000, 256)

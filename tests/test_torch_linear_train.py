@@ -52,6 +52,7 @@ from repro_torch import optim as topt
 from repro_torch.configs import get_config
 from repro_torch.core import linear_model as tlm
 from repro_torch.core.regen import prng_key
+from repro_torch.launch.mesh import Mesh, make_data_mesh
 from repro_torch.pipeline import FeaturePipeline, FeatureSpec
 from repro_torch.runtime.fault_tolerance import StepWatchdog
 from repro_torch.training import (export_served_model, fit_linear_streamed,
@@ -391,10 +392,17 @@ def test_microbatch_grads_match_reference(n_micro):
         _, g1 = tlm.value_and_grad(tlm._loss_fn, tp, torch.from_numpy(x),
                                    torch.from_numpy(y), tcfg, tlm.bag_logits)
         assert all(torch.equal(a, c) for a, c in zip(tg, g1))
-    with pytest.raises(NotImplementedError, match="A11"):
-        microbatch_grads(tloss_fn, tp, {"inputs": torch.from_numpy(x),
-                                        "labels": torch.from_numpy(y)},
-                         axis_name="data")
+    # the mean over a one-rank data axis changes nothing; an axis needs
+    # its mesh; constrain= is the LM trainer's layout (A12)
+    batch = {"inputs": torch.from_numpy(x), "labels": torch.from_numpy(y)}
+    mloss, _, mg = microbatch_grads(tloss_fn, tp, batch, n_micro=n_micro,
+                                    axis_name="data", mesh=make_data_mesh(1))
+    assert torch.equal(mloss, tloss)
+    assert all(torch.equal(a, c) for a, c in zip(mg, tg))
+    with pytest.raises(ValueError, match="mesh"):
+        microbatch_grads(tloss_fn, tp, batch, axis_name="data")
+    with pytest.raises(NotImplementedError, match="A12"):
+        microbatch_grads(tloss_fn, tp, batch, constrain=lambda t: t)
 
 
 def test_best_accuracy_sweeps_match_reference(problem):
@@ -447,13 +455,16 @@ def test_validation_and_unported_paths(problem, tmp_path):
     x, y = ds.x_train, ds.y_train
     p0 = tlm.init_bag(pipe.num_features, C, device="cpu")
     _, cfg = _cfgs(steps=2, batch_size=32)
-    with pytest.raises(NotImplementedError, match="A11"):
-        fit_linear_streamed(p0, pipe, x, y, cfg=cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        resume_linear_streamed(tmp_path, pipe, x, y, cfg=cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        fit_linear_streamed_resilient(p0, pipe, x, y, cfg=cfg, ckpt=tmp_path,
-                                      ckpt_every=1, mesh=object())
+    # mesh=: the data axis is what the trainer shards over
+    no_data = Mesh({"model": 1})
+    with pytest.raises(ValueError, match="'data' axis"):
+        fit_linear_streamed(p0, pipe, x, y, cfg=cfg, mesh=no_data)
+    with pytest.raises(ValueError, match="'data' axis"):
+        fit_linear_streamed_resilient(p0, pipe, x, y, cfg=cfg,
+                                      ckpt=tmp_path / "r", ckpt_every=1,
+                                      mesh=no_data)
+    with pytest.raises(ValueError, match="'data' axis"):
+        streamed_accuracy(p0, pipe, x, y, mesh=no_data)
     # checkpointed training: a dir holding a committed step wants the
     # resume, and a resume needs a committed step
     with pytest.raises(FileNotFoundError, match="no committed"):
