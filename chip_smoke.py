@@ -218,7 +218,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 tolerance; the CWS head on the pooled hidden state (one
                 ``cws_encode`` launch, no other CWS kernel), its codes
                 equal to the CPU path's;
- 12. seq-parallel - gemma3_12b at full width cut to 6 layers, its
+ 12. lm-train - gemma3_12b's train step at full width, depth cut to 6
+                layers (one 5 local : 1 global unit; 48 layers of fp32
+                masters and moments do not fit one card): (a) fp32
+                gradients of every leaf through the flash kernel (SIMT
+                body; its backward recomputes through the plain chunked
+                attention) against the plain chunked route on one 1,024-
+                token sequence, within LM_GRAD_FP32_TOL relative L2 a leaf,
+                wq / wk / wv nonzero, 12 flash launches (forward and remat
+                recompute); (c) the same in bf16 on the main path's first
+                microbatch and weights, within LM_GRAD_BF16_TOL; (b) the main
+                path, ``make_train_step`` on bf16 compute over fp32
+                masters, 2 x 4,096 tokens from ``TokenBatchLoader(seed=0)``
+                in 2 microbatches, 8 steps: finite losses and norms, the
+                last loss below the first, 24 flash launches a step, all
+                on the wgmma body; step times, tokens/s, the model-FLOPs
+                share of the bf16 peak and peak memory; (d) the driver,
+                ``python -m repro_torch.launch.train`` on the smoke config:
+                20 steps against 10, killed there (``--stop-at``) and
+                resumed to 20, the final parameters bit-identical;
+ 13. seq-parallel - gemma3_12b at full width cut to 6 layers, its
                 sequence sharded over four ranks of the ``model`` axis
                 (``torch.multiprocessing``; on one card the ranks share it
                 over gloo, CUDA tensors through host copies, since NCCL
@@ -231,7 +250,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 forward on the same weights; the transport, host bytes and
                 each rank's peak memory.  With four cards, once more over
                 NCCL, one rank a card, at full depth;
- 13. times    - each kernel and its plain version timed with CUDA events
+ 14. times    - each kernel and its plain version timed with CUDA events
                 (rows 8 and 9: the wgmma and the SIMT body on the same
                 inputs, in turns, the wgmma body required to be faster;
                 rows 1-6 beside their design floor from the SASS counts,
@@ -255,10 +274,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the slice's global and local layers and at S = 32,768, and
                 for row 9 on one ring step's q rows and K/V shard).
 
-Phases 4-12 are the main paths: each zeroes the launch counters just
+Phases 4-13 are the main paths: each zeroes the launch counters just
 before it (phase 10 before each twin, phase 7 in every rank before each
 fit) and reads them just after, and fails if a kernel it runs was never
-launched (phases 7 and 12 in every rank).  The line before the
+launched (phases 7 and 13 in every rank).  The line before the
 last is ``nvidia-smi``'s name and power limit, the one before it a JSON
 summary of every kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX.
@@ -270,6 +289,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -498,7 +518,23 @@ CWS_CLASSES = 10
 # (batch, sequence, window) of the flash timings at gemma3's heads: the
 # slice's global and local layers, and prefill_32k's sequence length
 FLASH_TIMING = ((4, 2048, 0), (4, 2048, 1024), (1, 32768, 0),
-                (1, 32768, 1024))
+                (1, 32768, 1024), (1, 4096, 0), (1, 4096, 1024))
+# The LM training slice: gemma3_12b (src/repro/configs/gemma3_12b.py:CONFIG)
+# at full width, depth cut from 48 to 6 layers (one 5 local : 1 global
+# unit; 48 layers of fp32 masters, moments and gradients need ~190 GB),
+# attn_impl "flash", bf16 compute over fp32 masters: the reference's
+# train_4k sequence length, a global batch of 2 sequences in 2
+# microbatches, TokenBatchLoader(seed=0), warmup 1, 8 steps; weights from
+# LM_TRAIN_SEED.  The fp32 gradient check takes one sequence of 1,024
+# tokens (above attn_chunk = 512, so the flash route is taken).
+LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 6, 2, 4096
+LM_TRAIN_MICRO, LM_TRAIN_STEPS, LM_TRAIN_LR = 2, 8, 3e-4
+LM_TRAIN_SEED, LM_GRAD_SEQ = 2028, 1024
+# the driver's resume check on the smoke config: 20 steps, checkpoints
+# every 5, the interrupted run stopped after 10
+DRIVER_STEPS, DRIVER_STOP, DRIVER_EVERY = 20, 10, 5
+# NVIDIA's data-sheet dense bf16 rate of an H100 SXM (at 700 W)
+PUBLISHED_BF16_FLOPS = 989e12
 # The sequence-parallel slice: gemma3_12b at full width, depth cut from 48
 # to 6 layers (one 5 local : 1 global period: four replicated copies of 48
 # layers do not fit one card), its sequence sharded over SP_RANKS ranks of
@@ -541,6 +577,17 @@ BF16_ULP = 2.0 ** -7
 # smoke models; 48 layers get twice that: |dlogit| <= 2e-4 max |logit|.
 LM_BF16_TOL = 0.1
 LM_FP32_TOL = 2e-4
+# The train step's gradients through the flash route against the plain
+# chunked route, per leaf, as ||g_flash - g_plain|| / ||g_plain||.  fp32:
+# the two forwards differ only in the order of their fp32 sums (a few
+# 1e-7 relative) and both backwards recompute through the same plain
+# chunked attention, so 6 layers and the 262,144-way loss keep the
+# gradients within 1e-4.  bf16: the forwards' attention outputs differ by
+# one-ulp flips (2^-8 relative) where the two round differently, which
+# 6 layers of bf16 activations and the bf16 gradients carry on; a wrong
+# mask or a dropped gradient moves a leaf by the order of its norm.
+LM_GRAD_FP32_TOL = 1e-4
+LM_GRAD_BF16_TOL = 5e-2
 # The sequence-parallel forward vs the one-device forward on the same
 # weights: the ring folds K/V shard by shard and the GEMMs run at another
 # M, so only the order of the fp32 sums differs: the hidden states and
@@ -3371,9 +3418,12 @@ def phase_flash_parity(dev, results):
         for w in (0, 256):
             cases.append((2, 300, 1000, 8, 2, d, w, 700))
             cases.append((1, 77, 1500, 4, 4, d, w, 1000))
-    # the slice's own shapes: gemma3_12b's heads at (4, 2048)
+    # the slice's own shapes: gemma3_12b's heads at (4, 2048), and at the
+    # train step's microbatch (1, 4096)
     for w in (0, 1024):
         cases.append((LM_BATCH, LM_PROMPT, LM_PROMPT, 16, 8, 256, w, 0))
+        cases.append((LM_TRAIN_BATCH // LM_TRAIN_MICRO, LM_TRAIN_SEQ,
+                      LM_TRAIN_SEQ, 16, 8, 256, w, 0))
     # nemotron's heads (96/8, r = 12) at D = 192, the wgmma body's fourth
     # head dim, at ragged lengths, causal and windowed
     for s_ in (1000, 2047):
@@ -3419,7 +3469,8 @@ def phase_flash_parity(dev, results):
     print(f"parity flash_attention_fwd: {r['checked']} cases (the reference "
           f"test's six; D in 64/128/256 x H/G in 1/2/9/48 at S = 1000/2047, "
           f"window 0/1024/4096; q_base 700/1000 with Sq < Sk; gemma3 "
-          f"(4, 2048) 16/8 heads D = 256, window 0/1024; nemotron 96/8 "
+          f"(4, 2048) and the train step's (1, 4096), 16/8 heads D = 256, "
+          f"window 0/1024; nemotron 96/8 "
           f"heads D = 192 at S = 1000/2047, window 0/1024; the all-gather "
           f"route's ({SP_BATCH}, {SP_AG_PROMPT // SP_RANKS}) q rows at "
           f"q_base = rank * {SP_AG_PROMPT // SP_RANKS} against "
@@ -3813,6 +3864,407 @@ def phase_lm(dev, card, results):
           f"first ids {gen[0][:8].tolist()}")
     del params, out, plain_logits, flash_logits
     torch.cuda.empty_cache()
+
+
+def rel_l2(got, want):
+    """||got - want|| / ||want|| in float64."""
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want) /
+                 torch.clamp_min(torch.linalg.vector_norm(want), 1e-300))
+
+
+def leaf_grads(cfg, params, inputs, labels):
+    """{leaf path: gradient} of ``train_loss`` at ``params``."""
+    from repro_torch.checkpoint import tree_paths
+    from repro_torch.core.linear_model import value_and_grad
+    from repro_torch.models import train_loss
+    from repro_torch.optim import tree_leaves
+    (loss, _), grads = value_and_grad(
+        lambda p, x, y: train_loss(p, x, y, cfg), params, inputs, labels)
+    return float(loss), dict(zip(tree_paths(grads), tree_leaves(grads)))
+
+
+def compare_grads(what, cfg, params, inputs, labels, tol):
+    """The gradients of every leaf through the flash route (the kernel
+    forward, the recompute backward) against the plain chunked route:
+    (worst relative L2 and its leaf, the flash route's launches by body,
+    the two losses).  Raises past ``tol`` or on a zero attention
+    projection gradient."""
+    from repro_torch.kernels import flash_attention as fa
+    reset_all_launches()
+    loss_f, flash = leaf_grads(dataclasses.replace(cfg, attn_impl="flash"),
+                               params, inputs, labels)
+    torch.cuda.synchronize()
+    launches = read_launches()[FLASH[0]]
+    bodies = dict(fa.BODY_LAUNCHES)
+    loss_c, plain = leaf_grads(dataclasses.replace(cfg, attn_impl="chunked"),
+                               params, inputs, labels)
+    worst = (0.0, None)
+    for name, g in plain.items():
+        if not torch.isfinite(flash[name]).all():
+            raise AssertionError(f"{what}: non-finite flash gradient {name}")
+        err = rel_l2(flash[name], g)
+        if err > worst[0]:
+            worst = (err, name)
+        if err > tol:
+            raise AssertionError(f"{what}: gradient of {name} through the "
+                                 f"flash route at {err:.3g} relative L2 of "
+                                 f"the plain route's (limit {tol:g})")
+    for name, g in flash.items():
+        if name.split("/")[-1] in ("['wq']", "['wk']", "['wv']") and \
+                not bool((g != 0).any()):
+            raise AssertionError(f"{what}: zero gradient at {name}: the "
+                                 f"flash route passed none back")
+    del flash, plain
+    torch.cuda.empty_cache()
+    return {"worst_rel_l2": worst[0], "worst_leaf": worst[1],
+            "flash_launches": launches, "body_launches": bodies,
+            "loss_flash": loss_f, "loss_plain": loss_c}
+
+
+def driver_start(ckpt, *extra):
+    """Start ``python -m repro_torch.launch.train`` on the smoke config,
+    the card's run of the driver; ``driver_wait`` ends it."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           LM_ARCH, "--variant", "smoke", "--steps", str(DRIVER_STEPS),
+           "--ckpt-dir", str(ckpt), "--ckpt-every", str(DRIVER_EVERY),
+           "--log-every", str(DRIVER_EVERY), *extra]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def driver_wait(proc):
+    """The driver's standard output; raises if it failed or hung."""
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"train driver {' '.join(proc.args[3:])} "
+                             f"exited {proc.returncode}:\n{stdout[-2000:]}"
+                             f"\n{stderr[-4000:]}")
+    return stdout
+
+
+def driver_run(ckpt, *extra):
+    return driver_wait(driver_start(ckpt, *extra))
+
+
+def driver_resume(tmp):
+    """The driver uninterrupted to DRIVER_STEPS against the same run
+    stopped after DRIVER_STOP and resumed: the two step-DRIVER_STEPS
+    checkpoints' parameters bit for bit."""
+    from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                        tree_paths)
+    from repro_torch.configs import get_config
+    from repro_torch.optim import tree_leaves
+    from repro_torch.training import TrainHparams, init_train_state
+    whole, cut = tmp / "whole", tmp / "cut"
+    t0 = time.perf_counter()
+    # the uninterrupted run and the stopped one at once, then the resume
+    procs = [driver_start(whole), driver_start(cut, "--stop-at",
+                                               str(DRIVER_STOP))]
+    try:
+        log = driver_wait(procs[0])
+        driver_wait(procs[1])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if latest_step(cut) != DRIVER_STOP:
+        raise AssertionError(f"train driver: the stopped run's last "
+                             f"checkpoint is {latest_step(cut)}, not "
+                             f"{DRIVER_STOP}")
+    driver_run(cut)
+    wall = time.perf_counter() - t0
+    template = init_train_state(get_config(LM_ARCH, "smoke"),
+                                TrainHparams(), device="meta")
+    a, b = (restore_checkpoint(d, DRIVER_STEPS, template, device="cpu")
+            for d in (whole, cut))
+    differ = [n for n, x, y in zip(tree_paths(a.params),
+                                   tree_leaves(a.params),
+                                   tree_leaves(b.params))
+              if not torch.equal(x, y)]
+    if int(a.step) != DRIVER_STEPS or differ:
+        raise AssertionError(f"train driver: resumed parameters differ from "
+                             f"the uninterrupted run's at {differ[:4]} "
+                             f"(step {int(a.step)})")
+    losses = [float(line.split()[3]) for line in log.splitlines()
+              if line.startswith("step ")]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train driver: losses {losses}")
+    return {"wall_s": wall, "losses": losses,
+            "leaves": len(tree_leaves(a.params))}
+
+
+def phase_lm_train(dev, card, results, mhz, sms):
+    """gemma3_12b's train step at full width and 6 layers: (a) fp32
+    gradients through the flash kernel against the plain route, (c) the
+    same in bf16 at the main path's first microbatch and weights, (b) the
+    main path, 8 steps of ``make_train_step``, (d) the driver's resume."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import TokenBatchLoader
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_model
+    from repro_torch.training import (TrainHparams, init_train_state,
+                                      make_train_step)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: fp32 checks need them off")
+    cfg = dataclasses.replace(get_config(LM_ARCH, "full"),
+                              n_layers=LM_TRAIN_LAYERS, attn_impl="flash")
+    n_attn = cfg.n_layers
+    out = {"layers": n_attn, "params": cfg.param_count()}
+
+    # (a) fp32 gradients, one 1,024-token sequence
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_model(cfg32, torch.Generator(dev).manual_seed(
+        LM_TRAIN_SEED), dev)
+    toks, labels = TokenBatchLoader(vocab=cfg.vocab, global_batch=1,
+                                    seq_len=LM_GRAD_SEQ, seed=1)._batch_at(0)
+    toks, labels = (torch.as_tensor(t, device=dev) for t in (toks, labels))
+    a = compare_grads("fp32 gradients", cfg32, params, toks, labels,
+                      LM_GRAD_FP32_TOL)
+    if a["flash_launches"] != 2 * n_attn or \
+            a["body_launches"] != {"wgmma": 0, "simt": 2 * n_attn}:
+        raise AssertionError(f"fp32 gradients: {a['flash_launches']} flash "
+                             f"launches by body {a['body_launches']}; want "
+                             f"{2 * n_attn} (forward and remat recompute), "
+                             f"all on the SIMT body")
+    out["fp32_grads"] = a
+    print(f"lm-train (a) [{card}]: {LM_ARCH} full width, {n_attn} layers "
+          f"({out['params']:,} parameters), fp32, 1 x {LM_GRAD_SEQ} tokens: "
+          f"every leaf's gradient through the flash route (kernel forward, "
+          f"recompute backward) vs the plain chunked route: worst relative "
+          f"L2 {a['worst_rel_l2']:.3g} at {a['worst_leaf']} (limit "
+          f"{LM_GRAD_FP32_TOL:g}); wq/wk/wv nonzero; loss {a['loss_flash']:.6f}"
+          f" vs {a['loss_plain']:.6f}; flash launches {a['flash_launches']} "
+          f"(by body {a['body_launches']})")
+    del params
+    torch.cuda.empty_cache()
+
+    # the main path's state and first batch
+    hp = TrainHparams(lr=LM_TRAIN_LR, warmup=1, total_steps=LM_TRAIN_STEPS,
+                      n_microbatches=LM_TRAIN_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, hp, generator=torch.Generator(
+        dev).manual_seed(LM_TRAIN_SEED), device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["state_gb"] = torch.cuda.memory_allocated() / 1e9
+    loader = TokenBatchLoader(vocab=cfg.vocab, global_batch=LM_TRAIN_BATCH,
+                              seq_len=LM_TRAIN_SEQ, seed=0)
+
+    # (c) bf16 gradients on the first microbatch and the initial weights
+    first = [torch.as_tensor(t[:LM_TRAIN_BATCH // LM_TRAIN_MICRO],
+                             device=dev) for t in loader._batch_at(0)]
+    diff = cast_copy(state.params, cfg.compute_dtype)
+    c = compare_grads("bf16 gradients", cfg, diff, *first, LM_GRAD_BF16_TOL)
+    if c["flash_launches"] != 2 * n_attn or \
+            c["body_launches"] != {"wgmma": 2 * n_attn, "simt": 0}:
+        raise AssertionError(f"bf16 gradients: {c['flash_launches']} flash "
+                             f"launches by body {c['body_launches']}; want "
+                             f"{2 * n_attn}, all on the wgmma body")
+    del diff, first
+    torch.cuda.empty_cache()
+    out["bf16_grads"] = c
+    print(f"lm-train (c) [{card}]: bf16 compute on the main path's initial "
+          f"weights and first microbatch (1 x {LM_TRAIN_SEQ}): worst "
+          f"relative L2 {c['worst_rel_l2']:.3g} at {c['worst_leaf']} (limit "
+          f"{LM_GRAD_BF16_TOL:g}); loss {c['loss_flash']:.6f} vs "
+          f"{c['loss_plain']:.6f}; flash launches {c['flash_launches']} (by "
+          f"body {c['body_launches']})")
+
+    # (b) the main path, counters zeroed just before and read just after
+    step_fn = make_train_step(cfg, hp)
+    losses, norms, step_s, per_step = [], [], [], []
+    reset_all_launches()
+    for _ in range(LM_TRAIN_STEPS):
+        before = fa.LAUNCHES[FLASH[0]]
+        toks, labels = next(loader)
+        batch = {"inputs": torch.as_tensor(toks, device=dev),
+                 "labels": torch.as_tensor(labels, device=dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        per_step.append(fa.LAUNCHES[FLASH[0]] - before)
+    launches = read_launches()
+    bodies = dict(fa.BODY_LAUNCHES)
+    require_launched("lm-train", launches, (FLASH[0],))
+    want = LM_TRAIN_MICRO * 2 * n_attn
+    if any(n != want for n in per_step) or \
+            bodies != {"wgmma": want * LM_TRAIN_STEPS, "simt": 0}:
+        raise AssertionError(f"lm-train: flash launches a step {per_step}, "
+                             f"by body {bodies}; want {want} a step, all on "
+                             f"the wgmma body")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"lm-train: losses {losses}, norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"lm-train: the loss did not fall: {losses}")
+    results[FLASH[0]]["launches"] += launches[FLASH[0]]
+    med = float(np.median(step_s[1:]))
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flops = 6 * out["params"] * tokens
+    peak = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
+    out.update(losses=losses, grad_norms=norms, step_s=step_s,
+               median_step_s=med, tokens_s=tokens / med,
+               model_flops=flops, peak_flops_s=peak,
+               mfu=flops / med / peak,
+               mfu_published=flops / med / PUBLISHED_BF16_FLOPS,
+               flash_launches=launches[FLASH[0]],
+               body_launches=bodies,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"lm-train (b) [{card}]: the main path, make_train_step on bf16 "
+          f"compute over fp32 masters ({out['state_gb']:.2f} GB of masters "
+          f"and moments drawn in {out['init_s']:.2f} s), {LM_TRAIN_BATCH} x "
+          f"{LM_TRAIN_SEQ} tokens in {LM_TRAIN_MICRO} microbatches, "
+          f"{LM_TRAIN_STEPS} steps: losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+          + ", ".join(f"{x:.3f}" for x in norms) + "; step seconds "
+          + ", ".join(f"{x:.3f}" for x in step_s)
+          + f"; median of steps 2-{LM_TRAIN_STEPS} {med:.4f} s, "
+          f"{out['tokens_s']:,.0f} tokens/s, model FLOPs (6 N tokens) "
+          f"{flops / 1e12:.1f} T a step = {100 * out['mfu']:.2f}% of the "
+          f"dense bf16 peak {peak / 1e12:.1f} TFLOP/s (SMs x 4,096 x the "
+          f"maximum SM clock; {100 * out['mfu_published']:.2f}% of the "
+          f"data sheet's {PUBLISHED_BF16_FLOPS / 1e12:.0f}); flash launches "
+          f"{launches[FLASH[0]]} ({want} a step, by body {bodies}); peak "
+          f"memory {out['peak_gb']:.2f} GB (torch.cuda.max_memory_allocated)")
+    out["breakdown"] = train_breakdown(cfg, state, step_fn, batch, med,
+                                       card)
+    del state, metrics, batch, step_fn
+    torch.cuda.empty_cache()
+
+    # (d) the driver on the card: uninterrupted against stopped + resumed
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        d = driver_resume(pathlib.Path(tmp))
+    out["driver"] = d
+    print(f"lm-train (d) [{card}]: python -m repro_torch.launch.train "
+          f"--variant smoke: {DRIVER_STEPS} steps uninterrupted vs stopped "
+          f"after {DRIVER_STOP} and resumed (checkpoints every "
+          f"{DRIVER_EVERY}): all {d['leaves']} parameter leaves bit-"
+          f"identical; logged losses {d['losses']}; three runs (the "
+          f"first two at once) "
+          f"{d['wall_s']:.1f} s")
+    results["lm_train"] = out
+
+
+def kernel_kind(name):
+    """The profiler's kernel name -> flash / gemm / elementwise / other."""
+    if "flash_fwd_kernel" in name or "flash_wgmma_kernel" in name:
+        return "flash"
+    low = name.lower()
+    if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
+        return "gemm"
+    if "elementwise" in low or "copy" in low:
+        return "elementwise"
+    return "other"
+
+
+def fwd_bwd_ms(fn, inputs, reps=3):
+    """Milliseconds of ``fn(*inputs)`` and its backward to every input,
+    by the host clock around a synchronize, after one warm call."""
+    def once():
+        out = fn(*inputs)
+        torch.autograd.grad(out, inputs, torch.ones_like(out))
+    once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        once()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def train_breakdown(cfg, state, step_fn, batch, median_s, card):
+    """Where a train step's time goes, after the main path's steps (each
+    of these takes one more step): one step under ``torch.profiler``
+    (device seconds by kind of kernel against the unprofiled median
+    step); then its parts alone at the step's shapes, timed by the host
+    clock around a synchronize: the fused AdamW update on the state (its
+    gradients: the first moments, any tree of the leaves' shapes will
+    do), one microbatch's attention forward and recompute backward at a
+    local and the global layer, and one microbatch's chunked loss
+    forward and backward through the bf16 table."""
+    from repro_torch import optim
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import chunked_cross_entropy
+    dev = state.step.device
+    dev_s, rows, flash_s = device_profile(lambda: step_fn(state, batch))
+    if dev_s == 0:
+        raise AssertionError("lm-train breakdown: the profiler recorded no "
+                             "device time; time with CUDA events instead")
+    kinds = {}
+    for name, sec, _ in rows:
+        kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + sec
+    lr = torch.tensor(1e-6, device=dev)
+    optim.fused_adamw_apply(state.params, state.mu, state.mu, state.nu,
+                            state.step, lr=lr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    optim.fused_adamw_apply(state.params, state.mu, state.mu, state.nu,
+                            state.step, lr=lr)
+    torch.cuda.synchronize()
+    adamw_s = time.perf_counter() - t0
+    rng = np.random.default_rng(15)
+    micro = LM_TRAIN_BATCH // LM_TRAIN_MICRO
+    qkv = [t.requires_grad_(True) for t in flash_inputs(
+        rng, micro, LM_TRAIN_SEQ, LM_TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads,
+        cfg.head_dim_, cfg.compute_dtype, dev)]
+    attn_ms = {w: fwd_bwd_ms(lambda q, k, v, w=w: ops.flash_attention(
+        q, k, v, window=w, chunk=cfg.attn_chunk), qkv)
+        for w in (cfg.window, 0)}
+    del qkv
+    table = state.params["embed"]["tokens"].to(cfg.compute_dtype)
+    x = torch.from_numpy(rng.standard_normal(
+        (micro, LM_TRAIN_SEQ, cfg.d_model), np.float32)).to(
+            dev, cfg.compute_dtype)
+    labels = batch["labels"][:micro]
+    ce_ms = fwd_bwd_ms(lambda x_, t_: chunked_cross_entropy(
+        {"tokens": t_}, x_, labels, cfg)[0],
+        [x.requires_grad_(True), table.requires_grad_(True)])
+    del table, x
+    torch.cuda.empty_cache()
+    n_local = sum(k == "local" for k in cfg.block_pattern) * cfg.n_units
+    n_global = cfg.n_layers - n_local
+    attn_step_s = LM_TRAIN_MICRO * (n_local * attn_ms[cfg.window] +
+                                    n_global * attn_ms[0]) / 1e3
+    ce_step_s = LM_TRAIN_MICRO * ce_ms / 1e3
+    out = {"device_s": dev_s, "busy": dev_s / median_s,
+           "by_kind_s": kinds, "flash_s": flash_s, "adamw_s": adamw_s,
+           "attn_fwd_bwd_ms": {"local": attn_ms[cfg.window],
+                               "global": attn_ms[0]},
+           "attn_step_s": attn_step_s, "ce_fwd_bwd_ms": ce_ms,
+           "ce_step_s": ce_step_s, "kernels": sum(r[2] for r in rows),
+           "top": [[n[:70], t * 1e3, c] for n, t, c in rows[:10]]}
+    print(f"lm-train breakdown [{card}]: one profiled step's device time "
+          f"{dev_s:.4f} s = {100 * out['busy']:.1f}% of the unprofiled "
+          f"median step {median_s:.4f} s; by kind (s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(kinds.items()))
+          + f"; {out['kernels']} kernels; alone: the fused AdamW update "
+          f"{adamw_s:.4f} s, attention forward + recompute backward at "
+          f"({micro}, {LM_TRAIN_SEQ}) local {attn_ms[cfg.window]:.2f} ms, "
+          f"global {attn_ms[0]:.2f} ms ({attn_step_s:.4f} s a step: "
+          f"{n_local} local + {n_global} global layers x "
+          f"{LM_TRAIN_MICRO} microbatches), the chunked loss forward + "
+          f"backward {ce_ms:.2f} ms ({ce_step_s:.4f} s a step); top "
+          f"kernels (ms, calls): "
+          + "; ".join(f"{n} {t:.1f} x{c}" for n, t, c in out["top"]))
+    return out
+
+
+def cast_copy(params, dtype):
+    """A copy of a nested dict of tensors in ``dtype``, leaf by leaf."""
+    return {k: cast_copy(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in params.items()}
 
 
 def _leaves(tree):
@@ -4611,6 +5063,7 @@ def main():
                         (phase_benchmarks, (dev, smi, results)),
                         (phase_autotune, (dev, smi, results)),
                         (phase_lm, (dev, smi, results)),
+                        (phase_lm_train, (dev, smi, results, mhz, sms)),
                         (phase_seq_parallel, (smi, results)),
                         (phase_times, (dev, results, peak_ops, counts)),
                         (phase_flash_times, (dev, results, mhz, sms)),
@@ -4675,7 +5128,7 @@ def main():
     entry.update(sources=FLASH_SOURCES, body_launches=r["body_launches"],
                  simt_ms=primary["simt_ms"], worst=r["worst"],
                  parity_bodies=r["parity_bodies"], times=r["times"],
-                 lm=results["lm"])
+                 lm=results["lm"], lm_train=results["lm_train"])
     kernels.append(entry)
     r = results[STEP[0]]
     # the main path's most frequent computing launch: a local layer's

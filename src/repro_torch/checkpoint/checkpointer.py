@@ -14,9 +14,10 @@ Leaf names are the reference's ``_tree_paths``: a dict key is
 ``['key']`` (keys sorted), a NamedTuple field ``.field``, a tuple or list
 element ``[i]``, and a child of a dataclass (``AdamState``,
 ``CWSParams``, registered as plain pytree nodes in the reference)
-``[<flat index i>]``, joined by ``/``.  bfloat16 leaves are stored as
-their ``uint16`` bits with ``dtype: "bfloat16"``, as the reference stores
-them.  So each package restores the other's checkpoints.
+``[<flat index i>]``, joined by ``/``; ``None`` (an LM ``TrainState``
+without its error-feedback residual) has no leaves.  bfloat16 leaves are
+stored as their ``uint16`` bits with ``dtype: "bfloat16"``, as the
+reference stores them.  So each package restores the other's checkpoints.
 
 Commit protocol (crash-safe at every interleaving, exercised by the chaos
 sites ``ckpt_io``, ``ckpt_pre_rename`` and ``ckpt_pre_commit``):
@@ -109,6 +110,8 @@ def _children(tree):
 
 
 def _flatten(tree, prefix=()) -> list:
+    if tree is None:            # an empty subtree, as in jax
+        return []
     kids = _children(tree)
     if kids is None:
         return [("/".join(prefix), tree)]
@@ -118,6 +121,8 @@ def _flatten(tree, prefix=()) -> list:
 def _rebuild(tree, leaves):
     """``tree``'s structure with its leaves taken in order from the
     iterator ``leaves``."""
+    if tree is None:
+        return None
     kids = _children(tree)
     if kids is None:
         return next(leaves)

@@ -7,6 +7,7 @@ same hand-over on disk.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import numpy as np
@@ -105,3 +106,24 @@ def lm_params(params, cfg: ModelConfig, *, device=None) -> dict:
         return out
 
     return convert(params, init_model(cfg, device="meta"), ())
+
+
+def lm_train_state(state, cfg: ModelConfig, *, device=None):
+    """The reference's LM ``TrainState`` (params, mu, nu, step,
+    ef_residual; leaves as numpy or JAX arrays) -> the port's: the
+    parameters through ``lm_params`` (``cfg.master_dtype``), the moments
+    in ``cfg.moment_dtype``, the residual in fp32 (or None), the step as
+    a () int32 tensor."""
+    from repro_torch.training.trainer import TrainState
+    device = resolve_device(device)
+    moments = dataclasses.replace(cfg, param_dtype=cfg.moment_dtype)
+    ef = state.ef_residual
+    return TrainState(
+        params=lm_params(state.params, cfg, device=device),
+        mu=lm_params(state.mu, moments, device=device),
+        nu=lm_params(state.nu, moments, device=device),
+        step=torch.as_tensor(np.array(state.step, np.int32),
+                             device=device),
+        ef_residual=None if ef is None else lm_params(
+            ef, dataclasses.replace(cfg, param_dtype="float32"),
+            device=device))

@@ -35,6 +35,12 @@ D in ``WGMMA_HEAD_DIMS``, ``"simt"`` (``csrc/flash_attention.cu``, fp32 FMAs)
 for fp32 and every other D.  ``BODY_LAUNCHES`` counts launches by body; a
 refused launch raises, and neither body gives way to the other.
 
+Under autograd row 8 runs inside ``FlashAttention`` (the reference's
+``flash_attention`` custom_vjp): the forward is the kernel, the backward
+recomputes the same attention through the plain chunked path and
+differentiates that.  No backward kernel exists, here or in the
+reference.
+
 The sequence-parallel schedules (the reference's shard_map wrappers) run
 on every rank of a mesh axis with that rank's sequence shard of q, k and
 v: ``sharded_flash_attention`` all-gathers K/V and runs row 8 at the
@@ -115,6 +121,45 @@ def flash_attention_step(q, k, v, carry, *, q_base: int, k_base: int,
     from repro_torch.kernels import registry
     return registry.resolve("flash_attention_step", q.device)(
         q, k, v, carry, q_base=q_base, k_base=k_base, window=window)
+
+
+def _ref_bwd_fn(q, k, v, window: int, chunk: int):
+    """The plain chunked attention the backward recomputes through (the
+    reference's ``_ref_bwd_fn``)."""
+    from repro_torch.models.attention import _chunked_grouped
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    out = _chunked_grouped(q.reshape(b, s, g, h // g, d), k, v,
+                           window=window, chunk=chunk)
+    return out.reshape(b, s, h, d)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Row 8 under autograd: the reference's ``flash_attention``
+    custom_vjp.  The forward is the registry's route (the kernel on CUDA
+    tensors, whose output has no graph of its own; the plain version on
+    CPU tensors), run without a graph; the backward recomputes the same
+    attention through the plain chunked path (``_chunked_grouped`` at
+    ``chunk``, the model's ``attn_chunk``) and differentiates that, as
+    the reference's ``_fa_bwd`` does.  q, k and v are saved only when one
+    of them needs a gradient.  Causal self-attention only (q_base 0,
+    Sq == Sk), which is what the backward recomputes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, chunk: int):
+        ctx.window, ctx.chunk = window, chunk
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v)
+        return flash_attention_fwd(q, k, v, window=window)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(True)
+                       for t in ctx.saved_tensors)
+            out = _ref_bwd_fn(q, k, v, ctx.window, ctx.chunk)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g_out)
+        return dq, dk, dv, None, None
 
 
 def init_carry(b: int, sq: int, h: int, d: int, device):

@@ -7,7 +7,10 @@ reference chooses them:
                   plain tensor operations;
   * ``flash``   - the hand-written flash kernel (``ops.flash_attention``,
                   TPU kernel row 8) when ``cfg.attn_impl == "flash"`` and
-                  the sequence is longer than ``cfg.attn_chunk``;
+                  the sequence is longer than ``cfg.attn_chunk``; under
+                  autograd its backward recomputes through the chunked
+                  path at ``attn_chunk`` (``flash_attention.
+                  FlashAttention``, the reference's custom_vjp);
   * ``sharded`` - under axis rules whose sequence axes (``sp``, else
                   ``tp``) span N > 1 ranks, x is this rank's sequence shard
                   and the flash route runs a schedule over those ranks: the
@@ -304,7 +307,8 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         out = fn(q, k, v, window=window, mesh=current_rules().mesh,
                  seq_axes=seq_axes)
     elif flash_want:
-        out = ops.flash_attention(q, k, v, window=window)
+        out = ops.flash_attention(q, k, v, window=window,
+                                  chunk=cfg.attn_chunk)
     elif cache is None:
         kk, vv = _repeat_kv(k, r), _repeat_kv(v, r)
         if cfg.attn_impl == "naive" or s <= cfg.attn_chunk:

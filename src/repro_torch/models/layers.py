@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, embeddings, RoPE, MLPs (dense + gated + sq-relu).
+"""Shared layers: RMSNorm, embeddings, RoPE, MLPs (dense + gated + sq-relu),
+and the chunked cross-entropy.
 
 Port of ``repro.models.layers``.  Parameters are plain dictionaries of
 tensors in the reference's layout; every ``init_*`` takes a
@@ -12,6 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 
@@ -60,8 +62,10 @@ def init_embed(generator, cfg: ModelConfig, device) -> dict:
 def embed_tokens(params: dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     # gather, then cast: the same bits as the reference's cast-then-gather
-    # without a compute-dtype copy of the whole table
-    return params["tokens"][tokens.long()].to(cfg.compute_dtype)
+    # without a compute-dtype copy of the whole table.  F.embedding, not
+    # indexing: its backward sums each row's gradients in a fixed order
+    # (indexing's accumulating scatter does not, on the CPU)
+    return F.embedding(tokens.long(), params["tokens"]).to(cfg.compute_dtype)
 
 
 def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -137,3 +141,47 @@ def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         else:  # gelu
             h = _gelu(u)
     return h @ params["down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# chunked cross-entropy (never materializes the whole (B, S, V) fp32 logits)
+# ---------------------------------------------------------------------------
+
+def chunked_cross_entropy(embed_params: dict, x: torch.Tensor,
+                          labels: torch.Tensor, cfg: ModelConfig):
+    """x: (B, S, D), labels: (B, S) -> (mean nll, token count), both fp32
+    0-dim tensors.  The sequence is padded to a multiple of
+    ``cfg.loss_chunk`` with label -1; labels outside [0, vocab) and the
+    padded vocabulary ids are masked.  Under autograd each chunk's logits
+    are recomputed in the backward (a non-reentrant
+    ``torch.utils.checkpoint`` per chunk, the reference's
+    ``jax.checkpoint(body)``), so one chunk's fp32 logits are live at a
+    time."""
+    b, s, d = x.shape
+    chunk = min(cfg.loss_chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    labels = labels.long()
+    valid = (labels >= 0) & (labels < cfg.vocab)
+    vocab_ok = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
+
+    def body(xc, lc, vm):
+        logits = lm_logits(embed_params, xc, cfg).float()
+        logits = torch.where(vocab_ok, logits, -torch.inf)
+        logz = torch.logsumexp(logits, -1)
+        gold = torch.gather(logits, -1, lc.clamp(0, cfg.padded_vocab - 1)
+                            [..., None])[..., 0]
+        return torch.where(vm, logz - gold, 0.0).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled()
+    for c0 in range(0, x.shape[1], chunk):
+        args = (x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                valid[:, c0:c0 + chunk])
+        tot = tot + (checkpoint(body, *args, use_reentrant=False) if remat
+                     else body(*args))
+        cnt = cnt + args[2].sum()
+    return tot / torch.clamp_min(cnt, 1.0), cnt

@@ -1,10 +1,14 @@
-"""Config-driven decoder LM: init / forward / prefill / decode.
+"""Config-driven decoder LM: init / forward / train loss / prefill / decode.
 
 Port of ``repro.models.model`` for the dense attention models (block
 kinds ``attn`` and ``local``, dense MLPs).  The layer stack is
 ``n_units`` repetitions of ``cfg.block_pattern``; every parameter leaf
 carries a leading unit axis U, and the reference's ``lax.scan`` over
-units is a Python loop over that axis.  Caches mirror the layout: a tuple
+units is a Python loop over that axis.  Under autograd with
+``cfg.remat`` each unit runs inside a non-reentrant
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+scan body): only the unit's input is kept, and the backward runs the
+unit's forward again.  Caches mirror the layout: a tuple
 (one entry per block in the pattern) of stacked (U, ...) ``KVCache``s,
 written in place (``attention._write_cache``).
 """
@@ -14,11 +18,14 @@ from typing import Optional
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (embed_tokens, init_embed, init_mlp,
-                                       init_rmsnorm, lm_logits, mlp, rmsnorm)
+from repro_torch.models.layers import (chunked_cross_entropy, embed_tokens,
+                                       init_embed, init_mlp, init_rmsnorm,
+                                       lm_logits, mlp, rmsnorm)
 from repro_torch.models.sharding import current_rules, seq_shards
 
 ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_dropped": 0.0}
@@ -175,14 +182,29 @@ def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
             if n > 1 else 0
         positions = torch.arange(base, base + x.shape[1],
                                  device=x.device)[None, :]
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for u in range(cfg.n_units):
         unit_caches = None if caches is None else tuple(
             attn_lib.KVCache(c.k[u], c.v[u], c.length[u]) for c in caches)
-        x, _ = _apply_unit(_unit_slice(params["units"], u), x, cfg,
-                           positions=positions, caches=unit_caches,
-                           update_cache=update_cache)
+        unit_params = _unit_slice(params["units"], u)
+        if remat:
+            x = checkpoint(lambda x_, p_: _apply_unit(
+                p_, x_, cfg, positions=positions, caches=None,
+                update_cache=False)[0], x, unit_params, use_reentrant=False)
+            continue
+        x, _ = _apply_unit(unit_params, x, cfg, positions=positions,
+                           caches=unit_caches, update_cache=update_cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, caches, dict(ZERO_AUX)
+
+
+def train_loss(params: dict, inputs, labels, cfg: ModelConfig):
+    """(loss, metrics): the mean next-token nll over the valid labels
+    (``layers.chunked_cross_entropy``), with metrics ``nll``, ``tokens``
+    and the reference's zero MoE terms (no MoE block is ported)."""
+    hidden, _, aux = forward(params, inputs, cfg)
+    nll, n_tok = chunked_cross_entropy(params["embed"], hidden, labels, cfg)
+    return nll, {"nll": nll, "tokens": n_tok, **aux}
 
 
 def prefill(params: dict, inputs, cfg: ModelConfig, caches):

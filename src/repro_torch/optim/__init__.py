@@ -1,5 +1,5 @@
-"""Optimizers (port of ``repro.optim``: the gradient transforms; the LM
-tier's fused AdamW and gradient compression wait for ROADMAP A12)."""
+"""Optimizers (port of ``repro.optim``: the gradient transforms, the LM
+trainer's fused AdamW and the int8 gradient compression)."""
 from repro_torch.optim.optimizers import (
     AdamState,
     Transform,
@@ -13,7 +13,12 @@ from repro_torch.optim.optimizers import (
     constant_schedule,
     tree_leaves,
     tree_map,
+    fused_adamw_apply,
+    global_norm,
 )
+from repro_torch.optim.compression import (error_feedback_compress,
+                                           init_residual,
+                                           int8_compress_decompress)
 
 __all__ = [
     "AdamState",
@@ -28,4 +33,9 @@ __all__ = [
     "constant_schedule",
     "tree_leaves",
     "tree_map",
+    "fused_adamw_apply",
+    "global_norm",
+    "error_feedback_compress",
+    "init_residual",
+    "int8_compress_decompress",
 ]

@@ -33,7 +33,7 @@ Tree = Any
 __all__ = ["Transform", "AdamState", "adamw", "sgd", "clip_by_global_norm",
            "chain", "apply_updates", "cosine_schedule",
            "linear_warmup_cosine", "constant_schedule", "tree_leaves",
-           "tree_map"]
+           "tree_map", "fused_adamw_apply", "global_norm"]
 
 
 # ---------------------------------------------------------------------------
@@ -42,7 +42,10 @@ __all__ = ["Transform", "AdamState", "adamw", "sgd", "clip_by_global_norm",
 
 def tree_leaves(tree: Tree) -> list:
     """The tensors of a tree, in the reference's leaf order (NamedTuple
-    fields in order, dict values by sorted key)."""
+    fields in order, dict values by sorted key; ``None`` is an empty
+    subtree, as in jax)."""
+    if tree is None:
+        return []
     if isinstance(tree, torch.Tensor):
         return [tree]
     if isinstance(tree, AdamState):
@@ -55,7 +58,12 @@ def tree_leaves(tree: Tree) -> list:
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """``fn`` over the leaves of ``tree`` and the same-shaped ``rest``."""
+    """``fn`` over the leaves of ``tree`` and the same-shaped ``rest``,
+    called in ``tree_leaves``' order (dicts by sorted key), so that
+    ``tree_map(lambda _: next(it), tree)`` rebuilds a tree from its
+    leaves; ``None`` stays ``None``."""
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
     if isinstance(tree, AdamState):
@@ -63,7 +71,7 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
                          tree_map(fn, tree.nu, *(r.nu for r in rest)))
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
-                for k in tree}
+                for k in sorted(tree)}
     if isinstance(tree, (tuple, list)):
         out = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
         if hasattr(tree, "_fields"):     # a NamedTuple
@@ -117,16 +125,26 @@ def linear_warmup_cosine(lr: float, warmup: int, total_steps: int,
 # transforms
 # ---------------------------------------------------------------------------
 
+def global_norm(tree: Tree) -> torch.Tensor:
+    """The float32 global L2 norm of a tree's leaves, its squares summed
+    in float64 (a float32 sum rounds in each device's reduction order,
+    this one to the same float32 norm on every device, but on a tie at
+    2^-53), a slice of 2^24 elements at a time, so that no float64 copy
+    of a whole large leaf exists."""
+    total = torch.zeros((), dtype=torch.float64)
+    for g in tree_leaves(tree):
+        for part in g.reshape(-1).split(1 << 24):
+            total = total.to(part.device) + torch.sum(
+                torch.square(part.double()))
+    return torch.sqrt(total).float()
+
+
 def clip_by_global_norm(max_norm: float) -> Transform:
     def init(params):
         return ()
 
     def update(updates, state, params, step):
-        # the squares summed in float64: a float32 sum rounds in each
-        # device's reduction order, this one to the same float32 norm on
-        # every device (but on a tie at 2^-53)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.double()))
-                               for g in tree_leaves(updates))).float()
+        gnorm = global_norm(updates)
         # max_norm / (gnorm + 1e-9) as a true division (see the module
         # docstring), then min(1, .)
         scale = torch.clamp(
@@ -193,6 +211,117 @@ def adamw(learning_rate: float | Callable, b1: float = 0.9,
 def _unflatten(like: Tree, leaves: list) -> Tree:
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+# ---------------------------------------------------------------------------
+# the LM trainer's fused AdamW
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2^32`` for int64 ``x`` in [0, 2^32) and a 32-bit ``c``,
+    in two halves so that no product leaves int64 (CPU PyTorch's uint32
+    lacks the multiply and shifts)."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _murmur_bits(shape, seed, device=None) -> torch.Tensor:
+    """The reference's counter-based uniform 32-bit words: the murmur3
+    finalizer over (flat index mod 2^32) * 2654435761 + ``seed``.  Returned
+    as int64 in [0, 2^32) of ``shape``; ``seed`` is an int or an int64
+    tensor of one element."""
+    n = 1
+    for dim in shape:
+        n *= int(dim)
+    x = torch.arange(n, dtype=torch.int64, device=device) & _M32
+    x = (_mul32(x, 2654435761) + seed) & _M32
+    x ^= x >> 16
+    x = _mul32(x, 0x85EBCA6B)
+    x ^= x >> 13
+    x = _mul32(x, 0xC2B2AE35)
+    x ^= x >> 16
+    return x.reshape(tuple(shape))
+
+
+def _stochastic_round_bf16(x32: torch.Tensor, seed) -> torch.Tensor:
+    """float32 -> bfloat16 with stochastic rounding: the reference's 16
+    noise bits added to the float's bits, the low half cleared."""
+    bits = x32.contiguous().view(torch.int32).to(torch.int64) & _M32
+    noise = _murmur_bits(x32.shape, seed, x32.device) & 0xFFFF
+    r = (bits + noise) & 0xFFFF0000
+    r = (r - ((r >> 31) << 32)).to(torch.int32)     # back to signed bits
+    return r.view(torch.float32).to(torch.bfloat16)
+
+
+def _leaf_adamw_(p, g, m, v, *, lr, c1, c2, b1, b2, eps, weight_decay,
+                 decay_this, stochastic_round, seed, g_scale=None):
+    """One leaf (or one dim-0 slice of it), the reference's
+    ``_leaf_adamw`` operation by operation, written into p, m and v."""
+    g32 = g.float()
+    if g_scale is not None:   # clip-by-global-norm folded into the update
+        g32 = g32 * g_scale
+    m32 = b1 * m.float() + (1.0 - b1) * g32
+    v32 = b2 * v.float() + (1.0 - b2) * torch.square(g32)
+    # the float32 root, correctly rounded (see the module docstring)
+    step_dir = (m32 / c1) / (torch.sqrt((v32 / c2).double()).float() + eps)
+    if weight_decay and decay_this:
+        step_dir = step_dir + weight_decay * p.float()
+    p32 = p.float() - lr * step_dir
+    if stochastic_round and p.dtype == torch.bfloat16:
+        p.copy_(_stochastic_round_bf16(p32, seed))
+    else:
+        p.copy_(p32)
+    m.copy_(m32)
+    v.copy_(v32)
+
+
+def fused_adamw_apply(params: Tree, grads: Tree, mu: Tree, nu: Tree, step,
+                      *, lr, b1: float = 0.9, b2: float = 0.95,
+                      eps: float = 1e-8, weight_decay: float = 0.0,
+                      stochastic_round: bool = False, sr_key=None,
+                      chunks: int = 16, chunk_threshold: int = 1 << 24,
+                      g_scale=None):
+    """The reference's memory-bounded fused AdamW, IN PLACE: each leaf's
+    p, m and v are read and written in one pass, and the reference's
+    donated carry is the tensors themselves.  A leaf of at least
+    ``chunk_threshold`` elements whose dim 0 divides by ``chunks`` is
+    updated slice by slice of dim 0, so its fp32 transients are a
+    ``chunks``-th of the leaf.  ``g_scale`` (a 0-dim tensor) is the global
+    clip folded in; ``decay_this`` is ``ndim >= 2``.
+
+    With ``stochastic_round`` a bf16 leaf rounds stochastically, seeded
+    as the reference seeds it: ``base * 0x9E3779B9 + i * 101 + 1`` for
+    leaf ``i`` of ``tree_leaves`` (``base``: ``sr_key``, else the step),
+    plus ``ci * 7919`` for slice ``ci``, all mod 2^32.
+
+    Returns (params, mu, nu), the trees passed in."""
+    count = _f32(step) + 1.0
+    c1 = 1.0 - b1 ** count
+    c2 = 1.0 - b2 ** count
+    base = sr_key if sr_key is not None else step
+    lr = torch.as_tensor(lr, dtype=torch.float32)
+    for i, (p, g, m, v) in enumerate(zip(
+            tree_leaves(params), tree_leaves(grads), tree_leaves(mu),
+            tree_leaves(nu))):
+        dev = p.device
+        on = lambda t: t.to(dev, non_blocking=True)
+        base_d = torch.as_tensor(base, device=dev).to(torch.int64) & _M32
+        leaf_seed = (base_d * 0x9E3779B9 + (i * 101 + 1)) & _M32
+        kw = dict(lr=on(lr), c1=on(c1), c2=on(c2), b1=b1, b2=b2, eps=eps,
+                  weight_decay=weight_decay, decay_this=p.ndim >= 2,
+                  stochastic_round=stochastic_round,
+                  g_scale=None if g_scale is None else on(g_scale))
+        if p.numel() >= chunk_threshold and p.shape[0] % chunks == 0:
+            csz = p.shape[0] // chunks
+            for ci in range(chunks):
+                sl = slice(ci * csz, (ci + 1) * csz)
+                _leaf_adamw_(p[sl], g[sl], m[sl], v[sl],
+                             seed=(leaf_seed + ci * 7919) & _M32, **kw)
+        else:
+            _leaf_adamw_(p, g, m, v, seed=leaf_seed, **kw)
+    return params, mu, nu
 
 
 def sgd(learning_rate: float | Callable, momentum: float = 0.0) -> Transform:

@@ -110,6 +110,27 @@ def test_entry_points_without_device_raise_when_cuda_absent(tmp_path,
         load_bundle(path, device="cuda")
 
 
+def test_lm_trainer_without_device_raises_when_cuda_absent(tmp_path,
+                                                           monkeypatch):
+    """The LM trainer's entry points default to the card: without one
+    they raise, and the driver's default device does too."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as t_train
+    from repro_torch.training import TrainHparams, init_train_state
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, hp = get_config("gemma3_12b", "smoke"), TrainHparams()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(cfg, hp)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_train.build_trainer(cfg, hp, global_batch=2, seq_len=8,
+                              ckpt_dir="")
+    with pytest.raises(RuntimeError, match="not available"):
+        t_train.main(["--arch", "gemma3_12b", "--steps", "1",
+                      "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.lm_train_state(None, cfg)
+
+
 def test_cpu_path_runs_plain_versions_and_no_kernel(tmp_path):
     cws_hash.reset_launches()
     path, _ = _tiny_bundle(tmp_path)
@@ -189,3 +210,24 @@ def test_min_max_ops_registered_by_device():
     assert [registry.family(op) for op in ("cws_hash", "cws_hash_rng",
                                            "minmax_gram", "gram")] == \
         ["cws", "cws_rng", "min_sum", "min_sum"]
+
+
+def test_lm_train_cpu_path_launches_no_kernel():
+    """A train step on the CPU, flash route and all, runs the plain
+    versions: the kernel counters stay at 0."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.training import (TrainHparams, init_train_state,
+                                      make_train_step)
+    cfg = dataclasses.replace(get_config("gemma3_12b", "smoke"),
+                              attn_impl="flash")
+    hp = TrainHparams(n_microbatches=2)
+    state = init_train_state(cfg, hp, device="cpu")
+    x = torch.randint(0, cfg.vocab, (2, 2 * cfg.attn_chunk + 1))
+    fa.reset_launches()
+    state, metrics = make_train_step(cfg, hp)(
+        state, {"inputs": x[:, :-1], "labels": x[:, 1:]})
+    assert torch.isfinite(metrics["loss"]) and int(state.step) == 1
+    assert set(fa.LAUNCHES.values()) == {0}
+    assert set(fa.BODY_LAUNCHES.values()) == {0}
