@@ -46,9 +46,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 at S = 1, 2, 4, 8, the small-output mode), asserting that
                 the cases took every tile, every S and the small-output
                 mode; the flash-attention kernel in
-                fp32 and bf16 over 64 shapes each (the reference test's
+                fp32 and bf16 over 72 shapes each (the reference test's
                 cases, D in 64/128/256, H/G in 1/2/9/48, ragged S, windows,
-                q_base with Sq < Sk, gemma3's (4, 2048), nemotron's 96/8
+                q_base with Sq < Sk, gemma3's (4, 2048), olmoe's 16/16 and
+                llama4's 40/8 heads at D = 128 and recurrentgemma's 10/1
+                at D = 256 under its 2,048 window, each at (4, 2,048) and
+                (1, 4,096), nemotron's 96/8
                 heads at D = 192, the sequence-parallel all-gather route's
                 q rows against 2,048 keys) within its stated tolerance, bf16
                 at D in 64/128/192/256 on the wgmma body and the rest on
@@ -237,7 +240,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 ``python -m repro_torch.launch.train`` on the smoke config:
                 20 steps against 10, killed there (``--stop-at``) and
                 resumed to 20, the final parameters bit-identical;
- 13. seq-parallel - gemma3_12b at full width cut to 6 layers, its
+ 13. lm-blocks - the MoE, SSM and RG-LRU blocks (ROADMAP A12.1), four
+                configs in turn, attn_impl "flash", weights from a seed:
+                olmoe_1b_7b (64 experts, top-8) and mamba2_780m and
+                recurrentgemma_2b at full width and depth, llama4_maverick
+                (128 experts, top-1, a shared expert) at full width cut to
+                2 layers in bf16.  For each: (a) fp32 prefill + decode
+                against one cached forward within LM_FP32_TOL (the MoE
+                configs dropless, 2 x (16 + 16) tokens; llama4's bf16
+                expert stacks cast to fp32 a slice at a time); (b) the
+                main path, ``serve_lm`` (4 x 2,048 prompts, 16 decode
+                steps), one flash launch a prefill attention layer, all
+                wgmma; prefill and decode times, the prefill's
+                ``moe_dropped``, peak memory and a profiled prefill; (c)
+                the MoE configs' slots, drops and ``moe_dropped`` at the
+                prefill's last MoE block on the card equal to the CPU's
+                from the same ``top_i``; (d) training, 2 x 4,096 tokens in 2
+                microbatches, 4 steps (olmoe at 4 layers, recurrentgemma at
+                BLOCKS_RG_TRAIN_LAYERS, mamba2 at 48, llama4 on its smoke
+                config with bf16 masters and stochastic rounding): finite,
+                falling losses, the aux terms, 4 x the attention layers
+                flash launches a step; for olmoe two runs of 2 steps from
+                one state bit-identical;
+ 14. seq-parallel - gemma3_12b at full width cut to 6 layers, its
                 sequence sharded over four ranks of the ``model`` axis
                 (``torch.multiprocessing``; on one card the ranks share it
                 over gloo, CUDA tensors through host copies, since NCCL
@@ -250,7 +275,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 forward on the same weights; the transport, host bytes and
                 each rank's peak memory.  With four cards, once more over
                 NCCL, one rank a card, at full depth;
- 14. times    - each kernel and its plain version timed with CUDA events
+ 15. times    - each kernel and its plain version timed with CUDA events
                 (rows 8 and 9: the wgmma and the SIMT body on the same
                 inputs, in turns, the wgmma body required to be faster;
                 rows 1-6 beside their design floor from the SASS counts,
@@ -274,10 +299,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 the slice's global and local layers and at S = 32,768, and
                 for row 9 on one ring step's q rows and K/V shard).
 
-Phases 4-13 are the main paths: each zeroes the launch counters just
+Phases 4-14 are the main paths: each zeroes the launch counters just
 before it (phase 10 before each twin, phase 7 in every rank before each
 fit) and reads them just after, and fails if a kernel it runs was never
-launched (phases 7 and 13 in every rank).  The line before the
+launched (phases 7 and 14 in every rank).  The line before the
 last is ``nvidia-smi``'s name and power limit, the one before it a JSON
 summary of every kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX.
@@ -533,6 +558,28 @@ LM_TRAIN_SEED, LM_GRAD_SEQ = 2028, 1024
 # the driver's resume check on the smoke config: 20 steps, checkpoints
 # every 5, the interrupted run stopped after 10
 DRIVER_STEPS, DRIVER_STOP, DRIVER_EVERY = 20, 10, 5
+# The MoE / SSM / RG-LRU slice (phase_lm_blocks): four configs in turn,
+# each freed before the next, attn_impl "flash", weights from BLOCKS_SEED.
+# Serving: 4 x 2,048-token prompts and 16 greedy decode steps at full width
+# and depth (llama4: depth cut from 48 to 2 layers, one attention+dense and
+# one attention+MoE block, 18.56 B parameters in bf16).  Training:
+# TokenBatchLoader(seed=0), 2 x 4,096 tokens in 2 microbatches, warmup 1,
+# BLOCKS_TRAIN_STEPS steps; olmoe at depth 4 of 16, recurrentgemma at
+# BLOCKS_RG_TRAIN_LAYERS, mamba2 at full depth, llama4 on its smoke config
+# (bf16 masters with stochastic rounding).  Gate (a): prefill + decode
+# against one cached forward, fp32 compute, (batch, prompt, decode steps);
+# the MoE configs dropless (prompt + steps = 32 tokens, 32 x top-k <= 256).
+BLOCKS_SEED = 2029
+BLOCKS_ARCHS = ("olmoe_1b_7b", "mamba2_780m", "recurrentgemma_2b",
+                "llama4_maverick_400b_a17b")
+BLOCKS_SERVE_LAYERS = {"llama4_maverick_400b_a17b": 2}
+BLOCKS_TRAIN_LAYERS = {"olmoe_1b_7b": 4}
+BLOCKS_RG_TRAIN_LAYERS = 26
+BLOCKS_TRAIN_STEPS, BLOCKS_DETERMINISM_STEPS = 4, 2
+BLOCKS_FULL_CHUNKS = (512, 1024)    # every full config's attn / loss chunk
+BLOCKS_FP32 = {"olmoe_1b_7b": (2, 16, 16),
+               "llama4_maverick_400b_a17b": (2, 16, 16),
+               "mamba2_780m": (2, 600, 4), "recurrentgemma_2b": (2, 600, 4)}
 # NVIDIA's data-sheet dense bf16 rate of an H100 SXM (at 700 W)
 PUBLISHED_BF16_FLOPS = 989e12
 # The sequence-parallel slice: gemma3_12b at full width, depth cut from 48
@@ -3429,6 +3476,14 @@ def phase_flash_parity(dev, results):
     for s_ in (1000, 2047):
         for w in (0, 1024):
             cases.append((1, s_, s_, 96, 8, 192, w, 0))
+    # the MoE / RG-LRU slice's heads at serving's (4, 2048) and the train
+    # step's microbatch (1, 4096): olmoe 16/16 and llama4 40/8 at D = 128,
+    # causal; recurrentgemma 10/1 at D = 256 under its 2,048 window
+    for h, g, d, w in ((16, 16, 128, 0), (40, 8, 128, 0),
+                       (10, 1, 256, 2048)):
+        cases.append((LM_BATCH, LM_PROMPT, LM_PROMPT, h, g, d, w, 0))
+        cases.append((LM_TRAIN_BATCH // LM_TRAIN_MICRO, LM_TRAIN_SEQ,
+                      LM_TRAIN_SEQ, h, g, d, w, 0))
     # the sequence-parallel all-gather route's own shapes: each rank's
     # S/n q rows at q_base = rank * S/n against the all-gathered K/V
     sl = SP_AG_PROMPT // SP_RANKS
@@ -3470,7 +3525,9 @@ def phase_flash_parity(dev, results):
           f"test's six; D in 64/128/256 x H/G in 1/2/9/48 at S = 1000/2047, "
           f"window 0/1024/4096; q_base 700/1000 with Sq < Sk; gemma3 "
           f"(4, 2048) and the train step's (1, 4096), 16/8 heads D = 256, "
-          f"window 0/1024; nemotron 96/8 "
+          f"window 0/1024; olmoe 16/16 and llama4 40/8 heads D = 128 "
+          f"causal, recurrentgemma 10/1 heads D = 256 window 2048, each at "
+          f"(4, 2048) and (1, 4096); nemotron 96/8 "
           f"heads D = 192 at S = 1000/2047, window 0/1024; the all-gather "
           f"route's ({SP_BATCH}, {SP_AG_PROMPT // SP_RANKS}) q rows at "
           f"q_base = rank * {SP_AG_PROMPT // SP_RANKS} against "
@@ -3600,39 +3657,41 @@ def plain_flash():
         table["cuda"] = kernel
 
 
-def lm_fp32_consistency(params, cfg, dev):
+def lm_fp32_consistency(params, cfg, dev, batch=FP32_BATCH,
+                        prompt=FP32_PROMPT, steps=FP32_STEPS,
+                        dtype="float32", tol=LM_FP32_TOL):
     """The reference's test_prefill_then_decode_matches_forward at full
-    width, fp32 compute: prefill FP32_PROMPT tokens, decode FP32_STEPS,
-    and hold the logits against one cached forward over the sequence."""
+    width, in ``dtype`` compute (fp32 by default): prefill ``prompt``
+    tokens, decode ``steps``, and hold the logits against one cached
+    forward over the sequence, within ``tol`` of the largest logit."""
     from repro_torch.models import decode_step, forward, init_caches, prefill
     from repro_torch.models.layers import lm_logits
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    seq = FP32_PROMPT + FP32_STEPS
+    cfg32 = dataclasses.replace(cfg, dtype=dtype)
+    seq = prompt + steps
     x = torch.from_numpy(np.random.default_rng(13).integers(
-        0, cfg.vocab, (FP32_BATCH, seq))).to(dev)
-    caches = init_caches(cfg32, FP32_BATCH, seq, device=dev)
-    logits, caches = prefill(params, x[:, :FP32_PROMPT], cfg32, caches)
+        0, cfg.vocab, (batch, seq))).to(dev)
+    caches = init_caches(cfg32, batch, seq, device=dev)
+    logits, caches = prefill(params, x[:, :prompt], cfg32, caches)
     outs = [logits]
-    for t in range(FP32_PROMPT, seq - 1):
+    for t in range(prompt, seq - 1):
         logits, caches = decode_step(params, x[:, t:t + 1], t, cfg32, caches)
         outs.append(logits)
     del caches
     hidden, _, _ = forward(params, x, cfg32, caches=init_caches(
-        cfg32, FP32_BATCH, seq, device=dev), update_cache=True)
-    want = lm_logits(params["embed"], hidden[:, FP32_PROMPT - 1:seq - 1],
-                     cfg32)
-    got = torch.stack(outs, 1)
+        cfg32, batch, seq, device=dev), update_cache=True)
+    want = lm_logits(params["embed"], hidden[:, prompt - 1:seq - 1],
+                     cfg32).float()
+    got = torch.stack(outs, 1).float()
     torch.cuda.synchronize()
     if got.shape != want.shape or not torch.isfinite(got).all():
-        raise AssertionError("fp32 prefill + decode: shape or non-finite "
-                             "logits")
+        raise AssertionError(f"{dtype} prefill + decode: shape or "
+                             f"non-finite logits")
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    if err > LM_FP32_TOL * scale:
-        raise AssertionError(f"fp32 prefill + decode vs forward: max "
-                             f"|dlogit| {err:.4g} > {LM_FP32_TOL:g} x "
-                             f"{scale:.4g}")
+    if err > tol * scale:
+        raise AssertionError(f"{dtype} prefill + decode vs forward: max "
+                             f"|dlogit| {err:.4g} > {tol:g} x {scale:.4g}")
     return {"max_abs_err": err, "max_logit": scale, "rel": err / scale,
             "argmax_agree": agree}
 
@@ -4155,6 +4214,347 @@ def phase_lm_train(dev, card, results, mhz, sms):
           f"first two at once) "
           f"{d['wall_s']:.1f} s")
     results["lm_train"] = out
+
+
+def blocks_config(arch, variant="full", layers=0):
+    """The phase's config: ``arch`` at ``variant`` with attn_impl "flash",
+    its depth cut to ``layers`` where given."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch, variant), attn_impl="flash")
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def n_blocks(cfg, moe=False):
+    """The model's attention blocks (with ``moe``: its MoE blocks)."""
+    per_unit = sum((cfg.is_moe_block(i) if moe else kind in ("attn", "local"))
+                   for i, kind in enumerate(cfg.block_pattern))
+    return per_unit * cfg.n_units
+
+
+def blocks_dispatch(cfg, router, x):
+    """Gate (c): the last MoE block's router and input as the warm
+    prefill gave them (LM_BATCH x LM_PROMPT tokens; C = 320 for olmoe, 20
+    for llama4): the card's slots, drops and ``moe_dropped`` from its
+    ``top_i`` against the CPU's from the same ``top_i``, exactly."""
+    from repro_torch.models import moe
+    top_i = moe.route({"router": router}, x, cfg)[3]
+    cap = moe.capacity(cfg, x.shape[1])
+    e = cfg.moe.num_experts
+    slot, valid = moe.dispatch_slots(top_i, e, cap)
+    share = moe._dropped_share(valid)
+    cpu_slot, cpu_valid = moe.dispatch_slots(top_i.cpu(), e, cap)
+    cpu_share = moe._dropped_share(cpu_valid)
+    torch.cuda.synchronize()
+    if not (torch.equal(slot.cpu(), cpu_slot) and
+            torch.equal(valid.cpu(), cpu_valid) and
+            torch.equal(share.cpu(), cpu_share)):
+        raise AssertionError("moe dispatch: the card's slots, drops or "
+                             "moe_dropped differ from the CPU's")
+    return {"pairs": int(valid.numel()), "capacity": cap,
+            "dropped": int(valid.numel() - valid.sum()),
+            "moe_dropped": float(share)}
+
+
+@contextlib.contextmanager
+def last_route():
+    """Record the (router, input) of ``moe.route``'s last call."""
+    from repro_torch.models import moe
+    seen = []
+    real = moe.route
+
+    def spy(params, x, cfg):
+        seen[:] = [(params["router"], x)]
+        return real(params, x, cfg)
+    moe.route = spy
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def blocks_serve(arch, dev, card):
+    """One config's serving: (a) fp32 consistency, (b) ``serve_lm``, the
+    warm prefill's time, aux and profile, (c) for the MoE configs the
+    dispatch."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import parser, serve_lm
+    from repro_torch.models import cast_params, forward, init_caches, \
+        init_model
+    from repro_torch.models.layers import lm_logits
+    layers = BLOCKS_SERVE_LAYERS.get(arch, 0)
+    cfg = blocks_config(arch, "full", layers)
+    n_attn, n_moe = n_blocks(cfg), n_blocks(cfg, moe=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(dev).manual_seed(BLOCKS_SEED),
+                        dev)
+    torch.cuda.synchronize()
+    out = {"layers": cfg.n_layers, "params": cfg.param_count(),
+           "init_s": time.perf_counter() - t0,
+           "masters_gb": torch.cuda.memory_allocated() / 1e9}
+
+    b, prompt, steps = BLOCKS_FP32[arch]
+    reset_all_launches()
+    a = lm_fp32_consistency(params, cfg, dev, b, prompt, steps)
+    a["flash_launches"] = read_launches()[FLASH[0]]
+    a["body_launches"] = dict(fa.BODY_LAUNCHES)
+    want = n_attn * ((prompt > cfg.attn_chunk) +
+                     (prompt + steps > cfg.attn_chunk))
+    if a["flash_launches"] != want or a["body_launches"]["wgmma"]:
+        raise AssertionError(f"{arch} fp32 check: {a['flash_launches']} "
+                             f"flash launches by body {a['body_launches']}; "
+                             f"want {want}, all on the SIMT body")
+    out["fp32"] = a
+
+    # (b) the main path, counters zeroed just before and read just after
+    cast_params(params, cfg.compute_dtype)
+    torch.cuda.empty_cache()
+    args = parser().parse_args([
+        "--arch", arch, "--variant", "full", "--layers", str(layers),
+        "--attn-impl", "flash", "--batch", str(LM_BATCH), "--prompt-len",
+        str(LM_PROMPT), "--gen", str(LM_GEN), "--seed", str(BLOCKS_SEED),
+        "--device", DEVICE])
+    reset_all_launches()
+    served = serve_lm(args, params=params)
+    launches = read_launches()
+    bodies = dict(fa.BODY_LAUNCHES)
+    if launches[FLASH[0]] != n_attn or \
+            bodies != {"wgmma": n_attn, "simt": 0}:
+        raise AssertionError(f"{arch} serving: {launches[FLASH[0]]} flash "
+                             f"launches by body {bodies}; want {n_attn} "
+                             f"(one a prefill attention layer), all wgmma")
+    gen = served["generated"]
+    if gen.shape != (LM_BATCH, LM_GEN) or not (
+            (gen >= 0) & (gen < cfg.vocab)).all() or \
+            not torch.isfinite(served["prefill_logits"]).all():
+        raise AssertionError(f"{arch} serving: generated ids {gen.shape} "
+                             f"out of range or non-finite logits")
+
+    # the warm prefill once more through forward: its time and MoE aux
+    prompts = served["prompts"]
+    caches = init_caches(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), last_route() as routed:
+        hidden, _, aux = forward(params, prompts, cfg, caches=caches,
+                                 update_cache=True)
+        logits = lm_logits(params["embed"], hidden[:, -1:], cfg)[:, 0]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del hidden, caches
+    caches = init_caches(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+    with torch.no_grad():
+        dev_s, rows, flash_s = device_profile(lambda: forward(
+            params, prompts, cfg, caches=caches, update_cache=True),
+            host=False)
+    del caches
+    out.update(
+        flash_launches=launches[FLASH[0]], body_launches=bodies,
+        prefill_ms=served["prefill_ms"], prefill_warm_ms=warm_s * 1e3,
+        decode_step_ms=served["decode_s"] / (LM_GEN - 1) * 1e3,
+        decode_tok_s=served["decode_tok_s"],
+        prefill_rerun_max_abs=float((logits.float() - served[
+            "prefill_logits"].float()).abs().max()),
+        moe_dropped_sum=float(aux["moe_dropped"]),
+        moe_dropped=float(aux["moe_dropped"]) / max(n_moe, 1),
+        moe_blocks=n_moe, first_ids=gen[0][:8].tolist(),
+        prefill_device_ms=dev_s * 1e3, prefill_flash_ms=flash_s * 1e3,
+        prefill_busy=dev_s / warm_s, prefill_kernels=sum(r[2] for r in rows),
+        prefill_top=[[n[:60], t * 1e3, c] for n, t, c in rows[:6]])
+    if cfg.moe is not None:
+        out["dispatch"] = blocks_dispatch(cfg, *routed[0])
+    del routed
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"lm-blocks serve [{card}]: {arch}, {cfg.n_layers} layers "
+          f"({out['params']:,} parameters, masters {out['masters_gb']:.2f} "
+          f"GB drawn in {out['init_s']:.2f} s); (a) fp32 prefill "
+          f"{b}x{prompt} + {steps} decode steps vs one cached forward: max "
+          f"|dlogit| {a['max_abs_err']:.4g} ({a['rel']:.3g} of max |logit| "
+          f"{a['max_logit']:.4g}; limit {LM_FP32_TOL:g}), argmax agree "
+          f"{a['argmax_agree']:.3f}, flash launches {a['flash_launches']}; "
+          f"(b) serve_lm {LM_BATCH}x{LM_PROMPT} bf16: prefill "
+          f"{out['prefill_ms']:.1f} ms (warm {out['prefill_warm_ms']:.1f} "
+          f"ms, the card busy {out['prefill_device_ms']:.1f} ms = "
+          f"{100 * out['prefill_busy']:.1f}%, flash "
+          f"{out['prefill_flash_ms']:.1f} ms, {out['prefill_kernels']} "
+          f"kernels), decode {out['decode_step_ms']:.2f} ms a step "
+          f"({out['decode_tok_s']:.1f} tok/s); flash launches "
+          f"{out['flash_launches']} by body {bodies}; prefill moe_dropped "
+          f"{out['moe_dropped']:.6f} a MoE block ({n_moe} blocks); peak "
+          f"memory {out['peak_gb']:.2f} GB; first ids {out['first_ids']}; "
+          f"top kernels (ms, calls): "
+          + "; ".join(f"{n} {t:.1f} x{c}" for n, t, c in out["prefill_top"])
+          + (f"; (c) the prefill's last MoE block at ({LM_BATCH}, "
+             f"{LM_PROMPT}): "
+             f"{out['dispatch']['dropped']} of {out['dispatch']['pairs']} "
+             f"pairs dropped at C = {out['dispatch']['capacity']}, slots, "
+             f"drops and moe_dropped {out['dispatch']['moe_dropped']:.6f} "
+             f"equal to the CPU's" if "dispatch" in out else ""))
+    del params, served, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def blocks_train(arch, dev, card):
+    """One config's training, gate (d): the main path's BLOCKS_TRAIN_STEPS
+    steps, finite and falling losses; for olmoe, two runs of
+    BLOCKS_DETERMINISM_STEPS steps from one state bit-identical."""
+    from repro_torch.checkpoint import tree_paths
+    from repro_torch.data.loader import TokenBatchLoader
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim import tree_leaves
+    from repro_torch.training import (TrainHparams, init_train_state,
+                                      make_train_step)
+    llama4 = arch.startswith("llama4")
+    layers = BLOCKS_TRAIN_LAYERS.get(
+        arch, BLOCKS_RG_TRAIN_LAYERS if arch.startswith("recurrentgemma")
+        else 0)
+    cfg = blocks_config(arch, "smoke" if llama4 else "full", layers)
+    if llama4:
+        # the full configs' attention and loss chunks: the smoke config's
+        # 64 would recompute 4,096 tokens' attention in 2,080 block pairs
+        cfg = dataclasses.replace(cfg, attn_chunk=BLOCKS_FULL_CHUNKS[0],
+                                  loss_chunk=BLOCKS_FULL_CHUNKS[1])
+    n_attn = n_blocks(cfg)
+    hp = TrainHparams(lr=LM_TRAIN_LR, warmup=1,
+                      total_steps=BLOCKS_TRAIN_STEPS,
+                      n_microbatches=LM_TRAIN_MICRO)
+    step_fn = make_train_step(cfg, hp)
+
+    def fresh():
+        state = init_train_state(cfg, hp, generator=torch.Generator(
+            dev).manual_seed(BLOCKS_SEED), device=dev)
+        return state, TokenBatchLoader(vocab=cfg.vocab,
+                                       global_batch=LM_TRAIN_BATCH,
+                                       seq_len=LM_TRAIN_SEQ, seed=0)
+
+    def step(state, loader):
+        toks, labels = next(loader)
+        batch = {"inputs": torch.as_tensor(toks, device=dev),
+                 "labels": torch.as_tensor(labels, device=dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        return state, metrics, time.perf_counter() - t0, batch
+
+    out = {"variant": "smoke" if llama4 else "full", "layers": cfg.n_layers,
+           "params": cfg.param_count()}
+    first = None
+    if cfg.moe is not None and not llama4:
+        state, loader = fresh()
+        first_losses = []
+        for _ in range(BLOCKS_DETERMINISM_STEPS):
+            state, metrics, _, _ = step(state, loader)
+            first_losses.append(float(metrics["loss"]))
+        first = [t.cpu() for t in tree_leaves(state.params)]
+        del state, metrics
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, loader = fresh()
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["state_gb"] = torch.cuda.memory_allocated() / 1e9
+    losses, norms, step_s, per_step, aux = [], [], [], [], []
+    reset_all_launches()
+    for i in range(BLOCKS_TRAIN_STEPS):
+        before = fa.LAUNCHES[FLASH[0]]
+        state, metrics, dt, batch = step(state, loader)
+        step_s.append(dt)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        aux.append({k: float(metrics[k]) for k in
+                    ("moe_lb_loss", "moe_z_loss", "moe_dropped")})
+        per_step.append(fa.LAUNCHES[FLASH[0]] - before)
+        if first is not None and i + 1 == BLOCKS_DETERMINISM_STEPS:
+            paths = tree_paths(state.params)
+            differ = [n for n, x, y in zip(paths, tree_leaves(state.params),
+                                           first) if not torch.equal(
+                                               x.cpu(), y)]
+            if differ or losses != first_losses:
+                raise AssertionError(
+                    f"{arch} training: two runs of "
+                    f"{BLOCKS_DETERMINISM_STEPS} steps from one state "
+                    f"differ at {differ[:4]} (losses {first_losses} vs "
+                    f"{losses})")
+            out["determinism"] = {"steps": BLOCKS_DETERMINISM_STEPS,
+                                  "leaves": len(paths)}
+            del first
+            first = None
+    launches = read_launches()
+    bodies = dict(fa.BODY_LAUNCHES)
+    want = LM_TRAIN_MICRO * 2 * n_attn
+    body = fa.flash_body(cfg.compute_dtype, cfg.head_dim_)
+    if any(n != want for n in per_step) or bodies[body] != \
+            want * BLOCKS_TRAIN_STEPS:
+        raise AssertionError(f"{arch} training: flash launches a step "
+                             f"{per_step}, by body {bodies}; want {want} a "
+                             f"step on the {body} body")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"{arch} training: losses {losses}, norms "
+                             f"{norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} training: the loss did not fall: "
+                             f"{losses}")
+    med = float(np.median(step_s[1:]))
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    out.update(losses=losses, grad_norms=norms, aux=aux, step_s=step_s,
+               median_step_s=med, tokens_s=tokens / med,
+               flash_launches=launches[FLASH[0]], body_launches=bodies,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    dev_s, rows, _ = device_profile(lambda: step_fn(state, batch),
+                                    host=False)
+    out.update(device_s=dev_s, busy=dev_s / med,
+               kernels=sum(r[2] for r in rows),
+               top=[[n[:60], t * 1e3, c] for n, t, c in rows[:6]])
+    print(f"lm-blocks train [{card}]: {arch} {out['variant']}, "
+          f"{cfg.n_layers} layers ({out['params']:,} parameters; masters "
+          f"and moments {out['state_gb']:.2f} GB drawn in "
+          f"{out['init_s']:.2f} s), {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens"
+          f" in {LM_TRAIN_MICRO} microbatches, {BLOCKS_TRAIN_STEPS} steps: "
+          f"losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + "; grad norms " + ", ".join(f"{x:.3f}" for x in norms)
+          + (("; aux (lb, z, dropped) " + ", ".join(
+              f"({x['moe_lb_loss']:.4f}, {x['moe_z_loss']:.3f}, "
+              f"{x['moe_dropped']:.5f})" for x in aux))
+             if cfg.moe is not None else "")
+          + "; step seconds " + ", ".join(f"{x:.3f}" for x in step_s)
+          + f"; median of steps 2-{BLOCKS_TRAIN_STEPS} {med:.4f} s, "
+          f"{out['tokens_s']:,.0f} tokens/s; one profiled step's device time "
+          f"{dev_s:.4f} s ({100 * out['busy']:.1f}% of the median), "
+          f"{out['kernels']} kernels; flash launches "
+          f"{out['flash_launches']} ({want} a step, by body {bodies}); "
+          + (f"two runs of {BLOCKS_DETERMINISM_STEPS} steps from one state "
+             f"bit-identical ({out['determinism']['leaves']} leaves); "
+             if "determinism" in out else "")
+          + f"peak memory {out['peak_gb']:.2f} GB; top kernels (ms, calls): "
+          + "; ".join(f"{n} {t:.1f} x{c}" for n, t, c in out["top"]))
+    del state, metrics, batch, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_blocks(dev, card, results):
+    """The MoE, SSM and RG-LRU blocks (ROADMAP A12.1): olmoe_1b_7b,
+    mamba2_780m, recurrentgemma_2b and llama4_maverick served and trained,
+    in turn, each freed before the next (``blocks_serve``,
+    ``blocks_train``)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: fp32 checks need them off")
+    out = {}
+    for arch in BLOCKS_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = {"serve": blocks_serve(arch, dev, card)}
+        out[arch]["train"] = blocks_train(arch, dev, card)
+        out[arch]["wall_s"] = time.perf_counter() - t0
+        for part in ("serve", "train"):
+            results[FLASH[0]]["launches"] += out[arch][part]["flash_launches"]
+    if not any(o["serve"]["flash_launches"] for o in out.values()):
+        raise AssertionError("lm-blocks: the flash kernel was never "
+                             "launched on the main path")
+    results["lm_blocks"] = out
 
 
 def kernel_kind(name):
@@ -5064,6 +5464,7 @@ def main():
                         (phase_autotune, (dev, smi, results)),
                         (phase_lm, (dev, smi, results)),
                         (phase_lm_train, (dev, smi, results, mhz, sms)),
+                        (phase_lm_blocks, (dev, smi, results)),
                         (phase_seq_parallel, (smi, results)),
                         (phase_times, (dev, results, peak_ops, counts)),
                         (phase_flash_times, (dev, results, mhz, sms)),
@@ -5128,7 +5529,8 @@ def main():
     entry.update(sources=FLASH_SOURCES, body_launches=r["body_launches"],
                  simt_ms=primary["simt_ms"], worst=r["worst"],
                  parity_bodies=r["parity_bodies"], times=r["times"],
-                 lm=results["lm"], lm_train=results["lm_train"])
+                 lm=results["lm"], lm_train=results["lm_train"],
+                 lm_blocks=results["lm_blocks"])
     kernels.append(entry)
     r = results[STEP[0]]
     # the main path's most frequent computing launch: a local layer's

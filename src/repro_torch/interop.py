@@ -7,7 +7,6 @@ same hand-over on disk.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Tuple
 
 import numpy as np
@@ -18,7 +17,7 @@ from repro_torch.core.kernel_svm import SVMModel
 from repro_torch.core.linear_model import LinearParams
 from repro_torch.core.regen import key_words as _key_words
 from repro_torch.device import resolve_device
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, _torch_dtype
 from repro_torch.models.model import init_model
 from repro_torch.optim import AdamState
 
@@ -78,13 +77,16 @@ def _float_tensor(a, dtype, device) -> torch.Tensor:
     return _tensor(np.asarray(a, np.float32), device).to(dtype)
 
 
-def lm_params(params, cfg: ModelConfig, *, device=None) -> dict:
+def lm_params(params, cfg: ModelConfig, *, device=None,
+              dtype: torch.dtype = None) -> dict:
     """The reference's LM parameters (the nested dict of ``init_model``,
     leaves as numpy) -> the port's: ``embed/tokens`` (and ``head`` when
-    untied), ``units/block{i}/{norm1, mixer/{wq, wk, wv, wo}, norm2,
-    mlp/{gate, up, down}}`` with the leading unit axis, ``final_norm``,
-    in ``cfg.master_dtype``.  Keys and shapes must be exactly the port's
-    (checked against ``init_model(cfg, device="meta")``)."""
+    untied), ``units/block{i}/{norm1, mixer/..., norm2, mlp/...}`` with the
+    leading unit axis, ``final_norm``.  Each leaf takes the dtype the port's
+    ``init_model`` gives it (the reference's: ``cfg.master_dtype``, fp32
+    for ``model.FP32_LEAVES``), or ``dtype`` for every leaf.  Keys and
+    shapes must be exactly the port's (checked against ``init_model(cfg,
+    device="meta")``)."""
     device = resolve_device(device)
 
     def convert(ref, want, path):
@@ -102,7 +104,7 @@ def lm_params(params, cfg: ModelConfig, *, device=None) -> dict:
             if a.shape != tuple(spec.shape):
                 raise ValueError(f"{'/'.join(where)}: shape {a.shape} != "
                                  f"{tuple(spec.shape)}")
-            out[key] = _float_tensor(a, cfg.master_dtype, device)
+            out[key] = _float_tensor(a, dtype or spec.dtype, device)
         return out
 
     return convert(params, init_model(cfg, device="meta"), ())
@@ -111,19 +113,19 @@ def lm_params(params, cfg: ModelConfig, *, device=None) -> dict:
 def lm_train_state(state, cfg: ModelConfig, *, device=None):
     """The reference's LM ``TrainState`` (params, mu, nu, step,
     ef_residual; leaves as numpy or JAX arrays) -> the port's: the
-    parameters through ``lm_params`` (``cfg.master_dtype``), the moments
-    in ``cfg.moment_dtype``, the residual in fp32 (or None), the step as
-    a () int32 tensor."""
+    parameters through ``lm_params`` (each leaf in its own dtype), the
+    moments in ``cfg.moment_dtype`` and the residual in fp32 (every leaf,
+    as the reference's ``adamw.init`` and ``init_residual`` make them),
+    the step as a () int32 tensor."""
     from repro_torch.training.trainer import TrainState
     device = resolve_device(device)
-    moments = dataclasses.replace(cfg, param_dtype=cfg.moment_dtype)
+    moments = _torch_dtype(cfg.moment_dtype)
     ef = state.ef_residual
     return TrainState(
         params=lm_params(state.params, cfg, device=device),
-        mu=lm_params(state.mu, moments, device=device),
-        nu=lm_params(state.nu, moments, device=device),
+        mu=lm_params(state.mu, cfg, device=device, dtype=moments),
+        nu=lm_params(state.nu, cfg, device=device, dtype=moments),
         step=torch.as_tensor(np.array(state.step, np.int32),
                              device=device),
         ef_residual=None if ef is None else lm_params(
-            ef, dataclasses.replace(cfg, param_dtype="float32"),
-            device=device))
+            ef, cfg, device=device, dtype=torch.float32))

@@ -13,6 +13,10 @@
       PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b \
           --variant full --attn-impl flash --batch 4 --prompt-len 2048 \
           --gen 17
+
+    Every config of ``repro_torch.configs.ARCHS`` serves, the MoE, SSM and
+    RG-LRU ones included (``--layers N`` cuts the depth: llama4's 48
+    layers of bf16 weights do not fit one card).
 """
 from __future__ import annotations
 
@@ -95,6 +99,8 @@ def serve_lm(args, params=None) -> dict:
     cfg = get_config(args.arch, args.variant)
     if args.attn_impl is not None:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if params is None:
         gen = torch.Generator(device).manual_seed(args.seed)
         params = cast_params(init_model(cfg, gen, device), cfg.compute_dtype)
@@ -177,6 +183,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--attn-impl", default=None,
                     choices=("naive", "chunked", "flash"),
                     help="override the config's attn_impl")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers, a multiple of "
+                    "the block pattern (0 = the config's)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

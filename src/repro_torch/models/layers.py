@@ -9,6 +9,7 @@ the reference does (a cast of a tensor already in that dtype is free).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -18,14 +19,34 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.config import ModelConfig
 
 
+# a leaf narrower than fp32 and larger than this is drawn in slices of at
+# most this many elements, so that no fp32 copy of the whole leaf exists
+# (llama4's (128, 5120, 8192) expert stack is 21.5 GB in fp32)
+DRAW_SLICE = 1 << 28
+
+
 def trunc_normal(generator: Optional[torch.Generator], shape, scale: float,
                  dtype: torch.dtype, device) -> torch.Tensor:
     """``scale`` times a standard normal truncated to [-2, 2], drawn on
     ``device`` (the reference's ``jax.random.truncated_normal``; not the
     same draws)."""
-    t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(scale).to(dtype)
+    shape = tuple(shape)
+    if dtype == torch.float32 or math.prod(shape) <= DRAW_SLICE or \
+            torch.device(device).type == "meta":
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        return t.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = out.view(-1, shape[-1])
+    step = max(1, DRAW_SLICE // shape[-1])
+    for r0 in range(0, rows.shape[0], step):
+        part = rows[r0:r0 + step]
+        t = torch.empty(part.shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        part.copy_(t.mul_(scale))
+    return out
 
 
 # ---------------------------------------------------------------------------

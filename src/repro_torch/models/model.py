@@ -1,16 +1,17 @@
 """Config-driven decoder LM: init / forward / train loss / prefill / decode.
 
-Port of ``repro.models.model`` for the dense attention models (block
-kinds ``attn`` and ``local``, dense MLPs).  The layer stack is
-``n_units`` repetitions of ``cfg.block_pattern``; every parameter leaf
-carries a leading unit axis U, and the reference's ``lax.scan`` over
-units is a Python loop over that axis.  Under autograd with
-``cfg.remat`` each unit runs inside a non-reentrant
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
-scan body): only the unit's input is kept, and the backward runs the
-unit's forward again.  Caches mirror the layout: a tuple
-(one entry per block in the pattern) of stacked (U, ...) ``KVCache``s,
-written in place (``attention._write_cache``).
+Port of ``repro.models.model`` for every block kind: ``attn`` and
+``local`` attention, ``ssm`` (``models.ssm``) and ``rglru``
+(``models.rglru``) mixers, dense or mixture-of-experts MLPs
+(``models.moe``; ``cfg.is_moe_block``).  The layer stack is ``n_units``
+repetitions of ``cfg.block_pattern``; every parameter leaf carries a
+leading unit axis U, and the reference's ``lax.scan`` over units is a
+Python loop over that axis.  Under autograd with ``cfg.remat`` each unit
+runs inside a non-reentrant ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of the scan body): only the unit's input is kept, and
+the backward runs the unit's forward again.  Caches mirror the layout: a
+tuple (one entry per block in the pattern) of stacked (U, ...)
+``KVCache``s, ``SSMState``s or ``RGLRUState``s, written in place.
 """
 from __future__ import annotations
 
@@ -22,6 +23,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (chunked_cross_entropy, embed_tokens,
                                        init_embed, init_mlp, init_rmsnorm,
@@ -29,73 +33,86 @@ from repro_torch.models.layers import (chunked_cross_entropy, embed_tokens,
 from repro_torch.models.sharding import current_rules, seq_shards
 
 ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_dropped": 0.0}
+KINDS = ("attn", "local", "ssm", "rglru")
+# leaves that the reference keeps in fp32 under any master dtype
+FP32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip", "b_a",
+                         "b_i", "lam"})
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not build yet (ROADMAP A12)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts blocks (models/moe.py) are not "
-            f"ported yet (ROADMAP A12)")
+    """Raise for an unknown block kind, and for the blocks whose
+    sequence-sharded forms are not ported (ROADMAP A12): under axis rules
+    whose sequence axes span more than one rank, a per-shard capacity or
+    scan would differ from the reference without a word."""
     for kind in cfg.block_pattern:
-        if kind in ("ssm", "rglru"):
-            raise NotImplementedError(
-                f"{cfg.name}: {kind!r} blocks (models/{kind}.py) are not "
-                f"ported yet (ROADMAP A12)")
-        if kind not in ("attn", "local"):
+        if kind not in KINDS:
             raise ValueError(kind)
+    if seq_shards()[1] > 1 and (cfg.moe is not None or
+                                {"ssm", "rglru"} & set(cfg.block_pattern)):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE, SSM and RG-LRU blocks under sequence "
+            f"sharding are not ported yet (ROADMAP A12)")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
+def _init_block(generator, cfg: ModelConfig, kind: str, is_moe: bool,
+                device, lead) -> dict:
+    dt = cfg.master_dtype
+    p = {"norm1": init_rmsnorm(cfg.d_model, dt, device, lead)}
+    if kind in ("attn", "local"):
+        p["mixer"] = attn_lib.init_attention(generator, cfg, device, lead)
+    elif kind == "ssm":
+        p["mixer"] = ssm_lib.init_ssm(generator, cfg, device, lead)
+    else:
+        p["mixer"] = rglru_lib.init_rglru(generator, cfg, device, lead)
+    if kind != "ssm":
+        p["norm2"] = init_rmsnorm(cfg.d_model, dt, device, lead)
+        p["mlp"] = moe_lib.init_moe(generator, cfg, device, lead) if is_moe \
+            else init_mlp(generator, cfg, device, lead)
+    return p
+
+
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device=None) -> dict:
     """Fresh parameters with the reference's distributions (truncated
-    normals at +-2 times their scale, zero norm scales), drawn from
-    ``generator`` (default: one seeded with 0) directly on ``device`` (by
-    default the generator's), so a full-width model never exists on the
-    host.  Not the reference's draws: tests carry its weights across
-    (``interop``).  ``device="meta"`` gives the shapes alone."""
+    normals at +-2 times their scale, zero norm scales, the SSM's and
+    RG-LRU's fixed decay ladders), drawn from ``generator`` (default: one
+    seeded with 0) directly on ``device`` (by default the generator's), so
+    a full-width model never exists on the host.  Leaves take the
+    reference's dtypes: ``cfg.master_dtype``, and fp32 for the
+    ``FP32_LEAVES``.  Not the reference's draws: tests carry its weights
+    across (``interop``).  ``device="meta"`` gives the shapes alone."""
     check_supported(cfg)
     device = resolve_device(device) if generator is None else \
         resolve_device(device or generator.device)
     if generator is None and device.type != "meta":
         generator = torch.Generator(device).manual_seed(0)
-    u, dt = cfg.n_units, cfg.master_dtype
-    units = {}
-    for i, _kind in enumerate(cfg.block_pattern):
-        units[f"block{i}"] = {
-            "norm1": init_rmsnorm(cfg.d_model, dt, device, (u,)),
-            "mixer": attn_lib.init_attention(generator, cfg, device, (u,)),
-            "norm2": init_rmsnorm(cfg.d_model, dt, device, (u,)),
-            "mlp": init_mlp(generator, cfg, device, (u,)),
-        }
+    units = {f"block{i}": _init_block(generator, cfg, kind,
+                                      cfg.is_moe_block(i), device,
+                                      (cfg.n_units,))
+             for i, kind in enumerate(cfg.block_pattern)}
     return {
         "embed": init_embed(generator, cfg, device),
         "units": units,
-        "final_norm": init_rmsnorm(cfg.d_model, dt, device),
+        "final_norm": init_rmsnorm(cfg.d_model, cfg.master_dtype, device),
     }
 
 
-def _tree_map_(fn, tree):
-    """Replace every tensor leaf of a nested dict by ``fn(leaf)``, in
-    place, one leaf at a time."""
-    for key, val in tree.items():
-        if isinstance(val, dict):
-            _tree_map_(fn, val)
-        else:
-            tree[key] = fn(val)
-    return tree
-
-
 def cast_params(params: dict, dtype: torch.dtype) -> dict:
-    """Cast every leaf to ``dtype`` in place, one leaf at a time (the peak
-    is the model plus one leaf).  For a serving model in its compute dtype
-    this gives the same bits as the per-use casts of the masters, whose
-    casts then cost nothing."""
-    return _tree_map_(lambda t: t.to(dtype), params)
+    """Cast every leaf but the ``FP32_LEAVES`` to ``dtype`` in place, one
+    leaf at a time (the peak is the model plus one leaf).  For a serving
+    model in its compute dtype this gives the same bits as the per-use
+    casts of the masters, whose casts then cost nothing; the fp32 leaves
+    are used in fp32, as the reference uses them."""
+    for key, val in params.items():
+        if isinstance(val, dict):
+            cast_params(val, dtype)
+        elif key not in FP32_LEAVES:
+            params[key] = val.to(dtype)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -104,19 +121,38 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device=None):
-    """Stacked (U, ...) caches, one entry per block in the pattern; a local
-    block keeps only its window (a rolling cache)."""
+    """Stacked (U, ...) caches, one entry per block in the pattern: a
+    ``KVCache`` (a local block keeps only its window, a rolling cache), an
+    ``SSMState`` (conv in the compute dtype, h fp32 (U, B, H, P, N)) or an
+    ``RGLRUState`` (h fp32 (U, B, W), conv (U, B, 3, W))."""
     check_supported(cfg)
     device = resolve_device(device)
-    u = cfg.n_units
+    u, dt = cfg.n_units, cfg.compute_dtype
+    zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                             device=device)
+    length = lambda: zeros((u,), torch.int32)
     entries = []
     for kind in cfg.block_pattern:
-        m = max_len if kind == "attn" else min(cfg.window, max_len)
-        shape = (u, batch, m, cfg.n_kv_heads, cfg.head_dim_)
-        entries.append(attn_lib.KVCache(
-            k=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-            v=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-            length=torch.zeros((u,), dtype=torch.int32, device=device)))
+        if kind in ("attn", "local"):
+            m = max_len if kind == "attn" else min(cfg.window, max_len)
+            shape = (u, batch, m, cfg.n_kv_heads, cfg.head_dim_)
+            entries.append(attn_lib.KVCache(k=zeros(shape, dt),
+                                            v=zeros(shape, dt),
+                                            length=length()))
+        elif kind == "ssm":
+            s = cfg.ssm
+            d_in = s.expand * cfg.d_model
+            entries.append(ssm_lib.SSMState(
+                conv=zeros((u, batch, s.d_conv - 1, d_in + 2 * s.d_state),
+                           dt),
+                h=zeros((u, batch, d_in // s.head_dim, s.head_dim,
+                         s.d_state), torch.float32),
+                length=length()))
+        else:
+            w = cfg.rnn_width or cfg.d_model
+            entries.append(rglru_lib.RGLRUState(
+                h=zeros((u, batch, w), torch.float32),
+                conv=zeros((u, batch, 3, w), dt), length=length()))
     return tuple(entries)
 
 
@@ -124,18 +160,45 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
 # forward
 # ---------------------------------------------------------------------------
 
+def _write_state(cache, new) -> None:
+    """Copy a recurrent block's new state into its (unit's view of the)
+    stacked cache, in place."""
+    for dst, src in zip(cache, new):
+        dst.copy_(src)
+
+
 def _apply_block(params: dict, x, cfg: ModelConfig, *, kind: str,
-                 positions, cache, update_cache: bool):
+                 is_moe: bool, positions, cache, update_cache: bool):
+    """(x, aux): the reference's block, with a cache written in place."""
+    aux = dict(ZERO_AUX)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    theta = cfg.rope_theta_global if (kind == "attn" and
-                                      cfg.rope_theta_global > 0) \
-        else cfg.rope_theta
-    mix, new_cache = attn_lib.attention(
-        params["mixer"], h, cfg, kind=kind, positions=positions,
-        cache=cache, update_cache=update_cache, rope_theta=theta)
+    if kind in ("attn", "local"):
+        theta = cfg.rope_theta_global if (kind == "attn" and
+                                          cfg.rope_theta_global > 0) \
+            else cfg.rope_theta
+        mix, _ = attn_lib.attention(
+            params["mixer"], h, cfg, kind=kind, positions=positions,
+            cache=cache, update_cache=update_cache, rope_theta=theta)
+    else:
+        block = ssm_lib.ssm_block if kind == "ssm" else rglru_lib.rglru_block
+        mix, new_state = block(params["mixer"], h, cfg, state=cache,
+                               update_state=update_cache)
+        if update_cache and cache is not None:
+            _write_state(cache, new_state)
     x = x + mix
-    h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    return x + mlp(params["mlp"], h2, cfg), new_cache
+    if kind != "ssm":
+        h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
+        if is_moe:
+            # exact (dropless) capacity for small inference token counts;
+            # Switch-style capacity dropping otherwise
+            exact = cache is not None and x.shape[1] * cfg.moe.top_k <= 256
+            y, moe_aux = moe_lib.moe_mlp(params["mlp"], h2, cfg,
+                                         exact_capacity=exact)
+            aux.update(moe_aux)
+        else:
+            y = mlp(params["mlp"], h2, cfg)
+        x = x + y
+    return x, aux
 
 
 def _unit_slice(tree, u: int):
@@ -143,16 +206,22 @@ def _unit_slice(tree, u: int):
             for k, v in tree.items()}
 
 
+def _add_aux(total: dict, aux: dict) -> dict:
+    return {k: total[k] + aux[k] for k in total}
+
+
 def _apply_unit(unit_params: dict, x, cfg: ModelConfig, *, positions,
                 caches, update_cache: bool):
-    new_caches = []
+    """(x, the unit's aux summed over its blocks)."""
+    aux_sum = dict(ZERO_AUX)
     for i, kind in enumerate(cfg.block_pattern):
-        cache_i = caches[i] if caches is not None else None
-        x, nc = _apply_block(unit_params[f"block{i}"], x, cfg, kind=kind,
-                             positions=positions, cache=cache_i,
-                             update_cache=update_cache)
-        new_caches.append(nc)
-    return x, tuple(new_caches)
+        x, aux = _apply_block(
+            unit_params[f"block{i}"], x, cfg, kind=kind,
+            is_moe=cfg.is_moe_block(i), positions=positions,
+            cache=caches[i] if caches is not None else None,
+            update_cache=update_cache)
+        aux_sum = _add_aux(aux_sum, aux)
+    return x, aux_sum
 
 
 def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
@@ -160,7 +229,9 @@ def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
     """inputs: (B, S) int tokens or (B, S, D) embeddings (vlm/audio stub).
 
     Returns (hidden (B, S, D), caches, aux).  The caches are the ones
-    passed in, written in place when ``update_cache``.
+    passed in, written in place when ``update_cache``.  aux holds the MoE
+    terms summed over blocks and units, as the reference sums them (0.0
+    without an MoE block).
 
     Under axis rules (``sharding.use_rules``) whose sequence axes span N
     ranks, ``inputs`` is this rank's shard of the residual stream, its
@@ -170,7 +241,8 @@ def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
     default positions are then global, so RoPE and the windows see true
     sequence coordinates.  Everything but attention is per token and
     stays local; attention reaches the other ranks' K/V through the
-    sequence-parallel schedules."""
+    sequence-parallel schedules.  MoE, SSM and RG-LRU blocks refuse to
+    run so (``check_supported``)."""
     check_supported(cfg)
     if inputs.ndim == 2:
         x = embed_tokens(params["embed"], inputs, cfg)
@@ -183,28 +255,35 @@ def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
         positions = torch.arange(base, base + x.shape[1],
                                  device=x.device)[None, :]
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    aux = dict(ZERO_AUX)
     for u in range(cfg.n_units):
         unit_caches = None if caches is None else tuple(
-            attn_lib.KVCache(c.k[u], c.v[u], c.length[u]) for c in caches)
+            type(c)(*(f[u] for f in c)) for c in caches)
         unit_params = _unit_slice(params["units"], u)
         if remat:
-            x = checkpoint(lambda x_, p_: _apply_unit(
+            x, aux_u = checkpoint(lambda x_, p_: _apply_unit(
                 p_, x_, cfg, positions=positions, caches=None,
-                update_cache=False)[0], x, unit_params, use_reentrant=False)
-            continue
-        x, _ = _apply_unit(unit_params, x, cfg, positions=positions,
-                           caches=unit_caches, update_cache=update_cache)
+                update_cache=False), x, unit_params, use_reentrant=False)
+        else:
+            x, aux_u = _apply_unit(unit_params, x, cfg, positions=positions,
+                                   caches=unit_caches,
+                                   update_cache=update_cache)
+        aux = _add_aux(aux, aux_u)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, caches, dict(ZERO_AUX)
+    return x, caches, aux
 
 
 def train_loss(params: dict, inputs, labels, cfg: ModelConfig):
     """(loss, metrics): the mean next-token nll over the valid labels
-    (``layers.chunked_cross_entropy``), with metrics ``nll``, ``tokens``
-    and the reference's zero MoE terms (no MoE block is ported)."""
+    (``layers.chunked_cross_entropy``), plus ``0.01 * lb + 1e-3 * z`` of
+    the MoE aux terms when ``cfg.moe`` is set; metrics ``nll``, ``tokens``
+    and the aux terms."""
     hidden, _, aux = forward(params, inputs, cfg)
     nll, n_tok = chunked_cross_entropy(params["embed"], hidden, labels, cfg)
-    return nll, {"nll": nll, "tokens": n_tok, **aux}
+    loss = nll
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+    return loss, {"nll": nll, "tokens": n_tok, **aux}
 
 
 def prefill(params: dict, inputs, cfg: ModelConfig, caches):

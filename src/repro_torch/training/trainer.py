@@ -166,8 +166,8 @@ def make_train_step(cfg: ModelConfig, hp: TrainHparams,
     """``train_step(state, batch) -> (state, metrics)`` for ``batch =
     {"inputs", "labels"}`` (tensors on the state's device, a leading dim
     divisible by ``hp.n_microbatches``); metrics ``loss``, ``grad_norm``,
-    ``nll`` and ``tokens`` (of the last microbatch, as the reference's)
-    and the zero MoE terms.  The state's tensors are updated in place."""
+    ``nll``, ``tokens`` and the MoE aux terms (of the last microbatch,
+    as the reference's).  The state's tensors are updated in place."""
     if rules is not None:
         raise NotImplementedError(
             "make_train_step(rules=...): sharded LM training (param_pspecs, "

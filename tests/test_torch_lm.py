@@ -81,30 +81,34 @@ def test_configs_are_copies(arch, variant):
     assert t_configs.SHAPES == ref_configs.SHAPES
 
 
-@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "llama4_maverick_400b_a17b",
-                                  "mamba2_780m", "recurrentgemma_2b"])
-def test_unported_blocks_raise(arch):
-    cfg = t_configs.get_config(arch, "smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        t_model.init_model(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        t_model.init_caches(cfg, 1, 8, device="cpu")
-
-
-@pytest.mark.parametrize("arch", ["gemma3_12b", "starcoder2_7b",
-                                  "granite_34b", "nemotron_4_340b"])
+@pytest.mark.parametrize("arch", ref_configs.ARCHS)
 def test_full_width_init_builds_no_host_copy(arch):
-    """init_model at full width on the meta device: the reference's
-    parameter count (which leaves out the 2 norm scales per layer and the
-    final one) and the master dtype, with nothing allocated."""
+    """init_model at full width on the meta device, nothing allocated: the
+    reference's tree exactly (its ``init_model`` traced by
+    ``jax.eval_shape``, which allocates nothing either), every key, shape
+    and dtype (the masters', fp32 for the router and the SSM's and
+    RG-LRU's decay leaves); and the reference's parameter count, which
+    leaves out the norm scales (and, for the SSM, its conv, decay and
+    norm leaves)."""
     cfg = t_configs.get_config(arch, "full")
     params = t_model.init_model(cfg, device="meta")
-    leaves = []
-    t_model._tree_map_(lambda t: leaves.append(t) or t, params)
-    assert all(t.device.type == "meta" and t.dtype == cfg.master_dtype
-               for t in leaves)
-    norms = (2 * cfg.n_layers + 1) * cfg.d_model
-    assert sum(t.numel() for t in leaves) == cfg.param_count() + norms
+    want = jax.eval_shape(lambda k: ref_model.init_model(
+        k, ref_configs.get_config(arch, "full")), jax.random.PRNGKey(0))
+    got = {"/".join(map(str, p)): t for p, t in
+           jax.tree_util.tree_flatten_with_path(params)[0]}
+    ref = {"/".join(map(str, p)): a for p, a in
+           jax.tree_util.tree_flatten_with_path(want)[0]}
+    assert sorted(got) == sorted(ref)
+    for name, t in got.items():
+        assert t.device.type == "meta", name
+        assert tuple(t.shape) == ref[name].shape, name
+        assert str(t.dtype) == f"torch.{ref[name].dtype}", name
+    total = sum(t.numel() for t in got.values())
+    assert total == sum(a.size for a in ref.values())
+    norms = (sum(k != "ssm" for k in cfg.block_pattern) * cfg.n_units +
+             cfg.n_layers + 1) * cfg.d_model
+    if not {"ssm", "rglru"} & set(cfg.block_pattern):
+        assert total == cfg.param_count() + norms
 
 
 # ---------------------------------------------------------------------------
