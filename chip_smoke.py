@@ -125,7 +125,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 with its gates; launches by kernel as the runs imply; the
                 checkpoint's bytes, snapshot, writer-thread and restore
                 times and fit A's wall at ckpt_every=50 against the bare
-                fit, in 5 pairs in turns;
+                fit, in 3 pairs in turns;
   7. data-parallel - the data axis (ROADMAP A11) on the train phase's
                 recipe and dataset, ranks as ``torch.multiprocessing``
                 processes over gloo sharing the card (CUDA tensors through
@@ -238,8 +238,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 on the wgmma body; step times, tokens/s, the model-FLOPs
                 share of the bf16 peak and peak memory; (d) the driver,
                 ``python -m repro_torch.launch.train`` on the smoke config:
-                20 steps against 10, killed there (``--stop-at``) and
-                resumed to 20, the final parameters bit-identical;
+                6 steps against 3, killed there (``--stop-at``) and
+                resumed to 6, the final parameters bit-identical; (e) one
+                step with int8 compression and error feedback at full
+                width on the first microbatch; (f) nemotron's smoke config
+                with bf16 masters, moments and accumulator (stochastic
+                rounding) at the full configs' chunks, 8 steps;
  13. lm-blocks - the MoE, SSM and RG-LRU blocks (ROADMAP A12.1), four
                 configs in turn, attn_impl "flash", weights from a seed:
                 olmoe_1b_7b (64 experts, top-8) and mamba2_780m and
@@ -257,16 +261,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 prefill's last MoE block on the card equal to the CPU's
                 from the same ``top_i``; (d) training, 2 x 4,096 tokens in 2
                 microbatches, 4 steps (olmoe at 4 layers, recurrentgemma at
-                BLOCKS_RG_TRAIN_LAYERS, mamba2 at 48, llama4 on its smoke
+                BLOCKS_RG_TRAIN_LAYERS, mamba2 at 24, llama4 on its smoke
                 config with bf16 masters and stochastic rounding): finite,
                 falling losses, the aux terms, 4 x the attention layers
                 flash launches a step; for olmoe two runs of 2 steps from
                 one state bit-identical;
+ 13b. lm-sharded - the FSDP x TP train step (ROADMAP A12.2) over four
+                gloo ranks sharing the card, bf16 over fp32 masters:
+                gemma3_12b (6 layers, (data, model) = (1, 4), the tied
+                table vocab-sharded), starcoder2_7b (1 layer, (2, 2), its
+                step-2 checkpoint resumed on a fresh spawn bit for bit,
+                its third step int8-compressed with whole-leaf scales) and
+                mamba2_780m (4 layers, (4, 1)); every step's loss and
+                norm, and step 1's leaf gradient norms, against the
+                unsharded steps on the card; row 8 under autograd on
+                every rank of the first two (wgmma);
  14. seq-parallel - gemma3_12b at full width cut to 6 layers, its
                 sequence sharded over four ranks of the ``model`` axis
                 (``torch.multiprocessing``; on one card the ranks share it
                 over gloo, CUDA tensors through host copies, since NCCL
-                takes one rank a card): the ring run (1 x 32,768 tokens,
+                takes one rank a card): the ring run (1 x 8,192 tokens,
                 every layer on the ring: 24 row-9 launches a rank, no row
                 8) and the all-gather run (1 x 2,048: 6 row-8 launches a
                 rank, no row 9), fp32 (SIMT body) then bf16 (wgmma body),
@@ -375,7 +389,7 @@ TRAIN_GAP_PP = 0.5
 TRAIN_SEED = 2020
 GAP_KEYS = tuple(range(1, 16))
 GAP_EXTRA_ROWS = 20_000
-PROFILE_STEPS = 100        # the profiled streamed fit A
+PROFILE_STEPS = 30         # the profiled streamed fit A (cut from 100)
 # The resume phase (ROADMAP A9) on the train phase's fits and inputs: fit
 # A checkpointed every RESUME_EVERY steps and killed before step
 # RESUME_KILL_A (mid-epoch: two batches an epoch); fit B under the
@@ -393,15 +407,18 @@ RESUME_KILL_A = 333
 RESUME_FAULTS_B = (120, 260, 400)     # raise, hang, failed async write
 RESUME_HANG_S, RESUME_HARD_TIMEOUT_S, RESUME_HANG_CUT_S = 60.0, 5.0, 10.0
 RESUME_KILL_COMMIT = 200
-RESUME_CPU_EVERY, RESUME_CPU_TO = 10, 320
-RESUME_PAIRS = 5
+# (the CPU leg cut from 20 steps to 5, the pairs from 5 to 3, to keep the
+# script inside its time limit beside the sharded LM phase)
+RESUME_CPU_EVERY, RESUME_CPU_TO = 5, 305
+RESUME_PAIRS = 3
 EVAL_CHUNK, EVAL_EVERY, EVAL_KILL = 128, 2, 5
 # The data axis (ROADMAP A11) on the train phase's recipe and dataset:
 # fit A over DP_RANKS gloo ranks (150 rows a rank), fit B over DP_RANKS_B,
 # fit A's first DP_CPU_STEPS steps on the CPU's plain path over the same
 # ranks, fit A killed before DP_KILL and resumed; accuracies within
 # DP_GAP_PP (fig78's streamed limit) of the unsharded fits'.
-DP_RANKS, DP_RANKS_B, DP_CPU_STEPS = 4, 2, 20
+# (DP_CPU_STEPS cut from 20 to 5 beside the sharded LM phase)
+DP_RANKS, DP_RANKS_B, DP_CPU_STEPS = 4, 2, 5
 DP_KILL, DP_GAP_PP = RESUME_KILL_A, TRAIN_GAP_PP
 
 # Table 1 (benchmarks/table1_kernel_svm.py) and Figs 4-5
@@ -540,10 +557,20 @@ FLASH_SOURCES = {"wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = "gemma3_12b", 4, 2048, 17, 2026
 FP32_BATCH, FP32_PROMPT, FP32_STEPS = 2, 600, 4
 CWS_CLASSES = 10
-# (batch, sequence, window) of the flash timings at gemma3's heads: the
-# slice's global and local layers, and prefill_32k's sequence length
-FLASH_TIMING = ((4, 2048, 0), (4, 2048, 1024), (1, 32768, 0),
-                (1, 32768, 1024), (1, 4096, 0), (1, 4096, 1024))
+# (batch, sequence, window, H, G, D) of the flash timings: at gemma3's
+# heads the slice's global and local layers, prefill_32k's sequence length
+# and the train step's microbatch; then the heads of the later main paths:
+# run (a) of the sharded slice (gemma3's 4 q / 2 kv heads a rank of 4, its
+# 2 x 4,096 batch), run (b) (starcoder2's 18 / 2 a rank of 2, 1 x 4,096),
+# olmoe's 16 / 16 and llama4's 40 / 8 at D = 128 (4 x 2,048 prefills) and
+# recurrentgemma's 10 / 1 under its 2,048 window (a 1 x 4,096 train
+# microbatch)
+FLASH_TIMING = ((4, 2048, 0, 16, 8, 256), (4, 2048, 1024, 16, 8, 256),
+                (1, 32768, 0, 16, 8, 256), (1, 32768, 1024, 16, 8, 256),
+                (1, 4096, 0, 16, 8, 256), (1, 4096, 1024, 16, 8, 256),
+                (2, 4096, 1024, 4, 2, 256), (2, 4096, 0, 4, 2, 256),
+                (1, 4096, 0, 18, 2, 128), (4, 2048, 0, 16, 16, 128),
+                (4, 2048, 0, 40, 8, 128), (1, 4096, 2048, 10, 1, 256))
 # The LM training slice: gemma3_12b (src/repro/configs/gemma3_12b.py:CONFIG)
 # at full width, depth cut from 48 to 6 layers (one 5 local : 1 global
 # unit; 48 layers of fp32 masters, moments and gradients need ~190 GB),
@@ -557,7 +584,8 @@ LM_TRAIN_MICRO, LM_TRAIN_STEPS, LM_TRAIN_LR = 2, 8, 3e-4
 LM_TRAIN_SEED, LM_GRAD_SEQ = 2028, 1024
 # the driver's resume check on the smoke config: 20 steps, checkpoints
 # every 5, the interrupted run stopped after 10
-DRIVER_STEPS, DRIVER_STOP, DRIVER_EVERY = 20, 10, 5
+# (cut from 20 steps stopped after 10 beside the sharded LM phase)
+DRIVER_STEPS, DRIVER_STOP, DRIVER_EVERY = 6, 3, 3
 # The MoE / SSM / RG-LRU slice (phase_lm_blocks): four configs in turn,
 # each freed before the next, attn_impl "flash", weights from BLOCKS_SEED.
 # Serving: 4 x 2,048-token prompts and 16 greedy decode steps at full width
@@ -565,7 +593,7 @@ DRIVER_STEPS, DRIVER_STOP, DRIVER_EVERY = 20, 10, 5
 # one attention+MoE block, 18.56 B parameters in bf16).  Training:
 # TokenBatchLoader(seed=0), 2 x 4,096 tokens in 2 microbatches, warmup 1,
 # BLOCKS_TRAIN_STEPS steps; olmoe at depth 4 of 16, recurrentgemma at
-# BLOCKS_RG_TRAIN_LAYERS, mamba2 at full depth, llama4 on its smoke config
+# BLOCKS_RG_TRAIN_LAYERS, mamba2 at 24 of 48, llama4 on its smoke config
 # (bf16 masters with stochastic rounding).  Gate (a): prefill + decode
 # against one cached forward, fp32 compute, (batch, prompt, decode steps);
 # the MoE configs dropless (prompt + steps = 32 tokens, 32 x top-k <= 256).
@@ -573,24 +601,68 @@ BLOCKS_SEED = 2029
 BLOCKS_ARCHS = ("olmoe_1b_7b", "mamba2_780m", "recurrentgemma_2b",
                 "llama4_maverick_400b_a17b")
 BLOCKS_SERVE_LAYERS = {"llama4_maverick_400b_a17b": 2}
-BLOCKS_TRAIN_LAYERS = {"olmoe_1b_7b": 4}
-BLOCKS_RG_TRAIN_LAYERS = 26
+# (mamba2's training cut from 48 layers to 24 beside the sharded LM phase)
+BLOCKS_TRAIN_LAYERS = {"olmoe_1b_7b": 4, "mamba2_780m": 24}
+# (recurrentgemma's training cut from 26 layers to 13 beside the sharded
+# LM phase)
+BLOCKS_RG_TRAIN_LAYERS = 13
 BLOCKS_TRAIN_STEPS, BLOCKS_DETERMINISM_STEPS = 4, 2
 BLOCKS_FULL_CHUNKS = (512, 1024)    # every full config's attn / loss chunk
 BLOCKS_FP32 = {"olmoe_1b_7b": (2, 16, 16),
                "llama4_maverick_400b_a17b": (2, 16, 16),
                "mamba2_780m": (2, 600, 4), "recurrentgemma_2b": (2, 600, 4)}
+# The sharded LM training slice (phase_lm_sharded): the FSDP x TP train
+# step over SH_RANKS gloo ranks sharing the one card (NCCL refuses ranks
+# that share a device), bf16 compute over fp32 masters, attn_impl "flash",
+# TokenBatchLoader(seed=0)'s global batch (each data rank its block of
+# rows), warmup 1, SH_STEPS steps, weights from SH_SEED drawn whole and
+# sliced on each rank.  Runs: (label, arch, layers, global batch, sequence,
+# (data, model), learning rate).  (a) gemma3_12b at 6 of 48 layers (one 5
+# local : 1 global unit) over (1, 4), 1 x 4,096 tokens: TP, the tied table
+# vocab-sharded; (b)
+# starcoder2_7b at 1 of 32 layers over (2, 2): FSDP x TP, the untied head;
+# its step-2 checkpoint (~8 GB of fp32 masters and moments) is resumed
+# on a fresh spawn and its third step taken compressed; (c) mamba2_780m at
+# 4 of 48 layers over (4, 1): FSDP of the SSM leaves.  The depths (b: 32
+# -> 1, c: 48 -> 4) and (a)'s batch (2 -> 1) are cut to keep the script
+# inside its time limit on a slow host: every collective moves through
+# host copies, 1-6 GB a rank a step.
+# The learning rate is the LM training phase's 3e-4 but for (b):
+# starcoder2's first Adam step at 3e-4 (or 1e-4) raises its loss from
+# 11.4 to 27.0 (21.3) in the unsharded step as well (its untied head and
+# GELU MLP at full width), a property of the config's initialisation, so
+# (b) steps at 1e-5.
+SH_RANKS, SH_SEED, SH_STEPS = 4, 2030, 3
+SH_RUNS = (("a", "gemma3_12b", 6, 1, 4096, (1, 4), 3e-4),
+           ("b", "starcoder2_7b", 1, 2, 4096, (2, 2), 1e-5),
+           ("c", "mamba2_780m", 4, 4, 4096, (4, 1), 3e-4))
+# The first sharded step against the unsharded step on the card, from the
+# same masters and batch, bf16 compute: the two differ in the order of
+# their bf16 sums (the sequence and vocabulary split over ranks, the
+# partial products reduced in rank order), one-ulp flips (2^-8) that the
+# layers carry on, as in the LM training phase's bf16 gradient gate
+# (2.57e-3 measured against 5e-2): the loss and the global gradient norm
+# within SH_TOL relative, every leaf's gradient norm within SH_LEAF_TOL.
+SH_TOL, SH_LEAF_TOL = 1e-2, 5e-2
+# Steps 2 and 3 against the unsharded steps 2 and 3: a step's update turns
+# those flips into parameter differences (Adam's normalized update moves
+# an element by up to 2 lr where a tiny gradient's sign flips), which the
+# next forward carries on: the loss and the norm within SH_STEP_TOL.
+SH_STEP_TOL = 2e-2
 # NVIDIA's data-sheet dense bf16 rate of an H100 SXM (at 700 W)
 PUBLISHED_BF16_FLOPS = 989e12
 # The sequence-parallel slice: gemma3_12b at full width, depth cut from 48
 # to 6 layers (one 5 local : 1 global period: four replicated copies of 48
 # layers do not fit one card), its sequence sharded over SP_RANKS ranks of
-# the ``model`` axis.  The ring run takes prefill_32k's 32,768 tokens (batch
-# cut from 32 to 1), so every layer's global K/V is at least RING_MIN_SK and
-# routes to the ring; the all-gather run takes 2,048 tokens, below it.
+# the ``model`` axis.  The ring run takes 8,192 tokens (prefill_32k's
+# 32,768 and batch 32 cut), so every layer's global K/V is at least
+# RING_MIN_SK and routes to the ring; the all-gather run takes 2,048
+# tokens, below it.
 # Weights from SP_SEED, drawn on every rank from the same seed.
 SP_LAYERS, SP_RANKS, SP_BATCH, SP_SEED = 6, 4, 1, 2027
-SP_RING_PROMPT, SP_AG_PROMPT = 32768, 2048
+# (the ring's prompt cut from prefill_32k's 32,768 to 8,192 beside the
+# sharded LM phase: still at the ring's 4,096-key threshold)
+SP_RING_PROMPT, SP_AG_PROMPT = 8192, 2048
 SP_FULL_DEPTH = 48
 # Row 9's parity cases: (b, n virtual ranks, S per rank, H, G, D, window),
 # chained over the shards in each virtual rank's ring order: ragged shards
@@ -2343,7 +2415,7 @@ def run_data_parallel(job, backend, world, ckpt):
 def phase_data_parallel(dev, card, results):
     """The data axis (ROADMAP A11) on the train phase's recipe at CONFIG's
     full width: fit A on a one-rank mesh (a), on 4 ranks (b), its first
-    20 steps on CPU ranks (c), fit B on 2 ranks (d), fit A killed on 4
+    DP_CPU_STEPS steps on CPU ranks (c), fit B on 2 ranks (d), fit A killed on 4
     ranks and resumed on 4, 2 and no mesh (e), fig78's twin over 4 ranks
     (f), rows 1, 2 and 4 at every rank's shapes against their plain
     versions (g).  Ranks are ``torch.multiprocessing`` processes over
@@ -4060,11 +4132,121 @@ def driver_resume(tmp):
             "leaves": len(tree_leaves(a.params))}
 
 
+def lm_train_compressed(cfg, dev, card, results, c):
+    """(e) one step with int8 gradient compression and error feedback
+    (ROADMAP A12.7) at the main path's width and depth, on its first
+    microbatch (1 x 4,096: the 9.4 GB fp32 residual beside the masters and
+    moments fits the card only without the second microbatch's
+    accumulator): finite, a nonzero residual, the loss of (c)'s
+    forward."""
+    from repro_torch.data.loader import TokenBatchLoader
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim import tree_leaves
+    from repro_torch.training import (TrainHparams, init_train_state,
+                                      make_train_step)
+    hp = TrainHparams(lr=LM_TRAIN_LR, warmup=1, total_steps=LM_TRAIN_STEPS,
+                      compress_grads=True)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, hp, generator=torch.Generator(
+        dev).manual_seed(LM_TRAIN_SEED), device=dev)
+    loader = TokenBatchLoader(vocab=cfg.vocab, global_batch=LM_TRAIN_BATCH,
+                              seq_len=LM_TRAIN_SEQ, seed=0)
+    first = {k: torch.as_tensor(t[:1], device=dev) for k, t in
+             zip(("inputs", "labels"), loader._batch_at(0))}
+    step_fn = make_train_step(cfg, hp)
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, first)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, bodies = fa.LAUNCHES[FLASH[0]], dict(fa.BODY_LAUNCHES)
+    results[FLASH[0]]["launches"] += launches
+    res_max = max(float(r.abs().max()) for r in tree_leaves(
+        state.ef_residual))
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "step_s": wall, "residual_max": res_max,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "flash_launches": launches, "body_launches": bodies}
+    del state, m, step_fn
+    torch.cuda.empty_cache()
+    if not (math.isfinite(out["loss"]) and math.isfinite(out["grad_norm"])
+            and res_max > 0):
+        raise AssertionError(f"lm-train (e): compressed step {out}")
+    if abs(out["loss"] - c["loss_flash"]) > 1e-3 * abs(c["loss_flash"]):
+        raise AssertionError(f"lm-train (e): loss {out['loss']} vs (c)'s "
+                             f"{c['loss_flash']} on the same microbatch")
+    print(f"lm-train (e) [{card}]: one step with int8 compression and error "
+          f"feedback, full width, 1 x {LM_TRAIN_SEQ} tokens: loss "
+          f"{out['loss']:.6f} ((c)'s forward {c['loss_flash']:.6f}), grad "
+          f"norm {out['grad_norm']:.6f}, residual max {res_max:.3g}; "
+          f"{wall:.3f} s; peak {out['peak_gb']:.2f} GB "
+          f"(max_memory_allocated); flash launches {launches} by body "
+          f"{bodies}")
+    return out
+
+
+def lm_train_bf16_masters(dev, card, results):
+    """(f) bf16 masters, moments and accumulator with stochastic rounding
+    (ROADMAP A12.7): nemotron's smoke config at the full configs'
+    attention and loss chunks, the main path's recipe (2 x 4,096 tokens in
+    2 microbatches, LM_TRAIN_STEPS steps): finite, falling losses, bf16
+    masters."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import TokenBatchLoader
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim import tree_leaves
+    from repro_torch.training import (TrainHparams, init_train_state,
+                                      make_train_step)
+    cfg = dataclasses.replace(get_config("nemotron_4_340b", "smoke"),
+                              attn_impl="flash",
+                              attn_chunk=BLOCKS_FULL_CHUNKS[0],
+                              loss_chunk=BLOCKS_FULL_CHUNKS[1])
+    hp = TrainHparams(lr=LM_TRAIN_LR, warmup=1, total_steps=LM_TRAIN_STEPS,
+                      n_microbatches=LM_TRAIN_MICRO)
+    state = init_train_state(cfg, hp, generator=torch.Generator(
+        dev).manual_seed(LM_TRAIN_SEED), device=dev)
+    loader = TokenBatchLoader(vocab=cfg.vocab, global_batch=LM_TRAIN_BATCH,
+                              seq_len=LM_TRAIN_SEQ, seed=0)
+    step_fn = make_train_step(cfg, hp)
+    fa.reset_launches()
+    losses, step_s = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        batch = {k: torch.as_tensor(t, device=dev) for k, t in
+                 zip(("inputs", "labels"), next(loader))}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launches, bodies = fa.LAUNCHES[FLASH[0]], dict(fa.BODY_LAUNCHES)
+    results[FLASH[0]]["launches"] += launches
+    dtypes = {str(t.dtype) for t in tree_leaves(state.params)}
+    del state, m, step_fn
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0] or dtypes != {"torch.bfloat16"}:
+        raise AssertionError(f"lm-train (f): losses {losses}, master dtypes "
+                             f"{dtypes}")
+    out = {"losses": losses, "step_s": step_s, "flash_launches": launches,
+           "body_launches": bodies}
+    print(f"lm-train (f) [{card}]: nemotron's smoke config, bf16 masters, "
+          f"moments and accumulator, stochastic rounding, attention / loss "
+          f"chunks {BLOCKS_FULL_CHUNKS}, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} "
+          f"tokens in {LM_TRAIN_MICRO} microbatches: losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; step seconds "
+          + ", ".join(f"{x:.3f}" for x in step_s)
+          + f"; flash launches {launches} by body {bodies}")
+    return out
+
+
 def phase_lm_train(dev, card, results, mhz, sms):
     """gemma3_12b's train step at full width and 6 layers: (a) fp32
     gradients through the flash kernel against the plain route, (c) the
     same in bf16 at the main path's first microbatch and weights, (b) the
-    main path, 8 steps of ``make_train_step``, (d) the driver's resume."""
+    main path, 8 steps of ``make_train_step``, (e) a compressed step, (f)
+    bf16 masters with stochastic rounding, (d) the driver's resume."""
     from repro_torch.configs import get_config
     from repro_torch.data.loader import TokenBatchLoader
     from repro_torch.kernels import flash_attention as fa
@@ -4201,6 +4383,8 @@ def phase_lm_train(dev, card, results, mhz, sms):
                                        card)
     del state, metrics, batch, step_fn
     torch.cuda.empty_cache()
+    out["compressed"] = lm_train_compressed(cfg, dev, card, results, c)
+    out["bf16_masters"] = lm_train_bf16_masters(dev, card, results)
 
     # (d) the driver on the card: uninterrupted against stopped + resumed
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -4557,6 +4741,456 @@ def phase_lm_blocks(dev, card, results):
     results["lm_blocks"] = out
 
 
+def sh_config(arch, layers):
+    """A run's config: ``arch`` at full width, ``layers`` deep, attn_impl
+    "flash" (bf16 compute over fp32 masters, the configs' own)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch, "full"), n_layers=layers,
+                               attn_impl="flash")
+
+
+def sh_hparams(lr, compress=False, micro=1):
+    from repro_torch.training import TrainHparams
+    return TrainHparams(lr=lr, warmup=1, total_steps=SH_STEPS,
+                        compress_grads=compress, n_microbatches=micro)
+
+
+def sh_batch(cfg, batch, seq, step, dev, data=1, index=0):
+    """Step ``step``'s global batch of TokenBatchLoader(seed=0), or data
+    rank ``index``'s block of its rows."""
+    from repro_torch.data.loader import TokenBatchLoader
+    toks, labels = TokenBatchLoader(vocab=cfg.vocab, global_batch=batch,
+                                    seq_len=seq, seed=0)._batch_at(step)
+    rows = slice(index * batch // data, (index + 1) * batch // data)
+    return {"inputs": torch.as_tensor(toks[rows], device=dev),
+            "labels": torch.as_tensor(labels[rows], device=dev)}
+
+
+def sh_leaf_sq(grads, mesh=None, specs=None):
+    """{leaf path: the gradient's squared L2 norm} in float64; over shards
+    each element once (``owns_replica``), summed over the mesh's ranks in
+    one collective."""
+    from repro_torch.checkpoint import tree_paths
+    from repro_torch.launch.collectives import axis_sum
+    from repro_torch.models.sharding import named_specs, owns_replica
+    from repro_torch.optim import tree_leaves
+    leaves = tree_leaves(grads)
+    own = [True] * len(leaves) if mesh is None else [
+        owns_replica(mesh, sp) for _, sp in named_specs(grads, specs)]
+    sq = torch.stack([t.double().square().sum() if o else
+                      torch.zeros((), dtype=torch.float64, device=t.device)
+                      for t, o in zip(leaves, own)])
+    if mesh is not None:
+        sq = axis_sum(sq, mesh, mesh.axis_names)
+    return dict(zip(tree_paths(grads), sq.tolist()))
+
+
+def sh_unsharded(run, dev):
+    """The unsharded steps on the card (the LM training phase's path),
+    from the seed's masters and the global batches, one microbatch a data
+    rank's rows, run (b)'s last step compressed as the ranks' is: every
+    step's loss and gradient norm, and step 1's leaves' squared gradient
+    norms; the state is freed before the ranks start."""
+    from repro_torch.optim import tree_map
+    from repro_torch.training import init_train_state, make_train_step
+    label, arch, layers, batch, seq, (data, _), lr = run
+    cfg = sh_config(arch, layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, sh_hparams(lr, micro=data),
+                             generator=torch.Generator(dev).manual_seed(
+                                 SH_SEED), device=dev)
+    sq = {}
+    out = {"losses": [], "grad_norms": []}
+    on = lambda g: sq.update(sh_leaf_sq(g)) if not sq else None  # noqa
+    for i in range(SH_STEPS):
+        compress = label == "b" and i == SH_STEPS - 1
+        if compress:
+            state = state._replace(ef_residual=tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), state.params))
+        step_fn = make_train_step(cfg, sh_hparams(lr, compress, data),
+                                  on_grads=on)
+        state, m = step_fn(state, sh_batch(cfg, batch, seq, i, dev))
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+    out.update(leaf_sq=sq, wall_s=time.perf_counter() - t0,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del state, m, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def sh_digest(tree):
+    """Two int64 checksums of every leaf's bits (their sum, and their sum
+    weighted by position mod 65,521): equal for equal trees."""
+    from repro_torch.optim import tree_leaves
+    out = []
+    for t in tree_leaves(tree):
+        bits = t.contiguous().view(
+            torch.int16 if t.element_size() == 2 else torch.int32).reshape(
+            -1).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append([int(bits.sum()), int((bits * w).sum())])
+    return out
+
+
+def sh_compress_check(grads, ef, mesh, rules, cfg, hp):
+    """The compressed step's int8 on the card: for the largest leaf and a
+    unit's wq, this rank's compressed slice (scale: the max over the whole
+    leaf, ``error_feedback_compress(mesh=)``) against the slice of the
+    whole leaf's compression, gathered on every rank: equal bits."""
+    from repro_torch.models.sharding import gather_params, shard_of, spec_at
+    from repro_torch.optim.compression import error_feedback_compress
+    from repro_torch.training.trainer import param_pspecs
+    specs = param_pspecs(cfg, rules)
+    paths = [("embed", "tokens"), ("units", "block0", "mixer", "wq")]
+    out = {}
+    for path in paths:
+        g, r, sp = grads, ef, specs
+        for k in path:
+            g, r, sp = g[k], r[k], sp[k]
+        comp, res = error_feedback_compress({"x": g}, {"x": r}, mesh=mesh)
+        whole = gather_params({"g": g, "r": r}, rules, {"g": sp, "r": sp})
+        w_comp, w_res = error_feedback_compress({"x": whole["g"]},
+                                                {"x": whole["r"]})
+        same = torch.equal(comp["x"], shard_of(w_comp["x"], mesh, sp)) and \
+            torch.equal(res["x"], shard_of(w_res["x"], mesh, sp))
+        out["/".join(path)] = bool(same)
+        del whole, w_comp, w_res
+    torch.cuda.empty_cache()
+    return out
+
+
+def sh_rank(rank, world, init_method, spec):
+    """One rank of the sharded LM training phase, in a process of its own:
+    writes its report to ``spec["outdir"]/rank{rank}.json``."""
+    import datetime
+    import torch.distributed as dist
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else \
+        torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(minutes=10))
+    try:
+        # started ahead of its turn: wait, holding no memory of the card
+        # but the context, until the parent says go
+        waited = time.perf_counter()
+        while not pathlib.Path(spec["go"]).exists():
+            time.sleep(0.1)
+        waited = time.perf_counter() - waited
+        report = {"waited_s": waited}
+        for run in spec["runs"]:
+            report[run[0]] = sh_rank_body(rank, dev, run, spec)
+            torch.cuda.empty_cache()
+        pathlib.Path(spec["outdir"], f"rank{rank}.json").write_text(
+            json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def sh_rank_body(rank, dev, run, spec):
+    """``run`` on this rank: SH_STEPS steps of the sharded step (step 1's
+    leaf gradient norms recorded), or with ``spec["resume"]`` the step-2
+    checkpoint restored and the last step taken; run (b)'s last step is
+    compressed, its step-2 state checkpointed under ``spec["ckpt"]``."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import make_rules
+    from repro_torch.optim import tree_map
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.trainer import param_pspecs, state_pspecs
+    label, arch, layers, batch, seq, (data, model), lr = run
+    cfg, hp = sh_config(arch, layers), sh_hparams(lr)
+    mesh = make_mesh(data, model)
+    rules = make_rules(mesh)
+    specs = param_pspecs(cfg, rules)
+    compress_last = label == "b"
+    ckpt = spec["ckpt"] if compress_last else None
+    rep = {"rank": rank, "coords": mesh.coords, "transport":
+           collectives.transport("gloo", dev)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if spec.get("resume"):
+        template = init_train_state(cfg, hp, device="meta")
+        ck = Checkpointer(ckpt, mesh=mesh, specs=state_pspecs(cfg, rules,
+                                                              hp))
+        state, manifest = ck.restore_latest(template, device=dev)
+        first = manifest["step"]
+    else:
+        state = init_train_state(cfg, hp, generator=torch.Generator(
+            dev).manual_seed(SH_SEED), device=dev, rules=rules)
+        first = 0
+    torch.cuda.synchronize(dev)
+    rep["init_s"] = time.perf_counter() - t0
+    rep["state_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+    sq, grads_seen = {}, []
+
+    def on_grads(g):
+        if int(state.step) == 0:
+            sq.update(sh_leaf_sq(g, mesh, specs))
+        if compress_last and int(state.step) == SH_STEPS - 1:
+            grads_seen.append(g)
+
+    step_fn = make_train_step(cfg, hp, rules, on_grads=on_grads)
+    step_c = make_train_step(cfg, sh_hparams(lr, True), rules,
+                             on_grads=on_grads) if compress_last else None
+    rep.update(losses=[], grad_norms=[], step_s=[], host_bytes=[],
+               flash_launches=[])
+    fa.reset_launches()
+    for i in range(first, SH_STEPS):
+        b = sh_batch(cfg, batch, seq, i, dev, data, mesh.coords["data"])
+        fn = step_fn
+        if compress_last and i == SH_STEPS - 1:
+            fn = step_c
+            state = state._replace(ef_residual=tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), state.params))
+        before = fa.LAUNCHES[FLASH[0]]
+        collectives.reset_host_copies()
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        state, m = fn(state, b)
+        torch.cuda.synchronize(dev)
+        rep["step_s"].append(time.perf_counter() - t1)
+        rep["losses"].append(float(m["loss"]))
+        rep["grad_norms"].append(float(m["grad_norm"]))
+        rep["host_bytes"].append(collectives.HOST_COPIES["bytes"])
+        rep["flash_launches"].append(fa.LAUNCHES[FLASH[0]] - before)
+        if ckpt and not spec.get("resume") and i + 1 == SH_STEPS - 1:
+            t2 = time.perf_counter()
+            ck = Checkpointer(ckpt, mesh=mesh,
+                              specs=state_pspecs(cfg, rules, hp))
+            ck.save_async(i + 1, state._replace(ef_residual=None),
+                          extra={"step": i + 1})
+            ck.wait()
+            rep["ckpt_s"] = time.perf_counter() - t2
+    rep["body_launches"] = dict(fa.BODY_LAUNCHES)
+    rep["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    rep["leaf_sq"] = sq
+    rep["digest"] = sh_digest(state.params)
+    if grads_seen and not spec["resume"]:
+        zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device),
+                         state.params)
+        rep["compress_slices"] = sh_compress_check(
+            grads_seen[0], zeros, mesh, rules, cfg, hp)
+    return rep
+
+
+def start_sharded(runs, ckpt, resume=False):
+    """Spawn SH_RANKS ranks that take ``runs`` in turn once
+    ``start["go"]`` exists (not joined: their start-up, CUDA context and
+    process group overlap the parent's work); ``finish_sharded`` says go
+    and joins them."""
+    import torch.multiprocessing
+    outdir = ROOT / "build" / "lm_sharded" / ("resume" if resume else "runs")
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    spec = {"runs": runs, "outdir": str(outdir), "resume": resume,
+            "ckpt": str(ckpt), "go": str(outdir / "go")}
+    ctx = torch.multiprocessing.spawn(
+        sh_rank, args=(SH_RANKS, f"tcp://localhost:{free_port()}", spec),
+        nprocs=SH_RANKS, join=False)
+    return {"ctx": ctx, "spec": spec, "t0": time.perf_counter()}
+
+
+def finish_sharded(start):
+    """Let ``start``'s ranks go and join them: {label: every rank's
+    report}, the seconds from go to their end, and each rank's wait."""
+    spec = start["spec"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pathlib.Path(spec["go"]).touch()
+    while not start["ctx"].join():
+        pass
+    wall = time.perf_counter() - t0
+    outdir = pathlib.Path(spec["outdir"])
+    reports = [json.loads((outdir / f"rank{r}.json").read_text())
+               for r in range(SH_RANKS)]
+    shutil.rmtree(outdir, ignore_errors=True)
+    waits = [rep["waited_s"] for rep in reports]
+    return ({run[0]: [rep[run[0]] for rep in reports]
+             for run in spec["runs"]}, wall, waits)
+
+
+def stop_sharded(start):
+    """End whatever ranks of ``start`` still run (a failed phase)."""
+    for proc in start["ctx"].processes:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+
+
+def lm_sharded_spawns():
+    """Start the sharded phase's two spawns (the runs, then (b)'s resume);
+    their ranks start up and wait for their go."""
+    ckpt = ROOT / "build" / "lm_sharded_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return [start_sharded(SH_RUNS, ckpt),
+            start_sharded([r for r in SH_RUNS if r[0] == "b"], ckpt,
+                          resume=True)], ckpt
+
+
+def start_lm_sharded(results):
+    """Start the sharded phase's ranks a phase ahead, so that their
+    start-up (imports, CUDA contexts, the process groups) overlaps the
+    blocks' phase; they hold the card's contexts and nothing else."""
+    results["lm_sharded_starts"] = lm_sharded_spawns()
+
+
+def phase_lm_sharded(dev, card, results, mhz, sms):
+    """Sharded LM training (ROADMAP A12.2): the FSDP x TP step over four
+    gloo ranks on the card, runs (a)-(c) of ``SH_RUNS``.  Each run's first
+    step is held against the unsharded step on the card from the same
+    masters and batch; the steps must give finite, falling losses; row 8
+    must launch under autograd on every rank of (a) and (b), on the wgmma
+    body; (b)'s step-2 checkpoint, resumed on a fresh spawn, must give the
+    uninterrupted third step's bits, and its compressed third step's int8
+    slices must equal the slices of the whole leaves' compression."""
+    out = {}
+    peak = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
+    # one spawn takes the three runs in turn, a fresh one resumes (b);
+    # both were started ahead (``start_lm_sharded``, before the blocks'
+    # phase) and wait while every run's unsharded steps run here, each
+    # freed before the next
+    starts, ckpt = results.pop("lm_sharded_starts", None) or \
+        lm_sharded_spawns()
+    t0 = time.perf_counter()
+    try:
+        refs = {run[0]: sh_unsharded(run, dev) for run in SH_RUNS}
+        refs_s = time.perf_counter() - t0
+        every, wall, waits = finish_sharded(starts[0])
+        again, wall2, waits2 = finish_sharded(starts[1])
+    finally:
+        for st in starts:
+            stop_sharded(st)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for run in SH_RUNS:
+        label, arch, layers, batch, seq, (data, model), lr = run
+        cfg = sh_config(arch, layers)
+        ref, reps = refs[label], every[label]
+        r0 = reps[0]
+        what = f"lm-sharded ({label}) {arch}"
+        for key in ("losses", "grad_norms"):
+            for i, (got, want) in enumerate(zip(r0[key], ref[key])):
+                tol = SH_TOL if i == 0 else SH_STEP_TOL
+                if abs(got - want) > tol * abs(want):
+                    raise AssertionError(
+                        f"{what}: step {i + 1}'s {key[:-1]} {got} vs the "
+                        f"unsharded {want} (limit {tol:g} relative)")
+        worst = (0.0, None)
+        for name, want in ref["leaf_sq"].items():
+            got = r0["leaf_sq"][name]
+            err = abs(math.sqrt(got) - math.sqrt(want)) / max(
+                math.sqrt(want), 1e-30)
+            if not math.isfinite(err) or err > SH_LEAF_TOL:
+                raise AssertionError(f"{what}: gradient norm of {name} "
+                                     f"{math.sqrt(got):.6g} vs the unsharded "
+                                     f"{math.sqrt(want):.6g} (limit "
+                                     f"{SH_LEAF_TOL:g} relative)")
+            worst = max(worst, (err, name))
+        for rep in reps:
+            if rep["losses"] != r0["losses"]:
+                raise AssertionError(f"{what}: rank {rep['rank']}'s losses "
+                                     f"{rep['losses']} differ from rank 0's")
+        losses = r0["losses"]
+        if not all(math.isfinite(x) for x in losses + r0["grad_norms"]) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"{what}: losses {losses}, grad norms "
+                                 f"{r0['grad_norms']}")
+        n_attn = sum(k in ("attn", "local") for k in cfg.block_pattern) * \
+            cfg.n_units
+        want = 2 * n_attn       # forward and remat's recompute, a step
+        for rep in reps:
+            if any(n != want for n in rep["flash_launches"]) or \
+                    rep["body_launches"] != {"wgmma": want * SH_STEPS,
+                                             "simt": 0}:
+                raise AssertionError(f"{what}: rank {rep['rank']}'s flash "
+                                     f"launches {rep['flash_launches']} by "
+                                     f"body {rep['body_launches']}; want "
+                                     f"{want} a step, all wgmma")
+        launches = sum(sum(rep["flash_launches"]) for rep in reps)
+        results[FLASH[0]]["launches"] += launches
+        med = float(np.median(r0["step_s"][1:]))
+        tokens = batch * seq
+        flops = 6 * cfg.param_count() * tokens
+        o = {"arch": arch, "layers": layers, "mesh": [data, model], "lr": lr,
+             "params": cfg.param_count(), "unsharded": {
+                 k: v for k, v in ref.items() if k != "leaf_sq"},
+             "losses": losses, "grad_norms": r0["grad_norms"],
+             "step_s": [rep["step_s"] for rep in reps],
+             "median_step_s": med, "tokens_s": tokens / med,
+             "mfu": flops / med / peak,
+             "peak_gb": [rep["peak_gb"] for rep in reps],
+             "state_gb": [rep["state_gb"] for rep in reps],
+             "host_bytes": [rep["host_bytes"] for rep in reps],
+             "flash_launches": launches,
+             "body_launches": [rep["body_launches"] for rep in reps],
+             "worst_leaf": worst, "runs_s": wall, "unsharded_s": refs_s,
+             "waited_s": waits,
+             "init_s": [rep["init_s"] for rep in reps]}
+        if label == "b":
+            if not all(all(rep["compress_slices"].values()) for rep in reps):
+                raise AssertionError(f"{what}: compressed slices differ from "
+                                     f"the whole leaves': "
+                                     f"{[rep['compress_slices'] for rep in reps]}")
+            for a, b_ in zip(reps, again["b"]):
+                if a["digest"] != b_["digest"] or \
+                        a["losses"][-1] != b_["losses"][-1]:
+                    raise AssertionError(f"{what}: rank {a['rank']}'s step "
+                                         f"{SH_STEPS} after the resume "
+                                         f"differs from the uninterrupted "
+                                         f"run's")
+            results[FLASH[0]]["launches"] += sum(
+                sum(rep["flash_launches"]) for rep in again["b"])
+            o.update(resume_s=wall2, resume_waited_s=waits2,
+                     ckpt_s=r0.get("ckpt_s"),
+                     compress_slices=r0["compress_slices"],
+                     resume_init_s=[rep["init_s"] for rep in again["b"]])
+        out[label] = o
+        print(f"lm-sharded ({label}) [{card}]: {arch} at full width, "
+              f"{layers} layers ({o['params']:,} parameters), bf16 over fp32 "
+              f"masters, lr {lr:g}, {batch} x {seq} tokens over (data, model) = "
+              f"({data}, {model}), {SH_RANKS} gloo ranks on one card "
+              f"(transport {r0['transport']}): losses " + ", ".join(
+                  f"{x:.4f}" for x in losses) + " vs the unsharded steps' "
+              + ", ".join(f"{x:.4f}" for x in ref["losses"])
+              + ", grad norms " + ", ".join(
+                  f"{x:.4f}" for x in r0["grad_norms"]) + " vs "
+              + ", ".join(f"{x:.4f}" for x in ref["grad_norms"])
+              + f" (limits {SH_TOL:g} step 1, {SH_STEP_TOL:g} later)"
+              + (" (step 3 compressed)" if label == "b" else "")
+              + f", step 1's worst leaf gradient norm {worst[0]:.3g} at "
+              f"{worst[1]} (limit {SH_LEAF_TOL:g})"
+              + "; step seconds rank 0 " + ", ".join(
+                  f"{x:.3f}" for x in r0["step_s"])
+              + f", median of steps 2-{SH_STEPS} {med:.3f} s, "
+              f"{o['tokens_s']:,.0f} tokens/s, model FLOPs share "
+              f"{100 * o['mfu']:.3f}% of {peak / 1e12:.1f} TFLOP/s; peak GB "
+              f"a rank " + ", ".join(f"{x:.2f}" for x in o["peak_gb"])
+              + " (max_memory_allocated); host-copy bytes a step rank 0 "
+              + ", ".join(f"{x / 1e9:.3f} GB" for x in r0["host_bytes"])
+              + f"; row-8 launches a rank {r0['flash_launches']} by body "
+              f"{r0['body_launches']} ({launches} in all); unsharded step on "
+              f"the card {ref['wall_s']:.1f} s with its init, peak "
+              f"{ref['peak_gb']:.2f} GB (the three runs' unsharded steps "
+              f"{refs_s:.1f} s while the ranks started: they waited "
+              f"{min(waits):.1f}-{max(waits):.1f} s); the three runs "
+              f"{wall:.1f} s"
+              + (f"; checkpoint at step 2 {o['ckpt_s']:.1f} s, resumed on a "
+                 f"fresh spawn (started with the first, then {wall2:.1f} s; "
+                 f"the restore {max(o['resume_init_s']):.1f} s): step 3's "
+                 f"parameters bit-identical on every rank; int8 slices "
+                 f"{o['compress_slices']} equal the whole leaves'"
+                 if label == "b" else ""))
+    results["lm_sharded"] = out
+
+
 def kernel_kind(name):
     """The profiler's kernel name -> flash / gemm / elementwise / other."""
     if "flash_fwd_kernel" in name or "flash_wgmma_kernel" in name:
@@ -4868,7 +5502,7 @@ def run_seq_parallel(backend, world, layers):
 
 def phase_seq_parallel(card, results):
     """gemma3_12b at full width, 6 layers, its sequence sharded over four
-    ranks of the ``model`` axis: the ring run (32,768 tokens) and the
+    ranks of the ``model`` axis: the ring run (8,192 tokens) and the
     all-gather run (2,048), fp32 then bf16, each against the one-device
     forward on the same weights.  On one card the four ranks share it
     over gloo (NCCL takes one rank a card); with four cards the phase runs
@@ -4958,12 +5592,11 @@ def phase_flash_times(dev, results, mhz, sms):
     tensor_rate = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
     fma_rate = sms * FMA_FLOPS_PER_SM_CLK * mhz * 1e6
     rng = np.random.default_rng(9)
-    h, g, d = 16, 8, 256
-    for b, s_, w in FLASH_TIMING:
+    for b, s_, w, h, g, d in FLASH_TIMING:
         q, k, v = flash_inputs(rng, b, s_, s_, h, g, d, torch.bfloat16, dev)
         long = s_ > 4096
         ms, readings = time_bodies(lambda body: fa.flash_attention_fwd_cuda(
-            q, k, v, window=w, body=body), reps=3 if long else 10)
+            q, k, v, window=w, body=body), reps=1 if long else 10)
         plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
             q, k, v, window=w), reps=1 if long else 3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -5464,13 +6097,21 @@ def main():
                         (phase_autotune, (dev, smi, results)),
                         (phase_lm, (dev, smi, results)),
                         (phase_lm_train, (dev, smi, results, mhz, sms)),
+                        (start_lm_sharded, (results,)),
                         (phase_lm_blocks, (dev, smi, results)),
+                        (phase_lm_sharded, (dev, smi, results, mhz, sms)),
                         (phase_seq_parallel, (smi, results)),
                         (phase_times, (dev, results, peak_ops, counts)),
                         (phase_flash_times, (dev, results, mhz, sms)),
                         (phase_step_times, (dev, results, mhz, sms))):
         t0 = time.perf_counter()
-        phase(*args)
+        try:
+            phase(*args)
+        except BaseException:
+            # ranks started ahead would wait for their go for ever
+            for st in results.pop("lm_sharded_starts", ([], None))[0]:
+                stop_sharded(st)
+            raise
         print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
 
     def cws_entry(k, primary):
@@ -5530,7 +6171,8 @@ def main():
                  simt_ms=primary["simt_ms"], worst=r["worst"],
                  parity_bodies=r["parity_bodies"], times=r["times"],
                  lm=results["lm"], lm_train=results["lm_train"],
-                 lm_blocks=results["lm_blocks"])
+                 lm_blocks=results["lm_blocks"],
+                 lm_sharded=results["lm_sharded"])
     kernels.append(entry)
     r = results[STEP[0]]
     # the main path's most frequent computing launch: a local layer's

@@ -50,9 +50,17 @@ writes, and a failure on any rank fails the save on every rank.  Restore
 (``shardings=``, the mesh that exists now, or None) reads the whole of
 every leaf on every rank: the trainer's state is replicated, so a
 checkpoint written by any number of ranks restores onto any other.
+
+Under a sharded layout (``specs=``, the sharded LM trainer's state) each
+rank writes its slices of every leaf with their global indices, a slice
+replicated over several ranks once (``sharding.owns_replica``), and the
+manifest holds the global shapes and the specs.  Restore with a spec tree
+and the mesh (``shardings=specs, mesh=``) reads on each rank only what
+overlaps its slices, whatever layout wrote the checkpoint.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -241,6 +249,45 @@ def _writer(mesh):
     return mesh.rank, mesh.size, mesh.host_group
 
 
+def _leaf_specs(tree, specs) -> list:
+    """The spec of each of ``tree``'s leaves, in ``_flatten``'s order."""
+    from repro_torch.models.sharding import named_specs
+    out = [sp for _, sp in named_specs(tree, specs)]
+    if len(out) != len(_flatten(tree)):
+        raise ValueError("specs= needs a tree of tensors shaped like the "
+                         "specs' tree")
+    return out
+
+
+def _spec_json(spec):
+    return None if spec is None else [
+        list(ax) if isinstance(ax, tuple) else ax for ax in spec]
+
+
+def _extract_sharded(step: int, tree: Tree, extra: Optional[dict], mesh,
+                     specs):
+    """The snapshot of a sharded tree (this rank's slices under the spec
+    tree ``specs``): each leaf's slice with its global index, once for
+    each replica set (on the rank that ``owns_replica``).  The manifest
+    holds the global shapes and the specs, as the reference's does."""
+    from repro_torch.models.sharding import (axis_size, owns_replica,
+                                             shard_bounds)
+    manifest = {"step": step, "leaves": [], "extra": extra or {},
+                "n_processes": mesh.size}
+    shards = {}
+    for (name, leaf), spec in zip(_flatten(tree), _leaf_specs(tree, specs)):
+        gshape = [d * axis_size(mesh, spec[i]) if i < len(spec) else d
+                  for i, d in enumerate(leaf.shape)]
+        manifest["leaves"].append({"name": name, "shape": gshape,
+                                   "dtype": _dtype_name(leaf),
+                                   "spec": _spec_json(spec)})
+        if owns_replica(mesh, spec):
+            arr, dtype = _host_copy(leaf)
+            index = [list(b) for b in shard_bounds(gshape, spec, mesh)]
+            shards[f"{name}::{mesh.rank}"] = (index, arr, dtype)
+    return manifest, shards
+
+
 def _extract_shards(step: int, tree: Tree, extra: Optional[dict],
                     proc: int = 0, nproc: int = 1):
     """Copy this process's slices of every leaf to host memory (the
@@ -352,13 +399,23 @@ def _write_shards(ckpt_dir, step: int, manifest: dict, shards: dict,
     _agreed(group, "commit", commit)
 
 
+def _snapshot(step, tree, extra, mesh, specs):
+    if specs is not None:
+        if mesh is None:
+            raise ValueError("specs= needs the mesh= they shard over")
+        return _extract_sharded(step, tree, extra, mesh, specs)
+    proc, nproc, _ = _writer(mesh)
+    return _extract_shards(step, tree, extra, proc, nproc)
+
+
 def save_checkpoint(ckpt_dir, step: int, tree: Tree, *,
                     extra: Optional[dict] = None, keep: int = 3,
-                    chaos=None, mesh=None) -> None:
+                    chaos=None, mesh=None, specs=None) -> None:
     """Synchronous save of ``tree`` (tensors on any device, or numpy);
-    under ``mesh`` every rank of it calls this with the same tree."""
-    proc, nproc, _ = _writer(mesh)
-    manifest, shards = _extract_shards(step, tree, extra, proc, nproc)
+    under ``mesh`` every rank of it calls this with the same tree, or,
+    with ``specs`` (a spec tree, ``training.trainer.state_pspecs``), with
+    its own slices of the tree's leaves."""
+    manifest, shards = _snapshot(step, tree, extra, mesh, specs)
     _write_shards(ckpt_dir, step, manifest, shards, keep, chaos=chaos,
                   mesh=mesh)
 
@@ -379,7 +436,7 @@ def _check_shardings(template: Tree, shardings) -> None:
 
 
 def restore_checkpoint(ckpt_dir, step: int, template: Tree, *,
-                       device=None, shardings=None) -> Tree:
+                       device=None, shardings=None, mesh=None) -> Tree:
     """Read step ``step`` into ``template``'s structure: its leaves are
     tensors or ``(shape, dtype)`` specs, each restored on ``device`` (the
     card unless told otherwise) with the template's dtype.  Each leaf is
@@ -387,36 +444,62 @@ def restore_checkpoint(ckpt_dir, step: int, template: Tree, *,
     files.  ``shardings`` (a mesh, or a tree of meshes like the template)
     restores onto the mesh that exists now: each of its ranks reads the
     whole of every leaf onto its own device, whatever number of
-    processes wrote the checkpoint."""
-    _check_shardings(template, shardings)
+    processes wrote the checkpoint.
+
+    With ``mesh``, ``shardings`` is a spec tree shaped like the template
+    (whose shapes are the global ones): each rank reads only the part of
+    every leaf that overlaps its slice and returns its slices, whatever
+    mesh and layout wrote the checkpoint (the reference's elastic
+    re-shard)."""
+    targets = None
+    if mesh is not None:
+        from repro_torch.models.sharding import shard_bounds
+        targets = [shard_bounds(_leaf_spec(leaf)[0], sp, mesh)
+                   for (_, leaf), sp in zip(_flatten(template),
+                                            _leaf_specs(template,
+                                                        shardings))]
+    else:
+        _check_shardings(template, shardings)
     dev = resolve_device(device)
     d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
     by_name: dict[str, list] = {}
-    for ifile in sorted(d.glob("index_p*.json")):
-        proc = ifile.stem.split("_p")[1]
-        index = json.loads(ifile.read_text())
-        with np.load(d / f"shard_p{proc}.npz") as payload:
+    with contextlib.ExitStack() as stack:
+        files = {}
+        for ifile in sorted(d.glob("index_p*.json")):
+            proc = ifile.stem.split("_p")[1]
+            index = json.loads(ifile.read_text())
+            files[proc] = stack.enter_context(
+                np.load(d / f"shard_p{proc}.npz"))
             for key, meta in index.items():
                 by_name.setdefault(key.split("::")[0], []).append(
-                    (meta["index"], payload[meta["slot"]], meta.get("dtype")))
-
-    out = []
-    for name, leaf in _flatten(template):
-        entries = by_name.get(name)
-        if entries is None:
-            raise KeyError(f"checkpoint missing leaf {name}")
-        shape, dtype = _leaf_spec(leaf)
-        result = np.zeros(shape, entries[0][1].dtype)
-        for idx, data, _ in entries:
-            lo = [max(a, 0) for a, _ in idx]
-            hi = [min(b, s) for (_, b), s in zip(idx, shape)]
-            if any(a >= b for a, b in zip(lo, hi)):
-                continue
-            src = tuple(slice(a - o, b - o)
-                        for a, b, (o, _) in zip(lo, hi, idx))
-            result[tuple(slice(a, b) for a, b in zip(lo, hi))] = data[src]
-        stored = entries[0][2] or str(result.dtype)
-        out.append(_to_tensor(result, stored).to(device=dev, dtype=dtype))
+                    (meta["index"], proc, meta["slot"], meta.get("dtype")))
+        out = []
+        for i, (name, leaf) in enumerate(_flatten(template)):
+            entries = by_name.get(name)
+            if entries is None:
+                raise KeyError(f"checkpoint missing leaf {name}")
+            shape, dtype = _leaf_spec(leaf)
+            want = targets[i] if targets is not None else \
+                [(0, n) for n in shape]
+            result = None
+            for idx, proc, slot, _ in entries:
+                lo = [max(a, w) for (a, _), (w, _) in zip(idx, want)]
+                hi = [min(b, w) for (_, b), (_, w) in zip(idx, want)]
+                if any(a >= b for a, b in zip(lo, hi)):
+                    continue        # read only the slots that overlap
+                data = files[proc][slot]
+                if result is None:
+                    result = np.zeros([b - a for a, b in want], data.dtype)
+                src = tuple(slice(a - o, b - o)
+                            for a, b, (o, _) in zip(lo, hi, idx))
+                dst = tuple(slice(a - w, b - w)
+                            for a, b, (w, _) in zip(lo, hi, want))
+                result[dst] = data[src]
+            if result is None:
+                raise KeyError(f"checkpoint holds no part of {name}'s "
+                               f"slice {want}")
+            stored = entries[0][3] or str(result.dtype)
+            out.append(_to_tensor(result, stored).to(device=dev, dtype=dtype))
     return _rebuild(template, iter(out))
 
 
@@ -434,14 +517,18 @@ class Checkpointer:
 
     ``mesh`` makes every save a save of the mesh's ranks, each writing
     its slices; every rank of the mesh then saves the same steps, in the
-    same order.  Rank 0 sweeps the crash leftovers."""
+    same order.  Rank 0 sweeps the crash leftovers.  With ``specs`` (a
+    spec tree) the trees saved are each rank's slices of a sharded state,
+    and ``restore_latest`` reads each rank's slices of a template of the
+    global shapes."""
 
     def __init__(self, ckpt_dir, keep: int = 3, *, chaos=None,
-                 gc_on_init: bool = True, mesh=None):
+                 gc_on_init: bool = True, mesh=None, specs=None):
         self.ckpt_dir = pathlib.Path(ckpt_dir)
         self.keep = keep
         self.chaos = chaos
         self.mesh = mesh
+        self.specs = specs
         self.last_snapshot_s = self.last_write_s = None
         self.totals = {"saves": 0, "blocked_s": 0.0, "snapshot_s": 0.0,
                        "write_s": 0.0, "write_cpu_s": 0.0}
@@ -472,8 +559,8 @@ class Checkpointer:
                    extra: Optional[dict] = None):
         self.wait()
         t0 = time.perf_counter()
-        proc, nproc, _ = _writer(self.mesh)
-        manifest, shards = _extract_shards(step, tree, extra, proc, nproc)
+        manifest, shards = _snapshot(step, tree, extra, self.mesh,
+                                     self.specs)
         self.last_snapshot_s = time.perf_counter() - t0
         tot = self.totals
         tot["saves"] += 1
@@ -499,8 +586,12 @@ class Checkpointer:
         step = latest_step(self.ckpt_dir)
         if step is None:
             return None, None
-        tree = restore_checkpoint(self.ckpt_dir, step, template,
-                                  device=device, shardings=shardings)
+        if self.specs is not None:
+            shardings = self.specs
+        tree = restore_checkpoint(
+            self.ckpt_dir, step, template, device=device,
+            shardings=shardings,
+            mesh=self.mesh if self.specs is not None else None)
         manifest = json.loads(
             (self.ckpt_dir / f"step_{step:08d}" / "manifest.json")
             .read_text())

@@ -110,17 +110,27 @@ def lm_params(params, cfg: ModelConfig, *, device=None,
     return convert(params, init_model(cfg, device="meta"), ())
 
 
-def lm_train_state(state, cfg: ModelConfig, *, device=None):
+def lm_train_state(state, cfg: ModelConfig, *, device=None, rules=None):
     """The reference's LM ``TrainState`` (params, mu, nu, step,
     ef_residual; leaves as numpy or JAX arrays) -> the port's: the
     parameters through ``lm_params`` (each leaf in its own dtype), the
     moments in ``cfg.moment_dtype`` and the residual in fp32 (every leaf,
     as the reference's ``adamw.init`` and ``init_residual`` make them),
-    the step as a () int32 tensor."""
-    from repro_torch.training.trainer import TrainState
+    the step as a () int32 tensor.  Under ``rules`` each rank keeps its
+    slices (``state_pspecs``), as ``init_train_state(rules=)`` holds
+    them."""
+    from repro_torch.training.trainer import (TrainHparams, TrainState,
+                                              state_pspecs)
     device = resolve_device(device)
     moments = _torch_dtype(cfg.moment_dtype)
     ef = state.ef_residual
+    if rules is not None:
+        from repro_torch.models.sharding import map_specs, shard_of
+        whole = lm_train_state(state, cfg, device="cpu")
+        specs = state_pspecs(cfg, rules,
+                             TrainHparams(compress_grads=ef is not None))
+        return map_specs(lambda t, sp: shard_of(t, rules.mesh, sp).to(
+            device, copy=True), whole, specs)
     return TrainState(
         params=lm_params(state.params, cfg, device=device),
         mu=lm_params(state.mu, cfg, device=device, dtype=moments),

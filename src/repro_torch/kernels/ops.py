@@ -74,8 +74,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if q_base != 0 or q.shape[1] != k.shape[1]:
             raise NotImplementedError(
                 "the flash backward recomputes causal self-attention only "
-                "(q_base 0, Sq == Sk); the sharded routes' backward waits "
-                "for ROADMAP A12")
+                "(q_base 0, Sq == Sk); the sharded routes' backward is "
+                "ROADMAP A12.4")
         return FlashAttention.apply(q, k, v, window, chunk)
     return registry.resolve("flash_attention", q.device)(
         q, k, v, window=window, q_base=q_base)

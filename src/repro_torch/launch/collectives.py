@@ -1,7 +1,12 @@
 """Collectives over a mesh axis: the ring shift of a tuple of tensors and
 the all-gather along one dimension that the sequence-parallel attention
 needs (the sequence's, for K/V), and the mean over the ``data`` axis that
-the data-parallel trainer takes of its loss and gradients.
+the data-parallel trainer takes of its loss and gradients; and for the
+sharded LM trainer, collectives with a backward (``torch.distributed``'s
+have none): the all-gather whose backward is a reduce-scatter, the
+reduce-scatter whose backward is an all-gather, Megatron's pair (the sum
+forward with the identity back, and the reverse), a max outside the graph
+and the all-to-all reshard of a tensor from one sharded dim to another.
 
 The group's backend decides how a tensor moves:
   * ``nccl``: CUDA tensors move directly between cards (one rank a card);
@@ -54,9 +59,13 @@ def transport(backend: str, device) -> str:
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of the CUDA tensor ``t``, in page-locked memory (the
+    copies run at the bus's rate; PyTorch caches the blocks)."""
     HOST_COPIES["bytes"] += t.numel() * t.element_size()
     HOST_COPIES["tensors"] += 1
-    return t.to("cpu")
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out
 
 
 def _to_card(t: torch.Tensor, device) -> torch.Tensor:
@@ -176,3 +185,247 @@ def axis_mean(tensors: Sequence[torch.Tensor], mesh,
         out.append(mean[lo:lo + t.numel()].view(t.shape))
         lo += t.numel()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded trainer's collectives: sums in rank order, and their autograd
+# ---------------------------------------------------------------------------
+#
+# Every collective below moves bytes only (an all-gather or an all-to-all,
+# bfloat16 as the same bits viewed as float16, a type every transport
+# moves); every sum is taken on the receiving
+# rank in rank order.  So a result's bits depend on the rank count alone,
+# not on the transport or the run, as ``axis_mean``'s do: a killed and
+# resumed sharded run repeats the uninterrupted one bit for bit.
+
+_BITS16 = (torch.bfloat16,)
+
+
+def _send(t: torch.Tensor, route: str) -> torch.Tensor:
+    t = t.contiguous()
+    if route == "gloo+host":
+        t = _to_host(t)
+    return t.view(torch.float16) if t.dtype in _BITS16 else t
+
+
+def _received(t: torch.Tensor, dtype, device, route: str) -> torch.Tensor:
+    if dtype in _BITS16:
+        t = t.view(dtype)
+    return _to_card(t, device) if route == "gloo+host" else t
+
+
+def gather_parts(x: torch.Tensor, mesh, axes) -> List[torch.Tensor]:
+    """Every rank's ``x`` along ``axes``, in the order of their index
+    (equal shapes on every rank); ``[x]`` on one rank."""
+    ranks = mesh.ranks(axes)
+    if len(ranks) == 1:
+        return [x]
+    route = transport(_backend(mesh, axes), x.device)
+    src = _send(x, route)
+    # the parts land in one buffer (page-locked for a card's tensors),
+    # which goes to the card in one copy
+    out = torch.empty((len(ranks),) + tuple(src.shape), dtype=src.dtype,
+                      device=src.device,
+                      pin_memory=route == "gloo+host")
+    dist.all_gather(list(out.unbind(0)), src, group=mesh.group(axes))
+    return list(_received(out, x.dtype, x.device, route).unbind(0))
+
+
+def _rank_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    total = parts[0].clone()
+    for p in parts[1:]:
+        total += p
+    return total
+
+
+def _all_to_all(x: torch.Tensor, mesh, axes, split_dim: int,
+                cat_dim: int) -> List[torch.Tensor]:
+    """Cut ``x`` into N equal blocks along ``split_dim`` and send block j to
+    the rank of index j; returns the N blocks received, in rank order."""
+    n = len(mesh.ranks(axes))
+    route = transport(_backend(mesh, axes), x.device)
+    blocks = x.movedim(split_dim, 0)
+    blocks = blocks.reshape((n, blocks.shape[0] // n) + blocks.shape[1:])
+    src = _send(blocks, route)
+    recv = torch.empty(src.shape, dtype=src.dtype, device=src.device,
+                       pin_memory=route == "gloo+host")
+    dist.all_to_all_single(recv, src, group=mesh.group(axes))
+    recv = _received(recv, x.dtype, x.device, route)
+    return [b.movedim(0, split_dim) for b in recv.unbind(0)]
+
+
+def reduce_scatter_dim(x: torch.Tensor, mesh, axes,
+                       dim: int) -> torch.Tensor:
+    """This rank's block (its index along ``axes``) of the sum over the
+    ranks of ``x`` cut into N blocks along ``dim``, summed in rank
+    order."""
+    if len(mesh.ranks(axes)) == 1:
+        return x
+    return _rank_sum(_all_to_all(x, mesh, axes, dim, dim))
+
+
+def axis_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of ``x`` over the ranks along ``axes``, in rank order, the
+    same bits on every rank; ``x`` itself on one rank."""
+    if len(mesh.ranks(axes)) == 1:
+        return x
+    return _rank_sum(gather_parts(x, mesh, axes))
+
+
+def axis_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks along ``axes``."""
+    if len(mesh.ranks(axes)) == 1:
+        return x
+    return torch.stack(gather_parts(x, mesh, axes)).amax(0)
+
+
+def reshard_dims(x: torch.Tensor, mesh, axes, split_dim: int,
+                 cat_dim: int) -> torch.Tensor:
+    """``x``, sharded along ``cat_dim`` over ``axes``, resharded along
+    ``split_dim`` (one all-to-all): every rank's block j of ``split_dim``
+    goes to rank j, which puts the blocks together along ``cat_dim``."""
+    if len(mesh.ranks(axes)) == 1:
+        return x
+    return torch.cat(_all_to_all(x, mesh, axes, split_dim, cat_dim), cat_dim)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return reduce_scatter_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(gather_parts(g, ctx.mesh, ctx.axes), ctx.dim), \
+            None, None, None
+
+
+class _SumForward(torch.autograd.Function):
+    """Megatron's g: the sum over the ranks forward, the identity back."""
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return axis_sum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Megatron's f: the identity forward, the sum over the ranks back."""
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return axis_sum(g, ctx.mesh, ctx.axes), None, None
+
+
+class _Reshard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, split_dim, cat_dim):
+        ctx.args = (mesh, axes, split_dim, cat_dim)
+        return reshard_dims(x, mesh, axes, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, split_dim, cat_dim = ctx.args
+        return reshard_dims(g, mesh, axes, cat_dim, split_dim), \
+            None, None, None, None
+
+
+def _one_rank(mesh, axes) -> bool:
+    return mesh is None or not axes or len(mesh.ranks(axes)) == 1
+
+
+def all_gather_grad(x, mesh, axes, dim: int):
+    """Differentiable all-gather along ``dim``: the backward sums the
+    gradient over the ranks and keeps this rank's block (reduce-scatter)."""
+    return all_gather_many([x], [dim], mesh, axes)[0]
+
+
+def reduce_scatter_grad(x, mesh, axes, dim: int):
+    """Differentiable reduce-scatter along ``dim``: the backward gathers."""
+    return x if _one_rank(mesh, axes) else _ReduceScatter.apply(x, mesh,
+                                                                axes, dim)
+
+
+def sum_forward(x, mesh, axes):
+    """The sum over the ranks, its gradient passed through unchanged."""
+    return x if _one_rank(mesh, axes) else _SumForward.apply(x, mesh, axes)
+
+
+def sum_backward(x, mesh, axes):
+    """``x`` unchanged, its gradient summed over the ranks."""
+    return x if _one_rank(mesh, axes) else _SumBackward.apply(x, mesh, axes)
+
+
+def max_nograd(x, mesh, axes):
+    """The max over the ranks, outside the graph (logsumexp's shift, the
+    int8 scale)."""
+    x = x.detach()
+    return x if _one_rank(mesh, axes) else axis_max(x, mesh, axes)
+
+
+def reshard_grad(x, mesh, axes, split_dim: int, cat_dim: int):
+    """Differentiable ``reshard_dims``; the backward reshards back."""
+    return x if _one_rank(mesh, axes) else _Reshard.apply(
+        x, mesh, axes, split_dim, cat_dim)
+
+
+def _gather_many(xs, dims, mesh, axes):
+    """Every rank's ``xs[i]`` concatenated along ``dims[i]``, for all i in
+    one all-gather (the tensors flattened into one buffer, one dtype)."""
+    flat = torch.cat([x.movedim(d, 0).reshape(-1) for x, d in zip(xs, dims)])
+    parts = gather_parts(flat, mesh, axes)
+    out, lo = [], 0
+    for x, d in zip(xs, dims):
+        size = x.numel()
+        moved = x.movedim(d, 0).shape
+        blocks = [p[lo:lo + size].view(moved).movedim(0, d) for p in parts]
+        out.append(torch.cat(blocks, d))
+        lo += size
+    return out
+
+
+def _reduce_scatter_many(gs, dims, mesh, axes):
+    """``reduce_scatter_dim`` of every ``gs[i]`` along ``dims[i]`` in one
+    all-to-all: block j of every tensor, flattened, goes to rank j."""
+    n = len(mesh.ranks(axes))
+    moved = [g.movedim(d, 0) for g, d in zip(gs, dims)]
+    rows = torch.cat([m.reshape(n, -1) for m in moved], 1)   # (n, total)
+    summed = reduce_scatter_dim(rows, mesh, axes, 0)[0]
+    out, lo = [], 0
+    for m, d in zip(moved, dims):
+        size = m.numel() // n
+        out.append(summed[lo:lo + size].view(
+            (m.shape[0] // n,) + m.shape[1:]).movedim(0, d).contiguous())
+        lo += size
+    return out
+
+
+class _AllGatherMany(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, dims, *xs):
+        ctx.mesh, ctx.axes, ctx.dims = mesh, axes, dims
+        out = tuple(_gather_many(xs, dims, mesh, axes))
+        ctx.like = [(o.shape, o.dtype, o.device) for o in out]
+        return out
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = [torch.zeros(shape, dtype=dt, device=dev) if g is None else g
+              for g, (shape, dt, dev) in zip(gs, ctx.like)]
+        return (None, None, None) + tuple(
+            _reduce_scatter_many(gs, ctx.dims, ctx.mesh, ctx.axes))
+
+
+def all_gather_many(xs, dims, mesh, axes):
+    """``all_gather_grad`` of every ``xs[i]`` along ``dims[i]`` (one dtype)
+    in one collective each way: the FSDP gather of a unit's leaves."""
+    if _one_rank(mesh, axes) or not xs:
+        return list(xs)
+    return list(_AllGatherMany.apply(mesh, axes, tuple(dims), *xs))

@@ -136,6 +136,22 @@ def make_mesh(data: int, model: int) -> Mesh:
     return Mesh({"data": data, "model": model})
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh: (data=16, model=16), or with
+    ``multi_pod`` (pod=2, data=16, model=16); raises, naming the ranks it
+    needs, when the process group is smaller."""
+    shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+             else {"data": 16, "model": 16})
+    need = 1
+    for n in shape.values():
+        need *= n
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world < need:
+        raise ValueError(f"the production mesh {shape} needs {need} ranks; "
+                         f"the process group has {world}")
+    return Mesh(shape)
+
+
 def make_local_mesh() -> Mesh:
     """Every rank of the process group as a (data=N, model=1) mesh; one
     rank without a process group."""

@@ -12,28 +12,51 @@ PyTorch kernels):
 
 ``--stop-at N`` ends the run after step N as a preemption would, the
 schedule still spanning ``--steps``; a second run with the same
-``--ckpt-dir`` resumes it.  Sharded training (``--production-mesh``,
-``--multipod``) waits for ROADMAP A12.
+``--ckpt-dir`` resumes it.
+
+Under ``torchrun`` (its ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` /
+``MASTER_PORT`` / ``LOCAL_RANK``) every rank joins one gloo process group
+and trains its shard of the step under the mesh (``make_local_mesh()``:
+data = N, model = 1; ``--mesh D M`` for another; ``--production-mesh`` /
+``--multipod`` for the reference's 16 x 16 / 2 x 16 x 16, which need 256
+/ 512 ranks).  Each rank's device is ``cuda:{LOCAL_RANK % device_count}``;
+ranks that share a card move their tensors through host copies.  Logs come
+from rank 0:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch \
+      gemma3_12b --variant smoke --steps 20 --mesh 1 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.data.loader import TokenBatchLoader
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (make_local_mesh, make_mesh,
+                                    make_production_mesh)
+from repro_torch.models.sharding import make_rules
 from repro_torch.runtime import RetryingTrainer, StepWatchdog
 from repro_torch.training import (TrainHparams, init_train_state,
                                   make_train_step)
+from repro_torch.training.trainer import state_pspecs
 
 
 class DictLoader:
     """``TokenBatchLoader`` tuples as the train step's batch dict of
-    tensors on ``device``."""
+    tensors on ``device``.  Under a mesh the inner loader is this rank's:
+    ``process_index`` its index along the batch axes (``data``), and
+    ``process_count`` their size, as the reference's loader runs per host;
+    ranks that differ only in ``model`` draw the same rows, whole along
+    the sequence (``input_specs``: the batch sharded, the sequence not),
+    and the step keeps their sequence shard of the residual stream."""
 
     def __init__(self, inner: TokenBatchLoader, device):
         self.inner = inner
@@ -60,32 +83,43 @@ def build_trainer(cfg, hp: TrainHparams, *, global_batch: int, seq_len: int,
     step_fn, start_step)`` for ``RetryingTrainer``, restoring the latest
     committed checkpoint of ``ckpt_dir`` when there is one.  Weights are
     drawn from ``seed`` on ``device`` (the card unless told otherwise).
-    ``mesh`` must be None: sharded LM training waits for ROADMAP A12."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_trainer(mesh=...): sharded LM training is not ported yet "
-            "(ROADMAP A12)")
+
+    ``mesh`` defaults, as the reference's does, to ``make_local_mesh()``
+    when a process group exists (none without one: the unsharded step).
+    Under a mesh the step is sharded (``make_train_step(rules=)``), each
+    rank holding its slices of the state and drawing its rows of every
+    batch; checkpoints hold each slice once and restore onto any mesh."""
     device = resolve_device(device)
-    ck = Checkpointer(ckpt_dir) if ckpt_dir else None
+    if mesh is None and dist.is_initialized():
+        mesh = make_local_mesh()
+    rules = None if mesh is None else make_rules(mesh)
+    specs = None if rules is None else state_pspecs(cfg, rules, hp)
+    ck = Checkpointer(ckpt_dir, mesh=mesh, specs=specs) if ckpt_dir \
+        else None
+    index, count = 0, 1
+    if rules is not None:
+        batch = rules.rules.get("batch")
+        index, count = mesh.axis_index(batch), rules.axes_size(batch)
 
     def build():
         loader = DictLoader(TokenBatchLoader(
             vocab=cfg.vocab, global_batch=global_batch, seq_len=seq_len,
-            seed=seed), device)
+            seed=seed, process_index=index, process_count=count), device)
         state, manifest = None, None
         if ck is not None:
-            # the shapes alone as the template: no second state on the card
+            # the global shapes alone as the template: no second state on
+            # the card
             template = init_train_state(cfg, hp, device="meta")
             state, manifest = ck.restore_latest(template, device=device)
         start = 0
         if state is None:
             state = init_train_state(
                 cfg, hp, generator=torch.Generator(device).manual_seed(seed),
-                device=device)
+                device=device, rules=rules)
         else:
             loader.restore(manifest["extra"]["loader"])
             start = manifest["step"]
-        return state, loader, make_train_step(cfg, hp), start
+        return state, loader, make_train_step(cfg, hp, rules), start
 
     return build, ck, mesh
 
@@ -101,8 +135,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--production-mesh", action="store_true")
-    ap.add_argument("--multipod", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the reference's (data=16, model=16) mesh: 256 "
+                    "ranks")
+    ap.add_argument("--multipod", action="store_true",
+                    help="the (pod=2, data=16, model=16) mesh: 512 ranks")
+    ap.add_argument("--mesh", type=int, nargs=2, default=None,
+                    metavar=("DATA", "MODEL"),
+                    help="a (data, model) mesh over the process group's "
+                    "ranks (default: data = every rank, model = 1)")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--max-restarts", type=int, default=3)
@@ -121,12 +162,37 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _join_group(device: str):
+    """Join ``torchrun``'s process group (gloo) when its environment is
+    set; returns (this rank's device, whether this call made the group)."""
+    if "RANK" not in os.environ or dist.is_initialized():
+        return device, False
+    dist.init_process_group("gloo", init_method="env://",
+                            timeout=datetime.timedelta(seconds=600))
+    if device.startswith("cuda") and torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        device = f"cuda:{local % torch.cuda.device_count()}"
+    return device, True
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
+    device, made = _join_group(args.device)
+    try:
+        return _train(args, device)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _train(args, device):
+    mesh = None
     if args.production_mesh or args.multipod:
-        raise NotImplementedError(
-            "--production-mesh / --multipod: sharded LM training is not "
-            "ported yet (ROADMAP A12)")
+        mesh = make_production_mesh(multi_pod=args.multipod)
+    elif args.mesh is not None:
+        mesh = make_mesh(*args.mesh)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    log = print if rank0 else (lambda *a, **k: None)
     cfg = get_config(args.arch, args.variant)
     hp = TrainHparams(lr=args.lr, total_steps=args.steps,
                       warmup=max(args.steps // 20, 1),
@@ -134,7 +200,7 @@ def main(argv=None):
                       compress_grads=args.compress_grads)
     build, ck, _ = build_trainer(
         cfg, hp, global_batch=args.global_batch, seq_len=args.seq_len,
-        ckpt_dir=args.ckpt_dir, device=args.device)
+        ckpt_dir=args.ckpt_dir, mesh=mesh, device=device)
     end = min(args.stop_at, args.steps) if args.stop_at > 0 else args.steps
 
     t_last = [time.time()]
@@ -144,7 +210,7 @@ def main(argv=None):
             dt = time.time() - t_last[0]
             t_last[0] = time.time()
             tok_s = args.global_batch * args.seq_len * args.log_every / dt
-            print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
+            log(f"step {step:5d} loss {float(metrics['loss']):.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"tok/s {tok_s:,.0f}", flush=True)
         if ck is not None and step % args.ckpt_every == 0:
@@ -152,7 +218,7 @@ def main(argv=None):
 
     def on_restart(event):
         # the structured restart log, one line per event, greppable
-        print(f"restart {event['restart']}: {event['error']} at step "
+        log(f"restart {event['restart']}: {event['error']} at step "
               f"{event['step']} — {event['message']!r}; backing off "
               f"{event['backoff_s']:.1f}s"
               + (" (GIVING UP)" if event["gave_up"] else ""), flush=True)
@@ -169,7 +235,7 @@ def main(argv=None):
         ck.save_async(end, state, extra={"loader": {"step": end,
                                                     "seed": 0}})
         ck.wait()
-    print("done")
+    log("done")
     return state
 
 

@@ -41,6 +41,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.launch.collectives import (all_gather_grad,
+                                            reduce_scatter_grad)
 from repro_torch.kernels.flash_attention import (ring_flash_attention,
                                                  sharded_flash_attention,
                                                  use_ring)
@@ -279,7 +281,7 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if n_seq > 1 and cache is not None:
         raise NotImplementedError(
             "caches sharded over the sequence (kv_seq) are not ported yet "
-            "(ROADMAP A12): the sequence-parallel path runs forward only")
+            "(ROADMAP A12.5): the sequence-parallel path runs forward only")
     rolling = cache is not None and window > 0 and cache.k.shape[1] <= window
     if cache is not None and update_cache:
         cache = _write_cache(cache, k, v, s)
@@ -291,7 +293,7 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             f"sequence-parallel attention runs the flash schedules only "
             f"(attn_impl='flash', a global length {s_global} above "
             f"attn_chunk {cfg.attn_chunk}); got attn_impl="
-            f"{cfg.attn_impl!r}")
+            f"{cfg.attn_impl!r}; the GSPMD routes are ROADMAP A12.6")
     if cache is not None and s == 1:
         # rolling caches enforce the window structurally: no mask needed
         out = _decode_grouped(q.reshape(b, s, g, r, dh), cache,
@@ -306,15 +308,8 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             else sharded_flash_attention
         out = fn(q, k, v, window=window, mesh=current_rules().mesh,
                  seq_axes=seq_axes)
-    elif flash_want:
-        out = ops.flash_attention(q, k, v, window=window,
-                                  chunk=cfg.attn_chunk)
-    elif cache is None:
-        kk, vv = _repeat_kv(k, r), _repeat_kv(v, r)
-        if cfg.attn_impl == "naive" or s <= cfg.attn_chunk:
-            out = _naive_flat(q, kk, vv, window=window)
-        else:
-            out = _chunked_flat(q, kk, vv, window=window, chunk=cfg.attn_chunk)
+    elif flash_want or cache is None:
+        out = _self_attend(q, k, v, cfg, window)
     else:
         q5 = q.reshape(b, s, g, r, dh)
         if cfg.attn_impl == "naive" or s <= cfg.attn_chunk:
@@ -326,6 +321,94 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     out = out.to(dt).reshape(b, s, h * dh)
     return out @ params["wo"].to(dt), cache
+
+
+def _self_attend(q, k, v, cfg: ModelConfig, window: int) -> torch.Tensor:
+    """Causal self-attention of a whole sequence without a cache: the
+    flash kernel (row 8) when ``cfg.attn_impl == "flash"`` and the
+    sequence is longer than ``attn_chunk``, else naive or chunked over
+    flat heads (k/v repeated to q's heads)."""
+    s = q.shape[1]
+    if cfg.attn_impl == "flash" and s > cfg.attn_chunk:
+        return ops.flash_attention(q, k, v, window=window,
+                                   chunk=cfg.attn_chunk)
+    r = q.shape[2] // k.shape[2]
+    kk, vv = _repeat_kv(k, r), _repeat_kv(v, r)
+    if cfg.attn_impl == "naive" or s <= cfg.attn_chunk:
+        return _naive_flat(q, kk, vv, window=window)
+    return _chunked_flat(q, kk, vv, window=window, chunk=cfg.attn_chunk)
+
+
+def _kv_for_heads(k: torch.Tensor, q_heads: range, rep: int):
+    """The KV heads that the query heads ``q_heads`` read (head j reads
+    KV head j // rep), as few as keep the grouping (each KV head serving
+    an equal run of consecutive q heads), else one a q head."""
+    want = [j // rep for j in q_heads]
+    lo, hi = want[0], want[-1] + 1
+    per = len(want) // (hi - lo)
+    if len(want) % (hi - lo) == 0 and \
+            want == [lo + i // per for i in range(len(want))]:
+        return k[:, :, lo:hi]
+    return k[:, :, torch.tensor(want, device=k.device)]
+
+
+def attention_tp(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                 kind: str, layout, spec: dict,
+                 rope_theta: Optional[float] = None) -> torch.Tensor:
+    """Attention under the train layout (``sharding.TrainLayout``, tp >
+    1): x is this rank's shard of the residual stream (B, S / sp, D); the
+    sequence is gathered over ``sp``, ``wq`` / ``wk`` / ``wv`` run
+    column-parallel to this rank's heads, attention runs over them on the
+    whole sequence (rows at global positions, ``q_base`` 0), and ``wo``
+    runs row-parallel, its partial sums reduce-scattered back to the
+    sequence shards.
+
+    ``wk`` / ``wv`` shard their flat G * Dh dim, not heads: where the KV
+    heads divide over ``tp`` this rank's slice holds exactly the KV heads
+    its q heads read; otherwise (G < tp, say) K/V are gathered over
+    ``tp`` before this rank's q heads pick theirs, and a ``wk`` / ``wv``
+    left whole (G * Dh not dividing) projects this rank's own rows, then
+    gathers the sequence.  With ``attn_impl="flash"`` the attention is row
+    8 through ``ops.flash_attention`` (kernel forward, recompute
+    backward).  The reference routes flash under tp > 1 to its
+    sequence-sharded ``shard_map`` schedule instead, whose backward is
+    ROADMAP A12.4; the function computed is the same."""
+    dt = cfg.compute_dtype
+    mesh, tp, sp_axes = layout.mesh, layout.tp, layout.sp_axes
+    h, g, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if h % tp:
+        raise NotImplementedError(
+            f"{cfg.name}: {h} heads over tp = {tp}: the train layout runs "
+            f"attention over each rank's heads; the reference's "
+            f"sequence-sharded GSPMD route is ROADMAP A12.6")
+    hl = h // tp
+    heads = range(layout.tp_index() * hl, (layout.tp_index() + 1) * hl)
+    window = cfg.window if kind == "local" else 0
+    theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    xf = all_gather_grad(x, mesh, sp_axes, 1)
+    b, s, _ = xf.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+
+    def kv(name):
+        w = params[name].to(dt)
+        if not layout.tp_sharded(spec[name], -1):
+            t = all_gather_grad(x @ w, mesh, sp_axes, 1)
+        elif g % tp == 0:
+            return (xf @ w).reshape(b, s, g // tp, dh)
+        else:
+            t = all_gather_grad(xf @ w, mesh, layout.tp_axes, 2)
+        return _kv_for_heads(t.reshape(b, s, g, dh), heads, h // g)
+
+    q = (xf @ params["wq"].to(dt)).reshape(b, s, hl, dh)
+    k, v = kv("wk"), kv("wv")
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    if cfg.qk_norm:
+        q = _qknorm(q, dt)
+        k = _qknorm(k, dt)
+    out = _self_attend(q, k, v, cfg, window)
+    out = out.to(dt).reshape(b, s, hl * dh) @ params["wo"].to(dt)
+    return reduce_scatter_grad(out, mesh, sp_axes, 1)
 
 
 def _qknorm(q: torch.Tensor, dt) -> torch.Tensor:

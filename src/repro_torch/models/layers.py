@@ -16,7 +16,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.collectives import (all_gather_grad, max_nograd,
+                                            reduce_scatter_grad,
+                                            reshard_grad, sum_forward)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import local_shard
 
 
 # a leaf narrower than fp32 and larger than this is drawn in slices of at
@@ -168,17 +172,10 @@ def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # chunked cross-entropy (never materializes the whole (B, S, V) fp32 logits)
 # ---------------------------------------------------------------------------
 
-def chunked_cross_entropy(embed_params: dict, x: torch.Tensor,
-                          labels: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, D), labels: (B, S) -> (mean nll, token count), both fp32
-    0-dim tensors.  The sequence is padded to a multiple of
-    ``cfg.loss_chunk`` with label -1; labels outside [0, vocab) and the
-    padded vocabulary ids are masked.  Under autograd each chunk's logits
-    are recomputed in the backward (a non-reentrant
-    ``torch.utils.checkpoint`` per chunk, the reference's
-    ``jax.checkpoint(body)``), so one chunk's fp32 logits are live at a
-    time."""
-    b, s, d = x.shape
+def _chunks(x: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig):
+    """x and labels padded to a multiple of the loss chunk (label -1),
+    the labels' validity mask, and the chunk length."""
+    s = x.shape[1]
     chunk = min(cfg.loss_chunk, s)
     pad = (-s) % chunk
     if pad:
@@ -186,6 +183,29 @@ def chunked_cross_entropy(embed_params: dict, x: torch.Tensor,
         labels = F.pad(labels, (0, pad), value=-1)
     labels = labels.long()
     valid = (labels >= 0) & (labels < cfg.vocab)
+    return x, labels, valid, chunk
+
+
+def _chunk_sums(body, x, labels, valid, chunk):
+    """(sum of ``body`` over the chunks, valid tokens): under autograd
+    each chunk's logits are recomputed in the backward (a non-reentrant
+    checkpoint per chunk, the reference's ``jax.checkpoint(body)``)."""
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled()
+    for c0 in range(0, x.shape[1], chunk):
+        args = (x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                valid[:, c0:c0 + chunk])
+        tot = tot + (checkpoint(body, *args, use_reentrant=False) if remat
+                     else body(*args))
+        cnt = cnt + args[2].sum()
+    return tot, cnt
+
+
+def cross_entropy_sums(embed_params: dict, x: torch.Tensor,
+                       labels: torch.Tensor, cfg: ModelConfig):
+    """(summed nll, token count) of ``chunked_cross_entropy``."""
+    x, labels, valid, chunk = _chunks(x, labels, cfg)
     vocab_ok = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
 
     def body(xc, lc, vm):
@@ -196,13 +216,109 @@ def chunked_cross_entropy(embed_params: dict, x: torch.Tensor,
                             [..., None])[..., 0]
         return torch.where(vm, logz - gold, 0.0).sum()
 
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = torch.is_grad_enabled()
-    for c0 in range(0, x.shape[1], chunk):
-        args = (x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
-                valid[:, c0:c0 + chunk])
-        tot = tot + (checkpoint(body, *args, use_reentrant=False) if remat
-                     else body(*args))
-        cnt = cnt + args[2].sum()
+    return _chunk_sums(body, x, labels, valid, chunk)
+
+
+def chunked_cross_entropy(embed_params: dict, x: torch.Tensor,
+                          labels: torch.Tensor, cfg: ModelConfig):
+    """x: (B, S, D), labels: (B, S) -> (mean nll, token count), both fp32
+    0-dim tensors.  The sequence is padded to a multiple of
+    ``cfg.loss_chunk`` with label -1; labels outside [0, vocab) and the
+    padded vocabulary ids are masked.  Under autograd each chunk's logits
+    are recomputed in the backward, so one chunk's fp32 logits are live at
+    a time."""
+    tot, cnt = cross_entropy_sums(embed_params, x, labels, cfg)
     return tot / torch.clamp_min(cnt, 1.0), cnt
+
+
+# ---------------------------------------------------------------------------
+# the train layout's sharded forms (FSDP x TP; ``sharding.TrainLayout``)
+# ---------------------------------------------------------------------------
+
+def seq_shard(x: torch.Tensor, layout) -> torch.Tensor:
+    """This rank's shard of x's sequence (dim 1) over the ``sp`` axes; a
+    sequence that does not divide raises (``sharding.local_shard``)."""
+    return local_shard(x, layout.rules, None, "sp")
+
+
+def embed_tokens_tp(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                    layout, spec: dict) -> torch.Tensor:
+    """The whole sequence's tokens (B, S) -> this rank's shard of the
+    residual stream (B, S / sp, D).  The table is D-sharded over ``tp``
+    (``(None, "tp")``): each rank looks up every token's D / tp columns,
+    gathers D and keeps its rows (the backward reduce-scatters D).  A
+    table left whole looks up its own rows alone."""
+    if not layout.tp_sharded(spec["tokens"], 1):
+        return embed_tokens(params, seq_shard(tokens, layout), cfg)
+    x = embed_tokens(params, tokens, cfg)
+    x = all_gather_grad(x, layout.mesh, layout.tp_axes, 2)
+    return seq_shard(x, layout)
+
+
+def mlp_tp(params: dict, x: torch.Tensor, cfg: ModelConfig, layout,
+           spec: dict) -> torch.Tensor:
+    """The MLP on this rank's shard of the residual stream (B, S / sp, D):
+    the sequence gathered over ``sp`` (the reference's ``shard(x, "batch",
+    None, None)``), ``gate`` / ``up`` column-parallel, ``down``
+    row-parallel, the partial sums reduce-scattered back to the sequence
+    shards (``shard(out, "batch", "sp", None)``).  A d_ff that does not
+    divide over ``tp`` leaves the weights whole: each rank then runs its
+    own rows."""
+    if not layout.tp_sharded(spec["up"], -1):
+        return mlp(params, x, cfg)
+    mesh, axes = layout.mesh, layout.sp_axes
+    out = mlp(params, all_gather_grad(x, mesh, axes, 1), cfg)
+    return reduce_scatter_grad(out, mesh, axes, 1)
+
+
+def cross_entropy_sums_tp(embed_params: dict, x: torch.Tensor,
+                          labels: torch.Tensor, cfg: ModelConfig, layout,
+                          spec: dict):
+    """(summed nll, token count) over this rank's batch rows, the logits
+    sharded over the vocabulary: x is this rank's shard of the final
+    hidden state (B, S / sp, D), labels the whole sequence's (B, S).
+
+    The sequence is gathered over ``tp``; each rank computes its V / tp
+    slice of every chunk's logits, from ``head`` (``(None, "tp")``) or the
+    tied table (D-sharded: resharded to V-sharded by one all-to-all a
+    call, its backward the reverse).  logsumexp takes the max over the
+    ranks (outside the graph), then the sum of exp over them; the gold
+    logit comes from the rank that owns its id (a sum); padded ids are
+    masked at their global ids.  Every rank of ``tp`` returns the same
+    sums.  The per-chunk checkpoint stays."""
+    mesh, axes, n = layout.mesh, layout.tp_axes, layout.tp
+    if n == 1:
+        return cross_entropy_sums(embed_params, x, labels, cfg)
+    dt = cfg.compute_dtype
+    vl = cfg.padded_vocab // n
+    v0 = layout.tp_index() * vl
+    if cfg.tie_embeddings:
+        tab = embed_params["tokens"].to(dt)
+        tab = reshard_grad(tab, mesh, axes, 0, 1) \
+            if layout.tp_sharded(spec["tokens"], 1) else tab.narrow(0, v0, vl)
+        w = tab.T
+    else:
+        w = embed_params["head"].to(dt)
+        if not layout.tp_sharded(spec["head"], 1):
+            w = w.narrow(1, v0, vl)
+    x = all_gather_grad(x, mesh, layout.sp_axes, 1)
+    x, labels, valid, chunk = _chunks(x, labels, cfg)
+    vocab_ok = torch.arange(v0, v0 + vl, device=x.device) < cfg.vocab
+
+    def body(xc, lc, vm):
+        logits = xc @ w
+        if cfg.logit_softcap > 0:
+            c = cfg.logit_softcap
+            logits = c * torch.tanh(logits / c)
+        logits = torch.where(vocab_ok, logits.float(), -torch.inf)
+        m = max_nograd(logits.amax(-1), mesh, axes)
+        se = sum_forward(torch.exp(logits - m[..., None]).sum(-1), mesh,
+                         axes)
+        logz = m + torch.log(se)
+        local = lc.clamp(0, cfg.padded_vocab - 1) - v0
+        own = (local >= 0) & (local < vl)
+        g = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+        gold = sum_forward(torch.where(own, g, 0.0), mesh, axes)
+        return torch.where(vm, logz - gold, 0.0).sum()
+
+    return _chunk_sums(body, x, labels, valid, chunk)

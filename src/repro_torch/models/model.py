@@ -27,9 +27,12 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (chunked_cross_entropy, embed_tokens,
-                                       init_embed, init_mlp, init_rmsnorm,
-                                       lm_logits, mlp, rmsnorm)
+from repro_torch.launch.collectives import sum_forward
+from repro_torch.models.layers import (chunked_cross_entropy,
+                                       cross_entropy_sums_tp, embed_tokens,
+                                       embed_tokens_tp, init_embed, init_mlp,
+                                       init_rmsnorm, lm_logits, mlp, mlp_tp,
+                                       rmsnorm, seq_shard)
 from repro_torch.models.sharding import current_rules, seq_shards
 
 ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_dropped": 0.0}
@@ -39,19 +42,41 @@ FP32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip", "b_a",
                          "b_i", "lam"})
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for an unknown block kind, and for the blocks whose
-    sequence-sharded forms are not ported (ROADMAP A12): under axis rules
-    whose sequence axes span more than one rank, a per-shard capacity or
-    scan would differ from the reference without a word."""
+def check_supported(cfg: ModelConfig, layout=None) -> None:
+    """Raise for an unknown block kind, and for the blocks whose sharded
+    forms are not ported (ROADMAP A12.8), where a per-shard statistic or
+    scan would differ from the reference without a word: under axis rules
+    whose sequence axes span more than one rank (the serving forward), an
+    MoE, SSM or RG-LRU block; under the train layout (``layout``), an MoE
+    block where the batch or the sequence is split (its capacity,
+    ``moe_lb_loss``, ``moe_z_loss`` and ``moe_dropped`` are statistics
+    over the global batch), and an SSM or RG-LRU block with ``tp`` > 1
+    (their recurrences run per batch row, so ``data`` alone splits
+    them)."""
     for kind in cfg.block_pattern:
         if kind not in KINDS:
             raise ValueError(kind)
-    if seq_shards()[1] > 1 and (cfg.moe is not None or
-                                {"ssm", "rglru"} & set(cfg.block_pattern)):
+    recurrent = bool({"ssm", "rglru"} & set(cfg.block_pattern))
+    if layout is None:
+        if seq_shards()[1] > 1 and (cfg.moe is not None or recurrent):
+            raise NotImplementedError(
+                f"{cfg.name}: MoE, SSM and RG-LRU blocks under sequence "
+                f"sharding are not ported yet (ROADMAP A12.8)")
+        return
+    split = layout.rules.axes_size(layout.axes("batch")) * layout.sp
+    if cfg.moe is not None and split > 1:
         raise NotImplementedError(
-            f"{cfg.name}: MoE, SSM and RG-LRU blocks under sequence "
-            f"sharding are not ported yet (ROADMAP A12)")
+            f"{cfg.name}: an MoE block under a mesh that splits the batch or "
+            f"the sequence is not ported yet (ROADMAP A12.8)")
+    if recurrent and layout.tp > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: SSM and RG-LRU blocks under tp > 1 are not ported "
+            f"yet (ROADMAP A12.8); they train under FSDP (model = 1)")
+    if max(layout.tp, layout.sp) > 1 and \
+            set(layout.sp_axes) != set(layout.tp_axes):
+        raise NotImplementedError(
+            f"the train layout shards the sequence over the tp axes "
+            f"{layout.tp_axes}; got sp over {layout.sp_axes}")
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +101,7 @@ def _init_block(generator, cfg: ModelConfig, kind: str, is_moe: bool,
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-               device=None) -> dict:
+               device=None, *, keep=None) -> dict:
     """Fresh parameters with the reference's distributions (truncated
     normals at +-2 times their scale, zero norm scales, the SSM's and
     RG-LRU's fixed decay ladders), drawn from ``generator`` (default: one
@@ -84,20 +109,35 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     a full-width model never exists on the host.  Leaves take the
     reference's dtypes: ``cfg.master_dtype``, and fp32 for the
     ``FP32_LEAVES``.  Not the reference's draws: tests carry its weights
-    across (``interop``).  ``device="meta"`` gives the shapes alone."""
+    across (``interop``).  ``device="meta"`` gives the shapes alone.
+
+    ``keep(path, tensor)`` (the sharded trainer's) maps each leaf, by its
+    path of keys, to what is kept of it, as soon as its block is drawn:
+    the draws are the same, so a rank's slices equal the unsharded
+    model's, and no more than one block is ever whole."""
     check_supported(cfg)
     device = resolve_device(device) if generator is None else \
         resolve_device(device or generator.device)
     if generator is None and device.type != "meta":
         generator = torch.Generator(device).manual_seed(0)
-    units = {f"block{i}": _init_block(generator, cfg, kind,
-                                      cfg.is_moe_block(i), device,
-                                      (cfg.n_units,))
+
+    def kept(tree, path):
+        if keep is None:
+            return tree
+        return {k: kept(v, path + (k,)) if isinstance(v, dict)
+                else keep(path + (k,), v) for k, v in tree.items()}
+
+    # the draw order: the units, then the table
+    units = {f"block{i}": kept(_init_block(generator, cfg, kind,
+                                           cfg.is_moe_block(i), device,
+                                           (cfg.n_units,)),
+                               ("units", f"block{i}"))
              for i, kind in enumerate(cfg.block_pattern)}
     return {
-        "embed": init_embed(generator, cfg, device),
+        "embed": kept(init_embed(generator, cfg, device), ("embed",)),
         "units": units,
-        "final_norm": init_rmsnorm(cfg.d_model, cfg.master_dtype, device),
+        "final_norm": kept(init_rmsnorm(cfg.d_model, cfg.master_dtype,
+                                        device), ("final_norm",)),
     }
 
 
@@ -168,17 +208,27 @@ def _write_state(cache, new) -> None:
 
 
 def _apply_block(params: dict, x, cfg: ModelConfig, *, kind: str,
-                 is_moe: bool, positions, cache, update_cache: bool):
-    """(x, aux): the reference's block, with a cache written in place."""
+                 is_moe: bool, positions, cache, update_cache: bool,
+                 layout=None, spec=None):
+    """(x, aux): the reference's block, with a cache written in place.
+    Under a train layout of tp > 1 (``spec``: the block's specs, unit
+    axis dropped) attention and the MLP run their tensor-parallel forms
+    on this rank's shard of the residual stream."""
     aux = dict(ZERO_AUX)
+    tp = layout is not None and layout.tp > 1
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if kind in ("attn", "local"):
         theta = cfg.rope_theta_global if (kind == "attn" and
                                           cfg.rope_theta_global > 0) \
             else cfg.rope_theta
-        mix, _ = attn_lib.attention(
-            params["mixer"], h, cfg, kind=kind, positions=positions,
-            cache=cache, update_cache=update_cache, rope_theta=theta)
+        if tp:
+            mix = attn_lib.attention_tp(params["mixer"], h, cfg, kind=kind,
+                                        layout=layout, spec=spec["mixer"],
+                                        rope_theta=theta)
+        else:
+            mix, _ = attn_lib.attention(
+                params["mixer"], h, cfg, kind=kind, positions=positions,
+                cache=cache, update_cache=update_cache, rope_theta=theta)
     else:
         block = ssm_lib.ssm_block if kind == "ssm" else rglru_lib.rglru_block
         mix, new_state = block(params["mixer"], h, cfg, state=cache,
@@ -195,6 +245,8 @@ def _apply_block(params: dict, x, cfg: ModelConfig, *, kind: str,
             y, moe_aux = moe_lib.moe_mlp(params["mlp"], h2, cfg,
                                          exact_capacity=exact)
             aux.update(moe_aux)
+        elif tp:
+            y = mlp_tp(params["mlp"], h2, cfg, layout, spec["mlp"])
         else:
             y = mlp(params["mlp"], h2, cfg)
         x = x + y
@@ -211,7 +263,7 @@ def _add_aux(total: dict, aux: dict) -> dict:
 
 
 def _apply_unit(unit_params: dict, x, cfg: ModelConfig, *, positions,
-                caches, update_cache: bool):
+                caches, update_cache: bool, layout=None, specs=None):
     """(x, the unit's aux summed over its blocks)."""
     aux_sum = dict(ZERO_AUX)
     for i, kind in enumerate(cfg.block_pattern):
@@ -219,13 +271,53 @@ def _apply_unit(unit_params: dict, x, cfg: ModelConfig, *, positions,
             unit_params[f"block{i}"], x, cfg, kind=kind,
             is_moe=cfg.is_moe_block(i), positions=positions,
             cache=caches[i] if caches is not None else None,
-            update_cache=update_cache)
+            update_cache=update_cache, layout=layout,
+            spec=None if specs is None else specs[f"block{i}"])
         aux_sum = _add_aux(aux_sum, aux)
     return x, aux_sum
 
 
+def _unit_specs(specs: dict) -> dict:
+    """The units' spec tree with the leading unit axis dropped."""
+    return {k: _unit_specs(v) if isinstance(v, dict) else v[1:]
+            for k, v in specs.items()}
+
+
+def _forward_train_layout(params: dict, inputs, cfg: ModelConfig, layout):
+    """``forward`` under the train layout (see ``forward``)."""
+    check_supported(cfg, layout)
+    specs = layout.specs
+    if inputs.ndim == 2:
+        x = embed_tokens_tp(params["embed"], inputs, cfg, layout,
+                            specs["embed"])
+    else:
+        x = seq_shard(inputs, layout).to(cfg.compute_dtype)
+    # attention sees the whole sequence (tp > 1 gathers it; tp = 1 holds
+    # it): global positions from 0
+    positions = torch.arange(inputs.shape[1], device=x.device)[None, :]
+    unit_specs = _unit_specs(specs["units"])
+
+    def unit(x_, p_):
+        # the FSDP gathers inside the checkpointed unit: the recompute
+        # gathers again, and no gathered weight outlives its unit
+        return _apply_unit(layout.gather_tree(p_, unit_specs), x_, cfg,
+                           positions=positions, caches=None,
+                           update_cache=False, layout=layout,
+                           specs=unit_specs)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = dict(ZERO_AUX)
+    for u in range(cfg.n_units):
+        unit_params = _unit_slice(params["units"], u)
+        x, aux_u = checkpoint(unit, x, unit_params, use_reentrant=False) \
+            if remat else unit(x, unit_params)
+        aux = _add_aux(aux, aux_u)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, None, aux
+
+
 def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
-            update_cache: bool = False, positions=None):
+            update_cache: bool = False, positions=None, layout=None):
     """inputs: (B, S) int tokens or (B, S, D) embeddings (vlm/audio stub).
 
     Returns (hidden (B, S, D), caches, aux).  The caches are the ones
@@ -242,7 +334,22 @@ def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
     sequence coordinates.  Everything but attention is per token and
     stays local; attention reaches the other ranks' K/V through the
     sequence-parallel schedules.  MoE, SSM and RG-LRU blocks refuse to
-    run so (``check_supported``)."""
+    run so (``check_supported``).
+
+    Under the train layout (``layout``, a ``sharding.TrainLayout``;
+    never guessed from the shapes) ``params`` are this rank's slices
+    (``shard_params``), ``inputs`` the whole sequence of this rank's
+    batch rows, and the hidden state returned is this rank's shard of the
+    sequence over ``sp``; each unit gathers its ``fsdp`` dims inside its
+    checkpoint, and attention and the MLP run tensor-parallel over
+    ``tp``.  No caches: the train layout runs the training forward
+    (sharded caches are ROADMAP A12.5)."""
+    if layout is not None:
+        if caches is not None or positions is not None:
+            raise NotImplementedError(
+                "the train layout runs the training forward: no caches or "
+                "positions (sharded caches are ROADMAP A12.5)")
+        return _forward_train_layout(params, inputs, cfg, layout)
     check_supported(cfg)
     if inputs.ndim == 2:
         x = embed_tokens(params["embed"], inputs, cfg)
@@ -273,13 +380,30 @@ def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
     return x, caches, aux
 
 
-def train_loss(params: dict, inputs, labels, cfg: ModelConfig):
+def train_loss(params: dict, inputs, labels, cfg: ModelConfig, *,
+               layout=None):
     """(loss, metrics): the mean next-token nll over the valid labels
     (``layers.chunked_cross_entropy``), plus ``0.01 * lb + 1e-3 * z`` of
     the MoE aux terms when ``cfg.moe`` is set; metrics ``nll``, ``tokens``
-    and the aux terms."""
-    hidden, _, aux = forward(params, inputs, cfg)
-    nll, n_tok = chunked_cross_entropy(params["embed"], hidden, labels, cfg)
+    and the aux terms.
+
+    Under the train layout the logits are sharded over the vocabulary
+    (``layers.cross_entropy_sums_tp``) and the nll and the valid tokens
+    are summed over the batch axes before the division: the loss is the
+    global batch's mean, every token counted once, the same on every
+    rank."""
+    hidden, _, aux = forward(params, inputs, cfg, layout=layout)
+    if layout is None:
+        nll, n_tok = chunked_cross_entropy(params["embed"], hidden, labels,
+                                           cfg)
+    else:
+        tot, n_tok = cross_entropy_sums_tp(params["embed"], hidden, labels,
+                                           cfg, layout,
+                                           layout.specs["embed"])
+        batch = layout.axes("batch")
+        tot = sum_forward(tot, layout.mesh, batch)
+        n_tok = sum_forward(n_tok, layout.mesh, batch)
+        nll = tot / torch.clamp_min(n_tok, 1.0)
     loss = nll
     if cfg.moe is not None:
         loss = loss + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]

@@ -36,7 +36,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.launch.collectives import all_gather_dim
+from repro_torch.launch.collectives import all_gather_dim, all_gather_many
 from repro_torch.launch.mesh import axis_size
 
 Axis = Union[str, Sequence[str], None]
@@ -170,3 +170,199 @@ def gather_shards(x: torch.Tensor, rules: AxisRules, global_shape,
         if ax is not None:
             x = all_gather_dim(x, rules.mesh, ax, dim=dim)
     return x
+
+
+# ---------------------------------------------------------------------------
+# trees of specs: the sharded trainer's layout
+# ---------------------------------------------------------------------------
+#
+# A spec tree (``training.trainer.param_pspecs`` and friends) is shaped like
+# a tree of tensors, a spec tuple (``AxisRules.resolve``'s) at each tensor's
+# place.  Spec tuples are walked alongside the tensors' tree, never on
+# their own: a spec is a tuple, and so are some of the trees' nodes.
+
+def named_leaves(tree, path=()):
+    """(path of dict keys, field names and tuple indices, tensor) for each
+    tensor of ``tree``, in the reference's leaf order (dicts by sorted
+    key)."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in named_leaves(tree[k], path + (k,))]
+    if hasattr(tree, "_fields"):
+        return [x for f in tree._fields
+                for x in named_leaves(getattr(tree, f), path + (f,))]
+    return [x for i, t in enumerate(tree)
+            for x in named_leaves(t, path + (i,))]
+
+
+def spec_at(specs, path):
+    """The spec at ``path`` (``named_leaves``') of a spec tree."""
+    for key in path:
+        specs = getattr(specs, key) if isinstance(key, str) and \
+            hasattr(specs, "_fields") else specs[key]
+    return specs
+
+
+def named_specs(tree, specs):
+    """(path, spec) at each tensor of ``tree``, from the spec tree."""
+    return [(path, spec_at(specs, path)) for path, _ in named_leaves(tree)]
+
+
+def map_specs(fn, tree, specs):
+    """``tree`` rebuilt with ``fn(tensor, spec)`` at each tensor."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, specs)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, tree[k], specs[k]) for k in sorted(tree)}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(map_specs(fn, getattr(tree, f),
+                                      getattr(specs, f))
+                            for f in tree._fields))
+    return type(tree)(map_specs(fn, t, s) for t, s in zip(tree, specs))
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """The mesh axes a spec shards over."""
+    return tuple(a for entry in (spec or ()) for a in _axes(entry))
+
+
+def shard_bounds(shape, spec, mesh):
+    """[(lo, hi)] per dim: this rank's slice of a global tensor of
+    ``shape`` under ``spec`` (whose dims divide, as the spec functions
+    make them)."""
+    out = []
+    for d, dim in enumerate(shape):
+        ax = spec[d] if spec is not None and d < len(spec) else None
+        if ax is None:
+            out.append((0, dim))
+            continue
+        n = axis_size(mesh, ax)
+        size = dim // n
+        lo = mesh.axis_index(ax) * size
+        out.append((lo, lo + size))
+    return out
+
+
+def shard_of(x: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's slice of the global tensor ``x`` under ``spec`` (a
+    view)."""
+    for d, (lo, hi) in enumerate(shard_bounds(x.shape, spec, mesh)):
+        if hi - lo != x.shape[d]:
+            x = x.narrow(d, lo, hi - lo)
+    return x
+
+
+def owns_replica(mesh, spec) -> bool:
+    """True on the one rank of each replica set of a leaf under ``spec``:
+    index 0 along every mesh axis the spec does not shard over."""
+    held = spec_axes(spec)
+    return all(mesh.coords[a] == 0 for a in mesh.axis_names
+               if a not in held)
+
+
+def shard_params(tree, rules: AxisRules, specs):
+    """Each rank's slices of a tree of global tensors (the leading unit
+    axis included), as tensors of their own."""
+    return map_specs(lambda x, sp: shard_of(x, rules.mesh, sp).clone(),
+                     tree, specs)
+
+
+def gather_params(tree, rules: AxisRules, specs):
+    """The global tensors of a tree of every rank's ``shard_params``
+    slices: an all-gather along each sharded dim, on every rank."""
+    def whole(x, spec):
+        for d, ax in enumerate(spec or ()):
+            if ax is not None:
+                x = all_gather_dim(x, rules.mesh, ax, dim=d)
+        return x
+
+    return map_specs(whole, tree, specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainLayout:
+    """The sharded trainer's layout (FSDP x TP, Megatron-SP): ``rules``
+    over the mesh and the parameters' spec tree (``param_pspecs``).
+
+    Each rank holds its slice of every parameter.  Just before a unit
+    runs, its leaves' ``fsdp`` dims are all-gathered (``gather_tree``; the
+    backward reduce-scatters the gradient), so a layer sees each leaf
+    sharded over ``tp`` alone.  The residual stream is this rank's rows
+    of the batch (``batch``) and its shard of the sequence (``sp``)."""
+    rules: AxisRules
+    specs: dict
+
+    @property
+    def mesh(self):
+        return self.rules.mesh
+
+    def axes(self, logical: str) -> Tuple[str, ...]:
+        return _axes(self.rules.rules.get(logical))
+
+    @property
+    def tp_axes(self) -> Tuple[str, ...]:
+        return self.axes("tp")
+
+    @property
+    def tp(self) -> int:
+        return axis_size(self.mesh, self.tp_axes)
+
+    @property
+    def sp_axes(self) -> Tuple[str, ...]:
+        return self.axes("sp")
+
+    @property
+    def sp(self) -> int:
+        return axis_size(self.mesh, self.sp_axes)
+
+    def tp_index(self) -> int:
+        return self.mesh.axis_index(self.tp_axes) if self.tp_axes else 0
+
+    def gather_tree(self, tree, specs):
+        """The leaves of a tree with their ``fsdp``-sharded dim gathered
+        whole (differentiable: the backward reduce-scatters the gradient),
+        just before use, so a layer sees each leaf sharded over ``tp``
+        alone.  The leaves that share their gathered axes and dtype go in
+        one collective (a unit's weights: one or two all-gathers, not one
+        a leaf)."""
+        fsdp = set(self.axes("fsdp"))
+        named = named_leaves(tree)
+        out = [t for _, t in named]
+        groups = {}
+        for i, (path, t) in enumerate(named):
+            spec = spec_at(specs, path) or ()
+            dims = [d for d, ax in enumerate(spec)
+                    if _axes(ax) and set(_axes(ax)) <= fsdp]
+            if dims:    # the reference's specs shard one dim over fsdp
+                key = (_axes(spec[dims[0]]), t.dtype)
+                groups.setdefault(key, []).append((i, dims[0]))
+        for (axes, _), members in groups.items():
+            got = all_gather_many([out[i] for i, _ in members],
+                                  [d for _, d in members], self.mesh, axes)
+            for (i, _), t in zip(members, got):
+                out[i] = t
+        it = iter(out)
+        return map_specs(lambda _t, _s: next(it), tree, specs)
+
+    def tp_sharded(self, spec, dim: int) -> bool:
+        """True where dim ``dim`` of a leaf under ``spec`` is sharded over
+        the ``tp`` axes (False on a one-rank ``tp``)."""
+        if self.tp == 1 or spec is None:
+            return False
+        return bool(_axes(spec[dim])) and set(_axes(spec[dim])) == \
+            set(self.tp_axes)
+
+    def grad_axes(self, spec) -> Tuple[str, ...]:
+        """The axes a leaf's gradient is summed over after the backward:
+        those of the batch and of the sequence that its spec does not
+        shard over (a sharded dim's sum is the gather's reduce-scatter)."""
+        held = set(spec_axes(spec))
+        want = self.axes("batch") + self.sp_axes
+        return tuple(a for a in self.mesh.axis_names
+                     if a in want and a not in held)

@@ -18,6 +18,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.launch.collectives import max_nograd
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 Tree = Any
@@ -26,9 +27,13 @@ __all__ = ["int8_compress_decompress", "error_feedback_compress",
            "init_residual"]
 
 
-def _quantize_int8(x: torch.Tensor):
+def _quantize_int8(x: torch.Tensor, amax=None):
+    """(int8 codes, scale); ``amax`` (a 0-dim tensor): the max |x| over
+    the whole leaf when ``x`` is a shard of it."""
     x32 = x.float()
-    scale = torch.clamp_min(x32.abs().amax(), 1e-30) / torch.full(
+    if amax is None:
+        amax = x32.abs().amax()
+    scale = torch.clamp_min(amax, 1e-30) / torch.full(
         (), 127.0, device=x.device)
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -44,20 +49,30 @@ def int8_compress_decompress(x: torch.Tensor) -> torch.Tensor:
     return _dequantize_int8(q, s)
 
 
-def error_feedback_compress(grads: Tree, residual: Tree):
+def error_feedback_compress(grads: Tree, residual: Tree, *, mesh=None):
     """Compress ``grads + residual`` to int8; return (compressed,
     new_residual).  ``compressed`` holds the dequantized values in the
     gradients' dtypes (on a wire: the int8 payload and its scale, a
     quarter of the fp32 bytes); ``new_residual`` (fp32) goes into the
-    train state."""
-    def one(g, r):
+    train state.
+
+    Over shards (``mesh``: the trees hold this rank's slices) each leaf's
+    per-tensor scale is the max over the whole leaf, every leaf's in one
+    collective (a max over the mesh's ranks), so a shard's quantization
+    is the slice of the whole leaf's."""
+    pairs = list(zip(tree_leaves(grads), tree_leaves(residual)))
+    amax = [None] * len(pairs)
+    if mesh is not None and pairs:
+        local = torch.stack([(g.float() + r).abs().amax() for g, r in pairs])
+        amax = max_nograd(local, mesh, mesh.axis_names).unbind(0)
+
+    def one(g, r, a):
         g32 = g.float() + r
-        q, s = _quantize_int8(g32)
+        q, s = _quantize_int8(g32, a)
         deq = _dequantize_int8(q, s)
         return deq.to(g.dtype), g32 - deq
 
-    out = [one(g, r) for g, r in zip(tree_leaves(grads),
-                                     tree_leaves(residual))]
+    out = [one(g, r, a) for (g, r), a in zip(pairs, amax)]
     comp, res = iter([o[0] for o in out]), iter([o[1] for o in out])
     return (tree_map(lambda _: next(comp), grads),
             tree_map(lambda _: next(res), grads))

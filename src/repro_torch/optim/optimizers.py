@@ -28,6 +28,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.launch.collectives import axis_sum
+
 Tree = Any
 
 __all__ = ["Transform", "AdamState", "adamw", "sgd", "clip_by_global_norm",
@@ -125,17 +127,31 @@ def linear_warmup_cosine(lr: float, warmup: int, total_steps: int,
 # transforms
 # ---------------------------------------------------------------------------
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree: Tree, *, counted=None, mesh=None) -> torch.Tensor:
     """The float32 global L2 norm of a tree's leaves, its squares summed
     in float64 (a float32 sum rounds in each device's reduction order,
     this one to the same float32 norm on every device, but on a tie at
     2^-53), a slice of 2^24 elements at a time, so that no float64 copy
-    of a whole large leaf exists."""
+    of a whole large leaf exists.
+
+    Over shards (``mesh``): the tree holds this rank's slices, and
+    ``counted`` (one bool a leaf, in ``tree_leaves``' order) marks the
+    leaves this rank counts, so that a leaf replicated over ranks counts
+    on one rank of each replica set; the float64 sums of every rank are
+    then added in rank order (one collective).  On one rank this is the
+    unsharded norm."""
+    leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float64)
-    for g in tree_leaves(tree):
+    for i, g in enumerate(leaves):
+        if counted is not None and not counted[i]:
+            continue
         for part in g.reshape(-1).split(1 << 24):
             total = total.to(part.device) + torch.sum(
                 torch.square(part.double()))
+    if mesh is not None:
+        if leaves:
+            total = total.to(leaves[0].device)
+        total = axis_sum(total.reshape(1), mesh, mesh.axis_names)[0]
     return torch.sqrt(total).float()
 
 
@@ -236,27 +252,56 @@ def _murmur_bits(shape, seed, device=None) -> torch.Tensor:
     for dim in shape:
         n *= int(dim)
     x = torch.arange(n, dtype=torch.int64, device=device) & _M32
+    return _mix32(x, seed).reshape(tuple(shape))
+
+
+def _mix32(x: torch.Tensor, seed) -> torch.Tensor:
+    """The murmur3 finalizer over ``x * 2654435761 + seed`` (int64 in
+    [0, 2^32)), mod 2^32."""
     x = (_mul32(x, 2654435761) + seed) & _M32
     x ^= x >> 16
     x = _mul32(x, 0x85EBCA6B)
     x ^= x >> 13
     x = _mul32(x, 0xC2B2AE35)
     x ^= x >> 16
-    return x.reshape(tuple(shape))
+    return x
 
 
-def _stochastic_round_bf16(x32: torch.Tensor, seed) -> torch.Tensor:
+def _global_index(shape, offsets, gshape, row0: int) -> torch.Tensor:
+    """The flat index, in a C-ordered array of ``gshape``, of each element
+    of a slice of ``shape`` starting at ``offsets`` (dim 0 counted from
+    ``row0``), as int64 mod 2^32: the reference's per-axis iotas times
+    their strides, so a shard's noise is the slice of the whole leaf's."""
+    idx = torch.zeros((), dtype=torch.int64)
+    stride = 1
+    for d in range(len(gshape) - 1, -1, -1):
+        start = offsets[d] - (row0 if d == 0 else 0)
+        coord = torch.arange(start, start + shape[d], dtype=torch.int64)
+        idx = idx + (coord * (stride % (1 << 32))).reshape(
+            (-1,) + (1,) * (len(gshape) - 1 - d))
+        stride *= max(int(gshape[d]), 1)
+    return idx.expand(tuple(shape)) & _M32
+
+
+def _stochastic_round_bf16(x32: torch.Tensor, seed,
+                           index=None) -> torch.Tensor:
     """float32 -> bfloat16 with stochastic rounding: the reference's 16
-    noise bits added to the float's bits, the low half cleared."""
+    noise bits added to the float's bits, the low half cleared.  ``index``
+    (int64, x32's shape): each element's flat index in the array the
+    reference draws its noise over (default: x32's own)."""
     bits = x32.contiguous().view(torch.int32).to(torch.int64) & _M32
-    noise = _murmur_bits(x32.shape, seed, x32.device) & 0xFFFF
+    if index is None:
+        noise = _murmur_bits(x32.shape, seed, x32.device) & 0xFFFF
+    else:
+        noise = _mix32(index.to(x32.device), seed) & 0xFFFF
     r = (bits + noise) & 0xFFFF0000
     r = (r - ((r >> 31) << 32)).to(torch.int32)     # back to signed bits
     return r.view(torch.float32).to(torch.bfloat16)
 
 
 def _leaf_adamw_(p, g, m, v, *, lr, c1, c2, b1, b2, eps, weight_decay,
-                 decay_this, stochastic_round, seed, g_scale=None):
+                 decay_this, stochastic_round, seed, g_scale=None,
+                 index=None):
     """One leaf (or one dim-0 slice of it), the reference's
     ``_leaf_adamw`` operation by operation, written into p, m and v."""
     g32 = g.float()
@@ -270,7 +315,7 @@ def _leaf_adamw_(p, g, m, v, *, lr, c1, c2, b1, b2, eps, weight_decay,
         step_dir = step_dir + weight_decay * p.float()
     p32 = p.float() - lr * step_dir
     if stochastic_round and p.dtype == torch.bfloat16:
-        p.copy_(_stochastic_round_bf16(p32, seed))
+        p.copy_(_stochastic_round_bf16(p32, seed, index))
     else:
         p.copy_(p32)
     m.copy_(m32)
@@ -282,7 +327,7 @@ def fused_adamw_apply(params: Tree, grads: Tree, mu: Tree, nu: Tree, step,
                       eps: float = 1e-8, weight_decay: float = 0.0,
                       stochastic_round: bool = False, sr_key=None,
                       chunks: int = 16, chunk_threshold: int = 1 << 24,
-                      g_scale=None):
+                      g_scale=None, shards=None):
     """The reference's memory-bounded fused AdamW, IN PLACE: each leaf's
     p, m and v are read and written in one pass, and the reference's
     donated carry is the tensors themselves.  A leaf of at least
@@ -295,6 +340,13 @@ def fused_adamw_apply(params: Tree, grads: Tree, mu: Tree, nu: Tree, step,
     as the reference seeds it: ``base * 0x9E3779B9 + i * 101 + 1`` for
     leaf ``i`` of ``tree_leaves`` (``base``: ``sr_key``, else the step),
     plus ``ci * 7919`` for slice ``ci``, all mod 2^32.
+
+    ``shards`` (one ``(global shape, offsets)`` a leaf, in
+    ``tree_leaves``' order, or None) says that the trees hold this rank's
+    slices of larger leaves: the dim-0 chunking is then the global leaf's,
+    and each element's noise is drawn at its global flat index in its
+    global chunk, so a shard's update is the slice of the unsharded
+    update bit for bit (GSPMD's global iota in the reference).
 
     Returns (params, mu, nu), the trees passed in."""
     count = _f32(step) + 1.0
@@ -313,7 +365,11 @@ def fused_adamw_apply(params: Tree, grads: Tree, mu: Tree, nu: Tree, step,
                   weight_decay=weight_decay, decay_this=p.ndim >= 2,
                   stochastic_round=stochastic_round,
                   g_scale=None if g_scale is None else on(g_scale))
-        if p.numel() >= chunk_threshold and p.shape[0] % chunks == 0:
+        shard = None if shards is None else shards[i]
+        if shard is not None and tuple(shard[0]) != tuple(p.shape):
+            _shard_adamw_(p, g, m, v, shard, leaf_seed, chunks,
+                          chunk_threshold, kw)
+        elif p.numel() >= chunk_threshold and p.shape[0] % chunks == 0:
             csz = p.shape[0] // chunks
             for ci in range(chunks):
                 sl = slice(ci * csz, (ci + 1) * csz)
@@ -322,6 +378,38 @@ def fused_adamw_apply(params: Tree, grads: Tree, mu: Tree, nu: Tree, step,
         else:
             _leaf_adamw_(p, g, m, v, seed=leaf_seed, **kw)
     return params, mu, nu
+
+
+def _shard_adamw_(p, g, m, v, shard, leaf_seed, chunks, chunk_threshold,
+                  kw):
+    """One rank's slice of a leaf: the global leaf's dim-0 chunks that the
+    slice overlaps, in turn, each with its chunk's seed and the elements'
+    flat indices in that chunk (noise only for a bf16 leaf that rounds
+    stochastically)."""
+    gshape, offsets = tuple(shard[0]), tuple(shard[1])
+    n = 1
+    for dim in gshape:
+        n *= int(dim)
+    noisy = kw["stochastic_round"] and p.dtype == torch.bfloat16
+    if n >= chunk_threshold and gshape[0] % chunks == 0:
+        csz = gshape[0] // chunks
+        cshape = (csz,) + gshape[1:]
+        pieces = [(ci, ci * csz) for ci in range(chunks)]
+    else:
+        csz, cshape, pieces = gshape[0], gshape, [(None, 0)]
+    lo, hi = offsets[0], offsets[0] + p.shape[0]
+    for ci, row0 in pieces:
+        a, b = max(lo, row0), min(hi, row0 + csz)
+        if a >= b:
+            continue
+        sl = slice(a - lo, b - lo)
+        seed = leaf_seed if ci is None else (leaf_seed + ci * 7919) & _M32
+        index = None
+        if noisy:
+            index = _global_index((b - a,) + tuple(p.shape[1:]),
+                                  (a,) + offsets[1:], cshape, row0)
+        _leaf_adamw_(p[sl], g[sl], m[sl], v[sl], seed=seed, index=index,
+                     **kw)
 
 
 def sgd(learning_rate: float | Callable, momentum: float = 0.0) -> Transform:

@@ -393,7 +393,8 @@ def test_microbatch_grads_match_reference(n_micro):
                                    torch.from_numpy(y), tcfg, tlm.bag_logits)
         assert all(torch.equal(a, c) for a, c in zip(tg, g1))
     # the mean over a one-rank data axis changes nothing; an axis needs
-    # its mesh; constrain= is the LM trainer's layout (A12)
+    # its mesh; constrain= (the LM trainer's layout hook) sees each
+    # microbatch's gradients once, before they are accumulated
     batch = {"inputs": torch.from_numpy(x), "labels": torch.from_numpy(y)}
     mloss, _, mg = microbatch_grads(tloss_fn, tp, batch, n_micro=n_micro,
                                     axis_name="data", mesh=make_data_mesh(1))
@@ -401,8 +402,12 @@ def test_microbatch_grads_match_reference(n_micro):
     assert all(torch.equal(a, c) for a, c in zip(mg, tg))
     with pytest.raises(ValueError, match="mesh"):
         microbatch_grads(tloss_fn, tp, batch, axis_name="data")
-    with pytest.raises(NotImplementedError, match="A12"):
-        microbatch_grads(tloss_fn, tp, batch, constrain=lambda t: t)
+    seen = []
+    closs, _, cg = microbatch_grads(
+        tloss_fn, tp, batch, n_micro=n_micro,
+        constrain=lambda t: seen.append(t) or t)
+    assert len(seen) == n_micro and torch.equal(closs, tloss)
+    assert all(torch.equal(a, c) for a, c in zip(cg, tg))
 
 
 def test_best_accuracy_sweeps_match_reference(problem):

@@ -44,7 +44,8 @@ from repro_torch.core.linear_model import value_and_grad  # noqa: E402
 from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch.models import model as t_model  # noqa: E402
-from repro_torch.models.sharding import AxisRules, use_rules  # noqa: E402
+from repro_torch.models.sharding import (AxisRules, TrainLayout,  # noqa: E402
+                                         use_rules)
 from repro_torch.optim import tree_leaves  # noqa: E402
 from repro_torch.training import trainer as t_trainer  # noqa: E402
 
@@ -304,18 +305,38 @@ def test_lm_params_keep_fp32_leaves_under_bf16_masters():
 def test_sequence_sharding_refuses_the_new_blocks(arch):
     """Under rules whose sequence axis spans 2 ranks, the MoE, SSM and
     RG-LRU blocks refuse (a per-shard capacity or scan would differ from
-    the reference); dense attention models pass the check."""
+    the reference), naming ROADMAP A12.8; dense attention models pass the
+    check.  Under the train layout at model = 2 they refuse too; at
+    data = 2, model = 1 the SSM and RG-LRU blocks train (FSDP: their
+    recurrences run per batch row) and the MoE still refuses (its
+    capacity and aux losses are statistics over the global batch)."""
     _, tc = _cfgs(arch)
     # the check reads the mesh's axis sizes alone: a 2-rank mesh's shape
     # stands in for a process group of 2
     rules = AxisRules(mesh=SimpleNamespace(shape={"data": 1, "model": 2}),
-                      rules={"sp": "model"})
-    with use_rules(rules):
-        if arch == "gemma3_12b":
+                      rules={"sp": "model", "tp": "model",
+                             "batch": "data"})
+    fsdp = AxisRules(mesh=SimpleNamespace(shape={"data": 2, "model": 1}),
+                     rules={"sp": "model", "tp": "model", "batch": "data",
+                            "fsdp": "data"})
+    tp_layout = TrainLayout(rules, {})
+    fsdp_layout = TrainLayout(fsdp, {})
+    if arch == "gemma3_12b":
+        t_model.check_supported(tc, tp_layout)
+        t_model.check_supported(tc, fsdp_layout)
+        with use_rules(rules):
             t_model.check_supported(tc)
-            return
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        return
+    with use_rules(rules):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.8"):
             t_model.forward({}, torch.zeros(1, 4, dtype=torch.long), tc)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.8"):
+        t_model.check_supported(tc, tp_layout)
+    if tc.moe is not None:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.8"):
+            t_model.check_supported(tc, fsdp_layout)
+    else:
+        t_model.check_supported(tc, fsdp_layout)
     t_model.check_supported(tc)       # without rules: supported
 
 

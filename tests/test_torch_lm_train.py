@@ -50,8 +50,10 @@ from repro_torch.checkpoint import tree_paths
 from repro_torch.core.linear_model import value_and_grad
 from repro_torch.kernels import ops, registry
 from repro_torch.launch import train as t_train
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import layers as t_layers
 from repro_torch.models import model as t_model
+from repro_torch.models.sharding import make_rules
 from repro_torch.optim import tree_leaves
 from repro_torch.training import trainer as t_trainer
 
@@ -194,11 +196,12 @@ def test_flash_autograd_grads_equal_the_reference(window, detached,
 
 def test_flash_without_grad_takes_the_route_alone():
     """Serving: no graph wanted, so no autograd function and nothing
-    saved; a sharded offset under autograd is refused."""
+    saved; a sharded offset under autograd is refused, naming the sharded
+    backward passes (ROADMAP A12.4)."""
     q = torch.randn(1, 70, 2, 16)
     k, v = torch.randn(1, 70, 1, 16), torch.randn(1, 70, 1, 16)
     assert ops.flash_attention(q, k, v).grad_fn is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.4"):
         ops.flash_attention(q.requires_grad_(True), k, v, q_base=8)
 
 
@@ -320,9 +323,24 @@ def test_remat_is_bit_identical():
 
 
 def test_sharded_training_raises():
+    """Sharded training runs (``tests/test_torch_lm_sharded_train.py``);
+    on a one-rank mesh it is the unsharded step, bit for bit; the
+    production mesh refuses only for want of its 256 ranks."""
     _, tc = _cfgs("gemma3_12b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        t_trainer.make_train_step(tc, t_trainer.TrainHparams(), rules=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    hp = t_trainer.TrainHparams(lr=LR, warmup=2, total_steps=30)
+    rules = make_rules(make_mesh(1, 1))
+    (x, y), = _batches(tc.vocab, 1, batch=2)
+    batch = {"inputs": torch.from_numpy(x), "labels": torch.from_numpy(y)}
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    plain, mp = t_trainer.make_train_step(tc, hp)(
+        t_trainer.init_train_state(tc, hp, generator=gen(), device="cpu"),
+        batch)
+    sharded, ms = t_trainer.make_train_step(tc, hp, rules=rules)(
+        t_trainer.init_train_state(tc, hp, generator=gen(), device="cpu",
+                                   rules=rules), batch)
+    assert torch.equal(mp["loss"], ms["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(plain),
+                                                 tree_leaves(sharded)))
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         t_train.main(["--arch", "gemma3_12b", "--production-mesh",
                       "--device", "cpu"])
