@@ -74,9 +74,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 batch, no other CWS kernel;
   5. train    - featurize -> train -> score at CONFIG's full width on
                 examples/cws_classification.py's dataset (1,200 train /
-                800 test rows, 10 classes; the generator's numpy stream,
-                TRAIN_DRAWS; on its reference draws fit A's card features
-                against the CPU's are counted, not gated), fig78's
+                800 test rows, 10 classes, on the reference's draws,
+                TRAIN_DRAWS: the card's features equal the CPU plain
+                path's but where a float64 recompute shows a floor or
+                argmin tie, which the CPU's fits take as the card
+                resolved them), fig78's
                 streamed-versus-full-
                 batch recipe: ``fit_linear_streamed`` (600-row batches, 500
                 steps, the reference's shuffle from ``prng_key(0)``) for
@@ -91,9 +93,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 streamed minus full batch, its mean over CWS keys
                 prng_key(0 ... 15), within 0.5 pp (key 0's own gap, and
                 each key's on 20,000 more rows of the same templates,
-                reported), A within 0.5 pp of the same streamed fit on the
-                CPU plain path and bit-identical to it, as is the
-                first-step gradient, two card fits of A (and one on host
+                reported; the 15 other keys run in a thread beside the
+                data axis's phase, which gates their mean), fit A's
+                recipe at 100 steps on the CPU plain path within 0.5 pp
+                of the same on the card and bit-identical to it, as is
+                the first-step gradient, two card fits of A (and one on host
                 rows) bit-identical, batch_size == n bit-identical to full
                 batch, B bit-identical to B', served logits within rtol
                 1e-5 / atol 1e-6 of offline and the served accuracy equal
@@ -102,7 +106,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 more for the full batch, each served model's once per
                 warmed bucket and batch, no other kernel; each fit's wall
                 time, steps/s, rows/s and CWS device time (launches x the
-                kernel's CUDA-event time), and a 100-step fit A under
+                kernel's CUDA-event time), and a 30-step fit A under
                 ``torch.profiler``: the card's busy share;
   6. resume   - preemption on the train phase's fits and inputs, each
                 result held bit for bit against the train phase's
@@ -125,7 +129,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 with its gates; launches by kernel as the runs imply; the
                 checkpoint's bytes, snapshot, writer-thread and restore
                 times and fit A's wall at ckpt_every=50 against the bare
-                fit, in 3 pairs in turns;
+                fit, in 2 pairs in turns;
   7. data-parallel - the data axis (ROADMAP A11) on the train phase's
                 recipe and dataset, ranks as ``torch.multiprocessing``
                 processes over gloo sharing the card (CUDA tensors through
@@ -135,9 +139,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 rank (digests), the same evaluation counts on every rank,
                 the count over the 800 test rows and 20,000 more rows of
                 the same templates within 0.5 pp of the unsharded fit A's,
-                row 1 launched 500 + 4 times a rank; its first 20 steps on
+                row 1 launched 500 + 4 times a rank; its first 5 steps on
                 the CPU's plain path over the same ranks, bit-identical to
-                the card's; fit B on 2 ranks alike (row 4); fit A killed on
+                the card's; fit B on 2 ranks alike (row 4; the 2 ranks'
+                spawn runs beside the 4 ranks', its resume of their
+                checkpoint once they are done with it); fit A killed on
                 4 ranks before step 333 (every rank's shard files, one
                 COMMIT) and resumed on 4 (bit-identical), on 2 and with no
                 mesh (within 0.5 pp on the test rows); fig78's twin at
@@ -239,7 +245,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 share of the bf16 peak and peak memory; (d) the driver,
                 ``python -m repro_torch.launch.train`` on the smoke config:
                 6 steps against 3, killed there (``--stop-at``) and
-                resumed to 6, the final parameters bit-identical; (e) one
+                resumed to 6, the final parameters bit-identical (its
+                processes run beside the sharded phase, whose parent only
+                waits on its ranks, and are joined after it); (e) one
                 step with int8 compression and error feedback at full
                 width on the first microbatch; (f) nemotron's smoke config
                 with bf16 masters, moments and accumulator (stochastic
@@ -276,6 +284,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 norm, and step 1's leaf gradient norms, against the
                 unsharded steps on the card; row 8 under autograd on
                 every rank of the first two (wgmma);
+ 13c. lm-serve-sharded - ``make_serve_steps(cfg, rules)`` (ROADMAP
+                A12.5) on the same four ranks after their training runs,
+                bf16 at full width, ``attn_impl="flash"``: gemma3_12b (6
+                layers, long_500k: 524,288 cache slots over long_seq =
+                (data, model) at (2, 2), an 8,192-token prompt, 8 decode
+                steps), granite_34b (4 layers, decode_32k: a kv_seq cache
+                for MQA at (1, 4), 8 x 4,096, 16 steps) and starcoder2_7b
+                (2 layers, prefill_32k: a head-sharded cache at (1, 4), 1
+                x 32,768, 4 steps); every step's logits against the
+                unsharded serving of the same weights on the card fed the
+                same ids, the greedy ids where the unsharded top-2 margin
+                exceeds the tolerance, the same ids on every rank; row 8
+                in every prefill on every rank (wgmma);
  14. seq-parallel - gemma3_12b at full width cut to 6 layers, its
                 sequence sharded over four ranks of the ``model`` axis
                 (``torch.multiprocessing``; on one card the ranks share it
@@ -377,18 +398,27 @@ DEVICE = "cuda"
 # GAP_EXTRA_ROWS): the templates are the generator's first draws), which
 # measure the gap itself to about 0.3 pp a key (reported, not gated).
 TRAIN_DATA = {"n_train": 1200, "n_test": 800}
-# The numpy stream of that generator (not the reference's data): on the
-# reference's draws the card's regenerated features differ from the CPU
-# plain path's, so the bit-identity gates below stay on the numpy rows
-# they were recorded on; the phase counts the reference draws' features
-# that differ (ROADMAP A16)
-TRAIN_DRAWS = "numpy"
+# The reference's draws of that generator (ROADMAP A16).  On them the
+# card's regenerated features differ from the CPU plain path's only at
+# (row, hash) entries where float64 shows a near tie (``near_tie``: the
+# two best dimensions' log a within 1e-5, or a dimension's log u / r +
+# beta within 1e-5 of an integer whose floor, flipped, changes the hash;
+# float32 log differs by an ulp between the two), and the CPU's fits take
+# those entries as the card resolved them
+# (``tie_resolved``, ``tie_resolved_pipe``), so the tables' bit-identity
+# gates hold the training arithmetic; any other difference fails.
+TRAIN_DRAWS = "jax"
 TRAIN_BATCH, TRAIN_STEPS, FULL_STEPS, TRAIN_B_PACKED = 600, 500, 1000, 4
 IDENTITY_STEPS = 20       # the batch_size == n check
 TRAIN_GAP_PP = 0.5
 TRAIN_SEED = 2020
 GAP_KEYS = tuple(range(1, 16))
 GAP_EXTRA_ROWS = 20_000
+# The key sweep (GAP_KEYS) and the CPU plain comparator's fit A each run
+# in a thread of their own while the data axis's phase waits on its ranks
+# (start_key_sweep / finish_key_sweep), to keep the script inside its
+# time limit beside the sharded serving phase on a slow host: the data
+# axis's timings are taken beside them
 PROFILE_STEPS = 30         # the profiled streamed fit A (cut from 100)
 # The resume phase (ROADMAP A9) on the train phase's fits and inputs: fit
 # A checkpointed every RESUME_EVERY steps and killed before step
@@ -407,10 +437,11 @@ RESUME_KILL_A = 333
 RESUME_FAULTS_B = (120, 260, 400)     # raise, hang, failed async write
 RESUME_HANG_S, RESUME_HARD_TIMEOUT_S, RESUME_HANG_CUT_S = 60.0, 5.0, 10.0
 RESUME_KILL_COMMIT = 200
-# (the CPU leg cut from 20 steps to 5, the pairs from 5 to 3, to keep the
-# script inside its time limit beside the sharded LM phase)
+# (the CPU leg cut from 20 steps to 5, the pairs from 5 to 3 and then 2
+# (one in each order), to keep the script inside its time limit beside
+# the sharded LM phases)
 RESUME_CPU_EVERY, RESUME_CPU_TO = 5, 305
-RESUME_PAIRS = 3
+RESUME_PAIRS = 2
 EVAL_CHUNK, EVAL_EVERY, EVAL_KILL = 128, 2, 5
 # The data axis (ROADMAP A11) on the train phase's recipe and dataset:
 # fit A over DP_RANKS gloo ranks (150 rows a rank), fit B over DP_RANKS_B,
@@ -649,6 +680,47 @@ SH_TOL, SH_LEAF_TOL = 1e-2, 5e-2
 # an element by up to 2 lr where a tiny gradient's sign flips), which the
 # next forward carries on: the loss and the norm within SH_STEP_TOL.
 SH_STEP_TOL = 2e-2
+# The sharded serving slice (phase_lm_serve_sharded, ROADMAP A12.5):
+# make_serve_steps(cfg, rules) on the four ranks of the sharded spawn after
+# its training runs (no spawn of its own), bf16 at full width, attn_impl
+# "flash", weights drawn from SV_SEED on every rank (each keeping its
+# slices) and cast once to bf16, prompts from numpy.  (label, arch, layers,
+# the reference's cell, (data, model), batch, cache slots, prompt, decode
+# steps, long): (a) gemma3_12b at 6 of 48 layers (one whole unit), the
+# long_500k cell: its global cache's 524,288 slots over long_seq = (data,
+# model), the local caches' 1,024 over kv_seq, batch 1 whole on both data
+# ranks (8,192 of the 524,288 tokens prompted); (b) granite_34b at 4 of 88
+# layers, decode_32k at batch 8 of 128 (MQA: one KV head, so kv_seq), a
+# 4,096-token prompt of 32,768 slots; (c) starcoder2_7b at 2 of 32 layers,
+# prefill_32k at batch 1 of 32: 4 KV heads over model = 4, a head-sharded
+# cache, the whole 32,768-token prompt; (d) (b)'s config and mesh at batch
+# 1 with its slots cut to prompt + steps (4,112, 1,028 a rank): in (a)'s
+# global and (b)'s caches every written slot lies on the first cache rank,
+# so the other ranks add nothing to the max, l and PV; here the prompt
+# fills every rank's slots and the decode tokens land on the last rank, so
+# the cross-rank merge and the owner's write combine real content.  Depths
+# and batches cut for the time limit: every collective moves through host
+# copies.
+SV_SEED = 2031
+SV_RUNS = (("a", "gemma3_12b", 6, "long_500k", (2, 2), 1, 524288, 8192, 8,
+            True),
+           ("b", "granite_34b", 4, "decode_32k", (1, 4), 8, 32768, 4096, 16,
+            False),
+           ("c", "starcoder2_7b", 2, "prefill_32k", (1, 4), 1, 32768 + 4,
+            32768, 4, False),
+           ("d", "granite_34b", 4, "decode_32k", (1, 4), 1, 4096 + 16, 4096,
+            16, False))
+# Every step's logits against the unsharded serving on the card fed the
+# same ids, bf16 compute: the two differ where the row-parallel
+# projections' partial sums are rounded to bf16 and added over ranks (the
+# unsharded GEMM rounds once) and where a sliced cache's softmax sums run
+# in another order: one-ulp flips (2^-8) that <= 6 layers of bf16
+# activations carry to the logits, as the sequence-parallel forward's
+# bf16 check: |dlogit| <= SV_TOL max |logit| of the step (a wrong slot,
+# mask, head or shard moves logits by the order of max |logit|); the
+# ranks' greedy id equal to the unsharded argmax wherever its top-2
+# margin exceeds that limit.
+SV_TOL = 5e-2
 # NVIDIA's data-sheet dense bf16 rate of an H100 SXM (at 700 W)
 PUBLISHED_BF16_FLOPS = 989e12
 # The sequence-parallel slice: gemma3_12b at full width, depth cut from 48
@@ -1491,7 +1563,8 @@ def phase_train(dev, card, results):
                                                fit_linear, init_bag,
                                                linear_accuracy,
                                                value_and_grad)
-    from repro_torch.core.regen import fold_in, permutation, prng_key
+    from repro_torch.core.regen import (fold_in, permutation, prng_key,
+                                        regen_params)
     from repro_torch.kernels.cws_hash import (cws_encode_packed_plain,
                                               cws_encode_plain,
                                               cws_encode_rng_plain)
@@ -1656,75 +1729,79 @@ def phase_train(dev, card, results):
     extra = train_dataset(n_test=GAP_EXTRA_ROWS)
     x_ex, y_ex = T(extra.x_test), T(extra.y_test)
     pct = lambda p, pipe, x, y: 100 * streamed_accuracy(p, pipe, x, y)
-    t_sweep = time.perf_counter()
     gaps = {0: 100 * (right(accs["A"]) - right(accs["full"])) / n_test}
     gaps_extra = {0: pct(fits["A"], pipes["A"], x_ex, y_ex)
                   - pct(p_fb, pipes["A"], x_ex, y_ex)}
-    for s in GAP_KEYS:
-        pipe = FeaturePipeline.create_regen(prng_key(s), DIM,
-                                            FeatureSpec(NUM_HASHES, B_I),
-                                            device=dev)
-        p_st = fit_linear_streamed(p0["A"], pipe, xtr, ytr, cfg=cfg_st,
-                                   shuffle_key=key)
-        p_full = fit_linear(p0["A"], pipe.features(xtr), ytr, cfg=cfg_fb,
-                            kind="bag")
-        gaps[s] = 100 * (right(streamed_accuracy(p_st, pipe, xte, yte))
-                         - right(streamed_accuracy(p_full, pipe, xte,
-                                                   yte))) / n_test
-        gaps_extra[s] = (pct(p_st, pipe, x_ex, y_ex)
-                         - pct(p_full, pipe, x_ex, y_ex))
-    sweep_s = time.perf_counter() - t_sweep
 
-    # the same streamed fit A through the plain path on the CPU, and its
-    # first step's gradient
+    def sweep():
+        """GAP_KEYS' gaps: the recipe at prng_key(s), run in a thread
+        (``start_key_sweep``)."""
+        t_sweep = time.perf_counter()
+        for s in GAP_KEYS:
+            pipe = FeaturePipeline.create_regen(prng_key(s), DIM,
+                                                FeatureSpec(NUM_HASHES, B_I),
+                                                device=dev)
+            p_st = fit_linear_streamed(p0["A"], pipe, xtr, ytr, cfg=cfg_st,
+                                       shuffle_key=key)
+            p_full = fit_linear(p0["A"], pipe.features(xtr), ytr,
+                                cfg=cfg_fb, kind="bag")
+            gaps[s] = 100 * (right(streamed_accuracy(p_st, pipe, xte, yte))
+                             - right(streamed_accuracy(p_full, pipe, xte,
+                                                       yte))) / n_test
+            gaps_extra[s] = (pct(p_st, pipe, x_ex, y_ex)
+                             - pct(p_full, pipe, x_ex, y_ex))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t_sweep
+
+    # fit A's recipe through the plain path on the CPU, and the first
+    # step's gradient
     t0 = time.perf_counter()
     cpu_pipe = FeaturePipeline.create_regen(key_words, DIM,
                                             FeatureSpec(NUM_HASHES, B_I),
                                             device="cpu")
-    f_tr_cpu = cpu_pipe.features(ds.x_train)
-    f_te_cpu = cpu_pipe.features(ds.x_test)
-    if not (torch.equal(f_tr_cpu, f_tr.cpu()) and
-            torch.equal(f_te_cpu, f_te.cpu())):
-        raise AssertionError("train: card features differ from the CPU "
-                             "plain path's")
-    # the reference's draws of the same dataset: card features against
-    # the CPU plain path's, counted (not gated: ROADMAP A16)
-    ds_j = train_dataset(draws="jax")
-    x_j = np.concatenate([ds_j.x_train, ds_j.x_test])
-    diff_j = pipes["A"].features(T(x_j)).cpu() != cpu_pipe.features(x_j)
-    where_j = diff_j.nonzero()[:8].tolist()
-    jax_draws = {"entries": int(diff_j.sum()), "of": diff_j.numel(),
-                 "rows": int(diff_j.any(1).sum()), "first": where_j}
+    # card features against the CPU plain path's: equal but at float64
+    # ties, which the CPU's fits then take as the card resolved them
+    regen = regen_params(key_words, DIM, NUM_HASHES)
+    f_tr_cpu, ties_tr = tie_resolved(f_tr.cpu(), cpu_pipe.features(
+        ds.x_train), ds.x_train, regen, "train")
+    f_te_cpu, ties_te = tie_resolved(f_te.cpu(), cpu_pipe.features(
+        ds.x_test), ds.x_test, regen, "train (test rows)")
+    ties = {"train": ties_tr, "test": ties_te,
+            "of": f_tr_cpu.numel() + f_te_cpu.numel()}
     ytr_cpu = torch.from_numpy(ds.y_train)
     zero = init_bag(cpu_pipe.num_features, N_CLASSES, device="cpu")
     grad_cpu = value_and_grad(_loss_fn, zero, f_tr_cpu.index_select(0, first),
                               ytr_cpu.index_select(0, first), cfg_st,
                               bag_logits)[1]
-    p_cpu = fit_linear(zero, f_tr_cpu, ytr_cpu, cfg=cfg_st, kind="bag",
-                       shuffle_key=key)
-    acc_cpu = linear_accuracy(p_cpu, f_te_cpu, torch.from_numpy(ds.y_test),
-                              kind="bag")
     cpu_s = time.perf_counter() - t0
     gap_pp = abs(gaps[0])
-    gap_mean = float(np.mean(list(gaps.values())))
-    gap_sd = float(np.std(list(gaps.values()), ddof=1))
-    extra_mean = float(np.mean(list(gaps_extra.values())))
-    extra_sd = float(np.std(list(gaps_extra.values()), ddof=1))
-    if abs(gap_mean) > TRAIN_GAP_PP:
-        failed.append(f"train: streamed minus full-batch accuracy over "
-                      f"CWS keys prng_key(s), s = 0 ... {len(gaps) - 1}: "
-                      f"mean {gap_mean:+.3f} pp (limit {TRAIN_GAP_PP})")
-    cpu_gap_pp = 100 * abs(right(accs["A"]) - right(acc_cpu)) / n_test
-    if abs(right(accs["A"]) - right(acc_cpu)) > limit_rows:
-        failed.append(f"train: fit A on the card {accs['A']} vs the "
-                      f"CPU plain run {acc_cpu}: {cpu_gap_pp:.3f} pp")
-    ident["A = CPU plain run"] = same(
-        p_cpu, LinearParams(fits["A"].w.cpu(), fits["A"].b.cpu()))
-    if not ident["A = CPU plain run"]:
-        diff = (p_cpu.w - fits["A"].w.cpu()).abs().max()
-        failed.append(f"train: fit A's table on the card differs from "
-                      f"the CPU plain run's (max |dw| "
-                      f"{float(diff):.3g})")
+    fit_a = LinearParams(fits["A"].w.cpu(), fits["A"].b.cpu())
+
+    def cpu_fit():
+        """Fit A's whole recipe through the plain path on the CPU, run in
+        a thread (``start_key_sweep``): its table against the main path's
+        fit A bit for bit, its test accuracy against fit A's within
+        TRAIN_GAP_PP; the gates' failures as a list."""
+        t_cpu = time.perf_counter()
+        p_cpu = fit_linear(zero, f_tr_cpu, ytr_cpu, cfg=cfg_st, kind="bag",
+                           shuffle_key=key)
+        acc_cpu = linear_accuracy(p_cpu, f_te_cpu,
+                                  torch.from_numpy(ds.y_test), kind="bag")
+        bad = []
+        cpu_gap_pp = 100 * abs(right(accs["A"]) - right(acc_cpu)) / n_test
+        if abs(right(accs["A"]) - right(acc_cpu)) > limit_rows:
+            bad.append(f"train: fit A on the card {accs['A']} vs the CPU "
+                       f"plain run {acc_cpu}: {cpu_gap_pp:.3f} pp")
+        same_cpu = same(p_cpu, fit_a)
+        if not same_cpu:
+            diff = (p_cpu.w - fit_a.w).abs().max()
+            bad.append(f"train: fit A's table on the card differs from the "
+                       f"CPU plain run's (max |dw| {float(diff):.3g})")
+        return {"accuracy_cpu": acc_cpu, "cpu_gap_pp": cpu_gap_pp,
+                "A = CPU plain run": same_cpu,
+                "cpu_fit_s": time.perf_counter() - t_cpu}, bad
+
+    results["key_sweep_job"] = (sweep, cpu_fit, gaps, gaps_extra, n_test)
     grad = value_and_grad(_loss_fn, p0["A"], f_tr.index_select(
         0, first.to(dev)), ytr.index_select(0, first.to(dev)), cfg_st,
         bag_logits)[1]
@@ -1764,15 +1841,12 @@ def phase_train(dev, card, results):
 
     out = {"card": card, "launches": {k: launches[k] for k in
                                       set(kernel_of.values())},
-           "accuracy": accs, "gap_pp": gap_pp, "accuracy_cpu": acc_cpu,
-           "gaps_pp_by_key": gaps, "gap_mean_pp": gap_mean,
-           "gap_sd_pp": gap_sd, "gaps_extra_pp_by_key": gaps_extra,
-           "gap_extra_mean_pp": extra_mean, "gap_extra_sd_pp": extra_sd,
-           "cpu_gap_pp": cpu_gap_pp, "cpu_s": cpu_s, "identical": ident,
-           "jax_draws_feature_mismatch": jax_draws,
+           "accuracy": accs, "gap_pp": gap_pp, "cpu_s": cpu_s,
+           "identical": ident,
+           "feature_ties": ties,
            "served": serve_out, "fits": {},
            "phase_s": {"main_path": main_s, "profiled_fit": prof_s,
-                       "key_sweep": sweep_s, "cpu_plain": cpu_s,
+                       "cpu_plain": cpu_s,
                        "total": time.perf_counter() - t_phase}}
     for name, (cws_n, cws_ms) in cws.items():
         steps = FULL_STEPS if name == "full" else TRAIN_STEPS
@@ -1790,6 +1864,7 @@ def phase_train(dev, card, results):
         "pipes": pipes, "kernel_of": kernel_of, "fits": fits,
         "states": states, "p0": p0, "cfg": cfg_st, "key": key,
         "key_words": key_words, "data": (xtr, ytr, xte, yte), "ds": ds,
+        "ties": ties_tr,
         "accuracy": accs, "wall_A": walls["A"]}
     for name, kernel in kernel_of.items():
         results[kernel]["launches"] += launches[kernel]
@@ -1813,23 +1888,19 @@ def phase_train(dev, card, results):
           + "; ".join(f"{k} {t:.2f} x{c}" for k, t, c in profile_a["top"]))
     acc_b2 = accs["B'"]
     print(f"train [{card}]: test accuracy A {100 * accs['A']:.2f}% streamed "
-          f"vs {100 * accs['full']:.2f}% full batch (gap {gap_pp:.3f} pp); "
-          f"streamed minus full batch at key words prng_key(s), s = 0 ... "
-          f"{len(gaps) - 1}: " + ", ".join(f"{g:+.3f}" for g in gaps.values())
-          + f" pp, mean {gap_mean:+.4f} (limit {TRAIN_GAP_PP}) sd "
-          f"{gap_sd:.4f}; on {GAP_EXTRA_ROWS} more rows: "
-          + ", ".join(f"{g:+.3f}" for g in gaps_extra.values())
-          + f" pp, mean {extra_mean:+.4f} sd {extra_sd:.4f}; CPU plain run "
-          f"{100 * acc_cpu:.2f}% (gap {cpu_gap_pp:.3f} pp, {cpu_s:.1f} s); "
+          f"vs {100 * accs['full']:.2f}% full batch (gap {gap_pp:.3f} pp; "
+          f"the other keys' and the CPU plain run's with the key sweep "
+          f"below; the CPU's features and first gradient {cpu_s:.1f} s); "
           f"B {100 * accs['B']:.2f}%, B' "
           f"{100 * acc_b2:.2f}%; bit-identical: " + ", ".join(
               f"{k} {v}" for k, v in ident.items())
           + f"; rows 1, 2, 4 equal to their plain versions at the path's "
           f"shapes; launches {out['launches']}; on the reference's draws "
-          f"of the dataset (not gated, ROADMAP A16) fit A's card features "
-          f"differ from the CPU plain path's in {jax_draws['entries']} of "
-          f"{jax_draws['of']} (row, hash) entries, {jax_draws['rows']} "
-          f"rows, first {jax_draws['first']}")
+          f"fit A's card features equal the CPU plain path's in all "
+          f"{ties['of']:,} (row, hash) entries but {len(ties_tr)} train "
+          f"and {len(ties_te)} test entries, each a float64 floor or argmin "
+          f"tie (row, hash, card feature, CPU feature): train {ties_tr}, "
+          f"test {ties_te}")
     for name, s_ in serve_out.items():
         print(f"train served {name} [{card}]: {s_['requests']} requests of "
               f"1-{MAX_ROWS} rows ({n_test} rows, {s_['batches']} batches) "
@@ -1842,6 +1913,62 @@ def phase_train(dev, card, results):
                                         out["phase_s"].items()))
     if failed:
         raise AssertionError("; ".join(failed))
+
+
+def start_key_sweep(results):
+    """Start the train phase's key sweep (its recipe at GAP_KEYS' CWS
+    keys) and its CPU plain fit A, each in a thread: they run while the
+    data axis's phase waits on its ranks; ``finish_key_sweep`` joins them
+    and gates them."""
+    sweep, cpu_fit, gaps, gaps_extra, n_test = results.pop("key_sweep_job")
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    results["key_sweep"] = (pool.submit(sweep), pool.submit(cpu_fit), gaps,
+                            gaps_extra, time.perf_counter())
+    pool.shutdown(wait=False)
+
+
+def finish_key_sweep(card, results):
+    """Join the key sweep and the CPU plain fit A; the streamed minus
+    full-batch gap's mean over the 16 keys within TRAIN_GAP_PP (fig78's
+    limit), the CPU's fit A bit-identical to the card's."""
+    fut, cpu_fut, gaps, gaps_extra, t0 = results.pop("key_sweep")
+    sweep_s = fut.result()
+    cpu, cpu_failed = cpu_fut.result()
+    tr = results["train"]
+    tr["identical"]["A = CPU plain run"] = cpu.pop("A = CPU plain run")
+    tr.update(cpu)
+    tr["phase_s"]["cpu_plain"] += cpu["cpu_fit_s"]
+    print(f"train CPU plain run [{card}]: fit A's recipe, all {TRAIN_STEPS} "
+          f"steps through the plain path on the CPU, in its thread beside "
+          f"the data axis's phase: {100 * cpu['accuracy_cpu']:.2f}% against "
+          f"the card's {100 * tr['accuracy']['A']:.2f}% (gap "
+          f"{cpu['cpu_gap_pp']:.3f} pp, limit {TRAIN_GAP_PP}); its table "
+          f"bit-identical to the main path's fit A: "
+          f"{tr['identical']['A = CPU plain run']}; {cpu['cpu_fit_s']:.1f} s")
+    if cpu_failed:
+        raise AssertionError("; ".join(cpu_failed))
+    gap_mean = float(np.mean(list(gaps.values())))
+    gap_sd = float(np.std(list(gaps.values()), ddof=1))
+    extra_mean = float(np.mean(list(gaps_extra.values())))
+    extra_sd = float(np.std(list(gaps_extra.values()), ddof=1))
+    tr.update(
+        gaps_pp_by_key=gaps, gap_mean_pp=gap_mean, gap_sd_pp=gap_sd,
+        gaps_extra_pp_by_key=gaps_extra, gap_extra_mean_pp=extra_mean,
+        gap_extra_sd_pp=extra_sd, key_sweep_s=sweep_s)
+    print(f"train key sweep [{card}]: streamed minus full batch at key "
+          f"words prng_key(s), s = 0 ... {len(gaps) - 1}: "
+          + ", ".join(f"{g:+.3f}" for g in gaps.values())
+          + f" pp, mean {gap_mean:+.4f} (limit {TRAIN_GAP_PP}) sd "
+          f"{gap_sd:.4f}; on {GAP_EXTRA_ROWS} more rows: "
+          + ", ".join(f"{g:+.3f}" for g in gaps_extra.values())
+          + f" pp, mean {extra_mean:+.4f} sd {extra_sd:.4f}; the sweep "
+          f"{sweep_s:.1f} s in its thread, beside the data axis's phase "
+          f"({time.perf_counter() - t0:.1f} s from its start to this join)")
+    if abs(gap_mean) > TRAIN_GAP_PP:
+        raise AssertionError(
+            f"train: streamed minus full-batch accuracy over CWS keys "
+            f"prng_key(s), s = 0 ... {len(gaps) - 1}: mean {gap_mean:+.3f} "
+            f"pp (limit {TRAIN_GAP_PP})")
 
 
 def manifest_bytes(path, step):
@@ -1967,9 +2094,9 @@ def phase_resume(dev, card, results):
     # step RESUME_CPU_TO (killed there after its commit), that checkpoint
     # finished on the card: table and moments equal the uninterrupted fit's
     ds = T["ds"]
-    cpu_pipe = FeaturePipeline.create_regen(T["key_words"], DIM,
-                                            FeatureSpec(NUM_HASHES, B_I),
-                                            device="cpu")
+    cpu_pipe = tie_resolved_pipe(FeaturePipeline.create_regen(
+        T["key_words"], DIM, FeatureSpec(NUM_HASHES, B_I), device="cpu"),
+        ds.x_train, T["ties"])
     ck = Checkpointer(root / "A_cpu")
     t_cpu = time.perf_counter()
     try:
@@ -2182,7 +2309,9 @@ def phase_resume(dev, card, results):
           f"fit B' resumed from {from_c} after the commit-window kill; "
           f"evaluation resumed from chunk {from_e}: {acc_e_resumed} = "
           f"{acc_e}; fit A's step {from_a} trained on the CPU to step "
-          f"{from_d} in {cpu_s:.1f} s, finished on the card; bit-identical: "
+          f"{from_d} in {cpu_s:.1f} s (its {len(T['ties'])} float64 feature "
+          f"ties as the card resolved them), finished on the card; "
+          f"bit-identical: "
           + ", ".join(f"{k} {v}" for k, v in ident.items())
           + f"; launches {out['launches']}")
     for name, rec in twin.items():
@@ -2214,16 +2343,95 @@ def phase_resume(dev, card, results):
         raise AssertionError("; ".join(failed))
 
 
+_TRAIN_DATASETS = {}
+
+
 def train_dataset(n_test=None, draws=TRAIN_DRAWS):
     """The train phase's dataset: examples/cws_classification.py's
     template-hard suite (``n_test`` test rows, TRAIN_DATA's by default) on
-    ``draws``."""
+    ``draws``, drawn once a process."""
     from repro_torch.data.synthetic import make_template_classification
-    return make_template_classification(
-        1, n_classes=N_CLASSES, density=0.15, mult_noise=1.2,
-        spike_prob=0.08, dim=DIM, n_train=TRAIN_DATA["n_train"],
-        n_test=TRAIN_DATA["n_test"] if n_test is None else n_test,
-        draws=draws)
+    n_test = TRAIN_DATA["n_test"] if n_test is None else n_test
+    if (n_test, draws) not in _TRAIN_DATASETS:
+        _TRAIN_DATASETS[n_test, draws] = make_template_classification(
+            1, n_classes=N_CLASSES, density=0.15, mult_noise=1.2,
+            spike_prob=0.08, dim=DIM, n_train=TRAIN_DATA["n_train"],
+            n_test=n_test, draws=draws)
+    return _TRAIN_DATASETS[n_test, draws]
+
+
+def near_tie(row, j, params):
+    """True where a float64 recompute of hash ``j`` on ``row`` shows a
+    near tie that float32's log may resolve either way: the two best
+    dimensions' log a within 1e-5 (relative: an argmin tie), or a
+    dimension whose q = log u / r + beta lies within 1e-5 (relative) of
+    an integer and whose floor, taken on the integer's other side, changes
+    the hash's (i*, t*) (a floor tie); ``params`` the (D, k) regenerated
+    ``CWSParams``."""
+    r, lc, be = (np.asarray(a[:, j].cpu(), np.float64)[row > 0]
+                 for a in (params.r, params.log_c, params.beta))
+    q = np.log(row[row > 0].astype(np.float64)) / r + be
+
+    def hash_of(t):
+        la = lc - r * (t - be + 1.0)
+        i = int(np.argmin(la))
+        return i, t[i], la
+
+    t0 = np.floor(q)
+    i0, _, la = hash_of(t0)
+    two = np.sort(la)[:2]
+    if len(two) > 1 and two[1] - two[0] <= 1e-5 * max(1.0, abs(two[0])):
+        return True
+    edge = np.abs(q - np.round(q)) <= 1e-5 * np.maximum(1.0, np.abs(q))
+    for d in np.flatnonzero(edge):
+        t = t0.copy()
+        t[d] = np.round(q[d]) - (1.0 if t0[d] == np.round(q[d]) else 0.0)
+        if hash_of(t)[:2] != (i0, t0[i0]):
+            return True
+    return False
+
+
+def tie_resolved(card, cpu, x, params, what):
+    """The CPU plain path's (n, k) features with each entry that differs
+    from the card's taken as the card resolved it, where ``near_tie``
+    holds; any other difference raises.  Returns (features, [(row, hash,
+    card feature, CPU feature)])."""
+    diff = (card != cpu).nonzero().tolist()
+    ties = [(r, j, int(card[r, j]), int(cpu[r, j])) for r, j in diff]
+    bad = [t for t in ties if not near_tie(x[t[0]], t[1], params)]
+    if bad:
+        raise AssertionError(f"{what}: card features differ from the CPU "
+                             f"plain path's with no float64 tie at (row, "
+                             f"hash, card, CPU) {bad[:8]} ({len(bad)} of "
+                             f"{len(diff)} differing entries)")
+    out = cpu.clone()
+    for r, j, c, _ in ties:
+        out[r, j] = c
+    return out, ties
+
+
+def tie_resolved_pipe(pipe, x, ties):
+    """``pipe`` (a CPU plain-path pipeline) with the tie entries of the
+    rows of ``x`` (``tie_resolved``'s list) taken as the card resolved
+    them, whichever batch they come in: its ``launch_chunk`` wrapped on
+    the instance, matching rows by their bytes."""
+    fix = {}
+    for r, j, c, _ in ties:
+        fix.setdefault(np.asarray(x[r], np.float32).tobytes(), []).append(
+            (j, c))
+    launch = pipe.launch_chunk
+
+    def launch_chunk(xc, *, mesh=None):
+        out = launch(xc, mesh=mesh)
+        rows = xc.cpu().numpy() if isinstance(xc, torch.Tensor) else xc
+        for i in range(rows.shape[0]):
+            for j, c in fix.get(np.asarray(rows[i], np.float32).tobytes(),
+                                ()):
+                out[i, j] = c
+        return out
+
+    pipe.launch_chunk = launch_chunk
+    return pipe
 
 
 def table_digest(params, state=None):
@@ -2241,7 +2449,7 @@ def dp_rank(rank, world, init_method, spec):
     writes its report to ``spec["outdir"]/rank{rank}.json``."""
     import datetime
     import torch.distributed as dist
-    torch.set_num_threads(max(1, 8 // world))
+    torch.set_num_threads(spec["threads"])
     dev = (torch.device(DEVICE, rank if spec["backend"] == "nccl" else 0)
            if DEVICE == "cuda" else torch.device(DEVICE))
     torch.cuda.set_device(dev)
@@ -2327,8 +2535,9 @@ def dp_rank_body(rank, world, dev, spec):
         cfg_c = dataclasses.replace(cfg, steps=DP_CPU_STEPS)
         p_c = fit_linear_streamed(p0, pipe, xtr, ytr, cfg=cfg_c,
                                   shuffle_key=key, mesh=mesh)
-        cpu_pipe = FeaturePipeline.create_regen(
-            key, DIM, FeatureSpec(NUM_HASHES, B_I), device="cpu")
+        cpu_pipe = tie_resolved_pipe(FeaturePipeline.create_regen(
+            key, DIM, FeatureSpec(NUM_HASHES, B_I), device="cpu"),
+            ds.x_train, spec["ties"])
         t0 = time.perf_counter()
         p_cpu = fit_linear_streamed(
             init_bag(cpu_pipe.num_features, N_CLASSES, device="cpu"),
@@ -2360,6 +2569,8 @@ def dp_rank_body(rank, world, dev, spec):
                        "launches": read_launches(),
                        "files": sorted(p.name for p in pathlib.Path(
                            spec["ckpt"], f"step_{latest:08d}").iterdir())}
+        if rank == 0:     # the killed fit's checkpoints are final: B2 may
+            pathlib.Path(spec["ckpt"] + ".done").touch()   # resume them
         # (f) fig78's twin at --fast over the same ranks
         reset_all_launches()
         collectives.reset_host_copies()
@@ -2377,7 +2588,10 @@ def dp_rank_body(rank, world, dev, spec):
         pipe = FeaturePipeline(stored, FeatureSpec(NUM_HASHES, TRAIN_B_PACKED,
                                                    packed=True))
         main_fit("d", pipe)
-        # (e) fit A's 4-rank checkpoint resumed on 2 ranks
+        # (e) fit A's 4-rank checkpoint resumed on 2 ranks, once A4's (e)
+        # has finished with it
+        while not pathlib.Path(spec["ckpt"] + ".done").exists():
+            time.sleep(0.1)
         pipe_a = FeaturePipeline.create_regen(key, DIM,
                                               FeatureSpec(NUM_HASHES, B_I),
                                               device=dev)
@@ -2391,23 +2605,34 @@ def dp_rank_body(rank, world, dev, spec):
     return report
 
 
-def run_data_parallel(job, backend, world, ckpt):
-    """Spawn ``world`` ranks of the data-parallel phase's ``job``; their
-    reports and the spawn's wall time."""
+def start_data_parallel(job, backend, world, ckpt, ties, threads):
+    """Spawn ``world`` ranks of the data-parallel phase's ``job`` (``ties``:
+    the train rows' feature ties, ``tie_resolved``'s; ``threads``: each
+    rank's intra-op threads), not joined."""
+    import torch.multiprocessing
     outdir = ROOT / "build" / "data_parallel" / f"{job}_{backend}"
     shutil.rmtree(outdir, ignore_errors=True)
     outdir.mkdir(parents=True)
     spec = {"job": job, "backend": backend, "outdir": str(outdir),
-            "ckpt": str(ckpt), "fig78": str(outdir / "fig78")}
-    import torch.multiprocessing
+            "ckpt": str(ckpt), "fig78": str(outdir / "fig78"),
+            "ties": ties, "threads": threads}
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    torch.multiprocessing.spawn(
+    ctx = torch.multiprocessing.spawn(
         dp_rank, args=(world, f"tcp://localhost:{free_port()}", spec),
-        nprocs=world, join=True)
-    wall = time.perf_counter() - t0
+        nprocs=world, join=False)
+    return {"ctx": ctx, "outdir": outdir, "world": world,
+            "t0": time.perf_counter()}
+
+
+def finish_data_parallel(start):
+    """Join ``start_data_parallel``'s ranks: their reports and the spawn's
+    wall time."""
+    while not start["ctx"].join():
+        pass
+    wall = time.perf_counter() - start["t0"]
+    outdir = start["outdir"]
     reports = [json.loads((outdir / f"rank{r}.json").read_text())
-               for r in range(world)]
+               for r in range(start["world"])]
     shutil.rmtree(outdir, ignore_errors=True)
     return reports, wall
 
@@ -2452,8 +2677,20 @@ def phase_data_parallel(dev, card, results):
 
     # (b), (c), (e) and (f) on 4 ranks; (d) and (e)'s 2-rank resume on 2
     runs = {}
-    a4, runs["A4"] = run_data_parallel("A4", "gloo", DP_RANKS, root / "A")
-    b2, runs["B2"] = run_data_parallel("B2", "gloo", DP_RANKS_B, root / "A")
+    # at once: B2's fit B beside A4's fits, its resume of A4's checkpoint
+    # once A4's (e) is done with it (a marker file); B2's ranks one thread
+    # each beside A4's two
+    ties = T["ties"]
+    starts = [start_data_parallel("A4", "gloo", DP_RANKS, root / "A", ties,
+                                  2),
+              start_data_parallel("B2", "gloo", DP_RANKS_B, root / "A", ties,
+                                  1)]
+    try:
+        a4, runs["A4"] = finish_data_parallel(starts[0])
+        b2, runs["B2"] = finish_data_parallel(starts[1])
+    finally:
+        for st in starts:
+            stop_sharded(st)
     # one launch a rank a chunk of lcm(row_chunk, ranks) rows, over the
     # test rows and the extra rows
     chunk = math.lcm(pipes["A"].row_chunk, DP_RANKS)
@@ -2562,8 +2799,8 @@ def phase_data_parallel(dev, card, results):
     # NCCL, one rank a card, where there are the cards
     nccl = None
     if torch.cuda.device_count() >= DP_RANKS:
-        nccl, runs["nccl"] = run_data_parallel("A4", "nccl", DP_RANKS,
-                                               root / "nccl")
+        nccl, runs["nccl"] = finish_data_parallel(start_data_parallel(
+            "A4", "nccl", DP_RANKS, root / "nccl", ties, 2))
         agree(nccl, "b", "A", "cws_encode_rng",
               f"(b) over NCCL on {DP_RANKS} cards")
         ident["(b) NCCL = gloo"] = nccl[0]["b"]["digest"] == \
@@ -2657,8 +2894,9 @@ def phase_data_parallel(dev, card, results):
               f"{ {k: v for k, v in rep[0][w]['launches'].items() if v} }")
     print(f"data-parallel [{card}]: bit-identical: "
           + ", ".join(f"{k} {v}" for k, v in ident.items())
-          + f"; (c) CPU ranks' {DP_CPU_STEPS} plain steps "
-          + ", ".join(f"{s:.1f}" for s in out["cpu_s"])
+          + f"; (c) CPU ranks' {DP_CPU_STEPS} plain steps (the train "
+          f"rows' {len(ties)} float64 feature ties as the card resolved "
+          f"them) " + ", ".join(f"{s:.1f}" for s in out["cpu_s"])
           + f" s; (e) killed at {DP_KILL}, resumed from {latest}: "
           f"{DP_RANKS_B} ranks {gaps[DP_RANKS_B]:+d} rows, no mesh "
           f"{gaps['none']:+d} rows vs (b) "
@@ -3562,6 +3800,16 @@ def phase_flash_parity(dev, results):
     allgather = {(SP_BATCH, sl, SP_AG_PROMPT, 16, 8, 256, w, rank * sl)
                  for w in (0, 1024) for rank in range(SP_RANKS)}
     cases += sorted(allgather)
+    # the sharded serving runs' prefills (SV_RUNS), each rank's heads at
+    # its sequence: (a) gemma3's 8 / 4 a rank of model = 2 over 8,192
+    # rows, global and local; (b) granite's 12 / 1 a rank of 4 (MQA) over
+    # 8 x 4,096, (d) over 1 x 4,096; (c) starcoder2's 9 / 1 a rank of 4:
+    # its last 2,048 q rows at q_base 30,720 against all 32,768 keys
+    for w in (0, 1024):
+        cases.append((1, 8192, 8192, 8, 4, 256, w, 0))
+    cases.append((8, 4096, 4096, 12, 1, 128, 0, 0))
+    cases.append((1, 4096, 4096, 12, 1, 128, 0, 0))
+    cases.append((1, 2048, 32768, 9, 1, 128, 0, 30720))
     r = results[FLASH[0]]
     worst, ag_worst = {}, {}
     fa.reset_launches()
@@ -3603,7 +3851,11 @@ def phase_flash_parity(dev, results):
           f"heads D = 192 at S = 1000/2047, window 0/1024; the all-gather "
           f"route's ({SP_BATCH}, {SP_AG_PROMPT // SP_RANKS}) q rows at "
           f"q_base = rank * {SP_AG_PROMPT // SP_RANKS} against "
-          f"{SP_AG_PROMPT} keys, window 0/1024), fp32 and bf16; "
+          f"{SP_AG_PROMPT} keys, window 0/1024; the sharded serving "
+          f"prefills' heads a rank: gemma3 8/4 D = 256 at (1, 8192) window "
+          f"0/1024, granite 12/1 D = 128 at (8, 4096) and (1, 4096), "
+          f"starcoder2 9/1 D = 128, 2,048 q rows at q_base 30,720 against "
+          f"32,768 keys), fp32 and bf16; "
           + "; ".join(f"worst {k} |cuda - plain| / tolerance {v[0]:.4g} at "
                       f"(b, Sq, Sk, H, G, D, window, q_base) = {v[1]}, max "
                       f"{v[2]:.3g}" for k, v in worst.items())
@@ -4080,14 +4332,68 @@ def driver_wait(proc):
     return stdout
 
 
-def driver_run(ckpt, *extra):
-    return driver_wait(driver_start(ckpt, *extra))
+def start_lm_driver(results):
+    """Start the LM training phase's driver check (``driver_resume``) in
+    a thread: its three runs of ``python -m repro_torch.launch.train``
+    (the smoke config, processes of their own) overlap the sharded phase,
+    whose parent only waits on its ranks; ``phase_lm_driver`` joins it."""
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    procs, ended = [], []
+
+    def run():
+        try:
+            return driver_resume(tmp, procs)
+        finally:
+            ended.append(time.perf_counter())
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    results["lm_driver"] = (pool.submit(run), procs, tmp,
+                            time.perf_counter(), ended)
+    pool.shutdown(wait=False)
 
 
-def driver_resume(tmp):
+def phase_lm_driver(card, results):
+    """The LM training phase's (d): join the driver check started before
+    the sharded phase (``start_lm_driver``; its exception re-raised) and
+    report it."""
+    fut, _, tmp, t0, ended = results.pop("lm_driver")
+    try:
+        d = fut.result()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    go = results.pop("lm_sharded_go", ended[0])
+    d["beside_sharded_training_s"] = max(0.0, ended[0] - go)
+    results["lm_train"]["driver"] = d
+    print(f"lm-train (d) [{card}]: python -m repro_torch.launch.train "
+          f"--variant smoke: {DRIVER_STEPS} steps uninterrupted vs stopped "
+          f"after {DRIVER_STOP} and resumed (checkpoints every "
+          f"{DRIVER_EVERY}): all {d['leaves']} parameter leaves bit-"
+          f"identical; logged losses {d['losses']}; three runs (the "
+          f"first two at once) {d['wall_s']:.1f} s, beside the sharded "
+          f"phase ({time.perf_counter() - t0:.1f} s from their start to "
+          f"this join): they ended "
+          f"{d['beside_sharded_training_s']:.1f} s after the sharded "
+          f"ranks' go, so the sharded training runs' first "
+          f"{d['beside_sharded_training_s']:.1f} s ran beside them; the "
+          f"serving runs began after they had ended")
+
+
+def stop_lm_driver(results):
+    """End the driver check's processes (a failed phase)."""
+    started = results.pop("lm_driver", None)
+    if started is not None:
+        for proc in started[1]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        started[0].cancel()
+        shutil.rmtree(started[2], ignore_errors=True)
+
+
+def driver_resume(tmp, procs):
     """The driver uninterrupted to DRIVER_STEPS against the same run
     stopped after DRIVER_STOP and resumed: the two step-DRIVER_STEPS
-    checkpoints' parameters bit for bit."""
+    checkpoints' parameters bit for bit.  Each process started is put in
+    ``procs`` (``stop_lm_driver`` ends them after a failure)."""
     from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                         tree_paths)
     from repro_torch.configs import get_config
@@ -4096,8 +4402,8 @@ def driver_resume(tmp):
     whole, cut = tmp / "whole", tmp / "cut"
     t0 = time.perf_counter()
     # the uninterrupted run and the stopped one at once, then the resume
-    procs = [driver_start(whole), driver_start(cut, "--stop-at",
-                                               str(DRIVER_STOP))]
+    procs += [driver_start(whole), driver_start(cut, "--stop-at",
+                                                str(DRIVER_STOP))]
     try:
         log = driver_wait(procs[0])
         driver_wait(procs[1])
@@ -4110,7 +4416,8 @@ def driver_resume(tmp):
         raise AssertionError(f"train driver: the stopped run's last "
                              f"checkpoint is {latest_step(cut)}, not "
                              f"{DRIVER_STOP}")
-    driver_run(cut)
+    procs.append(driver_start(cut))
+    driver_wait(procs[-1])
     wall = time.perf_counter() - t0
     template = init_train_state(get_config(LM_ARCH, "smoke"),
                                 TrainHparams(), device="meta")
@@ -4386,17 +4693,7 @@ def phase_lm_train(dev, card, results, mhz, sms):
     out["compressed"] = lm_train_compressed(cfg, dev, card, results, c)
     out["bf16_masters"] = lm_train_bf16_masters(dev, card, results)
 
-    # (d) the driver on the card: uninterrupted against stopped + resumed
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        d = driver_resume(pathlib.Path(tmp))
-    out["driver"] = d
-    print(f"lm-train (d) [{card}]: python -m repro_torch.launch.train "
-          f"--variant smoke: {DRIVER_STEPS} steps uninterrupted vs stopped "
-          f"after {DRIVER_STOP} and resumed (checkpoints every "
-          f"{DRIVER_EVERY}): all {d['leaves']} parameter leaves bit-"
-          f"identical; logged losses {d['losses']}; three runs (the "
-          f"first two at once) "
-          f"{d['wall_s']:.1f} s")
+    # (d), the driver, runs beside the sharded phase (phase_lm_driver)
     results["lm_train"] = out
 
 
@@ -4885,6 +5182,18 @@ def sh_rank(rank, world, init_method, spec):
         for run in spec["runs"]:
             report[run[0]] = sh_rank_body(rank, dev, run, spec)
             torch.cuda.empty_cache()
+        serve_t0 = time.perf_counter()
+        if spec["serve"]:
+            # the serving runs wait for their own go: the parent gives it
+            # once the work it overlaps with the training runs has ended
+            while not pathlib.Path(spec["serve_go"]).exists():
+                time.sleep(0.1)
+            report["serve_waited_s"] = time.perf_counter() - serve_t0
+            serve_t0 = time.perf_counter()
+        for run in spec.get("serve", ()):
+            report["serve-" + run[0]] = sv_rank_body(rank, dev, run, spec)
+            torch.cuda.empty_cache()
+        report["serve_s"] = time.perf_counter() - serve_t0
         pathlib.Path(spec["outdir"], f"rank{rank}.json").write_text(
             json.dumps(report))
     finally:
@@ -4982,40 +5291,60 @@ def sh_rank_body(rank, dev, run, spec):
     return rep
 
 
-def start_sharded(runs, ckpt, resume=False):
-    """Spawn SH_RANKS ranks that take ``runs`` in turn once
-    ``start["go"]`` exists (not joined: their start-up, CUDA context and
-    process group overlap the parent's work); ``finish_sharded`` says go
-    and joins them."""
+def start_sharded(runs, ckpt, resume=False, serve=()):
+    """Spawn SH_RANKS ranks that take ``runs`` in turn, then the serving
+    runs ``serve``, once ``start["go"]`` exists (not joined: their
+    start-up, CUDA context and process group overlap the parent's work);
+    ``finish_sharded`` says go and joins them."""
     import torch.multiprocessing
     outdir = ROOT / "build" / "lm_sharded" / ("resume" if resume else "runs")
     shutil.rmtree(outdir, ignore_errors=True)
     outdir.mkdir(parents=True)
     spec = {"runs": runs, "outdir": str(outdir), "resume": resume,
-            "ckpt": str(ckpt), "go": str(outdir / "go")}
+            "ckpt": str(ckpt), "go": str(outdir / "go"), "serve": serve,
+            "serve_go": str(outdir / "serve_go")}
     ctx = torch.multiprocessing.spawn(
         sh_rank, args=(SH_RANKS, f"tcp://localhost:{free_port()}", spec),
         nprocs=SH_RANKS, join=False)
     return {"ctx": ctx, "spec": spec, "t0": time.perf_counter()}
 
 
-def finish_sharded(start):
+def finish_sharded(start, serve_after=None):
     """Let ``start``'s ranks go and join them: {label: every rank's
-    report}, the seconds from go to their end, and each rank's wait."""
+    report} (a serving run's under "serve-" + label, with rank 0's logits
+    under "logits-" + label, and each rank's wait for the serving runs'
+    go under "serve_waited_s"), the seconds from go to their end, and
+    each rank's wait.  The serving runs go once the future
+    ``serve_after`` is done (None: at once)."""
     spec = start["spec"]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     pathlib.Path(spec["go"]).touch()
+    serve_go = pathlib.Path(spec["serve_go"])
+    def serve():
+        if serve_go.parent.exists():     # not after a failed spawn's end
+            serve_go.touch()
+    if serve_after is None:
+        serve()
+    else:
+        serve_after.add_done_callback(lambda _: serve())
     while not start["ctx"].join():
         pass
     wall = time.perf_counter() - t0
     outdir = pathlib.Path(spec["outdir"])
     reports = [json.loads((outdir / f"rank{r}.json").read_text())
                for r in range(SH_RANKS)]
+    out = {run[0]: [rep[run[0]] for rep in reports] for run in spec["runs"]}
+    out["serve_s"] = [rep["serve_s"] for rep in reports]
+    out["serve_waited_s"] = [rep.get("serve_waited_s", 0.0)
+                             for rep in reports]
+    for run in spec["serve"]:
+        out["serve-" + run[0]] = [rep["serve-" + run[0]] for rep in reports]
+        out["logits-" + run[0]] = torch.load(
+            outdir / f"serve-{run[0]}.pt", weights_only=True)
     shutil.rmtree(outdir, ignore_errors=True)
     waits = [rep["waited_s"] for rep in reports]
-    return ({run[0]: [rep[run[0]] for rep in reports]
-             for run in spec["runs"]}, wall, waits)
+    return out, wall, waits
 
 
 def stop_sharded(start):
@@ -5031,7 +5360,7 @@ def lm_sharded_spawns():
     their ranks start up and wait for their go."""
     ckpt = ROOT / "build" / "lm_sharded_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    return [start_sharded(SH_RUNS, ckpt),
+    return [start_sharded(SH_RUNS, ckpt, serve=SV_RUNS),
             start_sharded([r for r in SH_RUNS if r[0] == "b"], ckpt,
                           resume=True)], ckpt
 
@@ -5064,12 +5393,18 @@ def phase_lm_sharded(dev, card, results, mhz, sms):
     try:
         refs = {run[0]: sh_unsharded(run, dev) for run in SH_RUNS}
         refs_s = time.perf_counter() - t0
-        every, wall, waits = finish_sharded(starts[0])
+        # the serving runs wait for the LM driver check
+        # (``start_lm_driver``), which runs beside the training runs
+        driver = results.get("lm_driver")
+        results["lm_sharded_go"] = time.perf_counter()
+        every, wall, waits = finish_sharded(
+            starts[0], serve_after=driver[0] if driver else None)
         again, wall2, waits2 = finish_sharded(starts[1])
     finally:
         for st in starts:
             stop_sharded(st)
         shutil.rmtree(ckpt, ignore_errors=True)
+    serve_wait = max(every["serve_waited_s"])
     for run in SH_RUNS:
         label, arch, layers, batch, seq, (data, model), lr = run
         cfg = sh_config(arch, layers)
@@ -5181,7 +5516,10 @@ def phase_lm_sharded(dev, card, results, mhz, sms):
               f"{ref['peak_gb']:.2f} GB (the three runs' unsharded steps "
               f"{refs_s:.1f} s while the ranks started: they waited "
               f"{min(waits):.1f}-{max(waits):.1f} s); the three runs "
-              f"{wall:.1f} s"
+              f"{wall - max(every['serve_s']) - serve_wait:.1f} s (then "
+              f"{serve_wait:.1f} s waiting for the LM driver check to end, "
+              f"then the serving runs "
+              f"{max(every['serve_s']):.1f} s)"
               + (f"; checkpoint at step 2 {o['ckpt_s']:.1f} s, resumed on a "
                  f"fresh spawn (started with the first, then {wall2:.1f} s; "
                  f"the restore {max(o['resume_init_s']):.1f} s): step 3's "
@@ -5189,6 +5527,290 @@ def phase_lm_sharded(dev, card, results, mhz, sms):
                  f"{o['compress_slices']} equal the whole leaves'"
                  if label == "b" else ""))
     results["lm_sharded"] = out
+    results["lm_serve_ranks"] = {k: v for k, v in every.items()
+                                 if k.startswith(("serve", "logits-"))}
+
+
+def sv_prompts(cfg, batch, prompt):
+    """A serving run's prompts: token ids from numpy (the same on every
+    rank and in the parent)."""
+    rng = np.random.default_rng(SV_SEED)
+    return rng.integers(0, cfg.vocab, (batch, prompt))
+
+
+def sv_weights(cfg, dev, rules=None):
+    """The serving run's bf16 weights from SV_SEED, drawn on the card;
+    under ``rules`` this rank's slices (``param_pspecs``) of the same
+    draws."""
+    from repro_torch.models import cast_params, init_model
+    from repro_torch.models.sharding import shard_of, spec_at
+    from repro_torch.training.trainer import param_pspecs
+    keep = None
+    if rules is not None:
+        specs = param_pspecs(cfg, rules)
+        keep = lambda path, t: shard_of(  # noqa: E731
+            t, rules.mesh, spec_at(specs, path)).clone()
+    params = init_model(cfg, torch.Generator(dev).manual_seed(SV_SEED), dev,
+                        keep=keep)
+    return cast_params(params, cfg.compute_dtype)
+
+
+def sv_fsdp_bytes(cfg, rules):
+    """The bytes a rank's FSDP gathers assemble a forward: every unit
+    leaf sharded over ``fsdp`` (more than one rank), this rank's slice
+    times the ``fsdp`` ranks, in bf16."""
+    from repro_torch.models import init_model
+    from repro_torch.models.sharding import (TrainLayout, named_leaves,
+                                             shard_bounds, spec_at,
+                                             spec_axes)
+    from repro_torch.training.trainer import param_pspecs
+    layout = TrainLayout(rules, param_pspecs(cfg, rules))
+    fsdp = set(layout.axes("fsdp"))
+    n = rules.axes_size(tuple(fsdp))
+    total = 0
+    for path, t in named_leaves(init_model(cfg, device="meta")["units"]):
+        spec = spec_at(layout.specs["units"], path)
+        if n > 1 and any(ax is not None and set(spec_axes((ax,))) <= fsdp
+                         for ax in spec):
+            total += 2 * n * math.prod(hi - lo for lo, hi in shard_bounds(
+                t.shape, spec, rules.mesh))
+    return total
+
+
+def sv_rank_body(rank, dev, run, spec):
+    """A serving run on this rank: its slices of the weights, its rows
+    and cache shards, ``make_serve_steps(cfg, rules)``'s prefill and
+    greedy decode steps, the launch counts zeroed just before and read
+    just after; rank 0 writes every step's logits for the parent."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_caches
+    from repro_torch.models.sharding import make_rules, shard_of
+    from repro_torch.training import make_serve_steps
+    from repro_torch.training.trainer import input_specs
+    label, arch, layers, cell, (data, model), batch, slots, prompt, steps, \
+        long = run
+    cfg = sh_config(arch, layers)
+    mesh = make_mesh(data, model)
+    rules = make_rules(mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = sv_weights(cfg, dev, rules)
+    rows = input_specs(cfg, rules, shape="prefill", seq_len=prompt,
+                       global_batch=batch)["inputs"].spec[:1]
+    mine = shard_of(torch.as_tensor(sv_prompts(cfg, batch, prompt),
+                                    device=dev), mesh, rows)
+    caches = init_caches(cfg, batch, slots, long=long, rules=rules,
+                         device=dev)
+    pre, dec = make_serve_steps(cfg, rules)
+    torch.cuda.synchronize(dev)
+    rep = {"rank": rank, "coords": mesh.coords,
+           "init_s": time.perf_counter() - t0,
+           "state_gb": torch.cuda.memory_allocated(dev) / 1e9,
+           "cache_shapes": [list(c.k.shape) for c in caches
+                            if hasattr(c, "k")],
+           "fsdp_bytes": sv_fsdp_bytes(cfg, rules)}
+    # the main path: counts zeroed just before, read just after
+    fa.reset_launches()
+    collectives.reset_host_copies()
+    t1 = time.perf_counter()
+    logits, caches = pre(params, mine, caches)
+    torch.cuda.synchronize(dev)
+    rep["prefill_s"] = time.perf_counter() - t1
+    rep["prefill_host_bytes"] = collectives.HOST_COPIES["bytes"]
+    outs, ids = [logits], [logits[:, :cfg.vocab].argmax(-1)]
+    rep.update(step_s=[], host_bytes=[])
+    for t in range(steps):
+        collectives.reset_host_copies()
+        t1 = time.perf_counter()
+        logits, caches = dec(params, ids[-1][:, None], prompt + t, caches)
+        ids.append(logits[:, :cfg.vocab].argmax(-1))
+        torch.cuda.synchronize(dev)
+        rep["step_s"].append(time.perf_counter() - t1)
+        rep["host_bytes"].append(collectives.HOST_COPIES["bytes"])
+        outs.append(logits)
+    rep["launches"] = fa.LAUNCHES[FLASH[0]]
+    rep["body_launches"] = dict(fa.BODY_LAUNCHES)
+    rep["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    rep["ids"] = torch.stack(ids, 1).tolist()
+    stacked = torch.stack(outs, 1)
+    rep["logits_digest"] = sh_digest([stacked])
+    rep["lengths"] = [int(c.length[0]) for c in caches]
+    # each cache shard's slots that hold a written token (any nonzero k)
+    rep["filled_slots"] = [int((c.k != 0).flatten(3).any(-1).any(1).any(0)
+                               .sum()) for c in caches if hasattr(c, "k")]
+    if rank == 0:
+        torch.save(stacked.cpu(), pathlib.Path(spec["outdir"],
+                                               f"serve-{label}.pt"))
+    del params, caches, outs, stacked, logits
+    return rep
+
+
+def sv_unsharded(run, ids, dev):
+    """The unsharded serving of the run's weights on the card, prefill
+    and decode steps fed the ranks' ids: every step's logits (fp32 on the
+    host), prefill and decode seconds, peak GB."""
+    from repro_torch.models import init_caches
+    from repro_torch.training import make_serve_steps
+    label, arch, layers, cell, _, batch, slots, prompt, steps, _ = run
+    cfg = sh_config(arch, layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = sv_weights(cfg, dev)
+    caches = init_caches(cfg, batch, slots, device=dev)
+    pre, dec = make_serve_steps(cfg)
+    toks = torch.as_tensor(sv_prompts(cfg, batch, prompt), device=dev)
+    fed = torch.as_tensor(ids, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = pre(params, toks, caches)
+    torch.cuda.synchronize()
+    out = {"prefill_s": time.perf_counter() - t0}
+    outs = [logits.float().cpu()]
+    t0 = time.perf_counter()
+    for t in range(steps):
+        logits, caches = dec(params, fed[:, t:t + 1], prompt + t, caches)
+        outs.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    out.update(step_s=(time.perf_counter() - t0) / steps,
+               logits=torch.stack(outs, 1),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def sv_compare(label, got, want, ids, vocab):
+    """Each step's worst |dlogit| over its limit, and the greedy ids
+    checked: (worst ratio, its step, ids checked, ids checked equal)."""
+    worst, at, checked = 0.0, 0, 0
+    for t in range(want.shape[1]):
+        w = want[:, t, :vocab]
+        g = got[:, t, :vocab].float()
+        lim = SV_TOL * float(w.abs().max())
+        err = float((g - w).abs().max())
+        if not math.isfinite(err) or err > lim:
+            raise AssertionError(
+                f"lm-serve-sharded ({label}): step {t}'s logits differ from "
+                f"the unsharded serving's by {err:.4g} (limit {lim:.4g} = "
+                f"{SV_TOL:g} max |logit|)")
+        if err / lim > worst:
+            worst, at = err / lim, t
+        top2 = w.topk(2, -1).values
+        clear = (top2[:, 0] - top2[:, 1]) > lim
+        want_ids = w.argmax(-1)
+        got_ids = torch.as_tensor([r[t] for r in ids])
+        checked += int(clear.sum())
+        if not torch.equal(got_ids[clear], want_ids[clear]):
+            raise AssertionError(
+                f"lm-serve-sharded ({label}): step {t}'s greedy ids "
+                f"{got_ids.tolist()} vs the unsharded argmax "
+                f"{want_ids.tolist()} where the top-2 margin exceeds "
+                f"{lim:.4g}")
+    return worst, at, checked
+
+
+def phase_lm_serve_sharded(dev, card, results):
+    """Sharded LM serving (ROADMAP A12.5): the SV_RUNS, run by the four
+    ranks of the sharded spawn after their training runs
+    (``phase_lm_sharded``), held here against the unsharded serving of the
+    same weights on the card, fed the ranks' ids: every step's logits
+    within SV_TOL, the greedy ids where the margin allows, the same ids and
+    logits on every rank, the caches' lengths; row 8 in every prefill of
+    every rank, on the wgmma body."""
+    ranks = results.pop("lm_serve_ranks")
+    out = {}
+    for run in SV_RUNS:
+        label, arch, layers, cell, (data, model), batch, slots, prompt, \
+            steps, long = run
+        cfg = sh_config(arch, layers)
+        reps, got = ranks["serve-" + label], ranks["logits-" + label]
+        r0 = reps[0]
+        what = f"lm-serve-sharded ({label}) {arch}"
+        for rep in reps:
+            if rep["ids"] != r0["ids"] or \
+                    rep["logits_digest"] != r0["logits_digest"]:
+                raise AssertionError(f"{what}: rank {rep['rank']}'s ids or "
+                                     f"logits differ from rank 0's")
+            if set(rep["lengths"]) != {prompt + steps}:
+                raise AssertionError(f"{what}: rank {rep['rank']}'s cache "
+                                     f"lengths {rep['lengths']}")
+            # where the tokens reach the last slot, every shard holds some
+            if prompt + steps >= slots and min(rep["filled_slots"]) == 0:
+                raise AssertionError(f"{what}: rank {rep['rank']}'s cache "
+                                     f"shards hold {rep['filled_slots']} "
+                                     f"written slots")
+        n_attn = sum(k in ("attn", "local") for k in cfg.block_pattern) * \
+            cfg.n_units
+        for rep in reps:
+            if rep["launches"] != n_attn or \
+                    rep["body_launches"] != {"wgmma": n_attn, "simt": 0}:
+                raise AssertionError(
+                    f"{what}: rank {rep['rank']}'s row-8 launches "
+                    f"{rep['launches']} by body {rep['body_launches']}; want "
+                    f"{n_attn} (one a layer in the prefill), all wgmma")
+        launches = sum(rep["launches"] for rep in reps)
+        results[FLASH[0]]["launches"] += launches
+        t0 = time.perf_counter()
+        ref = sv_unsharded(run, r0["ids"], dev)
+        ref_s = time.perf_counter() - t0
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{what}: non-finite logits")
+        worst, at, checked = sv_compare(label, got, ref["logits"],
+                                        r0["ids"], cfg.vocab)
+        dec_ms = 1e3 * float(np.median(r0["step_s"]))
+        o = {"arch": arch, "layers": layers, "cell": cell,
+             "mesh": [data, model], "batch": batch, "slots": slots,
+             "prompt": prompt, "steps": steps, "long": long,
+             "params": cfg.param_count(),
+             "prefill_ms": [1e3 * rep["prefill_s"] for rep in reps],
+             "decode_ms": [[1e3 * x for x in rep["step_s"]] for rep in reps],
+             "decode_ms_median": dec_ms,
+             "peak_gb": [rep["peak_gb"] for rep in reps],
+             "state_gb": [rep["state_gb"] for rep in reps],
+             "prefill_host_bytes": [rep["prefill_host_bytes"]
+                                    for rep in reps],
+             "host_bytes": [rep["host_bytes"] for rep in reps],
+             "fsdp_bytes": r0["fsdp_bytes"],
+             "cache_shapes": r0["cache_shapes"],
+             "filled_slots": [rep["filled_slots"] for rep in reps],
+             "init_s": [rep["init_s"] for rep in reps],
+             "launches": launches,
+             "body_launches": [rep["body_launches"] for rep in reps],
+             "worst_ratio": worst, "worst_step": at, "ids_checked": checked,
+             "ids": r0["ids"], "unsharded": {
+                 "prefill_ms": 1e3 * ref["prefill_s"],
+                 "decode_ms": 1e3 * ref["step_s"],
+                 "peak_gb": ref["peak_gb"], "wall_s": ref_s}}
+        out[label] = o
+        print(f"lm-serve-sharded ({label}) [{card}]: {arch} at full width, "
+              f"{layers} layers, {cell} (batch {batch}, {slots:,} cache "
+              f"slots, long={long}) over (data, model) = ({data}, {model}), "
+              f"{SH_RANKS} gloo ranks on one card, bf16, flash: a "
+              f"{batch} x {prompt:,} prefill "
+              + ", ".join(f"{x:.1f}" for x in o["prefill_ms"])
+              + f" ms a rank (unsharded {o['unsharded']['prefill_ms']:.1f}); "
+              f"{steps} decode steps, median {dec_ms:.1f} ms a step on rank "
+              f"0 (unsharded {o['unsharded']['decode_ms']:.1f}); peak GB a "
+              f"rank " + ", ".join(f"{x:.2f}" for x in o["peak_gb"])
+              + f" (unsharded {ref['peak_gb']:.2f}); cache shard shapes "
+              f"{r0['cache_shapes']}, their written slots on ranks 0-"
+              f"{len(reps) - 1} {o['filled_slots']}; host-copy bytes rank "
+              f"0: prefill "
+              f"{r0['prefill_host_bytes'] / 1e9:.3f} GB, a decode step "
+              f"{np.median(r0['host_bytes']) / 1e9:.4f} GB (the FSDP "
+              f"gathers bring {r0['fsdp_bytes'] / 1e9:.3f} GB together a "
+              f"forward); row-8 launches a rank {r0['launches']} by body "
+              f"{r0['body_launches']} ({launches} in all); logits within "
+              f"{worst:.3g} of their limit ({SV_TOL:g} max |logit|, worst "
+              f"at step {at}), {checked} greedy ids clear of the limit "
+              f"equal to the unsharded argmax, ids and logits the same on "
+              f"every rank; ids rank 0 row 0 {r0['ids'][0]}; the unsharded "
+              f"comparator {ref_s:.1f} s")
+    out["waited_s"] = ranks["serve_waited_s"]
+    results["lm_serve_sharded"] = out
 
 
 def kernel_kind(name):
@@ -6090,7 +6712,9 @@ def main():
                         (phase_slice, (smi, results)),
                         (phase_train, (dev, smi, results)),
                         (phase_resume, (dev, smi, results)),
+                        (start_key_sweep, (results,)),
                         (phase_data_parallel, (dev, smi, results)),
+                        (finish_key_sweep, (smi, results)),
                         (phase_kernel_machine, (dev, smi, results)),
                         (phase_estimator, (dev, smi, results)),
                         (phase_benchmarks, (dev, smi, results)),
@@ -6099,7 +6723,10 @@ def main():
                         (phase_lm_train, (dev, smi, results, mhz, sms)),
                         (start_lm_sharded, (results,)),
                         (phase_lm_blocks, (dev, smi, results)),
+                        (start_lm_driver, (results,)),
                         (phase_lm_sharded, (dev, smi, results, mhz, sms)),
+                        (phase_lm_driver, (smi, results)),
+                        (phase_lm_serve_sharded, (dev, smi, results)),
                         (phase_seq_parallel, (smi, results)),
                         (phase_times, (dev, results, peak_ops, counts)),
                         (phase_flash_times, (dev, results, mhz, sms)),
@@ -6111,6 +6738,9 @@ def main():
             # ranks started ahead would wait for their go for ever
             for st in results.pop("lm_sharded_starts", ([], None))[0]:
                 stop_sharded(st)
+            stop_lm_driver(results)
+            for fut in results.get("key_sweep", ())[:2]:
+                fut.cancel()
             raise
         print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
 
@@ -6172,7 +6802,8 @@ def main():
                  parity_bodies=r["parity_bodies"], times=r["times"],
                  lm=results["lm"], lm_train=results["lm_train"],
                  lm_blocks=results["lm_blocks"],
-                 lm_sharded=results["lm_sharded"])
+                 lm_sharded=results["lm_sharded"],
+                 lm_serve_sharded=results["lm_serve_sharded"])
     kernels.append(entry)
     r = results[STEP[0]]
     # the main path's most frequent computing launch: a local layer's

@@ -78,7 +78,7 @@ def _float_tensor(a, dtype, device) -> torch.Tensor:
 
 
 def lm_params(params, cfg: ModelConfig, *, device=None,
-              dtype: torch.dtype = None) -> dict:
+              dtype: torch.dtype = None, rules=None) -> dict:
     """The reference's LM parameters (the nested dict of ``init_model``,
     leaves as numpy) -> the port's: ``embed/tokens`` (and ``head`` when
     untied), ``units/block{i}/{norm1, mixer/..., norm2, mlp/...}`` with the
@@ -86,8 +86,16 @@ def lm_params(params, cfg: ModelConfig, *, device=None,
     ``init_model`` gives it (the reference's: ``cfg.master_dtype``, fp32
     for ``model.FP32_LEAVES``), or ``dtype`` for every leaf.  Keys and
     shapes must be exactly the port's (checked against ``init_model(cfg,
-    device="meta")``)."""
+    device="meta")``).  Under ``rules`` each rank keeps its slices
+    (``param_pspecs``), as ``make_serve_steps(cfg, rules)`` and
+    ``init_train_state(rules=)`` hold them."""
     device = resolve_device(device)
+    if rules is not None:
+        from repro_torch.models.sharding import map_specs, shard_of
+        from repro_torch.training.trainer import param_pspecs
+        whole = lm_params(params, cfg, device="cpu", dtype=dtype)
+        return map_specs(lambda t, sp: shard_of(t, rules.mesh, sp).to(
+            device, copy=True), whole, param_pspecs(cfg, rules))
 
     def convert(ref, want, path):
         if not isinstance(ref, dict) or set(ref) != set(want):

@@ -20,9 +20,12 @@ builds the same mesh, in the same order.
 """
 from __future__ import annotations
 
+import datetime
 import itertools
+import os
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+import torch
 import torch.distributed as dist
 
 Axes = Union[str, Sequence[str], None]
@@ -186,3 +189,19 @@ def axis_size(mesh: Mesh, axes: Axes) -> int:
     for a in _names(axes):
         size *= mesh.shape[a]
     return size
+
+
+def join_torchrun_group(device: str):
+    """Join ``torchrun``'s process group (gloo, ``env://``) when its
+    environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``) is set and no group exists yet; returns (this rank's
+    device: ``cuda:{LOCAL_RANK % device_count}`` for a CUDA device,
+    whether this call made the group, which its caller then destroys)."""
+    if "RANK" not in os.environ or dist.is_initialized():
+        return device, False
+    dist.init_process_group("gloo", init_method="env://",
+                            timeout=datetime.timedelta(seconds=600))
+    if device.startswith("cuda") and torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        device = f"cuda:{local % torch.cuda.device_count()}"
+    return device, True

@@ -17,6 +17,16 @@
     Every config of ``repro_torch.configs.ARCHS`` serves, the MoE, SSM and
     RG-LRU ones included (``--layers N`` cuts the depth: llama4's 48
     layers of bf16 weights do not fit one card).
+
+    Under ``torchrun`` every rank joins one gloo process group and serves
+    its shard under the reference's local mesh and rules
+    (``make_local_mesh()``: data = N, model = 1; ``make_serve_steps(cfg,
+    rules)``): its slices of the weights, its rows of the batch, its
+    shards of the caches.  Each rank's device is ``cuda:{LOCAL_RANK %
+    device_count}``; logs come from rank 0:
+
+      torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch \
+          gemma3_12b --variant smoke --batch 4 --device cpu
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def synthetic_rows(rng: np.random.Generator, m: int, dim: int) -> np.ndarray:
@@ -89,11 +100,21 @@ def serve_lm(args, params=None) -> dict:
     to the compute dtype (the same bits as casting the masters at each
     use); a caller may pass ``params`` already built for the config.
     Prints prefill ms, decode tok/s and the first generated ids; returns
-    them with the prompts and the prefill logits."""
+    them with the prompts and the prefill logits.
+
+    In a process group of more than one rank the steps run under the
+    local mesh's rules: ``params`` (drawn, or passed) are this rank's
+    slices, the prompts' rows and the caches this rank's shards; the
+    generated ids returned are the whole batch's, gathered."""
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import cast_params, init_caches, init_model
+    from repro_torch.models.model import embed_generated
+    from repro_torch.models.sharding import (TrainLayout, gather_params,
+                                             make_rules, shard_of, spec_at)
     from repro_torch.training import make_serve_steps
+    from repro_torch.training.trainer import input_specs, param_pspecs
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, args.variant)
@@ -101,10 +122,20 @@ def serve_lm(args, params=None) -> dict:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    rules = layout = None
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        rules = make_rules(make_local_mesh())
+        layout = TrainLayout(rules, param_pspecs(cfg, rules))
+    rank0 = rules is None or rules.mesh.rank == 0
+    log = print if rank0 else (lambda *a, **k: None)
     if params is None:
         gen = torch.Generator(device).manual_seed(args.seed)
-        params = cast_params(init_model(cfg, gen, device), cfg.compute_dtype)
-    prefill_step, decode_one = make_serve_steps(cfg)
+        keep = None if layout is None else (
+            lambda path, t: shard_of(t, rules.mesh, spec_at(
+                layout.specs, path)).clone())
+        params = cast_params(init_model(cfg, gen, device, keep=keep),
+                             cfg.compute_dtype)
+    prefill_step, decode_one = make_serve_steps(cfg, rules)
 
     rng = np.random.default_rng(args.seed)
     if cfg.input_mode == "embeddings":
@@ -114,11 +145,17 @@ def serve_lm(args, params=None) -> dict:
     else:
         prompts = torch.as_tensor(rng.integers(
             0, cfg.vocab, (args.batch, args.prompt_len)), device=device)
+    mine, rows = prompts, None
+    if rules is not None:
+        rows = input_specs(cfg, rules, shape="prefill",
+                           seq_len=args.prompt_len,
+                           global_batch=args.batch)["inputs"].spec[:1]
+        mine = shard_of(prompts, rules.mesh, rows)
     caches = init_caches(cfg, args.batch, args.prompt_len + args.gen,
-                         device=device)
+                         rules=rules, device=device)
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = prefill_step(params, prompts, caches)
+    logits, caches = prefill_step(params, mine, caches)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     prefill_logits = logits
@@ -131,7 +168,7 @@ def serve_lm(args, params=None) -> dict:
         step_in = tokens
         if cfg.input_mode == "embeddings":
             # stub frontends embed generated ids via the output table
-            step_in = params["embed"]["tokens"][tokens].to(cfg.compute_dtype)
+            step_in = embed_generated(params, tokens, cfg, layout=layout)
         logits, caches = decode_one(params, step_in, args.prompt_len + t,
                                     caches)
         if args.temperature > 0:
@@ -144,13 +181,16 @@ def serve_lm(args, params=None) -> dict:
     _sync(device)
     t_decode = time.perf_counter() - t0
 
-    generated = torch.cat(outs, 1).cpu().numpy()
+    generated = torch.cat(outs, 1)
+    if rules is not None:
+        generated = gather_params(generated, rules, rows + (None,))
+    generated = generated.cpu().numpy()
     steps = args.gen - 1
     tok_s = args.batch * steps / max(t_decode, 1e-9)
-    print(f"prefill: {t_prefill * 1e3:.1f} ms for "
-          f"{args.batch}x{args.prompt_len} tokens")
-    print(f"decode : {tok_s:,.1f} tok/s ({steps} steps)")
-    print("generated ids (first row):", generated[0][:16])
+    log(f"prefill: {t_prefill * 1e3:.1f} ms for "
+        f"{args.batch}x{args.prompt_len} tokens")
+    log(f"decode : {tok_s:,.1f} tok/s ({steps} steps)")
+    log("generated ids (first row):", generated[0][:16])
     return {"prompts": prompts, "prefill_logits": prefill_logits,
             "generated": generated,
             "prefill_ms": t_prefill * 1e3, "decode_s": t_decode,
@@ -194,12 +234,18 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    from repro_torch.launch.mesh import join_torchrun_group
     ap = parser()
     args = ap.parse_args(argv)
     if args.bundle is not None:
         serve_bundle(args)
     elif args.arch is not None:
-        serve_lm(args)
+        args.device, made = join_torchrun_group(args.device)
+        try:
+            return serve_lm(args)
+        finally:
+            if made:
+                dist.destroy_process_group()
     else:
         ap.error("pass --bundle DIR (featurize->score service) or "
                  "--arch NAME (LM decode)")

@@ -29,8 +29,6 @@ from rank 0:
 from __future__ import annotations
 
 import argparse
-import datetime
-import os
 import time
 
 import torch
@@ -40,8 +38,8 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.data.loader import TokenBatchLoader
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import (make_local_mesh, make_mesh,
-                                    make_production_mesh)
+from repro_torch.launch.mesh import (join_torchrun_group, make_local_mesh,
+                                     make_mesh, make_production_mesh)
 from repro_torch.models.sharding import make_rules
 from repro_torch.runtime import RetryingTrainer, StepWatchdog
 from repro_torch.training import (TrainHparams, init_train_state,
@@ -162,22 +160,9 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _join_group(device: str):
-    """Join ``torchrun``'s process group (gloo) when its environment is
-    set; returns (this rank's device, whether this call made the group)."""
-    if "RANK" not in os.environ or dist.is_initialized():
-        return device, False
-    dist.init_process_group("gloo", init_method="env://",
-                            timeout=datetime.timedelta(seconds=600))
-    if device.startswith("cuda") and torch.cuda.is_available():
-        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
-        device = f"cuda:{local % torch.cuda.device_count()}"
-    return device, True
-
-
 def main(argv=None):
     args = parser().parse_args(argv)
-    device, made = _join_group(args.device)
+    device, made = join_torchrun_group(args.device)
     try:
         return _train(args, device)
     finally:

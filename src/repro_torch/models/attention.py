@@ -27,9 +27,16 @@ reference chooses them:
 Under sequence sharding the reference's predicates see global arrays; each
 rank here sees S/N rows, so the global length N * S stands in for S in
 each of them.  A global length that does not divide over N never reaches
-this layer: ``sharding.local_shard`` refuses it.  The reference's other
-routes under a mesh (GSPMD-gathered naive/chunked attention, caches
-sharded over ``kv_seq``) are not ported: they raise.
+this layer: ``sharding.local_shard`` refuses it.  The reference's
+GSPMD-gathered naive/chunked attention under a mesh is not ported on
+that route: it raises (ROADMAP A12.6).
+
+Under the train layout (``sharding.TrainLayout``) ``attention_tp`` runs a
+rank's heads over the whole sequence; with a cache (serving,
+``make_serve_steps(cfg, rules)``) the cache is this rank's shard of the
+reference's ``cache_pspecs``: its KV heads over ``tp``, or its slots over
+``kv_seq`` / ``long_seq`` (``KVSlice``), and a decode step over a
+sequence-sliced cache combines the ranks' partial softmaxes.
 
 q is (B, S, H, Dh), k and v (B, S, G, Dh); the caches are stacked
 (U, B, M, G, Dh) per pattern entry, as in the reference.
@@ -41,14 +48,15 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.launch.collectives import (all_gather_grad,
-                                            reduce_scatter_grad)
+from repro_torch.launch.collectives import (all_gather_grad, max_nograd,
+                                            sum_forward)
 from repro_torch.kernels.flash_attention import (ring_flash_attention,
                                                  sharded_flash_attention,
                                                  use_ring)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, trunc_normal
-from repro_torch.models.sharding import current_rules, seq_shards
+from repro_torch.models.sharding import (_axes, current_rules, seq_shards,
+                                         shard_bounds)
 
 NEG_INF = -1e30
 
@@ -75,6 +83,29 @@ class KVCache(NamedTuple):
     k: torch.Tensor        # (B, S_max, G, Dh), or stacked (U, B, ...)
     v: torch.Tensor
     length: torch.Tensor   # () int32, or (U,)
+
+
+class KVSlice(NamedTuple):
+    """Where this rank's shard of a KV cache sits in the global cache: the
+    global slot count ``m``, this rank's first slot ``lo``, the mesh axes
+    the slots are sliced over (``()``: whole), and whether the KV heads
+    are sliced over ``tp`` instead."""
+    m: int
+    lo: int
+    axes: tuple
+    heads: bool
+
+
+def kv_slice(shape, spec, mesh) -> KVSlice:
+    """The ``KVSlice`` of a stacked (U, B, M, G, Dh) cache of global
+    ``shape`` cut by ``spec`` (``cache_pspecs``') on ``mesh``."""
+    return KVSlice(m=shape[2], lo=shard_bounds(shape, spec, mesh)[2][0],
+                   axes=_axes(spec[2]), heads=spec[3] is not None)
+
+
+# slots of a cache scored at once in a decode step: a chunk's fp32 copy
+# of K (or V) holds at most this many elements
+DECODE_CHUNK_ELEMS = 1 << 26
 
 
 def _block_mask(sq: int, sk: int, off, window: int,
@@ -169,22 +200,44 @@ def _chunked_grouped(q5, k, v, *, window: int, chunk: int) -> torch.Tensor:
         row_t=lambda t: t[..., 0].permute(0, 3, 1, 2)[..., None])
 
 
-def _decode_grouped(q5, cache: KVCache, *, window: int) -> torch.Tensor:
-    # q5: (b, 1, g, r, d); cache.k: (b, S, g, d)
-    s = cache.k.shape[1]
-    scale = q5.shape[-1] ** -0.5
-    scores = torch.einsum("bqgrd,bkgd->bgrqk", q5.float(),
-                          cache.k.float()) * scale
-    pos = torch.arange(s, device=q5.device)
+def _decode_grouped(q5, cache: KVCache, *, window: int,
+                    sl: Optional[KVSlice] = None, mesh=None) -> torch.Tensor:
+    """One query a row (q5: (b, 1, g, r, d)) against the cache (b, M, g,
+    d), or with ``sl`` against this rank's slots ``[lo, lo + M_loc)`` of a
+    cache sliced over ``sl.axes`` (every rank of them holding the same
+    batch rows and all KV heads).  Each slot is scored at its global
+    position, a chunk of slots at a time into one fp32 score tensor (no
+    whole fp32 copy of a long cache); the max is taken over the ranks
+    before the exponent, so p has the unsliced cache's bits; p is cast to
+    the compute dtype before the PV product; l and the PV partial sums
+    are summed over the ranks in rank order."""
+    b, _, g, r, d = q5.shape
+    m_loc = cache.k.shape[1]
+    scale = d ** -0.5
+    chunk = max(1, DECODE_CHUNK_ELEMS // max(1, b * g * d))
+    qf = q5.float()
+    scores = torch.empty((b, g, r, 1, m_loc), dtype=torch.float32,
+                         device=q5.device)
+    for c0 in range(0, m_loc, chunk):
+        scores[..., c0:c0 + chunk] = torch.einsum(
+            "bqgrd,bkgd->bgrqk", qf,
+            cache.k[:, c0:c0 + chunk].float()) * scale
+    lo, axes = (0, ()) if sl is None else (sl.lo, sl.axes)
+    pos = lo + torch.arange(m_loc, device=q5.device)
     valid = pos < cache.length
     if window > 0:
         valid &= pos >= cache.length - window
     scores = scores.masked_fill(~valid, NEG_INF)
-    m = scores.amax(-1, keepdim=True)
+    m = max_nograd(scores.amax(-1, keepdim=True), mesh, axes)
     p = torch.exp(scores - m)
-    l = p.sum(-1, keepdim=True)
-    out = torch.einsum("bgrqk,bkgd->bqgrd", p.to(q5.dtype).float(),
-                       cache.v.float())
+    l = sum_forward(p.sum(-1, keepdim=True), mesh, axes)
+    p = p.to(q5.dtype).float()
+    out = torch.zeros((b, 1, g, r, d), dtype=torch.float32,
+                      device=q5.device)
+    for c0 in range(0, m_loc, chunk):
+        out += torch.einsum("bgrqk,bkgd->bqgrd", p[..., c0:c0 + chunk],
+                            cache.v[:, c0:c0 + chunk].float())
+    out = sum_forward(out, mesh, axes)
     l_t = l[..., 0].permute(0, 3, 1, 2)[..., None]
     return (out / torch.clamp_min(l_t, 1e-30)).to(q5.dtype)
 
@@ -225,28 +278,43 @@ def _chunked_flat(q, k, v, *, window: int, chunk: int) -> torch.Tensor:
 # public layer
 # ---------------------------------------------------------------------------
 
-def _write_cache(cache: KVCache, k, v, s: int) -> KVCache:
+def _write_cache(cache: KVCache, k, v, s: int, lo: int = 0,
+                 m: Optional[int] = None) -> KVCache:
     """Write this call's k/v into the cache IN PLACE and return the cache
     with its new length.  The reference returns new arrays; updating the
     stacked cache through views saves a copy of every cache (all of
     2·U·B·M·G·Dh elements per pattern entry) on every step.  Prefill
-    starts at slot 0, as in the reference."""
-    m_len = cache.k.shape[1]
-    if s == 1:
-        # rolling caches wrap; full caches never reach m_len
-        wpos = (cache.length % m_len).long().reshape(1)
-        cache.k.index_copy_(1, wpos, k.to(cache.k.dtype))
-        cache.v.index_copy_(1, wpos, v.to(cache.v.dtype))
-    elif s >= m_len:
-        # rolling cache: token t lives at slot t % m_len; the last m_len
-        # tokens are a rotation by s % m_len
-        cache.k.copy_(torch.roll(k[:, s - m_len:], s % m_len, dims=1))
-        cache.v.copy_(torch.roll(v[:, s - m_len:], s % m_len, dims=1))
-    else:
-        cache.k[:, :s] = k
-        cache.v[:, :s] = v
-        cache.k[:, s:] = 0
-        cache.v[:, s:] = 0
+    starts at slot 0, as in the reference.
+
+    The cache may be this rank's slots ``[lo, lo + M_loc)`` of a cache of
+    ``m`` slots sliced over the sequence (``m`` None: the whole cache),
+    given k/v for the KV heads it holds: prefill cuts the rank's slots
+    out of the global cache's content (the prompt at slots [0, s), zeros
+    after it; a rolling cache's slot t % m after the roll); a decode
+    step's token lands at slot ``length % m``, written by the rank that
+    owns it alone (a masked write, no host sync).  ``length`` stays
+    global."""
+    m_loc = cache.k.shape[1]
+    m = m_loc if m is None else m
+    for c, t in ((cache.k, k), (cache.v, v)):
+        t = t.to(c.dtype)
+        if s == 1:
+            # rolling caches wrap; full caches never reach m
+            at = (cache.length % m).long() - lo
+            idx = at.clamp(0, m_loc - 1).reshape(1)
+            if m_loc < m:
+                own = (at >= 0) & (at < m_loc)
+                t = torch.where(own, t, c.index_select(1, idx))
+            c.index_copy_(1, idx, t)
+        elif s >= m:
+            # rolling cache: token t lives at slot t % m; the last m
+            # tokens are a rotation by s % m
+            c.copy_(torch.roll(t[:, s - m:], s % m, dims=1)
+                    .narrow(1, lo, m_loc))
+        else:
+            n = max(0, min(s, lo + m_loc) - lo)
+            c[:, :n] = t[:, lo:lo + n]
+            c[:, n:] = 0
     cache.length.add_(s)
     return cache
 
@@ -280,8 +348,9 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     s_global = n_seq * s
     if n_seq > 1 and cache is not None:
         raise NotImplementedError(
-            "caches sharded over the sequence (kv_seq) are not ported yet "
-            "(ROADMAP A12.5): the sequence-parallel path runs forward only")
+            "the sequence-parallel forward (use_rules) runs without a "
+            "cache: serve sharded through make_serve_steps(cfg, rules), "
+            "whose caches come from init_caches(rules=)")
     rolling = cache is not None and window > 0 and cache.k.shape[1] <= window
     if cache is not None and update_cache:
         cache = _write_cache(cache, k, v, s)
@@ -308,31 +377,34 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             else sharded_flash_attention
         out = fn(q, k, v, window=window, mesh=current_rules().mesh,
                  seq_axes=seq_axes)
-    elif flash_want or cache is None:
-        out = _self_attend(q, k, v, cfg, window)
     else:
-        q5 = q.reshape(b, s, g, r, dh)
-        if cfg.attn_impl == "naive" or s <= cfg.attn_chunk:
-            out = _naive_grouped(q5, k, v, window=window)
-        else:
-            out = _chunked_grouped(q5, k, v, window=window,
-                                   chunk=cfg.attn_chunk)
-        out = out.reshape(b, s, h, dh)
+        out = _self_attend(q, k, v, cfg, window, grouped=cache is not None)
 
     out = out.to(dt).reshape(b, s, h * dh)
     return out @ params["wo"].to(dt), cache
 
 
-def _self_attend(q, k, v, cfg: ModelConfig, window: int) -> torch.Tensor:
-    """Causal self-attention of a whole sequence without a cache: the
-    flash kernel (row 8) when ``cfg.attn_impl == "flash"`` and the
-    sequence is longer than ``attn_chunk``, else naive or chunked over
-    flat heads (k/v repeated to q's heads)."""
-    s = q.shape[1]
+def _self_attend(q, k, v, cfg: ModelConfig, window: int,
+                 grouped: bool = False) -> torch.Tensor:
+    """Causal self-attention of a whole sequence (q (B, S, H, Dh), k/v
+    (B, S, G, Dh)): the flash kernel (row 8) when ``cfg.attn_impl ==
+    "flash"`` and the sequence is longer than ``attn_chunk``, else naive
+    or chunked, over flat heads (k/v repeated to q's heads), or with
+    ``grouped`` (a prefill beside a cache, as the reference routes it)
+    over the grouped cores."""
+    b, s, h, dh = q.shape
     if cfg.attn_impl == "flash" and s > cfg.attn_chunk:
         return ops.flash_attention(q, k, v, window=window,
                                    chunk=cfg.attn_chunk)
-    r = q.shape[2] // k.shape[2]
+    r = h // k.shape[2]
+    if grouped:
+        q5 = q.reshape(b, s, k.shape[2], r, dh)
+        if cfg.attn_impl == "naive" or s <= cfg.attn_chunk:
+            out = _naive_grouped(q5, k, v, window=window)
+        else:
+            out = _chunked_grouped(q5, k, v, window=window,
+                                   chunk=cfg.attn_chunk)
+        return out.reshape(b, s, h, dh)
     kk, vv = _repeat_kv(k, r), _repeat_kv(v, r)
     if cfg.attn_impl == "naive" or s <= cfg.attn_chunk:
         return _naive_flat(q, kk, vv, window=window)
@@ -354,14 +426,18 @@ def _kv_for_heads(k: torch.Tensor, q_heads: range, rep: int):
 
 def attention_tp(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                  kind: str, layout, spec: dict,
-                 rope_theta: Optional[float] = None) -> torch.Tensor:
-    """Attention under the train layout (``sharding.TrainLayout``, tp >
-    1): x is this rank's shard of the residual stream (B, S / sp, D); the
-    sequence is gathered over ``sp``, ``wq`` / ``wk`` / ``wv`` run
-    column-parallel to this rank's heads, attention runs over them on the
-    whole sequence (rows at global positions, ``q_base`` 0), and ``wo``
-    runs row-parallel, its partial sums reduce-scattered back to the
-    sequence shards.
+                 rope_theta: Optional[float] = None, positions=None,
+                 cache: Optional[KVCache] = None,
+                 kv: Optional[KVSlice] = None):
+    """Attention under the layout (``sharding.TrainLayout``): x is this
+    rank's shard of the residual stream (B, S / sp, D), or under
+    ``one_token`` the whole decode token; the sequence is gathered over
+    ``sp``, ``wq`` / ``wk`` / ``wv`` run column-parallel to this rank's
+    heads, attention runs over them on the whole sequence (rows at global
+    positions from 0, or ``positions``), and ``wo`` runs row-parallel,
+    its partial sums reduce-scattered back to the sequence shards
+    (``layout.row_reduce``; summed over ``tp`` for one token).  Returns
+    (out, cache).
 
     ``wk`` / ``wv`` shard their flat G * Dh dim, not heads: where the KV
     heads divide over ``tp`` this rank's slice holds exactly the KV heads
@@ -372,43 +448,84 @@ def attention_tp(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     8 through ``ops.flash_attention`` (kernel forward, recompute
     backward).  The reference routes flash under tp > 1 to its
     sequence-sharded ``shard_map`` schedule instead, whose backward is
-    ROADMAP A12.4; the function computed is the same."""
+    ROADMAP A12.4; the function computed is the same.
+
+    With a cache (this rank's shard, placed by ``kv``): a prefill writes
+    its k/v (``_write_cache``: the rank's KV heads, or its slots from k/v
+    gathered to every KV head) and attends as the
+    unsharded layer does with a cache (flash, else the grouped cores); a
+    decode step writes its token, then attends over a head-sharded cache
+    locally, or, over a sequence-sliced one, with q for every head
+    (gathered over ``tp``) against the rank's slots, the partial softmaxes
+    combined over ``kv.axes`` (``_decode_grouped``), before this rank's
+    heads go through ``wo``."""
     dt = cfg.compute_dtype
     mesh, tp, sp_axes = layout.mesh, layout.tp, layout.sp_axes
     h, g, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     if h % tp:
         raise NotImplementedError(
-            f"{cfg.name}: {h} heads over tp = {tp}: the train layout runs "
+            f"{cfg.name}: {h} heads over tp = {tp}: the layout runs "
             f"attention over each rank's heads; the reference's "
             f"sequence-sharded GSPMD route is ROADMAP A12.6")
     hl = h // tp
-    heads = range(layout.tp_index() * hl, (layout.tp_index() + 1) * hl)
+    me = layout.tp_index()
+    heads = range(me * hl, (me + 1) * hl)
     window = cfg.window if kind == "local" else 0
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
     xf = all_gather_grad(x, mesh, sp_axes, 1)
     b, s, _ = xf.shape
-    positions = torch.arange(s, device=x.device)[None, :]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
 
-    def kv(name):
+    def project(name):
+        """(K or V, True when it holds every KV head, False when this
+        rank's G / tp)."""
         w = params[name].to(dt)
         if not layout.tp_sharded(spec[name], -1):
             t = all_gather_grad(x @ w, mesh, sp_axes, 1)
         elif g % tp == 0:
-            return (xf @ w).reshape(b, s, g // tp, dh)
+            return (xf @ w).reshape(b, s, g // tp, dh), False
         else:
             t = all_gather_grad(xf @ w, mesh, layout.tp_axes, 2)
-        return _kv_for_heads(t.reshape(b, s, g, dh), heads, h // g)
+        return t.reshape(b, s, g, dh), True
 
     q = (xf @ params["wq"].to(dt)).reshape(b, s, hl, dh)
-    k, v = kv("wk"), kv("wv")
+    (k, whole), (v, _) = project("wk"), project("wv")
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
     if cfg.qk_norm:
         q = _qknorm(q, dt)
         k = _qknorm(k, dt)
-    out = _self_attend(q, k, v, cfg, window)
+    if whole:      # this rank's q heads pick theirs
+        kq, vq = (_kv_for_heads(t, heads, h // g) for t in (k, v))
+    else:
+        kq, vq = k, v
+
+    if cache is not None:
+        if kv.heads:
+            gl = g // tp
+            kc, vc = (t[:, :, me * gl:(me + 1) * gl] if whole else t
+                      for t in (k, v))
+        else:
+            kc, vc = (t if whole else all_gather_grad(t, mesh,
+                                                      layout.tp_axes, 2)
+                      for t in (k, v))
+        cache = _write_cache(cache, kc, vc, s, kv.lo, kv.m)
+    if cache is not None and s == 1:
+        win = 0 if window > 0 and kv.m <= window else window
+        if kv.heads:
+            q5 = q.reshape(b, 1, g // tp, hl * tp // g, dh)
+            out = _decode_grouped(q5, cache, window=win, sl=kv, mesh=mesh)
+        else:
+            qa = all_gather_grad(q, mesh, layout.tp_axes, 2)
+            out = _decode_grouped(qa.reshape(b, 1, g, h // g, dh), cache,
+                                  window=win, sl=kv, mesh=mesh)
+            out = out.reshape(b, 1, h, dh)[:, :, heads]
+        out = out.reshape(b, 1, hl, dh)
+    else:
+        out = _self_attend(q, kq, vq, cfg, window, grouped=cache is not None)
     out = out.to(dt).reshape(b, s, hl * dh) @ params["wo"].to(dt)
-    return reduce_scatter_grad(out, mesh, sp_axes, 1)
+    return layout.row_reduce(out), cache
 
 
 def _qknorm(q: torch.Tensor, dt) -> torch.Tensor:

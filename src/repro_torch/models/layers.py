@@ -16,9 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.collectives import (all_gather_grad, max_nograd,
-                                            reduce_scatter_grad,
-                                            reshard_grad, sum_forward)
+from repro_torch.launch.collectives import (all_gather_grad, gather_parts,
+                                            max_nograd, reshard_grad,
+                                            sum_forward)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import local_shard
 
@@ -27,6 +27,9 @@ from repro_torch.models.sharding import local_shard
 # most this many elements, so that no fp32 copy of the whole leaf exists
 # (llama4's (128, 5120, 8192) expert stack is 21.5 GB in fp32)
 DRAW_SLICE = 1 << 28
+# the tied table's rows whose fp32 copy a vocabulary-sharded logit
+# product makes at once hold at most this many elements (256 MB)
+LOGIT_CHUNK_ELEMS = 1 << 26
 
 
 def trunc_normal(generator: Optional[torch.Generator], shape, scale: float,
@@ -237,7 +240,10 @@ def chunked_cross_entropy(embed_params: dict, x: torch.Tensor,
 
 def seq_shard(x: torch.Tensor, layout) -> torch.Tensor:
     """This rank's shard of x's sequence (dim 1) over the ``sp`` axes; a
-    sequence that does not divide raises (``sharding.local_shard``)."""
+    sequence that does not divide raises (``sharding.local_shard``).
+    Under ``one_token`` (a decode step) x stays whole."""
+    if layout.one_token:
+        return x
     return local_shard(x, layout.rules, None, "sp")
 
 
@@ -261,14 +267,56 @@ def mlp_tp(params: dict, x: torch.Tensor, cfg: ModelConfig, layout,
     the sequence gathered over ``sp`` (the reference's ``shard(x, "batch",
     None, None)``), ``gate`` / ``up`` column-parallel, ``down``
     row-parallel, the partial sums reduce-scattered back to the sequence
-    shards (``shard(out, "batch", "sp", None)``).  A d_ff that does not
-    divide over ``tp`` leaves the weights whole: each rank then runs its
-    own rows."""
+    shards (``shard(out, "batch", "sp", None)``), or for a decode step's
+    one token summed over ``tp`` (``layout.row_reduce``).  A d_ff that
+    does not divide over ``tp`` leaves the weights whole: each rank then
+    runs its own rows."""
     if not layout.tp_sharded(spec["up"], -1):
         return mlp(params, x, cfg)
-    mesh, axes = layout.mesh, layout.sp_axes
-    out = mlp(params, all_gather_grad(x, mesh, axes, 1), cfg)
-    return reduce_scatter_grad(out, mesh, axes, 1)
+    out = mlp(params, all_gather_grad(x, layout.mesh, layout.sp_axes, 1),
+              cfg)
+    return layout.row_reduce(out)
+
+
+def last_position(x: torch.Tensor, layout) -> torch.Tensor:
+    """The global sequence's last position (B, 1, D), on every rank, from
+    this rank's shard of it over ``sp`` (the last rank's last row)."""
+    if layout.sp == 1:
+        return x[:, -1:]
+    return gather_parts(x[:, -1:], layout.mesh, layout.sp_axes)[-1]
+
+
+def lm_logits_tp(params: dict, x: torch.Tensor, cfg: ModelConfig, layout,
+                 spec: dict) -> torch.Tensor:
+    """``lm_logits`` of x (B, S, D), whole on every rank of ``tp``, from
+    the vocabulary shards: the whole (B, S, V) logits on every rank, so a
+    greedy argmax is the global one (the lowest id winning ties).  An
+    untied ``head`` (``(None, "tp")``) gives each rank its V / tp columns,
+    all-gathered.  The tied table is D-sharded (``(None, "tp")``): each
+    rank's fp32 product of its D / tp columns, summed over ``tp`` in rank
+    order and rounded once to the compute dtype (GSPMD's partial-sum
+    route; no table moves), V a chunk at a time.  A leaf left whole
+    computes the logits locally."""
+    n = layout.tp
+    dt = cfg.compute_dtype
+    key = "tokens" if cfg.tie_embeddings else "head"
+    if n == 1 or not layout.tp_sharded(spec[key], 1):
+        return lm_logits(params, x, cfg)
+    mesh, axes = layout.mesh, layout.tp_axes
+    if cfg.tie_embeddings:
+        tab = params["tokens"]
+        dl = tab.shape[1]
+        xs = x.narrow(-1, layout.tp_index() * dl, dl).float()
+        step = max(1, LOGIT_CHUNK_ELEMS // dl)
+        part = torch.cat([xs @ tab[v0:v0 + step].to(dt).float().T
+                          for v0 in range(0, tab.shape[0], step)], -1)
+        logits = sum_forward(part, mesh, axes).to(dt)
+    else:
+        logits = all_gather_grad(x @ params["head"].to(dt), mesh, axes, -1)
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
 
 
 def cross_entropy_sums_tp(embed_params: dict, x: torch.Tensor,

@@ -15,6 +15,7 @@ tuple (one entry per block in the pattern) of stacked (U, ...)
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -31,9 +32,12 @@ from repro_torch.launch.collectives import sum_forward
 from repro_torch.models.layers import (chunked_cross_entropy,
                                        cross_entropy_sums_tp, embed_tokens,
                                        embed_tokens_tp, init_embed, init_mlp,
-                                       init_rmsnorm, lm_logits, mlp, mlp_tp,
+                                       init_rmsnorm, last_position,
+                                       lm_logits, lm_logits_tp, mlp, mlp_tp,
                                        rmsnorm, seq_shard)
-from repro_torch.models.sharding import current_rules, seq_shards
+from repro_torch.models.sharding import (CacheShards, current_rules,
+                                         map_specs, seq_shards, shard_bounds,
+                                         spec_axes)
 
 ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_dropped": 0.0}
 KINDS = ("attn", "local", "ssm", "rglru")
@@ -46,13 +50,14 @@ def check_supported(cfg: ModelConfig, layout=None) -> None:
     """Raise for an unknown block kind, and for the blocks whose sharded
     forms are not ported (ROADMAP A12.8), where a per-shard statistic or
     scan would differ from the reference without a word: under axis rules
-    whose sequence axes span more than one rank (the serving forward), an
-    MoE, SSM or RG-LRU block; under the train layout (``layout``), an MoE
-    block where the batch or the sequence is split (its capacity,
-    ``moe_lb_loss``, ``moe_z_loss`` and ``moe_dropped`` are statistics
-    over the global batch), and an SSM or RG-LRU block with ``tp`` > 1
-    (their recurrences run per batch row, so ``data`` alone splits
-    them)."""
+    whose sequence axes span more than one rank (the sequence-parallel
+    forward), an MoE, SSM or RG-LRU block; under the train and serving
+    layout (``layout``: ``make_train_step(rules=)``,
+    ``make_serve_steps(cfg, rules)``), an MoE block where the batch or
+    the sequence is split (its capacity, ``moe_lb_loss``, ``moe_z_loss``
+    and ``moe_dropped`` are statistics over the global batch), and an SSM
+    or RG-LRU block with ``tp`` > 1 (their recurrences run per batch row,
+    so ``data`` alone splits them)."""
     for kind in cfg.block_pattern:
         if kind not in KINDS:
             raise ValueError(kind)
@@ -63,20 +68,23 @@ def check_supported(cfg: ModelConfig, layout=None) -> None:
                 f"{cfg.name}: MoE, SSM and RG-LRU blocks under sequence "
                 f"sharding are not ported yet (ROADMAP A12.8)")
         return
-    split = layout.rules.axes_size(layout.axes("batch")) * layout.sp
+    sp_axes = layout.axes("sp")
+    sp = layout.rules.axes_size(sp_axes)
+    split = layout.rules.axes_size(layout.axes("batch")) * sp
     if cfg.moe is not None and split > 1:
         raise NotImplementedError(
-            f"{cfg.name}: an MoE block under a mesh that splits the batch or "
-            f"the sequence is not ported yet (ROADMAP A12.8)")
+            f"{cfg.name}: an MoE block under a train or serving layout that "
+            f"splits the batch or the sequence is not ported yet (ROADMAP "
+            f"A12.8)")
     if recurrent and layout.tp > 1:
         raise NotImplementedError(
             f"{cfg.name}: SSM and RG-LRU blocks under tp > 1 are not ported "
-            f"yet (ROADMAP A12.8); they train under FSDP (model = 1)")
-    if max(layout.tp, layout.sp) > 1 and \
-            set(layout.sp_axes) != set(layout.tp_axes):
+            f"yet (ROADMAP A12.8); they train and serve under FSDP (model = "
+            f"1)")
+    if max(layout.tp, sp) > 1 and set(sp_axes) != set(layout.tp_axes):
         raise NotImplementedError(
-            f"the train layout shards the sequence over the tp axes "
-            f"{layout.tp_axes}; got sp over {layout.sp_axes}")
+            f"the train and serving layout shards the sequence over the tp "
+            f"axes {layout.tp_axes}; got sp over {sp_axes}")
 
 
 # ---------------------------------------------------------------------------
@@ -160,11 +168,23 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                device=None):
+                long: bool = False, rules=None, device=None):
     """Stacked (U, ...) caches, one entry per block in the pattern: a
     ``KVCache`` (a local block keeps only its window, a rolling cache), an
     ``SSMState`` (conv in the compute dtype, h fp32 (U, B, H, P, N)) or an
-    ``RGLRUState`` (h fp32 (U, B, W), conv (U, B, 3, W))."""
+    ``RGLRUState`` (h fp32 (U, B, W), conv (U, B, 3, W)).
+
+    Under ``rules`` (serving with ``make_serve_steps(cfg, rules)``) each
+    rank allocates only its shard, the ``shard_bounds`` of the
+    reference's ``cache_pspecs(cfg, rules, batch=, max_len=, long=)``: KV
+    heads over ``tp`` where they divide (not ``long``), else the slots
+    over ``kv_seq``, a ``long`` global cache over ``long_seq``; the batch
+    over ``batch``; a dim that does not divide whole.  Returns a
+    ``sharding.CacheShards`` that carries the global shapes and the specs.
+    ``long`` only places the caches: without rules it changes nothing, as
+    in the reference."""
+    if rules is not None:
+        return _cache_shards(cfg, batch, max_len, long, rules, device)
     check_supported(cfg)
     device = resolve_device(device)
     u, dt = cfg.n_units, cfg.compute_dtype
@@ -196,6 +216,45 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     return tuple(entries)
 
 
+def _cache_shards(cfg: ModelConfig, batch: int, max_len: int, long: bool,
+                  rules, device) -> CacheShards:
+    """``init_caches`` under ``rules`` (see there)."""
+    from repro_torch.training.trainer import cache_pspecs
+    device = resolve_device(device)
+    shapes = init_caches(cfg, batch, max_len, device="meta")
+    specs = cache_pspecs(cfg, rules, batch=batch, max_len=max_len, long=long)
+
+    def shard(t, spec):
+        axes = [a for a in spec_axes(spec) if rules.mesh.shape[a] > 1]
+        if len(set(axes)) != len(axes):
+            # a mesh axis of more than one rank in two dims of one leaf
+            # (the reference's PartitionSpec refuses any axis twice)
+            raise ValueError(
+                f"cache spec {spec} for {tuple(t.shape)} uses a mesh axis "
+                f"twice (a long cache's slots over long_seq with a batch of "
+                f"{batch} split over the same axes): take a batch that does "
+                f"not divide over the batch axes")
+        size = [hi - lo for lo, hi in shard_bounds(t.shape, spec,
+                                                    rules.mesh)]
+        return torch.zeros(size, dtype=t.dtype, device=device)
+
+    return CacheShards(map_specs(shard, shapes, specs), shapes, specs)
+
+
+def embed_generated(params: dict, tokens, cfg: ModelConfig, *,
+                    layout=None) -> torch.Tensor:
+    """Generated ids (B, 1) as a decode step's input embeddings for the
+    stub frontends (``input_mode == "embeddings"``): rows of the output
+    table in the compute dtype, as the reference's serving loop takes
+    them; under a layout whose table is D-sharded the columns are
+    gathered over ``tp``."""
+    if layout is None:
+        return embed_tokens(params["embed"], tokens, cfg)
+    one = dataclasses.replace(layout, one_token=True)
+    return embed_tokens_tp(params["embed"], tokens, cfg, one,
+                           layout.specs["embed"])
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -209,11 +268,13 @@ def _write_state(cache, new) -> None:
 
 def _apply_block(params: dict, x, cfg: ModelConfig, *, kind: str,
                  is_moe: bool, positions, cache, update_cache: bool,
-                 layout=None, spec=None):
+                 layout=None, spec=None, kv=None):
     """(x, aux): the reference's block, with a cache written in place.
-    Under a train layout of tp > 1 (``spec``: the block's specs, unit
-    axis dropped) attention and the MLP run their tensor-parallel forms
-    on this rank's shard of the residual stream."""
+    Under a layout of tp > 1 (``spec``: the block's specs, unit axis
+    dropped) attention and the MLP run their tensor-parallel forms on
+    this rank's shard of the residual stream; under a layout with a cache
+    (any tp) attention runs ``attention_tp`` on the cache's shard, placed
+    by ``kv``."""
     aux = dict(ZERO_AUX)
     tp = layout is not None and layout.tp > 1
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
@@ -221,10 +282,11 @@ def _apply_block(params: dict, x, cfg: ModelConfig, *, kind: str,
         theta = cfg.rope_theta_global if (kind == "attn" and
                                           cfg.rope_theta_global > 0) \
             else cfg.rope_theta
-        if tp:
-            mix = attn_lib.attention_tp(params["mixer"], h, cfg, kind=kind,
-                                        layout=layout, spec=spec["mixer"],
-                                        rope_theta=theta)
+        if tp or (layout is not None and cache is not None):
+            mix, _ = attn_lib.attention_tp(
+                params["mixer"], h, cfg, kind=kind, layout=layout,
+                spec=spec["mixer"], rope_theta=theta, positions=positions,
+                cache=cache, kv=kv)
         else:
             mix, _ = attn_lib.attention(
                 params["mixer"], h, cfg, kind=kind, positions=positions,
@@ -263,7 +325,8 @@ def _add_aux(total: dict, aux: dict) -> dict:
 
 
 def _apply_unit(unit_params: dict, x, cfg: ModelConfig, *, positions,
-                caches, update_cache: bool, layout=None, specs=None):
+                caches, update_cache: bool, layout=None, specs=None,
+                slices=None):
     """(x, the unit's aux summed over its blocks)."""
     aux_sum = dict(ZERO_AUX)
     for i, kind in enumerate(cfg.block_pattern):
@@ -272,7 +335,8 @@ def _apply_unit(unit_params: dict, x, cfg: ModelConfig, *, positions,
             is_moe=cfg.is_moe_block(i), positions=positions,
             cache=caches[i] if caches is not None else None,
             update_cache=update_cache, layout=layout,
-            spec=None if specs is None else specs[f"block{i}"])
+            spec=None if specs is None else specs[f"block{i}"],
+            kv=None if slices is None else slices[i])
         aux_sum = _add_aux(aux_sum, aux)
     return x, aux_sum
 
@@ -283,10 +347,24 @@ def _unit_specs(specs: dict) -> dict:
             for k, v in specs.items()}
 
 
-def _forward_train_layout(params: dict, inputs, cfg: ModelConfig, layout):
-    """``forward`` under the train layout (see ``forward``)."""
+def _kv_slices(caches, mesh):
+    """Each entry's ``attention.KVSlice`` (None for a recurrent state)
+    from ``init_caches(rules=)``'s shapes and specs."""
+    if not isinstance(caches, CacheShards):
+        raise TypeError("under a layout the caches are init_caches(rules=)"
+                        "'s shards (a CacheShards)")
+    return tuple(attn_lib.kv_slice(tuple(sh.k.shape), sp.k, mesh)
+                 if isinstance(c, attn_lib.KVCache) else None
+                 for c, sh, sp in zip(caches, caches.shapes, caches.specs))
+
+
+def _forward_layout(params: dict, inputs, cfg: ModelConfig, layout, *,
+                    caches=None, update_cache=False, positions=None):
+    """``forward`` under the train and serving layout (see ``forward``)."""
     check_supported(cfg, layout)
     specs = layout.specs
+    if caches is not None and inputs.shape[1] == 1:
+        layout = dataclasses.replace(layout, one_token=True)
     if inputs.ndim == 2:
         x = embed_tokens_tp(params["embed"], inputs, cfg, layout,
                             specs["embed"])
@@ -294,26 +372,31 @@ def _forward_train_layout(params: dict, inputs, cfg: ModelConfig, layout):
         x = seq_shard(inputs, layout).to(cfg.compute_dtype)
     # attention sees the whole sequence (tp > 1 gathers it; tp = 1 holds
     # it): global positions from 0
-    positions = torch.arange(inputs.shape[1], device=x.device)[None, :]
+    if positions is None:
+        positions = torch.arange(inputs.shape[1], device=x.device)[None, :]
+    slices = None if caches is None else _kv_slices(caches, layout.mesh)
     unit_specs = _unit_specs(specs["units"])
 
-    def unit(x_, p_):
+    def unit(x_, p_, c_=None):
         # the FSDP gathers inside the checkpointed unit: the recompute
         # gathers again, and no gathered weight outlives its unit
         return _apply_unit(layout.gather_tree(p_, unit_specs), x_, cfg,
-                           positions=positions, caches=None,
-                           update_cache=False, layout=layout,
-                           specs=unit_specs)
+                           positions=positions, caches=c_,
+                           update_cache=update_cache, layout=layout,
+                           specs=unit_specs, slices=slices)
 
-    remat = cfg.remat and torch.is_grad_enabled()
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     aux = dict(ZERO_AUX)
     for u in range(cfg.n_units):
         unit_params = _unit_slice(params["units"], u)
-        x, aux_u = checkpoint(unit, x, unit_params, use_reentrant=False) \
-            if remat else unit(x, unit_params)
+        if remat:
+            x, aux_u = checkpoint(unit, x, unit_params, use_reentrant=False)
+        else:
+            x, aux_u = unit(x, unit_params, None if caches is None else tuple(
+                type(c)(*(f[u] for f in c)) for c in caches))
         aux = _add_aux(aux, aux_u)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, None, aux
+    return x, caches, aux
 
 
 def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
@@ -336,20 +419,20 @@ def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
     sequence-parallel schedules.  MoE, SSM and RG-LRU blocks refuse to
     run so (``check_supported``).
 
-    Under the train layout (``layout``, a ``sharding.TrainLayout``;
-    never guessed from the shapes) ``params`` are this rank's slices
-    (``shard_params``), ``inputs`` the whole sequence of this rank's
-    batch rows, and the hidden state returned is this rank's shard of the
-    sequence over ``sp``; each unit gathers its ``fsdp`` dims inside its
-    checkpoint, and attention and the MLP run tensor-parallel over
-    ``tp``.  No caches: the train layout runs the training forward
-    (sharded caches are ROADMAP A12.5)."""
+    Under the train and serving layout (``layout``, a
+    ``sharding.TrainLayout``; never guessed from the shapes) ``params``
+    are this rank's slices (``shard_params``), ``inputs`` the whole
+    sequence of this rank's batch rows, and the hidden state returned is
+    this rank's shard of the sequence over ``sp``; each unit gathers its
+    ``fsdp`` dims (inside its checkpoint under autograd), and attention
+    and the MLP run tensor-parallel over ``tp``.  Caches are then
+    ``init_caches(rules=)``'s shards; a decode step's one token (S = 1
+    with caches) stays whole on every rank (``TrainLayout.one_token``),
+    and so does the hidden state returned."""
     if layout is not None:
-        if caches is not None or positions is not None:
-            raise NotImplementedError(
-                "the train layout runs the training forward: no caches or "
-                "positions (sharded caches are ROADMAP A12.5)")
-        return _forward_train_layout(params, inputs, cfg, layout)
+        return _forward_layout(params, inputs, cfg, layout, caches=caches,
+                               update_cache=update_cache,
+                               positions=positions)
     check_supported(cfg)
     if inputs.ndim == 2:
         x = embed_tokens(params["embed"], inputs, cfg)
@@ -410,20 +493,33 @@ def train_loss(params: dict, inputs, labels, cfg: ModelConfig, *,
     return loss, {"nll": nll, "tokens": n_tok, **aux}
 
 
-def prefill(params: dict, inputs, cfg: ModelConfig, caches):
-    """Process a full prompt, fill caches, return logits of last position."""
+def _logits(params: dict, hidden, cfg: ModelConfig, layout):
+    if layout is None:
+        return lm_logits(params["embed"], hidden, cfg)
+    return lm_logits_tp(params["embed"], hidden, cfg, layout,
+                        layout.specs["embed"])
+
+
+def prefill(params: dict, inputs, cfg: ModelConfig, caches, *,
+            layout=None):
+    """Process a full prompt, fill caches, return logits of last position.
+    Under a layout: this rank's slices, rows and cache shards (see
+    ``forward``), the whole (B, V) logits on every rank."""
     hidden, caches, _ = forward(params, inputs, cfg, caches=caches,
-                                update_cache=True)
-    logits = lm_logits(params["embed"], hidden[:, -1:], cfg)
-    return logits[:, 0], caches
+                                update_cache=True, layout=layout)
+    last = hidden[:, -1:] if layout is None else last_position(hidden,
+                                                               layout)
+    return _logits(params, last, cfg, layout)[:, 0], caches
 
 
-def decode_step(params: dict, tokens, pos, cfg: ModelConfig, caches):
-    """tokens: (B, 1) int (or (B, 1, D) embeddings); pos: int or () int."""
+def decode_step(params: dict, tokens, pos, cfg: ModelConfig, caches, *,
+                layout=None):
+    """tokens: (B, 1) int (or (B, 1, D) embeddings); pos: int or () int.
+    Under a layout as ``prefill``."""
     device = tokens.device
     positions = torch.as_tensor(pos, dtype=torch.int32,
                                 device=device).reshape(1, 1)
     hidden, caches, _ = forward(params, tokens, cfg, caches=caches,
-                                update_cache=True, positions=positions)
-    logits = lm_logits(params["embed"], hidden, cfg)
-    return logits[:, 0], caches
+                                update_cache=True, positions=positions,
+                                layout=layout)
+    return _logits(params, hidden, cfg, layout)[:, 0], caches

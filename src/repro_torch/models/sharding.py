@@ -36,7 +36,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.launch.collectives import all_gather_dim, all_gather_many
+from repro_torch.launch.collectives import (all_gather_dim, all_gather_many,
+                                            reduce_scatter_grad, sum_forward)
 from repro_torch.launch.mesh import axis_size
 
 Axis = Union[str, Sequence[str], None]
@@ -287,16 +288,24 @@ def gather_params(tree, rules: AxisRules, specs):
 
 @dataclasses.dataclass(frozen=True)
 class TrainLayout:
-    """The sharded trainer's layout (FSDP x TP, Megatron-SP): ``rules``
-    over the mesh and the parameters' spec tree (``param_pspecs``).
+    """The sharded layout of training and serving (FSDP x TP,
+    Megatron-SP): ``rules`` over the mesh and the parameters' spec tree
+    (``param_pspecs``).
 
     Each rank holds its slice of every parameter.  Just before a unit
     runs, its leaves' ``fsdp`` dims are all-gathered (``gather_tree``; the
     backward reduce-scatters the gradient), so a layer sees each leaf
     sharded over ``tp`` alone.  The residual stream is this rank's rows
-    of the batch (``batch``) and its shard of the sequence (``sp``)."""
+    of the batch (``batch``) and its shard of the sequence (``sp``).
+
+    ``one_token``: a decode step's residual stream, one token that cannot
+    be split over ``sp``, whole on every rank (the reference degrades it
+    to replicated): ``sp_axes`` is then empty, and the row-parallel
+    projections' partial sums are summed over ``tp`` on every rank
+    (``row_reduce``) instead of reduce-scattered."""
     rules: AxisRules
     specs: dict
+    one_token: bool = False
 
     @property
     def mesh(self):
@@ -315,7 +324,7 @@ class TrainLayout:
 
     @property
     def sp_axes(self) -> Tuple[str, ...]:
-        return self.axes("sp")
+        return () if self.one_token else self.axes("sp")
 
     @property
     def sp(self) -> int:
@@ -323,6 +332,15 @@ class TrainLayout:
 
     def tp_index(self) -> int:
         return self.mesh.axis_index(self.tp_axes) if self.tp_axes else 0
+
+    def row_reduce(self, out: torch.Tensor) -> torch.Tensor:
+        """A row-parallel projection's partial sums (B, S, D) -> this
+        rank's part of the residual stream: reduce-scattered to the
+        sequence shards over ``sp``, or under ``one_token`` summed over
+        ``tp`` in rank order, the same bits on every rank."""
+        if self.one_token:
+            return sum_forward(out, self.mesh, self.tp_axes)
+        return reduce_scatter_grad(out, self.mesh, self.sp_axes, 1)
 
     def gather_tree(self, tree, specs):
         """The leaves of a tree with their ``fsdp``-sharded dim gathered
@@ -366,3 +384,15 @@ class TrainLayout:
         want = self.axes("batch") + self.sp_axes
         return tuple(a for a in self.mesh.axis_names
                      if a in want and a not in held)
+
+
+class CacheShards(tuple):
+    """``init_caches(rules=)``'s caches: a tuple of entries, one a block
+    of the pattern, each leaf this rank's shard; ``shapes`` holds the
+    global caches' shapes and ``specs`` the specs they were cut by
+    (``cache_pspecs``), in the entries' structure."""
+
+    def __new__(cls, entries, shapes, specs):
+        out = super().__new__(cls, entries)
+        out.shapes, out.specs = shapes, specs
+        return out

@@ -9,7 +9,7 @@ with error feedback, fold the global-norm clip into the fused AdamW
 update, round bf16 masters stochastically.  The step updates the state's
 tensors in place (the reference donates them) and returns a new
 ``TrainState`` holding them.  ``make_serve_steps`` binds the LM's prefill
-and decode.
+and decode, sharded under ``rules`` on the same layout.
 
 Sharded training (``rules=``) follows the reference's layout (its
 ``DESIGN.md`` §5 and ``param_pspecs``): every 2-D projection shards its
@@ -220,14 +220,29 @@ def input_specs(cfg: ModelConfig, rules, *, shape: str, seq_len: int,
     raise ValueError(shape)
 
 
-def make_serve_steps(cfg: ModelConfig):
+def make_serve_steps(cfg: ModelConfig, rules=None):
     """(prefill_step(params, inputs, caches), decode_one(params, tokens,
-    pos, caches)) bound to ``cfg``; each returns (logits, caches)."""
+    pos, caches)) bound to ``cfg``; each returns (logits, caches).
+
+    Under ``rules`` (the reference's ``make_serve_steps(cfg, rules)``) the
+    steps run sharded on the train layout (``sharding.TrainLayout`` over
+    ``param_pspecs``: FSDP x TP, Megatron-SP for a prompt): ``params``
+    are this rank's slices (``interop.lm_params(rules=)``, or
+    ``init_model(keep=)``), the inputs this rank's rows of the batch
+    (``input_specs``: the batch over ``batch``, whole where it does not
+    divide), the caches ``init_caches(rules=, long=)``'s shards; every
+    rank returns the whole (B, V) logits.  Without rules, the unsharded
+    steps."""
+    layout = None
+    if rules is not None:
+        layout = TrainLayout(rules, param_pspecs(cfg, rules))
+        check_supported(cfg, layout)
+
     def prefill_step(params, inputs, caches):
-        return prefill(params, inputs, cfg, caches)
+        return prefill(params, inputs, cfg, caches, layout=layout)
 
     def decode_one(params, tokens, pos, caches):
-        return decode_step(params, tokens, pos, cfg, caches)
+        return decode_step(params, tokens, pos, cfg, caches, layout=layout)
 
     return prefill_step, decode_one
 
