@@ -239,7 +239,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 microbatch and weights, within LM_GRAD_BF16_TOL; (b) the main
                 path, ``make_train_step`` on bf16 compute over fp32
                 masters, 2 x 4,096 tokens from ``TokenBatchLoader(seed=0)``
-                in 2 microbatches, 8 steps: finite losses and norms, the
+                in 2 microbatches, 5 steps: finite losses and norms, the
                 last loss below the first, 24 flash launches a step, all
                 on the wgmma body; step times, tokens/s, the model-FLOPs
                 share of the bf16 peak and peak memory; (d) the driver,
@@ -251,7 +251,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 step with int8 compression and error feedback at full
                 width on the first microbatch; (f) nemotron's smoke config
                 with bf16 masters, moments and accumulator (stochastic
-                rounding) at the full configs' chunks, 8 steps;
+                rounding) at the full configs' chunks, 5 steps;
  13. lm-blocks - the MoE, SSM and RG-LRU blocks (ROADMAP A12.1), four
                 configs in turn, attn_impl "flash", weights from a seed:
                 olmoe_1b_7b (64 experts, top-8) and mamba2_780m and
@@ -269,7 +269,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 prefill's last MoE block on the card equal to the CPU's
                 from the same ``top_i``; (d) training, 2 x 4,096 tokens in 2
                 microbatches, 4 steps (olmoe at 4 layers, recurrentgemma at
-                BLOCKS_RG_TRAIN_LAYERS, mamba2 at 24, llama4 on its smoke
+                BLOCKS_RG_TRAIN_LAYERS, mamba2 at 12, llama4 on its smoke
                 config with bf16 masters and stochastic rounding): finite,
                 falling losses, the aux terms, 4 x the attention layers
                 flash launches a step; for olmoe two runs of 2 steps from
@@ -288,15 +288,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 A12.5) on the same four ranks after their training runs,
                 bf16 at full width, ``attn_impl="flash"``: gemma3_12b (6
                 layers, long_500k: 524,288 cache slots over long_seq =
-                (data, model) at (2, 2), an 8,192-token prompt, 8 decode
+                (data, model) at (2, 2), an 8,192-token prompt, 4 decode
                 steps), granite_34b (4 layers, decode_32k: a kv_seq cache
-                for MQA at (1, 4), 8 x 4,096, 16 steps) and starcoder2_7b
+                for MQA at (1, 4), 4 x 4,096, 8 steps) and starcoder2_7b
                 (2 layers, prefill_32k: a head-sharded cache at (1, 4), 1
                 x 32,768, 4 steps); every step's logits against the
                 unsharded serving of the same weights on the card fed the
                 same ids, the greedy ids where the unsharded top-2 margin
                 exceeds the tolerance, the same ids on every rank; row 8
                 in every prefill on every rank (wgmma);
+ 13d. lm-blocks-sharded - the MoE, SSM and RG-LRU blocks sharded
+                (ROADMAP A12.8) on the same four ranks after their serving
+                runs, bf16 over fp32 masters: olmoe_1b_7b (2 layers,
+                (2, 2), 32 experts a rank, dropping pairs), mamba2_780m (4
+                layers, (1, 4), 12 SSM heads a rank) and recurrentgemma_2b
+                (3 layers, (2, 2), the RG-LRU width over model) trained 3
+                steps and served (a prefill and 8 decode steps),
+                llama4_maverick (2 layers, (1, 4)) served from per-rank
+                chunked draws; each against the unsharded step and serving
+                on the card (losses, norms, aux terms, leaf gradient norms,
+                logits, greedy ids), the first MoE block's slots and
+                moe_dropped from the ranks' own input against the
+                unsharded dispatch exactly; row 8 in every forward with
+                attention (wgmma);
  14. seq-parallel - gemma3_12b at full width cut to 6 layers, its
                 sequence sharded over four ranks of the ``model`` axis
                 (``torch.multiprocessing``; on one card the ranks share it
@@ -595,23 +609,29 @@ CWS_CLASSES = 10
 # 2 x 4,096 batch), run (b) (starcoder2's 18 / 2 a rank of 2, 1 x 4,096),
 # olmoe's 16 / 16 and llama4's 40 / 8 at D = 128 (4 x 2,048 prefills) and
 # recurrentgemma's 10 / 1 under its 2,048 window (a 1 x 4,096 train
-# microbatch)
+# microbatch); the sharded blocks' heads a rank (BS_RUNS): olmoe's 8 / 8
+# at (1, 4,096) (a data rank's train rows) and (1, 2,048) (its prefill
+# row), recurrentgemma's 5 / 1 at (1, 4,096) under the window, llama4's
+# 10 / 2 at (1, 2,048)
 FLASH_TIMING = ((4, 2048, 0, 16, 8, 256), (4, 2048, 1024, 16, 8, 256),
                 (1, 32768, 0, 16, 8, 256), (1, 32768, 1024, 16, 8, 256),
                 (1, 4096, 0, 16, 8, 256), (1, 4096, 1024, 16, 8, 256),
                 (2, 4096, 1024, 4, 2, 256), (2, 4096, 0, 4, 2, 256),
                 (1, 4096, 0, 18, 2, 128), (4, 2048, 0, 16, 16, 128),
-                (4, 2048, 0, 40, 8, 128), (1, 4096, 2048, 10, 1, 256))
+                (4, 2048, 0, 40, 8, 128), (1, 4096, 2048, 10, 1, 256),
+                (1, 4096, 0, 8, 8, 128), (1, 2048, 0, 8, 8, 128),
+                (1, 4096, 2048, 5, 1, 256), (1, 2048, 0, 10, 2, 128))
 # The LM training slice: gemma3_12b (src/repro/configs/gemma3_12b.py:CONFIG)
 # at full width, depth cut from 48 to 6 layers (one 5 local : 1 global
 # unit; 48 layers of fp32 masters, moments and gradients need ~190 GB),
 # attn_impl "flash", bf16 compute over fp32 masters: the reference's
 # train_4k sequence length, a global batch of 2 sequences in 2
-# microbatches, TokenBatchLoader(seed=0), warmup 1, 8 steps; weights from
+# microbatches, TokenBatchLoader(seed=0), warmup 1, 5 steps; weights from
 # LM_TRAIN_SEED.  The fp32 gradient check takes one sequence of 1,024
 # tokens (above attn_chunk = 512, so the flash route is taken).
 LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 6, 2, 4096
-LM_TRAIN_MICRO, LM_TRAIN_STEPS, LM_TRAIN_LR = 2, 8, 3e-4
+# (the steps cut from 8 to 5 beside the sharded blocks' runs)
+LM_TRAIN_MICRO, LM_TRAIN_STEPS, LM_TRAIN_LR = 2, 5, 3e-4
 LM_TRAIN_SEED, LM_GRAD_SEQ = 2028, 1024
 # the driver's resume check on the smoke config: 20 steps, checkpoints
 # every 5, the interrupted run stopped after 10
@@ -632,8 +652,9 @@ BLOCKS_SEED = 2029
 BLOCKS_ARCHS = ("olmoe_1b_7b", "mamba2_780m", "recurrentgemma_2b",
                 "llama4_maverick_400b_a17b")
 BLOCKS_SERVE_LAYERS = {"llama4_maverick_400b_a17b": 2}
-# (mamba2's training cut from 48 layers to 24 beside the sharded LM phase)
-BLOCKS_TRAIN_LAYERS = {"olmoe_1b_7b": 4, "mamba2_780m": 24}
+# (mamba2's training cut from 48 layers to 24 beside the sharded LM phase,
+# to 12 beside the sharded blocks' runs)
+BLOCKS_TRAIN_LAYERS = {"olmoe_1b_7b": 4, "mamba2_780m": 12}
 # (recurrentgemma's training cut from 26 layers to 13 beside the sharded
 # LM phase)
 BLOCKS_RG_TRAIN_LAYERS = 13
@@ -690,11 +711,11 @@ SH_STEP_TOL = 2e-2
 # long_500k cell: its global cache's 524,288 slots over long_seq = (data,
 # model), the local caches' 1,024 over kv_seq, batch 1 whole on both data
 # ranks (8,192 of the 524,288 tokens prompted); (b) granite_34b at 4 of 88
-# layers, decode_32k at batch 8 of 128 (MQA: one KV head, so kv_seq), a
+# layers, decode_32k at batch 4 of 128 (MQA: one KV head, so kv_seq), a
 # 4,096-token prompt of 32,768 slots; (c) starcoder2_7b at 2 of 32 layers,
 # prefill_32k at batch 1 of 32: 4 KV heads over model = 4, a head-sharded
 # cache, the whole 32,768-token prompt; (d) (b)'s config and mesh at batch
-# 1 with its slots cut to prompt + steps (4,112, 1,028 a rank): in (a)'s
+# 1 with its slots cut to prompt + steps (4,104, 1,026 a rank): in (a)'s
 # global and (b)'s caches every written slot lies on the first cache rank,
 # so the other ranks add nothing to the max, l and PV; here the prompt
 # fills every rank's slots and the decode tokens land on the last rank, so
@@ -702,14 +723,16 @@ SH_STEP_TOL = 2e-2
 # and batches cut for the time limit: every collective moves through host
 # copies.
 SV_SEED = 2031
-SV_RUNS = (("a", "gemma3_12b", 6, "long_500k", (2, 2), 1, 524288, 8192, 8,
+# (cut beside the sharded blocks' runs: (a)'s decode steps 8 ->
+# 4, (b)'s batch 8 -> 4 and steps 16 -> 8, (d)'s steps 16 -> 8)
+SV_RUNS = (("a", "gemma3_12b", 6, "long_500k", (2, 2), 1, 524288, 8192, 4,
             True),
-           ("b", "granite_34b", 4, "decode_32k", (1, 4), 8, 32768, 4096, 16,
+           ("b", "granite_34b", 4, "decode_32k", (1, 4), 4, 32768, 4096, 8,
             False),
            ("c", "starcoder2_7b", 2, "prefill_32k", (1, 4), 1, 32768 + 4,
             32768, 4, False),
-           ("d", "granite_34b", 4, "decode_32k", (1, 4), 1, 4096 + 16, 4096,
-            16, False))
+           ("d", "granite_34b", 4, "decode_32k", (1, 4), 1, 4096 + 8, 4096,
+            8, False))
 # Every step's logits against the unsharded serving on the card fed the
 # same ids, bf16 compute: the two differ where the row-parallel
 # projections' partial sums are rounded to bf16 and added over ranks (the
@@ -721,6 +744,57 @@ SV_RUNS = (("a", "gemma3_12b", 6, "long_500k", (2, 2), 1, 524288, 8192, 8,
 # ranks' greedy id equal to the unsharded argmax wherever its top-2
 # margin exceeds that limit.
 SV_TOL = 5e-2
+# The sharded MoE / SSM / RG-LRU slice (phase_lm_blocks_sharded, ROADMAP
+# A12.8): on the four ranks of the sharded spawn after its serving runs
+# (no spawn of its own), bf16 over fp32 masters, attn_impl "flash",
+# weights from BS_SEED (each rank keeping its slices of the same draws),
+# TokenBatchLoader(seed=0)'s global batch (each data rank its rows),
+# BS_LR with warmup 1, SH_STEPS steps; serving prompts from numpy and
+# greedy decode steps.  (label, arch, layers, block pattern or None,
+# (data, model), train (global batch, sequence) or None, serve (batch,
+# prompt, decode steps)): (a) olmoe_1b_7b, 2 of 16 layers over (2, 2): the
+# batch and the sequence split, 32 of 64 experts a rank, capacity factor
+# 1.25 (C = 640 a row of 4,096 tokens at top-8), gated to drop pairs;
+# (b) mamba2_780m, 4 of 48 layers over (1, 4): 12 of 48 SSM heads a rank;
+# (c) recurrentgemma_2b, 3 of 26 layers (rglru, rglru, local: one unit)
+# over (2, 2) (10 attention heads do not divide over 4, ROADMAP A12.6):
+# the RG-LRU width 1,280 a rank, a 4,096-token prompt past the 2,048
+# window, batch 1 whole on both data ranks; (d) llama4_maverick, 2 of 48
+# layers (attention + dense MLP, attention + 128-expert MoE with the
+# shared expert) over (1, 4), 32 experts a rank, served only: its MoE
+# stack is 32.2 GB in bf16, so each rank draws only its chunks
+# (``bs_chunked_weights``), the whole model drawn once, in the parent.
+# Depths cut to keep the phase inside its 150 s.
+# The learning rate is 3e-4 but for (a): olmoe's third Adam step at
+# 3e-4 (warmup 1) raised its loss 11.40 -> 11.83, its gradient norm 10.1
+# -> 30.7, in the unsharded step as well, a property of the 2-layer cut at
+# full width, so (a) steps at 1e-5, as
+# phase_lm_sharded's starcoder2 run does.
+BS_SEED = 2032
+BS_LR = {"a": 1e-5, "b": 3e-4, "c": 3e-4}
+BS_RUNS = (("a", "olmoe_1b_7b", 2, None, (2, 2), (2, 4096), (2, 2048, 8)),
+           ("b", "mamba2_780m", 4, None, (1, 4), (4, 4096), (4, 2048, 8)),
+           ("c", "recurrentgemma_2b", 3, ("rglru", "rglru", "local"),
+            (2, 2), (2, 4096), (1, 4096, 8)),
+           ("d", "llama4_maverick_400b_a17b", 2, None, (1, 4), None,
+            (1, 2048, 8)))
+BS_CHUNKED = ("d",)           # the runs whose weights are drawn in chunks
+BS_DRAW_CHUNK = 1 << 26       # elements a chunk
+# Every run against the same config's unsharded step and serving on the
+# card, from the same weights, one microbatch of the global batch (its aux
+# terms are the global batch's, as the ranks'): losses, grad norms and
+# the aux terms within SH_TOL at step 1 and SH_STEP_TOL later, every
+# leaf's gradient norm within SH_LEAF_TOL (phase_lm_sharded's limits);
+# logits within SV_TOL max |logit| and greedy ids where the margin allows
+# (phase_lm_serve_sharded's); the slots, kept flags and moe_dropped of the
+# first MoE block, from the input the ranks routed, exactly.  The model's
+# moe_dropped at step 1 within BS_DROP_TOL of the unsharded (absolute): the
+# two runs' bf16 activations differ by one-ulp flips, which move a token's
+# top-k pick where two of its router probabilities tie within them, and
+# each moved pick changes at most two pairs' fate at the capacity (itself
+# and the one it displaces or lets in): the limit allows 1% of the pairs
+# to move so.
+BS_DROP_TOL = 2e-2
 # NVIDIA's data-sheet dense bf16 rate of an H100 SXM (at 700 W)
 PUBLISHED_BF16_FLOPS = 989e12
 # The sequence-parallel slice: gemma3_12b at full width, depth cut from 48
@@ -3810,6 +3884,15 @@ def phase_flash_parity(dev, results):
     cases.append((8, 4096, 4096, 12, 1, 128, 0, 0))
     cases.append((1, 4096, 4096, 12, 1, 128, 0, 0))
     cases.append((1, 2048, 32768, 9, 1, 128, 0, 30720))
+    # the sharded blocks' runs (BS_RUNS), each rank's heads: (a) olmoe's
+    # 8 / 8 a rank of model = 2 over a data rank's 1 x 4,096 train rows and
+    # 1 x 2,048 prefill row; (c) recurrentgemma's 5 / 1 over 1 x 4,096
+    # under its 2,048 window; (d) llama4's 10 / 2 a rank of 4 over 2,048
+    for c in ((1, 4096, 4096, 8, 8, 128, 0, 0),
+              (1, 2048, 2048, 8, 8, 128, 0, 0),
+              (1, 4096, 4096, 5, 1, 256, 2048, 0),
+              (1, 2048, 2048, 10, 2, 128, 0, 0)):
+        cases.append(c)
     r = results[FLASH[0]]
     worst, ag_worst = {}, {}
     fa.reset_launches()
@@ -3855,7 +3938,10 @@ def phase_flash_parity(dev, results):
           f"prefills' heads a rank: gemma3 8/4 D = 256 at (1, 8192) window "
           f"0/1024, granite 12/1 D = 128 at (8, 4096) and (1, 4096), "
           f"starcoder2 9/1 D = 128, 2,048 q rows at q_base 30,720 against "
-          f"32,768 keys), fp32 and bf16; "
+          f"32,768 keys; the sharded blocks' heads a rank: olmoe 8/8 D = 128 "
+          f"at (1, 4096) and (1, 2048), recurrentgemma 5/1 D = 256 at "
+          f"(1, 4096) window 2048, llama4 10/2 D = 128 at (1, 2048)), fp32 "
+          f"and bf16; "
           + "; ".join(f"worst {k} |cuda - plain| / tolerance {v[0]:.4g} at "
                       f"(b, Sq, Sk, H, G, D, window, q_base) = {v[1]}, max "
                       f"{v[2]:.3g}" for k, v in worst.items())
@@ -5194,6 +5280,11 @@ def sh_rank(rank, world, init_method, spec):
             report["serve-" + run[0]] = sv_rank_body(rank, dev, run, spec)
             torch.cuda.empty_cache()
         report["serve_s"] = time.perf_counter() - serve_t0
+        blocks_t0 = time.perf_counter()
+        for run in spec.get("blocks", ()):
+            report["blocks-" + run[0]] = bs_rank_body(rank, dev, run, spec)
+            torch.cuda.empty_cache()
+        report["blocks_s"] = time.perf_counter() - blocks_t0
         pathlib.Path(spec["outdir"], f"rank{rank}.json").write_text(
             json.dumps(report))
     finally:
@@ -5291,18 +5382,24 @@ def sh_rank_body(rank, dev, run, spec):
     return rep
 
 
-def start_sharded(runs, ckpt, resume=False, serve=()):
+def start_sharded(runs, ckpt, resume=False, serve=(), blocks=()):
     """Spawn SH_RANKS ranks that take ``runs`` in turn, then the serving
-    runs ``serve``, once ``start["go"]`` exists (not joined: their
-    start-up, CUDA context and process group overlap the parent's work);
-    ``finish_sharded`` says go and joins them."""
+    runs ``serve``, then the sharded blocks' runs ``blocks``, once
+    ``start["go"]`` exists (not joined: their start-up, CUDA context and
+    process group overlap the parent's work); ``finish_sharded`` says go
+    and joins them."""
     import torch.multiprocessing
     outdir = ROOT / "build" / "lm_sharded" / ("resume" if resume else "runs")
     shutil.rmtree(outdir, ignore_errors=True)
     outdir.mkdir(parents=True)
+    blocks_dir = ROOT / "build" / "lm_blocks_sharded"
+    if blocks:
+        shutil.rmtree(blocks_dir, ignore_errors=True)
+        blocks_dir.mkdir(parents=True)
     spec = {"runs": runs, "outdir": str(outdir), "resume": resume,
             "ckpt": str(ckpt), "go": str(outdir / "go"), "serve": serve,
-            "serve_go": str(outdir / "serve_go")}
+            "serve_go": str(outdir / "serve_go"), "blocks": blocks,
+            "blocks_dir": str(blocks_dir)}
     ctx = torch.multiprocessing.spawn(
         sh_rank, args=(SH_RANKS, f"tcp://localhost:{free_port()}", spec),
         nprocs=SH_RANKS, join=False)
@@ -5342,6 +5439,9 @@ def finish_sharded(start, serve_after=None):
         out["serve-" + run[0]] = [rep["serve-" + run[0]] for rep in reports]
         out["logits-" + run[0]] = torch.load(
             outdir / f"serve-{run[0]}.pt", weights_only=True)
+    out["blocks_s"] = [rep["blocks_s"] for rep in reports]
+    for run in spec["blocks"]:
+        out["blocks-" + run[0]] = [rep["blocks-" + run[0]] for rep in reports]
     shutil.rmtree(outdir, ignore_errors=True)
     waits = [rep["waited_s"] for rep in reports]
     return out, wall, waits
@@ -5360,7 +5460,7 @@ def lm_sharded_spawns():
     their ranks start up and wait for their go."""
     ckpt = ROOT / "build" / "lm_sharded_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    return [start_sharded(SH_RUNS, ckpt, serve=SV_RUNS),
+    return [start_sharded(SH_RUNS, ckpt, serve=SV_RUNS, blocks=BS_RUNS),
             start_sharded([r for r in SH_RUNS if r[0] == "b"], ckpt,
                           resume=True)], ckpt
 
@@ -5405,6 +5505,8 @@ def phase_lm_sharded(dev, card, results, mhz, sms):
             stop_sharded(st)
         shutil.rmtree(ckpt, ignore_errors=True)
     serve_wait = max(every["serve_waited_s"])
+    train_wall = wall - max(every["serve_s"]) - max(every["blocks_s"]) - \
+        serve_wait
     for run in SH_RUNS:
         label, arch, layers, batch, seq, (data, model), lr = run
         cfg = sh_config(arch, layers)
@@ -5516,10 +5618,11 @@ def phase_lm_sharded(dev, card, results, mhz, sms):
               f"{ref['peak_gb']:.2f} GB (the three runs' unsharded steps "
               f"{refs_s:.1f} s while the ranks started: they waited "
               f"{min(waits):.1f}-{max(waits):.1f} s); the three runs "
-              f"{wall - max(every['serve_s']) - serve_wait:.1f} s (then "
+              f"{train_wall:.1f} s (then "
               f"{serve_wait:.1f} s waiting for the LM driver check to end, "
               f"then the serving runs "
-              f"{max(every['serve_s']):.1f} s)"
+              f"{max(every['serve_s']):.1f} s, then the sharded blocks' "
+              f"runs {max(every['blocks_s']):.1f} s)"
               + (f"; checkpoint at step 2 {o['ckpt_s']:.1f} s, resumed on a "
                  f"fresh spawn (started with the first, then {wall2:.1f} s; "
                  f"the restore {max(o['resume_init_s']):.1f} s): step 3's "
@@ -5529,6 +5632,8 @@ def phase_lm_sharded(dev, card, results, mhz, sms):
     results["lm_sharded"] = out
     results["lm_serve_ranks"] = {k: v for k, v in every.items()
                                  if k.startswith(("serve", "logits-"))}
+    results["lm_blocks_ranks"] = {k: v for k, v in every.items()
+                                  if k.startswith("blocks")}
 
 
 def sv_prompts(cfg, batch, prompt):
@@ -5682,7 +5787,7 @@ def sv_unsharded(run, ids, dev):
     return out
 
 
-def sv_compare(label, got, want, ids, vocab):
+def sv_compare(label, got, want, ids, vocab, what="lm-serve-sharded"):
     """Each step's worst |dlogit| over its limit, and the greedy ids
     checked: (worst ratio, its step, ids checked, ids checked equal)."""
     worst, at, checked = 0.0, 0, 0
@@ -5693,7 +5798,7 @@ def sv_compare(label, got, want, ids, vocab):
         err = float((g - w).abs().max())
         if not math.isfinite(err) or err > lim:
             raise AssertionError(
-                f"lm-serve-sharded ({label}): step {t}'s logits differ from "
+                f"{what} ({label}): step {t}'s logits differ from "
                 f"the unsharded serving's by {err:.4g} (limit {lim:.4g} = "
                 f"{SV_TOL:g} max |logit|)")
         if err / lim > worst:
@@ -5705,7 +5810,7 @@ def sv_compare(label, got, want, ids, vocab):
         checked += int(clear.sum())
         if not torch.equal(got_ids[clear], want_ids[clear]):
             raise AssertionError(
-                f"lm-serve-sharded ({label}): step {t}'s greedy ids "
+                f"{what} ({label}): step {t}'s greedy ids "
                 f"{got_ids.tolist()} vs the unsharded argmax "
                 f"{want_ids.tolist()} where the top-2 margin exceeds "
                 f"{lim:.4g}")
@@ -5811,6 +5916,571 @@ def phase_lm_serve_sharded(dev, card, results):
               f"comparator {ref_s:.1f} s")
     out["waited_s"] = ranks["serve_waited_s"]
     results["lm_serve_sharded"] = out
+
+
+def bs_config(run):
+    """A run's config: ``sh_config``'s, its block pattern replaced where the
+    run names one."""
+    from repro_torch.configs import get_config
+    _, arch, layers, pattern = run[:4]
+    cfg = get_config(arch, "full")
+    return dataclasses.replace(cfg, n_layers=layers, attn_impl="flash",
+                               block_pattern=pattern or cfg.block_pattern)
+
+
+def bs_chunked_weights(cfg, dev, rules=None):
+    """Serving weights drawn a chunk at a time, each chunk from a generator
+    of its own (BS_SEED, the leaf's index, the chunk's): under ``rules`` a
+    rank draws only the chunks that meet its slices (``param_pspecs``), so
+    its weights are the slices of the whole draw and no rank holds a whole
+    block.  Truncated normals at fan-in^-0.5 (the token table at 1), norm
+    scales zero; the ``FP32_LEAVES`` in fp32, the rest in the compute
+    dtype."""
+    import itertools
+    from repro_torch.models import init_model
+    from repro_torch.models.layers import trunc_normal
+    from repro_torch.models.model import FP32_LEAVES
+    from repro_torch.models.sharding import named_leaves, shard_bounds, \
+        spec_at
+    from repro_torch.training.trainer import param_pspecs
+    shapes = init_model(cfg, device="meta")
+    specs = None if rules is None else param_pspecs(cfg, rules)
+    out = {}
+    for li, (path, t) in enumerate(named_leaves(shapes)):
+        name, shape = path[-1], tuple(t.shape)
+        dtype = torch.float32 if name in FP32_LEAVES else cfg.compute_dtype
+        bounds = [(0, n) for n in shape] if rules is None else \
+            shard_bounds(shape, spec_at(specs, path), rules.mesh)
+        local = torch.zeros([hi - lo for lo, hi in bounds], dtype=dtype,
+                            device=dev)
+        if name != "scale":
+            scale = 1.0 if name == "tokens" else shape[-2] ** -0.5
+            # chunks: an index of the dims before k, a block of rows of
+            # dim k, the dims after it whole
+            k = next(i for i in range(len(shape))
+                     if math.prod(shape[i + 1:]) <= BS_DRAW_CHUNK)
+            rows = max(1, BS_DRAW_CHUNK // math.prod(shape[k + 1:]))
+            n = 0
+            for lead in itertools.product(*(range(x) for x in shape[:k])):
+                for r0 in range(0, shape[k], rows):
+                    r1 = min(r0 + rows, shape[k])
+                    n += 1
+                    lo, hi = bounds[k]
+                    a, b = max(r0, lo), min(r1, hi)
+                    if a >= b or any(not bl <= i < bh for i, (bl, bh) in
+                                     zip(lead, bounds[:k])):
+                        continue
+                    gen = torch.Generator(dev).manual_seed(
+                        BS_SEED * 1_000_003 + li * 10_007 + n)
+                    piece = trunc_normal(gen, (r1 - r0,) + shape[k + 1:],
+                                         scale, dtype, dev)[a - r0:b - r0]
+                    for d, (dl, dh) in enumerate(bounds[k + 1:]):
+                        piece = piece.narrow(d + 1, dl, dh - dl)
+                    dst = local
+                    for d, i in enumerate(lead):
+                        dst = dst.select(0, i - bounds[d][0])
+                    dst[a - lo:b - lo] = piece
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[name] = local
+    return out
+
+
+def bs_weights(run, cfg, dev, rules=None):
+    """A serving run's weights from BS_SEED (``sv_weights``' draw, or
+    ``bs_chunked_weights`` for the runs of BS_CHUNKED), this rank's slices
+    under ``rules``."""
+    if run[0] in BS_CHUNKED:
+        return bs_chunked_weights(cfg, dev, rules)
+    from repro_torch.models import cast_params, init_model
+    from repro_torch.models.sharding import shard_of, spec_at
+    from repro_torch.training.trainer import param_pspecs
+    keep = None
+    if rules is not None:
+        specs = param_pspecs(cfg, rules)
+        keep = lambda path, t: shard_of(  # noqa: E731
+            t, rules.mesh, spec_at(specs, path)).clone()
+    params = init_model(cfg, torch.Generator(dev).manual_seed(BS_SEED), dev,
+                        keep=keep)
+    return cast_params(params, cfg.compute_dtype)
+
+
+def bs_prompts(cfg, batch, prompt):
+    return np.random.default_rng(BS_SEED).integers(0, cfg.vocab,
+                                                   (batch, prompt))
+
+
+@contextlib.contextmanager
+def first_dispatch():
+    """Record the first router and input that ``moe.route`` sees, and the
+    first slots, kept flags and capacity of ``moe.dispatch_slots``."""
+    from repro_torch.models import moe
+    seen = {}
+    route, slots = moe.route, moe.dispatch_slots
+
+    def spy_route(params, x, cfg):
+        seen.setdefault("route", (params["router"].detach(), x.detach()))
+        return route(params, x, cfg)
+
+    def spy_slots(top_i, n_experts, cap):
+        out = slots(top_i, n_experts, cap)
+        seen.setdefault("slots", (out[0], out[1], cap))
+        return out
+    moe.route, moe.dispatch_slots = spy_route, spy_slots
+    try:
+        yield seen
+    finally:
+        moe.route, moe.dispatch_slots = route, slots
+
+
+def bs_save_dispatch(seen, path):
+    router, x = seen["route"]
+    slot, valid, cap = seen["slots"]
+    torch.save({"router": router.cpu(), "x": x.cpu(), "slot": slot.cpu(),
+                "valid": valid.cpu(), "cap": cap}, path)
+
+
+def bs_rank_body(rank, dev, run, spec):
+    """A sharded blocks' run on this rank: SH_STEPS steps of the sharded
+    step (step 1's leaf gradient norms and, for an MoE, its first MoE
+    block's routing recorded), then a prefill and greedy decode steps
+    through ``make_serve_steps(cfg, rules)``, the launch counts zeroed
+    just before each and read just after; the ranks of model index 0 save
+    their first MoE block's routing, rank 0 every step's logits, both
+    gathered over the batch ranks."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_caches
+    from repro_torch.models.sharding import gather_params, make_rules, \
+        shard_of
+    from repro_torch.training import (init_train_state, make_serve_steps,
+                                      make_train_step)
+    from repro_torch.training.trainer import input_specs, param_pspecs
+    label, arch, layers, _, (data, model), train, serve = run
+    cfg = bs_config(run)
+    mesh = make_mesh(data, model)
+    rules = make_rules(mesh)
+    out = pathlib.Path(spec["blocks_dir"])
+    routing = cfg.moe is not None and mesh.coords["model"] == 0
+    rep = {"rank": rank, "coords": mesh.coords,
+           "transport": collectives.transport("gloo", dev)}
+    if train:
+        batch, seq = train
+        hp = sh_hparams(BS_LR[label])
+        specs = param_pspecs(cfg, rules)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state = init_train_state(cfg, hp, generator=torch.Generator(
+            dev).manual_seed(BS_SEED), device=dev, rules=rules)
+        torch.cuda.synchronize(dev)
+        rep["train_init_s"] = time.perf_counter() - t0
+        sq = {}
+        step = make_train_step(cfg, hp, rules, on_grads=lambda g: sq.update(
+            sh_leaf_sq(g, mesh, specs)) if not sq else None)
+        rep.update(metrics=[], step_s=[], host_bytes=[], flash_launches=[])
+        fa.reset_launches()
+        for i in range(SH_STEPS):
+            b = sh_batch(cfg, batch, seq, i, dev, data, mesh.coords["data"])
+            before = fa.LAUNCHES[FLASH[0]]
+            collectives.reset_host_copies()
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            with first_dispatch() as seen:
+                state, m = step(state, b)
+            torch.cuda.synchronize(dev)
+            rep["step_s"].append(time.perf_counter() - t1)
+            rep["metrics"].append({k: float(v) for k, v in m.items()})
+            rep["host_bytes"].append(collectives.HOST_COPIES["bytes"])
+            rep["flash_launches"].append(fa.LAUNCHES[FLASH[0]] - before)
+            if i == 0 and routing:
+                bs_save_dispatch(seen, out / f"{label}-train-"
+                                 f"{mesh.coords['data']}.pt")
+        rep["train_body_launches"] = dict(fa.BODY_LAUNCHES)
+        rep["train_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        rep["leaf_sq"] = sq
+        del state, step, m
+        torch.cuda.empty_cache()
+    batch, prompt, steps = serve
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = bs_weights(run, cfg, dev, rules)
+    rows = input_specs(cfg, rules, shape="prefill", seq_len=prompt,
+                       global_batch=batch)["inputs"].spec[:1]
+    mine = shard_of(torch.as_tensor(bs_prompts(cfg, batch, prompt),
+                                    device=dev), mesh, rows)
+    caches = init_caches(cfg, batch, prompt + steps, rules=rules, device=dev)
+    pre, dec = make_serve_steps(cfg, rules)
+    torch.cuda.synchronize(dev)
+    rep["serve_init_s"] = time.perf_counter() - t0
+    rep["state_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+    # the main path: counts zeroed just before, read just after
+    fa.reset_launches()
+    collectives.reset_host_copies()
+    t1 = time.perf_counter()
+    with first_dispatch() as seen:
+        logits, caches = pre(params, mine, caches)
+    torch.cuda.synchronize(dev)
+    rep["prefill_s"] = time.perf_counter() - t1
+    rep["prefill_host_bytes"] = collectives.HOST_COPIES["bytes"]
+    if routing:
+        bs_save_dispatch(seen, out / f"{label}-serve-"
+                         f"{mesh.coords['data']}.pt")
+    outs, ids = [logits], [logits[:, :cfg.vocab].argmax(-1)]
+    rep.update(decode_s=[], decode_host_bytes=[])
+    for t in range(steps):
+        collectives.reset_host_copies()
+        t1 = time.perf_counter()
+        logits, caches = dec(params, ids[-1][:, None], prompt + t, caches)
+        ids.append(logits[:, :cfg.vocab].argmax(-1))
+        torch.cuda.synchronize(dev)
+        rep["decode_s"].append(time.perf_counter() - t1)
+        rep["decode_host_bytes"].append(collectives.HOST_COPIES["bytes"])
+        outs.append(logits)
+    rep["serve_launches"] = fa.LAUNCHES[FLASH[0]]
+    rep["serve_body_launches"] = dict(fa.BODY_LAUNCHES)
+    rep["serve_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    stacked = gather_params(torch.stack(outs, 1), rules, rows + (None, None))
+    rep["ids"] = gather_params(torch.stack(ids, 1), rules,
+                               rows + (None,)).tolist()
+    rep["logits_digest"] = sh_digest([stacked])
+    rep["lengths"] = [int(c.length[0]) for c in caches]
+    rep["cache_shapes"] = [[list(t.shape) for t in c[:-1]] for c in caches]
+    if rank == 0:
+        torch.save(stacked.cpu(), out / f"{label}-logits.pt")
+    del params, caches, outs, stacked, logits
+    return rep
+
+
+def bs_unsharded_train(run, dev):
+    """The unsharded steps on the card from the run's masters, the global
+    batch in one microbatch (so the aux terms are the global batch's, as
+    the ranks'): every step's metrics, step 1's leaves' squared gradient
+    norms, and the first MoE block's routing of step 1."""
+    from repro_torch.training import init_train_state, make_train_step
+    label, arch, layers, _, _, (batch, seq), _ = run
+    cfg = bs_config(run)
+    hp = sh_hparams(BS_LR[label])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, hp, generator=torch.Generator(
+        dev).manual_seed(BS_SEED), device=dev)
+    sq = {}
+    step = make_train_step(cfg, hp, on_grads=lambda g: sq.update(
+        sh_leaf_sq(g)) if not sq else None)
+    out = {"metrics": [], "step_s": []}
+    for i in range(SH_STEPS):
+        b = sh_batch(cfg, batch, seq, i, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t1)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+    out.update(leaf_sq=sq, wall_s=time.perf_counter() - t0,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del state, step, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def bs_unsharded_serve(run, ids, dev):
+    """The unsharded serving of the run's weights on the card, fed the
+    ranks' ids: every step's logits (fp32 on the host), prefill and
+    decode seconds, peak GB."""
+    from repro_torch.models import init_caches
+    from repro_torch.training import make_serve_steps
+    label, arch, layers, _, _, _, (batch, prompt, steps) = run
+    cfg = bs_config(run)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bs_weights(run, cfg, dev)
+    caches = init_caches(cfg, batch, prompt + steps, device=dev)
+    pre, dec = make_serve_steps(cfg)
+    toks = torch.as_tensor(bs_prompts(cfg, batch, prompt), device=dev)
+    fed = torch.as_tensor(ids, device=dev)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    logits, caches = pre(params, toks, caches)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    outs = [logits.float().cpu()]
+    t0 = time.perf_counter()
+    for t in range(steps):
+        logits, caches = dec(params, fed[:, t:t + 1], prompt + t, caches)
+        outs.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    out.update(step_s=(time.perf_counter() - t0) / steps,
+               logits=torch.stack(outs, 1),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def bs_dispatch(label, kind, data, cfg, dev):
+    """The first MoE block's routing that the ranks saved (each data rank
+    its rows), redone unsharded on the card from the same router and
+    input: the slots and kept flags must equal the ranks', and the global
+    ``moe_dropped`` the unsharded one, bit for bit."""
+    from repro_torch.models import moe
+    out = ROOT / "build" / "lm_blocks_sharded"
+    got = [torch.load(out / f"{label}-{kind}-{i}.pt", weights_only=True)
+           for i in range(data)]
+    x = torch.cat([g["x"] for g in got]).to(dev)
+    cap = got[0]["cap"]
+    top_i = moe.route({"router": got[0]["router"].to(dev)}, x, cfg)[3]
+    slot, valid = moe.dispatch_slots(top_i, cfg.moe.num_experts, cap)
+    r_slot = torch.cat([g["slot"] for g in got])
+    r_valid = torch.cat([g["valid"] for g in got])
+    share = moe._dropped_share(valid)
+    r_share = moe._dropped_count(r_valid.sum(), torch.tensor(r_valid.numel()))
+    if not (torch.equal(slot.cpu(), r_slot) and
+            torch.equal(valid.cpu(), r_valid) and
+            torch.equal(share.cpu(), r_share)):
+        raise AssertionError(
+            f"lm-blocks-sharded ({label}) {kind}: the ranks' slots, kept "
+            f"flags or moe_dropped differ from the unsharded dispatch of "
+            f"the same router and input")
+    return {"pairs": int(valid.numel()), "capacity": cap,
+            "dropped": int(valid.numel() - valid.sum()),
+            "moe_dropped": float(share)}
+
+
+def phase_lm_blocks_sharded(dev, card, results, mhz, sms):
+    """The MoE, SSM and RG-LRU blocks sharded (ROADMAP A12.8): BS_RUNS, run
+    by the four ranks of the sharded spawn after its serving runs
+    (``phase_lm_sharded``), held here against the same configs'
+    unsharded steps and serving on the card from the same weights: the
+    losses, grad norms, aux terms and every leaf's gradient norm at step
+    1, the losses and norms after; finite, falling losses, the same on
+    every rank; (a) dropping pairs; every step's logits within SV_TOL and
+    the greedy ids where the margin allows, ids and logits the same on
+    every rank; the first MoE block's slots, kept flags and moe_dropped
+    from the ranks' own router and input, exactly; row 8 in every forward
+    with attention, on the wgmma body."""
+    ranks = results.pop("lm_blocks_ranks")
+    peak = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
+    out = {}
+    t_phase = time.perf_counter()
+    try:
+        for run in BS_RUNS:
+            out[run[0]] = bs_check(run, ranks["blocks-" + run[0]], dev,
+                                   card, peak, results)
+    finally:
+        shutil.rmtree(ROOT / "build" / "lm_blocks_sharded",
+                      ignore_errors=True)
+    out["ranks_s"] = ranks["blocks_s"]
+    out["comparators_s"] = time.perf_counter() - t_phase
+    results["lm_blocks_sharded"] = out
+    print(f"lm-blocks-sharded [{card}]: the four runs on the ranks "
+          f"{max(ranks['blocks_s']):.1f} s (inside the sharded spawn), the "
+          f"unsharded comparators and checks here "
+          f"{out['comparators_s']:.1f} s")
+
+
+def bs_check(run, reps, dev, card, peak, results):
+    """One run of ``phase_lm_blocks_sharded`` (see there)."""
+    label, arch, layers, _, (data, model), train, serve = run
+    cfg = bs_config(run)
+    what = f"lm-blocks-sharded ({label}) {arch}"
+    r0 = reps[0]
+    n_attn = sum(k in ("attn", "local") for k in cfg.block_pattern) * \
+        cfg.n_units
+    o = {"arch": arch, "layers": layers, "mesh": [data, model],
+         "params": cfg.param_count(),
+         "block_pattern": list(cfg.block_pattern)}
+    launches = 0
+    line = [f"{what} [{card}]: full width, {layers} layers "
+            f"({o['params']:,} parameters), (data, model) = ({data}, "
+            f"{model}), {SH_RANKS} gloo ranks on one card (transport "
+            f"{r0['transport']})"]
+    if train:
+        batch, seq = train
+        ref = bs_unsharded_train(run, dev)
+        for i, (got, want) in enumerate(zip(r0["metrics"], ref["metrics"])):
+            tol = SH_TOL if i == 0 else SH_STEP_TOL
+            keys = ("loss", "grad_norm") + (
+                ("moe_lb_loss", "moe_z_loss")
+                if cfg.moe is not None and i == 0 else ())
+            for key in keys:
+                if abs(got[key] - want[key]) > tol * abs(want[key]):
+                    raise AssertionError(
+                        f"{what}: step {i + 1}'s {key} {got[key]} vs the "
+                        f"unsharded {want[key]} (limit {tol:g} relative)")
+            if cfg.moe is not None and i == 0 and abs(
+                    got["moe_dropped"] - want["moe_dropped"]) > BS_DROP_TOL:
+                raise AssertionError(
+                    f"{what}: step 1's moe_dropped {got['moe_dropped']} vs "
+                    f"the unsharded {want['moe_dropped']} (limit "
+                    f"{BS_DROP_TOL:g})")
+        worst = (0.0, None)
+        for name, want in ref["leaf_sq"].items():
+            got = r0["leaf_sq"][name]
+            err = abs(math.sqrt(got) - math.sqrt(want)) / max(
+                math.sqrt(want), 1e-30)
+            if not math.isfinite(err) or err > SH_LEAF_TOL:
+                raise AssertionError(f"{what}: gradient norm of {name} "
+                                     f"{math.sqrt(got):.6g} vs the unsharded "
+                                     f"{math.sqrt(want):.6g} (limit "
+                                     f"{SH_LEAF_TOL:g} relative)")
+            worst = max(worst, (err, name))
+        losses = [m["loss"] for m in r0["metrics"]]
+        norms = [m["grad_norm"] for m in r0["metrics"]]
+        for rep in reps:
+            if rep["metrics"] != r0["metrics"]:
+                raise AssertionError(f"{what}: rank {rep['rank']}'s metrics "
+                                     f"differ from rank 0's")
+        if not all(math.isfinite(x) for x in losses + norms) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"{what}: losses {losses}, grad norms "
+                                 f"{norms}")
+        dropped = [m["moe_dropped"] for m in r0["metrics"]]
+        if label == "a" and not min(dropped) > 0:
+            raise AssertionError(f"{what}: moe_dropped {dropped}: the run "
+                                 f"must drop pairs")
+        want_l = 2 * n_attn          # forward and remat's recompute
+        for rep in reps:
+            if any(n != want_l for n in rep["flash_launches"]) or \
+                    rep["train_body_launches"] != {
+                        "wgmma": want_l * SH_STEPS, "simt": 0}:
+                raise AssertionError(
+                    f"{what}: rank {rep['rank']}'s train flash launches "
+                    f"{rep['flash_launches']} by body "
+                    f"{rep['train_body_launches']}; want {want_l} a step, "
+                    f"all wgmma")
+        launches += sum(sum(rep["flash_launches"]) for rep in reps)
+        med = float(np.median(r0["step_s"][1:]))
+        tokens = batch * seq
+        flops = 6 * cfg.active_param_count() * tokens
+        o["train"] = {
+            "batch": batch, "seq": seq, "lr": BS_LR[label],
+            "losses": losses,
+            "grad_norms": norms, "metrics": r0["metrics"],
+            "unsharded": {k: v for k, v in ref.items() if k != "leaf_sq"},
+            "step_s": [rep["step_s"] for rep in reps],
+            "median_step_s": med, "tokens_s": tokens / med,
+            "mfu": flops / med / peak,
+            "peak_gb": [rep["train_peak_gb"] for rep in reps],
+            "host_bytes": [rep["host_bytes"] for rep in reps],
+            "flash_launches": [rep["flash_launches"] for rep in reps],
+            "worst_leaf": worst,
+            "init_s": [rep["train_init_s"] for rep in reps]}
+        if cfg.moe is not None:
+            o["train"]["dispatch"] = bs_dispatch(label, "train", data, cfg,
+                                                 dev)
+        line.append(
+            f"train {batch} x {seq} tokens, lr {BS_LR[label]:g}: losses "
+            + ", ".join(f"{x:.4f}" for x in losses) + " vs the unsharded "
+            + ", ".join(f"{m['loss']:.4f}" for m in ref["metrics"])
+            + ", grad norms " + ", ".join(f"{x:.4f}" for x in norms)
+            + " vs " + ", ".join(f"{m['grad_norm']:.4f}"
+                                 for m in ref["metrics"])
+            + (f", step 1's aux lb {r0['metrics'][0]['moe_lb_loss']:.6f} "
+               f"(unsharded {ref['metrics'][0]['moe_lb_loss']:.6f}), z "
+               f"{r0['metrics'][0]['moe_z_loss']:.4f} "
+               f"({ref['metrics'][0]['moe_z_loss']:.4f}), moe_dropped "
+               + ", ".join(f"{x:.6f}" for x in dropped) + " (unsharded "
+               + ", ".join(f"{m['moe_dropped']:.6f}"
+                           for m in ref["metrics"])
+               + f"); step 1's first MoE block from the ranks' input: "
+               f"{o['train']['dispatch']['dropped']:,} of "
+               f"{o['train']['dispatch']['pairs']:,} pairs dropped at C = "
+               f"{o['train']['dispatch']['capacity']}, slots and "
+               f"moe_dropped equal to the unsharded dispatch's"
+               if cfg.moe is not None else "")
+            + f" (limits {SH_TOL:g} step 1, {SH_STEP_TOL:g} later), step 1's "
+            f"worst leaf gradient norm {worst[0]:.3g} at {worst[1]} (limit "
+            f"{SH_LEAF_TOL:g}); step seconds rank 0 "
+            + ", ".join(f"{x:.3f}" for x in r0["step_s"])
+            + f", median of steps 2-{SH_STEPS} {med:.3f} s (unsharded "
+            + ", ".join(f"{x:.3f}" for x in ref["step_s"])
+            + f"), {tokens / med:,.0f} tokens/s, model FLOPs share "
+            f"{100 * o['train']['mfu']:.3f}% of {peak / 1e12:.1f} TFLOP/s "
+            f"(active parameters); peak GB a rank "
+            + ", ".join(f"{x:.2f}" for x in o["train"]["peak_gb"])
+            + f" (unsharded {ref['peak_gb']:.2f}); host-copy bytes a step "
+            f"rank 0 " + ", ".join(f"{x / 1e9:.3f} GB"
+                                   for x in r0["host_bytes"])
+            + f"; row-8 launches a rank a step {r0['flash_launches']} by "
+            f"body {r0['train_body_launches']}")
+    batch, prompt, steps = serve
+    for rep in reps:
+        if rep["ids"] != r0["ids"] or \
+                rep["logits_digest"] != r0["logits_digest"]:
+            raise AssertionError(f"{what}: rank {rep['rank']}'s ids or "
+                                 f"logits differ from rank 0's")
+        if set(rep["lengths"]) != {prompt + steps}:
+            raise AssertionError(f"{what}: rank {rep['rank']}'s cache "
+                                 f"lengths {rep['lengths']}")
+        if rep["serve_launches"] != n_attn or \
+                rep["serve_body_launches"] != {"wgmma": n_attn, "simt": 0}:
+            raise AssertionError(
+                f"{what}: rank {rep['rank']}'s row-8 launches "
+                f"{rep['serve_launches']} by body "
+                f"{rep['serve_body_launches']}; want {n_attn} (one a "
+                f"layer in the prefill), all wgmma")
+    launches += sum(rep["serve_launches"] for rep in reps)
+    got = torch.load(ROOT / "build" / "lm_blocks_sharded" / f"{label}-logits"
+                     f".pt", weights_only=True)
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    ref = bs_unsharded_serve(run, r0["ids"], dev)
+    worst, at, checked = sv_compare(label, got, ref["logits"], r0["ids"],
+                                    cfg.vocab, what="lm-blocks-sharded")
+    dec_ms = 1e3 * float(np.median(r0["decode_s"]))
+    o["serve"] = {
+        "batch": batch, "prompt": prompt, "steps": steps,
+        "prefill_ms": [1e3 * rep["prefill_s"] for rep in reps],
+        "decode_ms": [[1e3 * x for x in rep["decode_s"]] for rep in reps],
+        "decode_ms_median": dec_ms,
+        "peak_gb": [rep["serve_peak_gb"] for rep in reps],
+        "state_gb": [rep["state_gb"] for rep in reps],
+        "prefill_host_bytes": [rep["prefill_host_bytes"] for rep in reps],
+        "decode_host_bytes": [rep["decode_host_bytes"] for rep in reps],
+        "cache_shapes": r0["cache_shapes"],
+        "launches": [rep["serve_body_launches"] for rep in reps],
+        "init_s": [rep["serve_init_s"] for rep in reps],
+        "worst_ratio": worst, "worst_step": at, "ids_checked": checked,
+        "ids": r0["ids"], "unsharded": {
+            "prefill_ms": 1e3 * ref["prefill_s"],
+            "decode_ms": 1e3 * ref["step_s"], "init_s": ref["init_s"],
+            "peak_gb": ref["peak_gb"]}}
+    if cfg.moe is not None:
+        o["serve"]["dispatch"] = bs_dispatch(label, "serve", data, cfg, dev)
+    o["launches"] = launches
+    results[FLASH[0]]["launches"] += launches
+    line.append(
+        f"serve: a {batch} x {prompt:,} prefill "
+        + ", ".join(f"{x:.1f}" for x in o["serve"]["prefill_ms"])
+        + f" ms a rank (unsharded {o['serve']['unsharded']['prefill_ms']:.1f}"
+        f"), {steps} decode steps, median {dec_ms:.1f} ms a step on rank 0 "
+        f"(unsharded {o['serve']['unsharded']['decode_ms']:.1f}); peak GB a "
+        f"rank " + ", ".join(f"{x:.2f}" for x in o["serve"]["peak_gb"])
+        + f" (unsharded {ref['peak_gb']:.2f}); weights and caches "
+        + ", ".join(f"{x:.2f}" for x in o["serve"]["state_gb"])
+        + f" GB a rank; cache shard shapes {r0['cache_shapes']}; host-copy "
+        f"bytes rank 0: prefill {r0['prefill_host_bytes'] / 1e9:.3f} GB, a "
+        f"decode step {np.median(r0['decode_host_bytes']) / 1e9:.4f} GB"
+        + (f"; the prefill's first MoE block: "
+           f"{o['serve']['dispatch']['dropped']:,} of "
+           f"{o['serve']['dispatch']['pairs']:,} pairs dropped at C = "
+           f"{o['serve']['dispatch']['capacity']}, slots and moe_dropped "
+           f"equal to the unsharded dispatch's" if cfg.moe is not None
+           else "")
+        + f"; row-8 launches a rank {r0['serve_launches']} by body "
+        f"{r0['serve_body_launches']}; logits within {worst:.3g} of their "
+        f"limit ({SV_TOL:g} max |logit|, worst at step {at}), {checked} "
+        f"greedy ids clear of the limit equal to the unsharded argmax, ids "
+        f"and logits the same on every rank; ids row 0 {r0['ids'][0]}; "
+        f"row-8 launches in all {launches}")
+    print("; ".join(line))
+    return o
 
 
 def kernel_kind(name):
@@ -6727,6 +7397,8 @@ def main():
                         (phase_lm_sharded, (dev, smi, results, mhz, sms)),
                         (phase_lm_driver, (smi, results)),
                         (phase_lm_serve_sharded, (dev, smi, results)),
+                        (phase_lm_blocks_sharded, (dev, smi, results, mhz,
+                                                   sms)),
                         (phase_seq_parallel, (smi, results)),
                         (phase_times, (dev, results, peak_ops, counts)),
                         (phase_flash_times, (dev, results, mhz, sms)),
@@ -6803,7 +7475,8 @@ def main():
                  lm=results["lm"], lm_train=results["lm_train"],
                  lm_blocks=results["lm_blocks"],
                  lm_sharded=results["lm_sharded"],
-                 lm_serve_sharded=results["lm_serve_sharded"])
+                 lm_serve_sharded=results["lm_serve_sharded"],
+                 lm_blocks_sharded=results["lm_blocks_sharded"])
     kernels.append(entry)
     r = results[STEP[0]]
     # the main path's most frequent computing launch: a local layer's

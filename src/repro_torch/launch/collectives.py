@@ -5,7 +5,8 @@ the data-parallel trainer takes of its loss and gradients; and for the
 sharded LM trainer, collectives with a backward (``torch.distributed``'s
 have none): the all-gather whose backward is a reduce-scatter, the
 reduce-scatter whose backward is an all-gather, Megatron's pair (the sum
-forward with the identity back, and the reverse), a max outside the graph
+forward with the identity back, and the reverse) and the sum both ways, a
+max outside the graph
 and the all-to-all reshard of a tensor from one sharded dim to another.
 
 The group's backend decides how a tensor moves:
@@ -267,7 +268,7 @@ def reduce_scatter_dim(x: torch.Tensor, mesh, axes,
 def axis_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The sum of ``x`` over the ranks along ``axes``, in rank order, the
     same bits on every rank; ``x`` itself on one rank."""
-    if len(mesh.ranks(axes)) == 1:
+    if _one_rank(mesh, axes):
         return x
     return _rank_sum(gather_parts(x, mesh, axes))
 
@@ -361,6 +362,14 @@ def sum_forward(x, mesh, axes):
 def sum_backward(x, mesh, axes):
     """``x`` unchanged, its gradient summed over the ranks."""
     return x if _one_rank(mesh, axes) else _SumBackward.apply(x, mesh, axes)
+
+
+def sum_both(x, mesh, axes):
+    """The sum over the ranks forward and back (an all-reduce whose
+    gradient is all-reduced): for a sum that every rank's own, rank-local
+    work consumes, so that each rank's gradient of it is a partial one
+    (the gated RMSNorm's sum of squares over the heads' ranks)."""
+    return sum_backward(sum_forward(x, mesh, axes), mesh, axes)
 
 
 def max_nograd(x, mesh, axes):

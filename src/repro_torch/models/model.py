@@ -28,15 +28,16 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.launch.collectives import sum_forward
+from repro_torch.launch.collectives import all_gather_grad, sum_forward
 from repro_torch.models.layers import (chunked_cross_entropy,
                                        cross_entropy_sums_tp, embed_tokens,
                                        embed_tokens_tp, init_embed, init_mlp,
                                        init_rmsnorm, last_position,
                                        lm_logits, lm_logits_tp, mlp, mlp_tp,
                                        rmsnorm, seq_shard)
-from repro_torch.models.sharding import (CacheShards, current_rules,
-                                         map_specs, seq_shards, shard_bounds,
+from repro_torch.models.sharding import (CacheShards, batch_axes,
+                                         current_rules, map_specs,
+                                         seq_rows, seq_shards, shard_bounds,
                                          spec_axes)
 
 ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_dropped": 0.0}
@@ -47,40 +48,19 @@ FP32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip", "b_a",
 
 
 def check_supported(cfg: ModelConfig, layout=None) -> None:
-    """Raise for an unknown block kind, and for the blocks whose sharded
-    forms are not ported (ROADMAP A12.8), where a per-shard statistic or
-    scan would differ from the reference without a word: under axis rules
-    whose sequence axes span more than one rank (the sequence-parallel
-    forward), an MoE, SSM or RG-LRU block; under the train and serving
+    """Raise for an unknown block kind, and under the train and serving
     layout (``layout``: ``make_train_step(rules=)``,
-    ``make_serve_steps(cfg, rules)``), an MoE block where the batch or
-    the sequence is split (its capacity, ``moe_lb_loss``, ``moe_z_loss``
-    and ``moe_dropped`` are statistics over the global batch), and an SSM
-    or RG-LRU block with ``tp`` > 1 (their recurrences run per batch row,
-    so ``data`` alone splits them)."""
+    ``make_serve_steps(cfg, rules)``) for sequence axes other than the
+    ``tp`` axes: the layout gathers the sequence over ``tp`` for its
+    tensor-parallel layers.  (Attention heads that do not divide over
+    ``tp`` raise in ``attention.attention_tp``: ROADMAP A12.6.)"""
     for kind in cfg.block_pattern:
         if kind not in KINDS:
             raise ValueError(kind)
-    recurrent = bool({"ssm", "rglru"} & set(cfg.block_pattern))
     if layout is None:
-        if seq_shards()[1] > 1 and (cfg.moe is not None or recurrent):
-            raise NotImplementedError(
-                f"{cfg.name}: MoE, SSM and RG-LRU blocks under sequence "
-                f"sharding are not ported yet (ROADMAP A12.8)")
         return
     sp_axes = layout.axes("sp")
     sp = layout.rules.axes_size(sp_axes)
-    split = layout.rules.axes_size(layout.axes("batch")) * sp
-    if cfg.moe is not None and split > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: an MoE block under a train or serving layout that "
-            f"splits the batch or the sequence is not ported yet (ROADMAP "
-            f"A12.8)")
-    if recurrent and layout.tp > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: SSM and RG-LRU blocks under tp > 1 are not ported "
-            f"yet (ROADMAP A12.8); they train and serve under FSDP (model = "
-            f"1)")
     if max(layout.tp, sp) > 1 and set(sp_axes) != set(layout.tp_axes):
         raise NotImplementedError(
             f"the train and serving layout shards the sequence over the tp "
@@ -271,12 +251,20 @@ def _apply_block(params: dict, x, cfg: ModelConfig, *, kind: str,
                  layout=None, spec=None, kv=None):
     """(x, aux): the reference's block, with a cache written in place.
     Under a layout of tp > 1 (``spec``: the block's specs, unit axis
-    dropped) attention and the MLP run their tensor-parallel forms on
-    this rank's shard of the residual stream; under a layout with a cache
-    (any tp) attention runs ``attention_tp`` on the cache's shard, placed
-    by ``kv``."""
+    dropped) attention, the MLP, the SSM and the RG-LRU run their
+    tensor-parallel forms on this rank's shard of the residual stream;
+    under a layout with a cache (any tp) attention runs ``attention_tp``
+    on the cache's shard, placed by ``kv``; under a layout that splits
+    the batch or the sequence an MoE block runs ``moe_mlp_tp`` (its
+    capacity and aux terms over the global batch).  Under axis rules
+    whose sequence axes span more than one rank (the sequence-parallel
+    forward, weights whole) the MoE, SSM and RG-LRU blocks gather the
+    sequence, run it whole and keep their own rows; the MoE's aux terms
+    are the global batch's there wherever the rules split the batch or
+    the sequence."""
     aux = dict(ZERO_AUX)
     tp = layout is not None and layout.tp > 1
+    seq_axes, n_seq = seq_shards() if layout is None else ((), 1)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if kind in ("attn", "local"):
         theta = cfg.rope_theta_global if (kind == "attn" and
@@ -292,20 +280,49 @@ def _apply_block(params: dict, x, cfg: ModelConfig, *, kind: str,
                 params["mixer"], h, cfg, kind=kind, positions=positions,
                 cache=cache, update_cache=update_cache, rope_theta=theta)
     else:
-        block = ssm_lib.ssm_block if kind == "ssm" else rglru_lib.rglru_block
-        mix, new_state = block(params["mixer"], h, cfg, state=cache,
-                               update_state=update_cache)
+        ssm = kind == "ssm"
+        if tp:
+            block = ssm_lib.ssm_block_tp if ssm else rglru_lib.rglru_block_tp
+            mix, new_state = block(params["mixer"], h, cfg, layout,
+                                   spec["mixer"], state=cache,
+                                   update_state=update_cache)
+        elif n_seq > 1:
+            mix = _seq_whole(ssm_lib.ssm_block if ssm else
+                             rglru_lib.rglru_block, params["mixer"], h, cfg,
+                             cache, seq_axes)
+            new_state = None
+        else:
+            block = ssm_lib.ssm_block if ssm else rglru_lib.rglru_block
+            mix, new_state = block(params["mixer"], h, cfg, state=cache,
+                                   update_state=update_cache)
         if update_cache and cache is not None:
             _write_state(cache, new_state)
     x = x + mix
     if kind != "ssm":
         h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
         if is_moe:
-            # exact (dropless) capacity for small inference token counts;
+            # exact (dropless) capacity for small inference token counts
+            # (the global length: x holds a shard of it under a layout);
             # Switch-style capacity dropping otherwise
-            exact = cache is not None and x.shape[1] * cfg.moe.top_k <= 256
-            y, moe_aux = moe_lib.moe_mlp(params["mlp"], h2, cfg,
-                                         exact_capacity=exact)
+            s = x.shape[1] * (1 if layout is None else layout.sp)
+            exact = cache is not None and s * cfg.moe.top_k <= 256
+            rules = current_rules() if layout is None else layout.rules
+            split = rules is not None and (
+                n_seq > 1 or tp or rules.axes_size(batch_axes(rules)) > 1)
+            if split and layout is not None:
+                y, moe_aux = moe_lib.moe_mlp_tp(params["mlp"], h2, cfg,
+                                                layout, spec["mlp"],
+                                                exact_capacity=exact)
+            elif split:
+                y, moe_aux = moe_lib.moe_mlp_rows(
+                    params["mlp"], h2, cfg, mesh=rules.mesh,
+                    seq_axes=seq_axes, batch_axes=batch_axes(rules))
+                y = seq_rows(y, rules.mesh, seq_axes, h2.shape[1])
+                if cfg.moe.shared_expert:
+                    y = y + mlp(params["mlp"]["shared"], h2, cfg)
+            else:
+                y, moe_aux = moe_lib.moe_mlp(params["mlp"], h2, cfg,
+                                             exact_capacity=exact)
             aux.update(moe_aux)
         elif tp:
             y = mlp_tp(params["mlp"], h2, cfg, layout, spec["mlp"])
@@ -313,6 +330,20 @@ def _apply_block(params: dict, x, cfg: ModelConfig, *, kind: str,
             y = mlp(params["mlp"], h2, cfg)
         x = x + y
     return x, aux
+
+
+def _seq_whole(block, params: dict, h, cfg: ModelConfig, cache, seq_axes):
+    """A recurrent block in the sequence-parallel forward: the sequence
+    gathered over ``seq_axes``, the block run whole (the weights are whole
+    on every rank), this rank's rows of its output."""
+    if cache is not None:
+        raise NotImplementedError(
+            "the sequence-parallel forward (use_rules) runs without a "
+            "cache: serve sharded through make_serve_steps(cfg, rules), "
+            "whose caches come from init_caches(rules=)")
+    mesh = current_rules().mesh
+    out, _ = block(params, all_gather_grad(h, mesh, seq_axes, 1), cfg)
+    return seq_rows(out, mesh, seq_axes, h.shape[1])
 
 
 def _unit_slice(tree, u: int):
@@ -414,18 +445,20 @@ def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
     (``sharding.local_shard(tokens, rules, "batch", "sp")``), and so is
     the hidden state returned; the weights are whole on every rank.  The
     default positions are then global, so RoPE and the windows see true
-    sequence coordinates.  Everything but attention is per token and
-    stays local; attention reaches the other ranks' K/V through the
-    sequence-parallel schedules.  MoE, SSM and RG-LRU blocks refuse to
-    run so (``check_supported``).
+    sequence coordinates.  The norms and dense MLPs are per token and
+    stay local; attention reaches the other ranks' K/V through the
+    sequence-parallel schedules; the MoE, SSM and RG-LRU blocks gather
+    the sequence, run it whole and keep their own rows (the MoE's aux
+    terms over the global batch: ``moe.moe_mlp_rows``).
 
     Under the train and serving layout (``layout``, a
     ``sharding.TrainLayout``; never guessed from the shapes) ``params``
     are this rank's slices (``shard_params``), ``inputs`` the whole
     sequence of this rank's batch rows, and the hidden state returned is
     this rank's shard of the sequence over ``sp``; each unit gathers its
-    ``fsdp`` dims (inside its checkpoint under autograd), and attention
-    and the MLP run tensor-parallel over ``tp``.  Caches are then
+    ``fsdp`` dims (inside its checkpoint under autograd), and attention,
+    the MLP, the MoE (experts over ``experts``), the SSM (heads) and the
+    RG-LRU (width) run tensor-parallel over ``tp``.  Caches are then
     ``init_caches(rules=)``'s shards; a decode step's one token (S = 1
     with caches) stays whole on every rank (``TrainLayout.one_token``),
     and so does the hidden state returned."""

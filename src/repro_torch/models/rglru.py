@@ -13,7 +13,9 @@ a log-depth scan follows ``lax.associative_scan``'s odd/even recursion
 short loop over the chunks carries h across them
 (``_chunked_linear_scan``).  Decode is one step with O(width)
 state.  The block: x -> [linear -> conv1d(4) -> RG-LRU] * gelu(linear)
--> linear out.  The gates compute in fp32 under any compute dtype.
+-> linear out.  The gates compute in fp32 under any compute dtype.  Under
+the train and serving layout ``rglru_block_tp`` runs a rank's share of the
+width over ``tp`` (the reference's ``shard(x, "batch", None, "tp")``).
 """
 from __future__ import annotations
 
@@ -22,8 +24,10 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.collectives import all_gather_grad
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _gelu, trunc_normal
+from repro_torch.models.sharding import seq_rows
 
 C_FACTOR = 8.0
 SCAN_CHUNK = 256
@@ -134,14 +138,17 @@ def _conv1d(u, w, b, prev=None):
     return out + b[None, None]
 
 
-def _gates(params: dict, x: torch.Tensor):
-    """x: (..., W) fp32 -> (a, gated input), fp32."""
+def _gates(params: dict, x: torch.Tensor, x_own=None):
+    """x: (..., W) fp32 -> (a, gated input), fp32, for the channels of
+    ``w_a`` / ``w_i``'s columns (every channel, or under tp a rank's,
+    whose inputs ``x_own`` are)."""
+    x_own = x if x_own is None else x_own
     r = torch.sigmoid(x @ params["w_a"].float() + params["b_a"])
     i = torch.sigmoid(x @ params["w_i"].float() + params["b_i"])
     log_a = -C_FACTOR * F.softplus(params["lam"]) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - torch.square(a), 1e-12)) * \
-        (i * x)
+        (i * x_own)
     return a, gated
 
 
@@ -182,3 +189,70 @@ def rglru_block(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
 
     y = y * gate
     return y @ params["out"].to(dt_c), new_state
+
+
+def rglru_block_tp(params: dict, u: torch.Tensor, cfg: ModelConfig, layout,
+                   spec: dict, *, state: Optional[RGLRUState] = None,
+                   update_state: bool = False):
+    """The RG-LRU block under the train and serving layout
+    (``sharding.TrainLayout``) with its width over ``tp``: u is this
+    rank's shard of the residual stream (B, L / sp, D), or a decode step's
+    whole token; returns (this rank's part of the output, the new state).
+
+    The sequence is gathered over ``sp``; ``in_x`` and ``in_gate`` run
+    column-parallel to the rank's W / tp channels, and the conv (per
+    channel) on them.  The gates contract the conv'd x over every channel
+    (``w_a`` / ``w_i`` column-split, ``(None, "tp")``): it is gathered
+    over ``tp`` first.  The scan runs on the rank's channels; the
+    row-parallel ``out``'s partial sums go through ``layout.row_reduce``.
+    The state's h holds the rank's channels (``cache_pspecs``), its conv
+    state every channel (gathered x).  A width that does not divide over
+    ``tp`` leaves the leaves whole: every rank of ``tp`` runs the whole
+    block and keeps its own rows."""
+    dt_c = cfg.compute_dtype
+    mesh, tpx = layout.mesh, layout.tp_axes
+    w = cfg.rnn_width or cfg.d_model
+    uf = all_gather_grad(u, mesh, layout.sp_axes, 1)
+    if w % layout.tp:
+        out, new_state = rglru_block(layout.gather_tp(params, spec), uf, cfg,
+                                     state=state, update_state=update_state)
+        return seq_rows(out, mesh, layout.sp_axes, u.shape[1]), new_state
+    wl = w // layout.tp
+    ch = slice(layout.tp_index() * wl, (layout.tp_index() + 1) * wl)
+    b, l, _ = uf.shape
+    conv_w, conv_b = params["conv_w"].to(dt_c), params["conv_b"][ch].to(dt_c)
+    gp = {"w_a": params["w_a"], "w_i": params["w_i"],
+          "b_a": params["b_a"][ch], "b_i": params["b_i"][ch],
+          "lam": params["lam"][ch]}
+
+    gate = _gelu(uf @ params["in_gate"].to(dt_c))
+    x = uf @ params["in_x"].to(dt_c)
+    every = lambda t: all_gather_grad(t, mesh, tpx, t.ndim - 1)  # noqa: E731
+
+    if state is not None and l == 1:
+        xc = _conv1d(x, conv_w, conv_b, prev=state.conv[..., ch])
+        new_conv = torch.cat([state.conv.to(dt_c), every(x)], dim=1)[:, 1:]
+        xo = xc[:, 0].float()
+        a, gated = _gates(gp, every(xo), xo)
+        h = a * state.h + gated                       # (B, W / tp)
+        y = h[:, None].to(dt_c)
+        new_state = RGLRUState(h=h, conv=new_conv, length=state.length + 1)
+    else:
+        xc = _conv1d(x, conv_w, conv_b)
+        xo = xc.float()
+        a, gated = _gates(gp, every(xo), xo)          # (B, L, W / tp)
+        h0 = state.h if state is not None else torch.zeros(
+            (b, wl), dtype=torch.float32, device=u.device)
+        hh = _chunked_linear_scan(a, gated, h0)
+        y = hh.to(dt_c)
+        new_state = None
+        if update_state:
+            width = conv_w.shape[0]
+            conv_tail = x[:, -(width - 1):] if l >= width - 1 else \
+                F.pad(x, (0, 0, width - 1 - l, 0))
+            length = (state.length if state is not None else 0) + l
+            new_state = RGLRUState(h=hh[:, -1].float(), conv=every(conv_tail),
+                                   length=length)
+
+    y = y * gate
+    return layout.row_reduce(y @ params["out"].to(dt_c)), new_state

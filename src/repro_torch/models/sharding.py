@@ -36,7 +36,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.launch.collectives import (all_gather_dim, all_gather_many,
+from repro_torch.launch.collectives import (all_gather_dim, all_gather_grad,
+                                            all_gather_many,
                                             reduce_scatter_grad, sum_forward)
 from repro_torch.launch.mesh import axis_size
 
@@ -171,6 +172,21 @@ def gather_shards(x: torch.Tensor, rules: AxisRules, global_shape,
         if ax is not None:
             x = all_gather_dim(x, rules.mesh, ax, dim=dim)
     return x
+
+
+def seq_rows(x: torch.Tensor, mesh, axes, s: int) -> torch.Tensor:
+    """This rank's ``s`` rows of the whole sequence ``x`` (dim 1), the
+    shard of index ``mesh.axis_index(axes)`` (a view); x itself without
+    axes.  A block that gathers the sequence and runs it whole keeps its
+    own rows so."""
+    if not axes or s == x.shape[1]:
+        return x
+    return x.narrow(1, mesh.axis_index(axes) * s, s)
+
+
+def batch_axes(rules: AxisRules) -> Tuple[str, ...]:
+    """The mesh axes of the batch under ``rules``."""
+    return _axes(rules.rules.get("batch"))
 
 
 # ---------------------------------------------------------------------------
@@ -367,6 +383,18 @@ class TrainLayout:
                 out[i] = t
         it = iter(out)
         return map_specs(lambda _t, _s: next(it), tree, specs)
+
+    def gather_tp(self, tree, specs):
+        """The leaves of a tree (a block's, ``fsdp`` already gathered)
+        with their ``tp``-sharded dim gathered whole (differentiable: the
+        backward reduce-scatters the gradient): a block that runs whole on
+        every rank of ``tp``."""
+        def whole(t, spec):
+            for d in range(len(spec or ())):
+                if self.tp_sharded(spec, d):
+                    return all_gather_grad(t, self.mesh, self.tp_axes, d)
+            return t
+        return map_specs(whole, tree, specs)
 
     def tp_sharded(self, spec, dim: int) -> bool:
         """True where dim ``dim`` of a leaf under ``spec`` is sharded over

@@ -8,6 +8,9 @@ Decode: h_new = exp(dt*A) h + dt * B x; y = C.h + D x, with a rolling conv
 state of width d_conv - 1.  The state is (B, H, P, N), constant in the
 sequence length.
 
+Under the train and serving layout ``ssm_block_tp`` runs a rank's heads
+over ``tp`` (the reference's ``shard(x, "batch", None, "tp", None)``).
+
 Behaviours of the reference kept as they are: a prefill (L > 1) starts
 the SSD from a zero state even when it is given one; a prefill of one
 token with a state takes the recurrent branch; a conv tail shorter than
@@ -28,8 +31,10 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.collectives import all_gather_grad, sum_both
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import trunc_normal
+from repro_torch.models.sharding import seq_rows
 
 
 class SSMState(NamedTuple):
@@ -93,28 +98,135 @@ def ssm_block(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
     """u: (B, L, d_model) -> (out, new_state)."""
     d_in, h, p, n = _dims(cfg)
     dt_c = cfg.compute_dtype
-    b, l, _ = u.shape
 
     zxbcdt = u @ params["in_proj"].to(dt_c)
     z, xbc_dt = zxbcdt[..., :d_in], zxbcdt[..., d_in:]
     xbc = xbc_dt[..., :d_in + 2 * n]
     dt_raw = xbc_dt[..., d_in + 2 * n:]
-    conv_w, conv_b = params["conv_w"].to(dt_c), params["conv_b"].to(dt_c)
+    y, new_state = _heads(params, xbc, xbc, dt_raw, params["conv_w"],
+                          params["conv_b"], cfg, state=state,
+                          update_state=update_state)
+
+    # gated RMSNorm, then the out-projection
+    yf = y.float()
+    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    y = _gated(yf, var, z, params["norm_scale"], cfg)
+    return y @ params["out_proj"].to(dt_c), new_state
+
+
+def ssm_block_tp(params: dict, u: torch.Tensor, cfg: ModelConfig, layout,
+                 spec: dict, *, state: Optional[SSMState] = None,
+                 update_state: bool = False):
+    """The SSM block under the train and serving layout
+    (``sharding.TrainLayout``) with its heads over ``tp``: u is this
+    rank's shard of the residual stream (B, L / sp, D), or a decode step's
+    whole token; returns (this rank's part of the output, the new state).
+
+    The sequence is gathered over ``sp``.  ``in_proj`` is whole
+    (``("fsdp", None)``): each rank projects its heads' z, x and dt
+    columns and B, C (every head's); the packed x | B | C conv taps
+    (``conv_w``, ``(None, "tp")``, cut at C / tp channels, not on a head
+    boundary) are gathered and the rank's channels taken (the backward
+    reduce-scatters their gradient back to the shards); ``a_log``,
+    ``dt_bias``, ``d_skip`` and ``norm_scale`` are whole and sliced to
+    the rank's heads.  The SSD runs on the rank's heads over the whole
+    sequence; the gated RMSNorm takes the fp32 sum of squares over every
+    head, summed over ``tp`` in rank order (``sum_both``: each rank's
+    norm is its own work, so the gradient of the sum is summed too); the
+    row-parallel ``out_proj``'s partial sums go through
+    ``layout.row_reduce``.  With a state (serving) every rank projects
+    every channel of x | B | C, for the conv state, which is whole; h
+    holds the rank's heads (``cache_pspecs``).  Heads that do not divide
+    over ``tp`` run the whole block on every rank of ``tp`` (the leaves
+    gathered), each keeping its own rows."""
+    d_in, h, p, n = _dims(cfg)
+    mesh, tp = layout.mesh, layout.tp
+    if h % tp:
+        out, new_state = ssm_block(
+            layout.gather_tp(params, spec),
+            all_gather_grad(u, mesh, layout.sp_axes, 1), cfg, state=state,
+            update_state=update_state)
+        return seq_rows(out, mesh, layout.sp_axes, u.shape[1]), new_state
+    dt_c = cfg.compute_dtype
+    hl = h // tp
+    dl = hl * p
+    me = layout.tp_index()
+    heads = slice(me * hl, (me + 1) * hl)
+    chans = slice(me * dl, (me + 1) * dl)
+    xs = slice(d_in + me * dl, d_in + (me + 1) * dl)
+    bc = slice(2 * d_in, 2 * d_in + 2 * n)
+    dts = slice(2 * d_in + 2 * n + me * hl, 2 * d_in + 2 * n + (me + 1) * hl)
+
+    def own(t):
+        """The rank's channels of a packed x | B | C (last dim)."""
+        return torch.cat([t[..., chans], t[..., d_in:]], -1)
+
+    uf = all_gather_grad(u, mesh, layout.sp_axes, 1)
+    w = params["in_proj"].to(dt_c)
+    if state is None:
+        zxbcdt = uf @ torch.cat([w[:, chans], w[:, xs], w[:, bc], w[:, dts]],
+                                1)
+        z, xbc = zxbcdt[..., :dl], zxbcdt[..., dl:2 * dl + 2 * n]
+        dt_raw, xbc_all = zxbcdt[..., 2 * dl + 2 * n:], None
+    else:
+        zxbcdt = uf @ w
+        z, dt_raw = zxbcdt[..., chans], zxbcdt[..., dts]
+        xbc_all = zxbcdt[..., d_in:2 * d_in + 2 * n]
+        xbc = own(xbc_all)
+    conv_w = params["conv_w"]
+    if layout.tp_sharded(spec["conv_w"], 1):
+        conv_w = all_gather_grad(conv_w, mesh, layout.tp_axes, 1)
+    y, new_state = _heads(params, xbc, xbc_all, dt_raw, own(conv_w),
+                          own(params["conv_b"]), cfg, state=state,
+                          update_state=update_state, heads=heads, own=own)
+
+    yf = y.float()
+    sq = sum_both(torch.square(yf).sum(-1, keepdim=True), mesh,
+                  layout.tp_axes)
+    y = _gated(yf, sq / d_in, z, params["norm_scale"][chans], cfg)
+    return layout.row_reduce(y @ params["out_proj"].to(dt_c)), new_state
+
+
+def _gated(yf, var, z, norm_scale, cfg: ModelConfig) -> torch.Tensor:
+    """The gated RMSNorm of yf (fp32) given its mean square ``var``."""
+    yf = yf * torch.rsqrt(var + cfg.norm_eps)
+    yf = yf * (1.0 + norm_scale.float())
+    return (yf * F.silu(z.float())).to(cfg.compute_dtype)
+
+
+def _heads(params: dict, xbc, xbc_all, dt_raw, conv_w, conv_b,
+           cfg: ModelConfig, *, state: Optional[SSMState],
+           update_state: bool, heads: slice = slice(None), own=None):
+    """The conv and the SSD (or the recurrent step) of the heads
+    ``heads``: xbc (B, L, x | B | C) holds their x channels and B, C
+    (``own`` of every channel; None: all of them); ``conv_w`` / ``conv_b``
+    are those channels' taps; ``dt_raw`` (B, L, heads); ``xbc_all`` every
+    channel (the conv state's); ``state``'s h holds those heads.  Returns
+    (y (B, L, heads * P) in the compute dtype, the new state: the conv
+    state of every channel, h of those heads)."""
+    p, n = cfg.ssm.head_dim, cfg.ssm.d_state
+    dt_c = cfg.compute_dtype
+    b, l, _ = xbc.shape
+    dl = xbc.shape[-1] - 2 * n
+    hl = dl // p
+    conv_w, conv_b = conv_w.to(dt_c), conv_b.to(dt_c)
     width = conv_w.shape[0]
 
     recurrent = state is not None and l == 1
     if recurrent:
-        new_conv = torch.cat([state.conv.to(dt_c), xbc], dim=1)[:, 1:]
-        xbc_c = _causal_conv(xbc, conv_w, conv_b, prev=state.conv)
+        new_conv = torch.cat([state.conv.to(dt_c), xbc_all], dim=1)[:, 1:]
+        prev = state.conv if own is None else own(state.conv)
+        xbc_c = _causal_conv(xbc, conv_w, conv_b, prev=prev)
     else:
         xbc_c = _causal_conv(xbc, conv_w, conv_b)
     xbc_c = F.silu(xbc_c)
-    x = xbc_c[..., :d_in].reshape(b, l, h, p)
-    bmat = xbc_c[..., d_in:d_in + n]
-    cmat = xbc_c[..., d_in + n:]
+    x = xbc_c[..., :dl].reshape(b, l, hl, p)
+    bmat = xbc_c[..., dl:dl + n]
+    cmat = xbc_c[..., dl + n:]
 
-    a = -torch.exp(params["a_log"])                           # (H,) negative
-    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None])
+    a = -torch.exp(params["a_log"][heads])                    # (H,) negative
+    dt = F.softplus(dt_raw.float() + params["dt_bias"][heads][None, None])
+    d_skip = params["d_skip"][heads]
 
     if recurrent:
         da = torch.exp(dt[:, 0] * a[None])                    # (B, H)
@@ -122,29 +234,22 @@ def ssm_block(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
                           x[:, 0].float(), bmat[:, 0].float())
         h_new = state.h * da[..., None, None] + xb
         y = torch.einsum("bhpn,bn->bhp", h_new, cmat[:, 0].float())
-        y = y + params["d_skip"][None, :, None] * x[:, 0].float()
-        y = y[:, None].to(dt_c).reshape(b, 1, d_in)
+        y = y + d_skip[None, :, None] * x[:, 0].float()
+        y = y[:, None].to(dt_c).reshape(b, 1, dl)
         new_state = SSMState(conv=new_conv.to(dt_c), h=h_new,
                              length=state.length + 1)
     else:
         y, h_last = _ssd_chunked(x, dt, a, bmat, cmat, cfg)
-        y = y + params["d_skip"][None, None, :, None] * x.float()
-        y = y.reshape(b, l, d_in).to(dt_c)
+        y = y + d_skip[None, None, :, None] * x.float()
+        y = y.reshape(b, l, dl).to(dt_c)
         new_state = None
         if update_state:
-            conv_tail = xbc[:, -(width - 1):] if l >= width - 1 else \
-                F.pad(xbc, (0, 0, width - 1 - l, 0))
+            conv_tail = xbc_all[:, -(width - 1):] if l >= width - 1 else \
+                F.pad(xbc_all, (0, 0, width - 1 - l, 0))
             length = (state.length if state is not None else 0) + l
             new_state = SSMState(conv=conv_tail.to(dt_c), h=h_last,
                                  length=length)
-
-    # gated RMSNorm, then the out-projection
-    yf = y.float()
-    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
-    yf = yf * torch.rsqrt(var + cfg.norm_eps)
-    yf = yf * (1.0 + params["norm_scale"].float())
-    y = (yf * F.silu(z.float())).to(dt_c)
-    return y @ params["out_proj"].to(dt_c), new_state
+    return y, new_state
 
 
 def _ssd_chunked(x, dt, a, bmat, cmat, cfg: ModelConfig):

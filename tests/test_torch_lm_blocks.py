@@ -303,13 +303,13 @@ def test_lm_params_keep_fp32_leaves_under_bf16_masters():
 
 @pytest.mark.parametrize("arch", ARCHS + ["gemma3_12b"])
 def test_sequence_sharding_refuses_the_new_blocks(arch):
-    """Under rules whose sequence axis spans 2 ranks, the MoE, SSM and
-    RG-LRU blocks refuse (a per-shard capacity or scan would differ from
-    the reference), naming ROADMAP A12.8; dense attention models pass the
-    check.  Under the train layout at model = 2 they refuse too; at
-    data = 2, model = 1 the SSM and RG-LRU blocks train (FSDP: their
-    recurrences run per batch row) and the MoE still refuses (its
-    capacity and aux losses are statistics over the global batch)."""
+    """Since ROADMAP A12.8 the MoE, SSM and RG-LRU blocks pass the check
+    under rules whose sequence axis spans 2 ranks and under the train
+    layout at model = 2 and at data = 2 (their sharded forms:
+    ``tests/test_torch_lm_sharded_blocks*.py``), as dense attention models
+    do.  What still refuses, for every config: a layout whose sequence
+    axes are not its tp axes, and (attention) heads that do not divide
+    over tp, named ROADMAP A12.6."""
     _, tc = _cfgs(arch)
     # the check reads the mesh's axis sizes alone: a 2-rank mesh's shape
     # stands in for a process group of 2
@@ -319,25 +319,23 @@ def test_sequence_sharding_refuses_the_new_blocks(arch):
     fsdp = AxisRules(mesh=SimpleNamespace(shape={"data": 2, "model": 1}),
                      rules={"sp": "model", "tp": "model", "batch": "data",
                             "fsdp": "data"})
-    tp_layout = TrainLayout(rules, {})
-    fsdp_layout = TrainLayout(fsdp, {})
-    if arch == "gemma3_12b":
-        t_model.check_supported(tc, tp_layout)
-        t_model.check_supported(tc, fsdp_layout)
-        with use_rules(rules):
-            t_model.check_supported(tc)
-        return
+    other = AxisRules(mesh=SimpleNamespace(shape={"data": 2, "model": 1}),
+                      rules={"sp": "data", "tp": "model", "batch": "data"})
     with use_rules(rules):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.8"):
-            t_model.forward({}, torch.zeros(1, 4, dtype=torch.long), tc)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.8"):
-        t_model.check_supported(tc, tp_layout)
-    if tc.moe is not None:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.8"):
-            t_model.check_supported(tc, fsdp_layout)
-    else:
-        t_model.check_supported(tc, fsdp_layout)
-    t_model.check_supported(tc)       # without rules: supported
+        t_model.check_supported(tc)
+    t_model.check_supported(tc, TrainLayout(rules, {}))
+    t_model.check_supported(tc, TrainLayout(fsdp, {}))
+    t_model.check_supported(tc)       # without rules
+    with pytest.raises(NotImplementedError, match="tp axes"):
+        t_model.check_supported(tc, TrainLayout(other, {}))
+    if "attn" in tc.block_pattern or "local" in tc.block_pattern:
+        odd = AxisRules(mesh=SimpleNamespace(shape={"data": 1, "model": 3}),
+                        rules={"sp": "model", "tp": "model",
+                               "batch": "data"})
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.6"):
+            t_model.attn_lib.attention_tp(
+                {}, torch.zeros(1, 2, tc.d_model), tc, kind="attn",
+                layout=TrainLayout(odd, {}), spec={})
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -212,12 +212,17 @@ def test_vocab_sharded_cross_entropy(ranks, world, tied):
 
 
 def test_refusals_name_their_items(ranks):
+    """The MoE (batch split), SSM and RG-LRU (model = 2) blocks take a
+    sharded step now (ROADMAP A12.8); what still refuses names its item:
+    heads that do not divide over model (A12.6), sequence axes other than
+    the tp axes, a sequence that does not divide."""
     got = ranks[2]["refusals"]
-    assert got["moe"].startswith("NotImplementedError") and \
-        "A12.8" in got["moe"]
-    for name in ("ssm", "rglru"):
-        assert got[name].startswith("NotImplementedError") and \
-            "A12.8" in got[name]
+    for name in ("moe", "ssm", "rglru"):
+        assert got[name] == "ran", got[name]
+    assert got["heads"].startswith("NotImplementedError") and \
+        "A12.6" in got["heads"]
+    assert got["sp_axes"].startswith("NotImplementedError") and \
+        "tp axes" in got["sp_axes"]
     assert got["ragged"].startswith("ValueError") and \
         "does not divide" in got["ragged"]
 

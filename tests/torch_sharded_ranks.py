@@ -205,24 +205,33 @@ def unit_checks(world, res):
 
 
 def refusals(res):
-    """Under the train layout: MoE where the batch is split, SSM with
-    model > 1 (A12.8), and a sequence that does not divide over model."""
+    """Under the train layout: the MoE with the batch split and the SSM
+    and RG-LRU with model > 1 train (ROADMAP A12.8, ported); heads that do
+    not divide over model (A12.6), sequence axes other than the tp axes
+    and a sequence that does not divide over model raise."""
     out = {}
-    for name, arch, (data, model), seq in (
-            ("moe", "olmoe_1b_7b", (2, 1), SEQ),
-            ("ssm", "mamba2_780m", (1, 2), SEQ),
-            ("rglru", "recurrentgemma_2b", (1, 2), SEQ),
-            ("ragged", "gemma3_12b", (1, 2), SEQ - 1)):
-        cfg = t_configs.get_config(arch, "smoke")
-        rules = t_sharding.make_rules(t_mesh.make_mesh(data, model))
+    gemma = t_configs.get_config("gemma3_12b", "smoke")
+    for name, cfg, (data, model), seq, over in (
+            ("moe", t_configs.get_config("olmoe_1b_7b", "smoke"), (2, 1),
+             SEQ, None),
+            ("ssm", t_configs.get_config("mamba2_780m", "smoke"), (1, 2),
+             SEQ, None),
+            ("rglru", t_configs.get_config("recurrentgemma_2b", "smoke"),
+             (1, 2), SEQ, None),
+            ("heads", dataclasses.replace(gemma, n_heads=3, n_kv_heads=1),
+             (1, 2), SEQ, None),
+            ("sp_axes", gemma, (2, 1), SEQ, {"sp": "data"}),
+            ("ragged", gemma, (1, 2), SEQ - 1, None)):
+        rules = t_sharding.make_rules(t_mesh.make_mesh(data, model), over)
         hp = t_trainer.TrainHparams()
         try:
             st = t_trainer.init_train_state(cfg, hp, device="cpu",
                                             rules=rules)
             step = t_trainer.make_train_step(cfg, hp, rules)
             toks = torch.zeros((BATCH // data, seq), dtype=torch.int32)
-            step(st, {"inputs": toks, "labels": toks})
-            out[name] = "ran"
+            _, m = step(st, {"inputs": toks, "labels": toks})
+            out[name] = "ran" if bool(torch.isfinite(m["loss"])) else \
+                f"loss {float(m['loss'])}"
         except (NotImplementedError, ValueError) as e:
             out[name] = f"{type(e).__name__}: {e}"
     res["refusals"] = out

@@ -141,17 +141,29 @@ def shard_shapes(data, model):
 
 
 def refusals():
-    """``make_serve_steps(cfg, rules)`` on the blocks and heads whose
-    sharded forms are not ported: the message of each refusal."""
+    """``make_serve_steps(cfg, rules)`` on the MoE, SSM and RG-LRU blocks
+    (ported: "ran", a prefill and a decode step each), and on sequence
+    axes other than the tp axes (refused): each outcome."""
     out = {}
-    for name, arch, (data, model) in (
-            ("moe", "olmoe_1b_7b", (2, 1)), ("ssm", "mamba2_780m", (1, 2)),
-            ("rglru", "recurrentgemma_2b", (1, 2))):
-        rules = t_sharding.make_rules(t_mesh.make_mesh(data, model))
+    for name, arch, (data, model), over in (
+            ("moe", "olmoe_1b_7b", (2, 1), None),
+            ("ssm", "mamba2_780m", (1, 2), None),
+            ("rglru", "recurrentgemma_2b", (1, 2), None),
+            ("sp_axes", "gemma3_12b", (2, 1), {"sp": "data"})):
+        rules = t_sharding.make_rules(t_mesh.make_mesh(data, model), over)
+        cfg = t_configs.get_config(arch, "smoke")
         try:
-            t_trainer.make_serve_steps(t_configs.get_config(arch, "smoke"),
-                                       rules)
-            out[name] = "ran"
+            pre, dec = t_trainer.make_serve_steps(cfg, rules)
+            params = t_model.init_model(cfg, device="cpu", keep=lambda p, t: (
+                t_sharding.shard_of(t, rules.mesh, t_sharding.spec_at(
+                    t_trainer.param_pspecs(cfg, rules), p)).clone()))
+            caches = t_model.init_caches(cfg, 2, 24, rules=rules,
+                                         device="cpu")
+            toks = torch.zeros((2 // data, 16), dtype=torch.long)
+            logits, caches = pre(params, toks, caches)
+            logits, caches = dec(params, toks[:, :1], 16, caches)
+            out[name] = "ran" if bool(torch.isfinite(logits).all()) else \
+                "non-finite logits"
         except NotImplementedError as e:
             out[name] = str(e)
     return out
