@@ -611,8 +611,7 @@ CWS_CLASSES = 10
 # recurrentgemma's 10 / 1 under its 2,048 window (a 1 x 4,096 train
 # microbatch); the sharded blocks' heads a rank (BS_RUNS): olmoe's 8 / 8
 # at (1, 4,096) (a data rank's train rows) and (1, 2,048) (its prefill
-# row), recurrentgemma's 5 / 1 at (1, 4,096) under the window, llama4's
-# 10 / 2 at (1, 2,048)
+# row), llama4's 10 / 2 at (1, 2,048)
 FLASH_TIMING = ((4, 2048, 0, 16, 8, 256), (4, 2048, 1024, 16, 8, 256),
                 (1, 32768, 0, 16, 8, 256), (1, 32768, 1024, 16, 8, 256),
                 (1, 4096, 0, 16, 8, 256), (1, 4096, 1024, 16, 8, 256),
@@ -620,7 +619,7 @@ FLASH_TIMING = ((4, 2048, 0, 16, 8, 256), (4, 2048, 1024, 16, 8, 256),
                 (1, 4096, 0, 18, 2, 128), (4, 2048, 0, 16, 16, 128),
                 (4, 2048, 0, 40, 8, 128), (1, 4096, 2048, 10, 1, 256),
                 (1, 4096, 0, 8, 8, 128), (1, 2048, 0, 8, 8, 128),
-                (1, 4096, 2048, 5, 1, 256), (1, 2048, 0, 10, 2, 128))
+                (1, 2048, 0, 10, 2, 128))
 # The LM training slice: gemma3_12b (src/repro/configs/gemma3_12b.py:CONFIG)
 # at full width, depth cut from 48 to 6 layers (one 5 local : 1 global
 # unit; 48 layers of fp32 masters, moments and gradients need ~190 GB),
@@ -724,8 +723,9 @@ SH_STEP_TOL = 2e-2
 # copies.
 SV_SEED = 2031
 # (cut beside the sharded blocks' runs: (a)'s decode steps 8 ->
-# 4, (b)'s batch 8 -> 4 and steps 16 -> 8, (d)'s steps 16 -> 8)
-SV_RUNS = (("a", "gemma3_12b", 6, "long_500k", (2, 2), 1, 524288, 8192, 4,
+# 4, (b)'s batch 8 -> 4 and steps 16 -> 8, (d)'s steps 16 -> 8; beside
+# the grouped-heads runs, (a)'s 4 -> 2)
+SV_RUNS = (("a", "gemma3_12b", 6, "long_500k", (2, 2), 1, 524288, 8192, 2,
             True),
            ("b", "granite_34b", 4, "decode_32k", (1, 4), 4, 32768, 4096, 8,
             False),
@@ -757,9 +757,12 @@ SV_TOL = 5e-2
 # 1.25 (C = 640 a row of 4,096 tokens at top-8), gated to drop pairs;
 # (b) mamba2_780m, 4 of 48 layers over (1, 4): 12 of 48 SSM heads a rank;
 # (c) recurrentgemma_2b, 3 of 26 layers (rglru, rglru, local: one unit)
-# over (2, 2) (10 attention heads do not divide over 4, ROADMAP A12.6):
-# the RG-LRU width 1,280 a rank, a 4,096-token prompt past the 2,048
-# window, batch 1 whole on both data ranks; (d) llama4_maverick, 2 of 48
+# over (1, 4) (until its 10 heads over 4 ranks took the sequence-sharded
+# route, over (2, 2)): the ring (row 9, 4 a rank a forward, around 4,096
+# keys) and its reverse-ring backward, one KV head of D = 256 (its 256 K/V
+# columns, 64 a rank, gathered to the whole head), the RG-LRU width 640
+# a rank, a 4,096-token prompt past the 2,048 window; (d) llama4_maverick,
+# 2 of 48
 # layers (attention + dense MLP, attention + 128-expert MoE with the
 # shared expert) over (1, 4), 32 experts a rank, served only: its MoE
 # stack is 32.2 GB in bf16, so each rank draws only its chunks
@@ -772,13 +775,35 @@ SV_TOL = 5e-2
 # phase_lm_sharded's starcoder2 run does.
 BS_SEED = 2032
 BS_LR = {"a": 1e-5, "b": 3e-4, "c": 3e-4}
-BS_RUNS = (("a", "olmoe_1b_7b", 2, None, (2, 2), (2, 4096), (2, 2048, 8)),
+# (a)'s decode steps cut 8 -> 4 beside the grouped-heads runs
+BS_RUNS = (("a", "olmoe_1b_7b", 2, None, (2, 2), (2, 4096), (2, 2048, 4)),
            ("b", "mamba2_780m", 4, None, (1, 4), (4, 4096), (4, 2048, 8)),
            ("c", "recurrentgemma_2b", 3, ("rglru", "rglru", "local"),
-            (2, 2), (2, 4096), (1, 4096, 8)),
+            (1, 4), (2, 4096), (1, 4096, 8)),
            ("d", "llama4_maverick_400b_a17b", 2, None, (1, 4), None,
             (1, 2048, 8)))
 BS_CHUNKED = ("d",)           # the runs whose weights are drawn in chunks
+# Attention heads that do not divide over tp (ROADMAP A12.6 with A12.4's
+# backward passes): the reference's sequence-sharded route, q resharded
+# to a rank's rows with every head, row 8 at the rank's q_base or row 9
+# around the ring (4,096 global keys on), both under autograd.  The
+# sharded blocks' run (c) takes it at (1, 4); GH_RUN (phase_lm_grouped_
+# heads), in the blocks' runs' form and gated as they are, takes it over
+# GH_RANKS gloo ranks of its own sharing the card (started after the
+# sharded spawns end): starcoder2_7b, 1 of 32 layers over (1, 8), 36
+# heads over 8 ranks (4.5 a rank); its 1 x 2,048 train rows take the
+# all-gather route (row 8 at q_base = rank x 256 under autograd), the
+# 8,192-token prompt the ring (8 a rank), then 4 decode steps.  It steps
+# at 1e-5, as phase_lm_sharded's starcoder2 run does.
+GH_RANKS = 8
+GH_RUN = ("gh", "starcoder2_7b", 1, None, (1, GH_RANKS), (1, 2048),
+          (1, 8192, 4))
+BS_LR["gh"] = 1e-5
+# heads that do not divide over tp: step 1's loss against the unsharded
+# step's within GH_LOSS_TOL relative (besides the blocks' SH_TOL): both
+# take the same bf16 operations but for the attention's split over ranks
+# and the row-parallel sums' order
+GH_LOSS_TOL = 1e-4
 BS_DRAW_CHUNK = 1 << 26       # elements a chunk
 # Every run against the same config's unsharded step and serving on the
 # card, from the same weights, one microbatch of the global batch (its aux
@@ -807,16 +832,55 @@ PUBLISHED_BF16_FLOPS = 989e12
 # Weights from SP_SEED, drawn on every rank from the same seed.
 SP_LAYERS, SP_RANKS, SP_BATCH, SP_SEED = 6, 4, 1, 2027
 # (the ring's prompt cut from prefill_32k's 32,768 to 8,192 beside the
-# sharded LM phase: still at the ring's 4,096-key threshold)
-SP_RING_PROMPT, SP_AG_PROMPT = 8192, 2048
+# sharded LM phase: still at the ring's 4,096-key threshold; the fp32
+# pass's ring to 4,096 beside the grouped-heads runs)
+SP_RING_PROMPT, SP_AG_PROMPT, SP_FP32_RING_PROMPT = 8192, 2048, 4096
 SP_FULL_DEPTH = 48
+# The sequence-parallel forward differentiated (bf16, after the forward
+# runs) against the one-device flash step's gradients on the same weights
+# and batch: the two take the same bf16 operations but for attention's
+# split over the ranks (the reverse ring's fp32 sums, the all-gather
+# route's dK/dV partial sums rounded to bf16 and added over the ranks) and
+# the rank-order sum of the leaves' gradients, one-ulp flips that leave a
+# leaf's gradient norm within SP_GRAD_TOL relative
+SP_GRAD_TOL = 1e-3
 # Row 9's parity cases: (b, n virtual ranks, S per rank, H, G, D, window),
 # chained over the shards in each virtual rank's ring order: ragged shards
 # (100 and 1,000 rows, not multiples of the 64-key tile), windows 0 and
 # 1,024, and gemma3's heads at prefill_32k's S per rank
 STEP_PARITY = ((2, 4, 100, 4, 2, 64, 0), (2, 4, 100, 4, 2, 64, 48),
                (1, 4, 1000, 8, 4, 128, 0), (1, 4, 1000, 8, 4, 128, 1024),
-               (1, 4, 8192, 16, 8, 256, 0), (1, 4, 8192, 16, 8, 256, 1024))
+               (1, 4, 8192, 16, 8, 256, 0), (1, 4, 8192, 16, 8, 256, 1024),
+               # the sequence-sharded route's rings: the blocks' run (c),
+               # recurrentgemma's 10 / 1, D = 256 under its window, 2 x
+               # 4,096 over 4 ranks; GH_RUN, starcoder2's 36 / 4, D = 128,
+               # 8,192 over 8
+               (2, 4, 1024, 10, 1, 256, 2048), (1, 8, 1024, 36, 4, 128, 0))
+# Row 8 timed at the sharded routes' own shapes, (B, Sq, Sk, q_base,
+# window, H, G, D) in bf16: GH_RUN's all-gather route
+# (starcoder2's 36 / 4 heads on the last rank's 256 train rows at q_base
+# 1,792 against the 2,048 gathered keys), and the sharded serving
+# prefills' heads a rank (SV_RUNS): gemma3's 8 / 4, D = 256 over 8,192,
+# global and local; granite's 12 / 1, D = 128 over 8 x 4,096 and 1 x
+# 4,096; starcoder2's 9 / 1, D = 128, its last 2,048 q rows at q_base
+# 30,720 against 32,768 keys
+FLASH_ROUTE_TIMING = ((1, 256, 2048, 1792, 0, 36, 4, 128),
+                      (1, 8192, 8192, 0, 0, 8, 4, 256),
+                      (1, 8192, 8192, 0, 1024, 8, 4, 256),
+                      (8, 4096, 4096, 0, 0, 12, 1, 128),
+                      (1, 4096, 4096, 0, 0, 12, 1, 128),
+                      (1, 2048, 32768, 30720, 0, 9, 1, 128))
+# Row 9 timed at the sequence-sharded route's ring steps, (label, (B, S a
+# rank, H, G, D), q_base, k_base, window) in bf16: the blocks' run (c),
+# 10 / 1, D = 256 (2 x 1,024 train rows a rank) on rank 1's own shard and
+# on rank 3's step over rank 1's shard under the 2,048 window; GH_RUN's
+# prefill, 36 / 4, D = 128 (1,024 rows a rank of 8) on rank 1's own shard
+# and on rank 0's
+STEP_ROUTE_TIMING = (("rg diagonal", (2, 1024, 10, 1, 256), 1024, 1024,
+                      2048),
+                     ("rg window", (2, 1024, 10, 1, 256), 3072, 1024, 2048),
+                     ("gh diagonal", (1, 1024, 36, 4, 128), 1024, 1024, 0),
+                     ("gh earlier", (1, 1024, 36, 4, 128), 1024, 0, 0))
 # row 9 timed at one ring step's shapes, (B, S a rank, H, G, D) in bf16:
 # q rows of rank 1 against the K/V shard of (label, shard, window): its own
 # (diagonal), rank 0's (earlier, fully visible), its own under the window
@@ -3886,13 +3950,16 @@ def phase_flash_parity(dev, results):
     cases.append((1, 2048, 32768, 9, 1, 128, 0, 30720))
     # the sharded blocks' runs (BS_RUNS), each rank's heads: (a) olmoe's
     # 8 / 8 a rank of model = 2 over a data rank's 1 x 4,096 train rows and
-    # 1 x 2,048 prefill row; (c) recurrentgemma's 5 / 1 over 1 x 4,096
-    # under its 2,048 window; (d) llama4's 10 / 2 a rank of 4 over 2,048
+    # 1 x 2,048 prefill row; (d) llama4's 10 / 2 a rank of 4 over 2,048
     for c in ((1, 4096, 4096, 8, 8, 128, 0, 0),
               (1, 2048, 2048, 8, 8, 128, 0, 0),
-              (1, 4096, 4096, 5, 1, 256, 2048, 0),
               (1, 2048, 2048, 10, 2, 128, 0, 0)):
         cases.append(c)
+    # the grouped-heads run's all-gather route (GH_RUN): every head
+    # of starcoder2 (36 / 4, D = 128) on a rank's 256 train rows at q_base
+    # = rank x 256 against the 2,048 gathered keys (ranks 0, 3 and 7)
+    for qb in (0, 768, 1792):
+        cases.append((1, 256, 2048, 36, 4, 128, 0, qb))
     r = results[FLASH[0]]
     worst, ag_worst = {}, {}
     fa.reset_launches()
@@ -3939,9 +4006,9 @@ def phase_flash_parity(dev, results):
           f"0/1024, granite 12/1 D = 128 at (8, 4096) and (1, 4096), "
           f"starcoder2 9/1 D = 128, 2,048 q rows at q_base 30,720 against "
           f"32,768 keys; the sharded blocks' heads a rank: olmoe 8/8 D = 128 "
-          f"at (1, 4096) and (1, 2048), recurrentgemma 5/1 D = 256 at "
-          f"(1, 4096) window 2048, llama4 10/2 D = 128 at (1, 2048)), fp32 "
-          f"and bf16; "
+          f"at (1, 4096) and (1, 2048), llama4 10/2 D = 128 at (1, 2048); "
+          f"the grouped-heads run's: starcoder2 36/4 D = 128, 256 q rows at "
+          f"q_base 0/768/1,792 against 2,048 keys), fp32 and bf16; "
           + "; ".join(f"worst {k} |cuda - plain| / tolerance {v[0]:.4g} at "
                       f"(b, Sq, Sk, H, G, D, window, q_base) = {v[1]}, max "
                       f"{v[2]:.3g}" for k, v in worst.items())
@@ -5382,17 +5449,19 @@ def sh_rank_body(rank, dev, run, spec):
     return rep
 
 
-def start_sharded(runs, ckpt, resume=False, serve=(), blocks=()):
-    """Spawn SH_RANKS ranks that take ``runs`` in turn, then the serving
-    runs ``serve``, then the sharded blocks' runs ``blocks``, once
-    ``start["go"]`` exists (not joined: their start-up, CUDA context and
-    process group overlap the parent's work); ``finish_sharded`` says go
-    and joins them."""
+def start_sharded(runs, ckpt, resume=False, serve=(), blocks=(),
+                  world=SH_RANKS, name=None, blocks_dir=None):
+    """Spawn ``world`` ranks that take ``runs`` in turn, then the serving
+    runs ``serve``, then the sharded blocks' runs ``blocks`` (writing
+    under ``blocks_dir``), once ``start["go"]`` exists (not joined: their
+    start-up, CUDA context and process group overlap the parent's work);
+    ``finish_sharded`` says go and joins them."""
     import torch.multiprocessing
-    outdir = ROOT / "build" / "lm_sharded" / ("resume" if resume else "runs")
+    outdir = ROOT / "build" / "lm_sharded" / (
+        name or ("resume" if resume else "runs"))
     shutil.rmtree(outdir, ignore_errors=True)
     outdir.mkdir(parents=True)
-    blocks_dir = ROOT / "build" / "lm_blocks_sharded"
+    blocks_dir = blocks_dir or ROOT / "build" / "lm_blocks_sharded"
     if blocks:
         shutil.rmtree(blocks_dir, ignore_errors=True)
         blocks_dir.mkdir(parents=True)
@@ -5401,9 +5470,10 @@ def start_sharded(runs, ckpt, resume=False, serve=(), blocks=()):
             "serve_go": str(outdir / "serve_go"), "blocks": blocks,
             "blocks_dir": str(blocks_dir)}
     ctx = torch.multiprocessing.spawn(
-        sh_rank, args=(SH_RANKS, f"tcp://localhost:{free_port()}", spec),
-        nprocs=SH_RANKS, join=False)
-    return {"ctx": ctx, "spec": spec, "t0": time.perf_counter()}
+        sh_rank, args=(world, f"tcp://localhost:{free_port()}", spec),
+        nprocs=world, join=False)
+    return {"ctx": ctx, "spec": spec, "t0": time.perf_counter(),
+            "world": world}
 
 
 def finish_sharded(start, serve_after=None):
@@ -5430,7 +5500,7 @@ def finish_sharded(start, serve_after=None):
     wall = time.perf_counter() - t0
     outdir = pathlib.Path(spec["outdir"])
     reports = [json.loads((outdir / f"rank{r}.json").read_text())
-               for r in range(SH_RANKS)]
+               for r in range(start["world"])]
     out = {run[0]: [rep[run[0]] for rep in reports] for run in spec["runs"]}
     out["serve_s"] = [rep["serve_s"] for rep in reports]
     out["serve_waited_s"] = [rep.get("serve_waited_s", 0.0)
@@ -5465,11 +5535,26 @@ def lm_sharded_spawns():
                           resume=True)], ckpt
 
 
+def grouped_heads_spawn():
+    """Start the GH_RANKS ranks of GH_RUN; they start up and wait for their
+    go (``start_lm_grouped``)."""
+    return start_sharded([], None, blocks=(GH_RUN,), world=GH_RANKS,
+                         name="grouped",
+                         blocks_dir=ROOT / "build" / "lm_grouped_heads")
+
+
 def start_lm_sharded(results):
     """Start the sharded phase's ranks a phase ahead, so that their
     start-up (imports, CUDA contexts, the process groups) overlaps the
     blocks' phase; they hold the card's contexts and nothing else."""
     results["lm_sharded_starts"] = lm_sharded_spawns()
+
+
+def start_lm_grouped(results):
+    """Start GH_RUN's ranks once the sharded spawns have ended, so that
+    their start-up overlaps ``phase_lm_driver`` and the sharded serving's
+    comparators."""
+    results["lm_grouped_start"] = grouped_heads_spawn()
 
 
 def phase_lm_sharded(dev, card, results, mhz, sms):
@@ -6080,11 +6165,13 @@ def bs_rank_body(rank, dev, run, spec):
         sq = {}
         step = make_train_step(cfg, hp, rules, on_grads=lambda g: sq.update(
             sh_leaf_sq(g, mesh, specs)) if not sq else None)
-        rep.update(metrics=[], step_s=[], host_bytes=[], flash_launches=[])
+        rep.update(metrics=[], step_s=[], host_bytes=[], flash_launches=[],
+                   step_launches=[])
         fa.reset_launches()
         for i in range(SH_STEPS):
             b = sh_batch(cfg, batch, seq, i, dev, data, mesh.coords["data"])
             before = fa.LAUNCHES[FLASH[0]]
+            before9 = fa.LAUNCHES[STEP[0]]
             collectives.reset_host_copies()
             torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
@@ -6095,6 +6182,7 @@ def bs_rank_body(rank, dev, run, spec):
             rep["metrics"].append({k: float(v) for k, v in m.items()})
             rep["host_bytes"].append(collectives.HOST_COPIES["bytes"])
             rep["flash_launches"].append(fa.LAUNCHES[FLASH[0]] - before)
+            rep["step_launches"].append(fa.LAUNCHES[STEP[0]] - before9)
             if i == 0 and routing:
                 bs_save_dispatch(seen, out / f"{label}-train-"
                                  f"{mesh.coords['data']}.pt")
@@ -6140,6 +6228,7 @@ def bs_rank_body(rank, dev, run, spec):
         rep["decode_host_bytes"].append(collectives.HOST_COPIES["bytes"])
         outs.append(logits)
     rep["serve_launches"] = fa.LAUNCHES[FLASH[0]]
+    rep["serve_step_launches"] = fa.LAUNCHES[STEP[0]]
     rep["serve_body_launches"] = dict(fa.BODY_LAUNCHES)
     rep["serve_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     stacked = gather_params(torch.stack(outs, 1), rules, rows + (None, None))
@@ -6262,8 +6351,10 @@ def phase_lm_blocks_sharded(dev, card, results, mhz, sms):
     every rank; (a) dropping pairs; every step's logits within SV_TOL and
     the greedy ids where the margin allows, ids and logits the same on
     every rank; the first MoE block's slots, kept flags and moe_dropped
-    from the ranks' own router and input, exactly; row 8 in every forward
-    with attention, on the wgmma body."""
+    from the ranks' own router and input, exactly; row 8 or, for (c)'s
+    heads that do not divide over model, row 9 around the ring in every
+    forward with attention, on the wgmma body, and (c)'s step-1 loss
+    within GH_LOSS_TOL."""
     ranks = results.pop("lm_blocks_ranks")
     peak = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
     out = {}
@@ -6284,25 +6375,82 @@ def phase_lm_blocks_sharded(dev, card, results, mhz, sms):
           f"{out['comparators_s']:.1f} s")
 
 
-def bs_check(run, reps, dev, card, peak, results):
-    """One run of ``phase_lm_blocks_sharded`` (see there)."""
-    label, arch, layers, _, (data, model), train, serve = run
-    cfg = bs_config(run)
-    what = f"lm-blocks-sharded ({label}) {arch}"
-    r0 = reps[0]
+def attn_route_launches(cfg, seq, model):
+    """(row-8, row-9) launches a rank in one forward of ``seq`` global
+    tokens under the layout over ``model`` ranks of tp: none off the flash
+    route; heads that divide over tp run row 8 once a layer; heads that do
+    not take the sequence-sharded route, row 9 once a ring step from the
+    ring's threshold on, else row 8 at the rank's q_base."""
+    from repro_torch.kernels.flash_attention import use_ring
     n_attn = sum(k in ("attn", "local") for k in cfg.block_pattern) * \
         cfg.n_units
+    if cfg.attn_impl != "flash" or seq <= cfg.attn_chunk:
+        return 0, 0
+    if cfg.n_heads % model == 0 or not use_ring(
+            seq, model, threshold=cfg.attn_ring_min_sk or None):
+        return n_attn, 0
+    return 0, n_attn * model
+
+
+def phase_lm_grouped_heads(dev, card, results, mhz, sms):
+    """Attention heads that do not divide over tp, trained and served
+    (ROADMAP A12.4 and A12.6), over more ranks than the blocks' runs:
+    GH_RUN on its own GH_RANKS ranks (started two phases ahead), held
+    against the same config's unsharded step and serving on the card
+    from the same weights with the sharded blocks' gates (``bs_check``,
+    which holds step 1's loss within GH_LOSS_TOL for heads that do not
+    divide): row 8 at the rank's q_base under autograd in the train
+    steps, row 9 around the ring in the prefill, on the wgmma body."""
+    peak = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
+    start = results.pop("lm_grouped_start", None) or grouped_heads_spawn()
+    out_dir = ROOT / "build" / "lm_grouped_heads"
+    t0 = time.perf_counter()
+    try:
+        # the ranks go; the unsharded train comparator runs meanwhile
+        pathlib.Path(start["spec"]["go"]).touch()
+        ref = bs_unsharded_train(GH_RUN, dev)
+        every, wall, waits = finish_sharded(start)
+    finally:
+        stop_sharded(start)
+    try:
+        o = bs_check(GH_RUN, every["blocks-" + GH_RUN[0]], dev, card, peak,
+                     results, out_dir=out_dir, what="lm-grouped-heads",
+                     train_ref=ref)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    o.update(ranks_s=max(every["blocks_s"]), waited_s=waits, join_s=wall,
+             phase_s=time.perf_counter() - t0)
+    results["lm_grouped_heads"] = o
+    print(f"lm-grouped-heads [{card}]: the {GH_RANKS} ranks "
+          f"{o['ranks_s']:.1f} s from their go (they waited "
+          f"{min(waits):.1f}-{max(waits):.1f} s; the unsharded train "
+          f"comparator ran beside them, then {wall:.1f} s to their end), "
+          f"the phase {o['phase_s']:.1f} s")
+
+
+def bs_check(run, reps, dev, card, peak, results,
+             out_dir=ROOT / "build" / "lm_blocks_sharded",
+             what="lm-blocks-sharded", train_ref=None):
+    """One run of ``phase_lm_blocks_sharded`` (see there), or of
+    ``phase_lm_grouped_heads``, whose ranks wrote to ``out_dir``;
+    ``train_ref``: the run's ``bs_unsharded_train``, where it was taken
+    while the ranks ran."""
+    label, arch, layers, _, (data, model), train, serve = run
+    cfg = bs_config(run)
+    phase = what
+    what = f"{phase} ({label}) {arch}"
+    r0 = reps[0]
     o = {"arch": arch, "layers": layers, "mesh": [data, model],
          "params": cfg.param_count(),
          "block_pattern": list(cfg.block_pattern)}
-    launches = 0
+    launches, steps9 = 0, 0
     line = [f"{what} [{card}]: full width, {layers} layers "
             f"({o['params']:,} parameters), (data, model) = ({data}, "
-            f"{model}), {SH_RANKS} gloo ranks on one card (transport "
+            f"{model}), {len(reps)} gloo ranks on one card (transport "
             f"{r0['transport']})"]
     if train:
         batch, seq = train
-        ref = bs_unsharded_train(run, dev)
+        ref = train_ref or bs_unsharded_train(run, dev)
         for i, (got, want) in enumerate(zip(r0["metrics"], ref["metrics"])):
             tol = SH_TOL if i == 0 else SH_STEP_TOL
             keys = ("loss", "grad_norm") + (
@@ -6319,6 +6467,12 @@ def bs_check(run, reps, dev, card, peak, results):
                     f"{what}: step 1's moe_dropped {got['moe_dropped']} vs "
                     f"the unsharded {want['moe_dropped']} (limit "
                     f"{BS_DROP_TOL:g})")
+        got, want = r0["metrics"][0]["loss"], ref["metrics"][0]["loss"]
+        loss1_rel = abs(got - want) / abs(want)
+        if cfg.n_heads % model and loss1_rel > GH_LOSS_TOL:
+            raise AssertionError(f"{what}: step 1's loss {got} vs the "
+                                 f"unsharded {want} (limit {GH_LOSS_TOL:g} "
+                                 f"relative, heads that do not divide)")
         worst = (0.0, None)
         for name, want in ref["leaf_sq"].items():
             got = r0["leaf_sq"][name]
@@ -6344,17 +6498,21 @@ def bs_check(run, reps, dev, card, peak, results):
         if label == "a" and not min(dropped) > 0:
             raise AssertionError(f"{what}: moe_dropped {dropped}: the run "
                                  f"must drop pairs")
-        want_l = 2 * n_attn          # forward and remat's recompute
+        # forward and remat's recompute
+        want8, want9 = (2 * n for n in attn_route_launches(cfg, seq, model))
         for rep in reps:
-            if any(n != want_l for n in rep["flash_launches"]) or \
+            if any(n != want8 for n in rep["flash_launches"]) or \
+                    any(n != want9 for n in rep["step_launches"]) or \
                     rep["train_body_launches"] != {
-                        "wgmma": want_l * SH_STEPS, "simt": 0}:
+                        "wgmma": (want8 + want9) * SH_STEPS, "simt": 0}:
                 raise AssertionError(
-                    f"{what}: rank {rep['rank']}'s train flash launches "
-                    f"{rep['flash_launches']} by body "
-                    f"{rep['train_body_launches']}; want {want_l} a step, "
-                    f"all wgmma")
+                    f"{what}: rank {rep['rank']}'s train launches of row 8 "
+                    f"{rep['flash_launches']} and row 9 "
+                    f"{rep['step_launches']} by body "
+                    f"{rep['train_body_launches']}; want {want8} and "
+                    f"{want9} a step, all wgmma")
         launches += sum(sum(rep["flash_launches"]) for rep in reps)
+        steps9 += sum(sum(rep["step_launches"]) for rep in reps)
         med = float(np.median(r0["step_s"][1:]))
         tokens = batch * seq
         flops = 6 * cfg.active_param_count() * tokens
@@ -6369,7 +6527,7 @@ def bs_check(run, reps, dev, card, peak, results):
             "peak_gb": [rep["train_peak_gb"] for rep in reps],
             "host_bytes": [rep["host_bytes"] for rep in reps],
             "flash_launches": [rep["flash_launches"] for rep in reps],
-            "worst_leaf": worst,
+            "worst_leaf": worst, "loss1_rel": loss1_rel,
             "init_s": [rep["train_init_s"] for rep in reps]}
         if cfg.moe is not None:
             o["train"]["dispatch"] = bs_dispatch(label, "train", data, cfg,
@@ -6407,9 +6565,11 @@ def bs_check(run, reps, dev, card, peak, results):
             + f" (unsharded {ref['peak_gb']:.2f}); host-copy bytes a step "
             f"rank 0 " + ", ".join(f"{x / 1e9:.3f} GB"
                                    for x in r0["host_bytes"])
-            + f"; row-8 launches a rank a step {r0['flash_launches']} by "
-            f"body {r0['train_body_launches']}")
+            + f"; launches a rank a step: row 8 {r0['flash_launches']}, "
+            f"row 9 {r0['step_launches']}, by body "
+            f"{r0['train_body_launches']}")
     batch, prompt, steps = serve
+    want8, want9 = attn_route_launches(cfg, prompt, model)
     for rep in reps:
         if rep["ids"] != r0["ids"] or \
                 rep["logits_digest"] != r0["logits_digest"]:
@@ -6418,21 +6578,24 @@ def bs_check(run, reps, dev, card, peak, results):
         if set(rep["lengths"]) != {prompt + steps}:
             raise AssertionError(f"{what}: rank {rep['rank']}'s cache "
                                  f"lengths {rep['lengths']}")
-        if rep["serve_launches"] != n_attn or \
-                rep["serve_body_launches"] != {"wgmma": n_attn, "simt": 0}:
+        if rep["serve_launches"] != want8 or \
+                rep["serve_step_launches"] != want9 or \
+                rep["serve_body_launches"] != {"wgmma": want8 + want9,
+                                               "simt": 0}:
             raise AssertionError(
-                f"{what}: rank {rep['rank']}'s row-8 launches "
-                f"{rep['serve_launches']} by body "
-                f"{rep['serve_body_launches']}; want {n_attn} (one a "
-                f"layer in the prefill), all wgmma")
+                f"{what}: rank {rep['rank']}'s prefill launches of row 8 "
+                f"{rep['serve_launches']} and row 9 "
+                f"{rep['serve_step_launches']} by body "
+                f"{rep['serve_body_launches']}; want {want8} and {want9}, "
+                f"all wgmma")
     launches += sum(rep["serve_launches"] for rep in reps)
-    got = torch.load(ROOT / "build" / "lm_blocks_sharded" / f"{label}-logits"
-                     f".pt", weights_only=True)
+    steps9 += sum(rep["serve_step_launches"] for rep in reps)
+    got = torch.load(out_dir / f"{label}-logits.pt", weights_only=True)
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{what}: non-finite logits")
     ref = bs_unsharded_serve(run, r0["ids"], dev)
     worst, at, checked = sv_compare(label, got, ref["logits"], r0["ids"],
-                                    cfg.vocab, what="lm-blocks-sharded")
+                                    cfg.vocab, what=phase)
     dec_ms = 1e3 * float(np.median(r0["decode_s"]))
     o["serve"] = {
         "batch": batch, "prompt": prompt, "steps": steps,
@@ -6453,8 +6616,9 @@ def bs_check(run, reps, dev, card, peak, results):
             "peak_gb": ref["peak_gb"]}}
     if cfg.moe is not None:
         o["serve"]["dispatch"] = bs_dispatch(label, "serve", data, cfg, dev)
-    o["launches"] = launches
+    o["launches"], o["step_launches"] = launches, steps9
     results[FLASH[0]]["launches"] += launches
+    results[STEP[0]]["launches"] += steps9
     line.append(
         f"serve: a {batch} x {prompt:,} prefill "
         + ", ".join(f"{x:.1f}" for x in o["serve"]["prefill_ms"])
@@ -6473,12 +6637,13 @@ def bs_check(run, reps, dev, card, peak, results):
            f"{o['serve']['dispatch']['capacity']}, slots and moe_dropped "
            f"equal to the unsharded dispatch's" if cfg.moe is not None
            else "")
-        + f"; row-8 launches a rank {r0['serve_launches']} by body "
+        + f"; prefill launches a rank: row 8 {r0['serve_launches']}, row 9 "
+        f"{r0['serve_step_launches']}, by body "
         f"{r0['serve_body_launches']}; logits within {worst:.3g} of their "
         f"limit ({SV_TOL:g} max |logit|, worst at step {at}), {checked} "
         f"greedy ids clear of the limit equal to the unsharded argmax, ids "
         f"and logits the same on every rank; ids row 0 {r0['ids'][0]}; "
-        f"row-8 launches in all {launches}")
+        f"launches in all: row 8 {launches}, row 9 {steps9}")
     print("; ".join(line))
     return o
 
@@ -6651,10 +6816,138 @@ def sp_rank_body(rank, world, dev, spec):
             cast_params(params, torch.bfloat16)
             torch.cuda.empty_cache()
         cfg_d = dataclasses.replace(cfg, dtype=dtype)
-        for prompt in (spec["ring_prompt"], spec["ag_prompt"]):
+        ring = spec["fp32_ring_prompt"] if dtype == "float32" else \
+            spec["ring_prompt"]
+        for prompt in (ring, spec["ag_prompt"]):
             report["runs"].append(sp_run(rank, world, dev, mesh, rules,
                                          params, cfg_d, prompt))
+    report["grads"] = [sp_grad_run(rank, world, dev, mesh, rules, params,
+                                   cfg_d, prompt)
+                       for prompt in (spec["ring_prompt"], spec["ag_prompt"])
+                       if spec["grads"]]
     return report
+
+
+def sp_grad_leaves(params):
+    """(path, tensor) of the leaves whose gradients the sequence-parallel
+    gradient check takes: every unit's attention projections and norm
+    scales, and the final norm (the MLPs' 1.06 B and the table's 1.0 B
+    left out: their gradients, gathered over four ranks sharing the card,
+    would not fit beside the ranks' weights)."""
+    from repro_torch.models.sharding import named_leaves
+    return [(p, t) for p, t in named_leaves(params)
+            if p[0] == "final_norm" or
+            (p[0] == "units" and p[2] in ("mixer", "norm1", "norm2"))]
+
+
+def sp_grad_loss(params, tokens, labels, cfg, rules=None):
+    """The mean next-token nll of (tokens, labels): under ``rules`` this
+    rank's shard of them through the sequence-parallel forward, its nll
+    sum over the global token count."""
+    from repro_torch.launch import collectives
+    from repro_torch.models import forward
+    from repro_torch.models.layers import cross_entropy_sums
+    from repro_torch.models.sharding import local_shard, use_rules
+    if rules is None:
+        hidden, _, _ = forward(params, tokens, cfg)
+        tot, cnt = cross_entropy_sums(params["embed"], hidden, labels, cfg)
+        return tot / cnt
+    tokens, labels = (local_shard(t, rules, "batch", "sp")
+                      for t in (tokens, labels))
+    with use_rules(rules):
+        hidden, _, _ = forward(params, tokens, cfg)
+    tot, cnt = cross_entropy_sums(params["embed"], hidden, labels, cfg)
+    return tot / collectives.axis_sum(cnt.detach(), rules.mesh, "model")
+
+
+def sp_grad_run(rank, world, dev, mesh, rules, params, cfg, prompt):
+    """The sequence-parallel forward differentiated (ROADMAP A12.4): a
+    (SP_BATCH, prompt) batch's loss (``sp_grad_loss``) through the ring
+    (row 9 forward, the reverse-ring backward) or the all-gather route
+    (row 8 at the rank's q_base, the recompute backward, dK/dV reduce-
+    scattered), the gradients of ``sp_grad_leaves`` summed over the ranks;
+    rank 0 then takes the same loss's gradients through the one-device
+    flash step (``FlashAttention``'s recompute) and holds each leaf's
+    gradient norm within SP_GRAD_TOL relative, and the norm of the
+    difference within LM_GRAD_BF16_TOL of the leaf's."""
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import collectives
+    ring = fa.use_ring(prompt, world, threshold=cfg.attn_ring_min_sk or None)
+    rng = np.random.default_rng(SP_SEED + prompt + 1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (SP_BATCH, prompt))
+                              ).to(dev)
+    labels = torch.full_like(tokens, -1)
+    labels[:, :-1] = tokens[:, 1:]
+    named = sp_grad_leaves(params)
+    leaves = [t.requires_grad_(True) for _, t in named]
+    try:
+        dist.barrier()
+        fa.reset_launches()
+        collectives.reset_host_copies()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+        # the main path, counters zeroed just before and read just after
+        t0 = time.perf_counter()
+        loss = sp_grad_loss(params, tokens, labels, cfg, rules)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches, bodies = dict(fa.LAUNCHES), dict(fa.BODY_LAUNCHES)
+        host = collectives.HOST_COPIES["bytes"]
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        # the forward and remat's recompute in the backward
+        per = 2 if cfg.remat else 1
+        want = {STEP[0]: per * world * cfg.n_layers if ring else 0,
+                FLASH[0]: 0 if ring else per * cfg.n_layers}
+        body = fa.flash_body(cfg.compute_dtype, cfg.head_dim_)
+        if launches != want or bodies[body] != sum(want.values()):
+            raise AssertionError(f"rank {rank}, gradients S = {prompt}: "
+                                 f"launches {launches}, by body {bodies}; "
+                                 f"not {want}, all {body}")
+        loss = float(collectives.axis_sum(loss.detach(), mesh, "model"))
+        grads = [collectives.axis_sum(g, mesh, "model") for g in grads]
+        run = {"prompt": prompt, "route": "ring" if ring else "allgather",
+               "launches": launches, "body_launches": bodies,
+               "host_bytes": host, "peak_gb": peak_gb, "step_s": wall,
+               "loss": loss, "leaves": len(leaves)}
+        if rank == 0:
+            t1 = time.perf_counter()
+            ref_loss = sp_grad_loss(params, tokens, labels, cfg)
+            ref = torch.autograd.grad(ref_loss, leaves)
+            torch.cuda.synchronize(dev)
+            run["unsharded_s"] = time.perf_counter() - t1
+            run["unsharded_loss"] = float(ref_loss.detach())
+            worst = {"norm": (0.0, ""), "diff": (0.0, "")}
+            for (path, _), g, w in zip(named, grads, ref):
+                name = "/".join(map(str, path))
+                gn, wn = float(g.float().norm()), float(w.float().norm())
+                rel = abs(gn - wn) / max(wn, 1e-30)
+                diff = float((g.float() - w.float()).norm()) / max(wn, 1e-30)
+                if not (math.isfinite(rel) and math.isfinite(diff)) or \
+                        rel > SP_GRAD_TOL or diff > LM_GRAD_BF16_TOL:
+                    raise AssertionError(
+                        f"sequence-parallel gradients S = {prompt} "
+                        f"({run['route']}): {name}'s norm {gn:.6g} vs the "
+                        f"one-device step's {wn:.6g} ({rel:.3g} relative, "
+                        f"limit {SP_GRAD_TOL:g}); |dg| / |g| {diff:.3g} "
+                        f"(limit {LM_GRAD_BF16_TOL:g})")
+                worst["norm"] = max(worst["norm"], (rel, name))
+                worst["diff"] = max(worst["diff"], (diff, name))
+            if abs(loss - run["unsharded_loss"]) > SP_GRAD_TOL * abs(
+                    run["unsharded_loss"]):
+                raise AssertionError(
+                    f"sequence-parallel loss S = {prompt}: {loss} vs the "
+                    f"one-device step's {run['unsharded_loss']}")
+            run["worst"] = worst
+            del ref
+        del grads
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return run
 
 
 def sp_run(rank, world, dev, mesh, rules, params, cfg, prompt):
@@ -6751,15 +7044,17 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def run_seq_parallel(backend, world, layers):
-    """Spawn ``world`` ranks of the sequence-parallel phase; their reports,
-    with the launch totals checked."""
+def run_seq_parallel(backend, world, layers, grads=False):
+    """Spawn ``world`` ranks of the sequence-parallel phase (with
+    ``grads``, its gradient runs too); their reports, with the launch
+    totals checked."""
     outdir = ROOT / "build" / "seq_parallel" / backend
     shutil.rmtree(outdir, ignore_errors=True)
     outdir.mkdir(parents=True)
     spec = {"backend": backend, "layers": layers, "device_type": DEVICE,
             "ring_prompt": SP_RING_PROMPT, "ag_prompt": SP_AG_PROMPT,
-            "outdir": str(outdir)}
+            "fp32_ring_prompt": SP_FP32_RING_PROMPT,
+            "outdir": str(outdir), "grads": grads}
     import torch.multiprocessing
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6788,24 +7083,39 @@ def run_seq_parallel(backend, world, layers):
                                  f"body {bodies}; not {want}, {want_bodies}")
         run["total_launches"] = total
         run["total_body_launches"] = bodies
+    for i, run in enumerate(reports[0]["grads"]):
+        run["total_launches"] = {name: sum(rep["grads"][i]["launches"][name]
+                                           for rep in reports)
+                                 for name in (STEP[0], FLASH[0])}
+        run["total_body_launches"] = {
+            name: sum(rep["grads"][i]["body_launches"][name]
+                      for rep in reports) for name in ("wgmma", "simt")}
     return {"backend": backend, "world": world, "layers": layers,
             "wall_s": wall, "ranks": reports}
 
 
 def phase_seq_parallel(card, results):
     """gemma3_12b at full width, 6 layers, its sequence sharded over four
-    ranks of the ``model`` axis: the ring run (8,192 tokens) and the
-    all-gather run (2,048), fp32 then bf16, each against the one-device
-    forward on the same weights.  On one card the four ranks share it
-    over gloo (NCCL takes one rank a card); with four cards the phase runs
-    once more over NCCL, one rank a card, at full depth."""
-    out = run_seq_parallel("gloo", SP_RANKS, SP_LAYERS)
+    ranks of the ``model`` axis: the ring run (4,096 tokens in fp32, 8,192
+    in bf16) and the all-gather run (2,048), fp32 then bf16, each against
+    the one-device forward on the same weights; then both bf16 runs
+    differentiated, each against the one-device flash step's gradients
+    (``sp_grad_run``).  On one card the four ranks share it over gloo
+    (NCCL takes one rank a card); with four cards the forwards run once
+    more over NCCL, one rank a card, at full depth."""
+    out = run_seq_parallel("gloo", SP_RANKS, SP_LAYERS, grads=True)
     results["seq_parallel"] = {"gloo": out}
     report_seq_parallel(out, card)
     ring_bf16 = next(r for r in out["ranks"][0]["runs"]
                      if r["route"] == "ring" and r["dtype"] == "bfloat16")
     results[STEP[0]]["launches"] += ring_bf16["total_launches"][STEP[0]]
-    results[STEP[0]]["body_launches"] = ring_bf16["total_body_launches"]
+    body = dict(ring_bf16["total_body_launches"])
+    for run in out["ranks"][0]["grads"]:
+        results[STEP[0]]["launches"] += run["total_launches"][STEP[0]]
+        results[FLASH[0]]["launches"] += run["total_launches"][FLASH[0]]
+        if run["route"] == "ring":
+            body = {k: body[k] + run["total_body_launches"][k] for k in body}
+    results[STEP[0]]["body_launches"] = body
     if torch.cuda.device_count() >= SP_RANKS:
         nccl = run_seq_parallel("nccl", SP_RANKS, SP_FULL_DEPTH)
         results["seq_parallel"]["nccl"] = nccl
@@ -6847,6 +7157,22 @@ def report_seq_parallel(out, card):
               f"{run['logit_err']:.4g} ({l_rel:.3g} of "
               f"{run['logit_scale']:.4g}), limit {run['tol']:g} of the max; "
               f"argmax ids equal: {run['argmax_equal']}")
+    for i, run in enumerate(ranks[0]["grads"]):
+        per = [r["grads"][i] for r in ranks]
+        print(f"  bf16 gradients S = {run['prompt']} ({run['route']}, "
+              f"remat, {run['leaves']} leaves: attention and norms): "
+              f"launches {run['total_launches']} in all, by body "
+              f"{run['total_body_launches']}; forward + backward "
+              f"{[round(p['step_s'], 3) for p in per]} s a rank (the "
+              f"one-device step {run['unsharded_s']:.3f} s); host copies "
+              f"{[p['host_bytes'] for p in per]} bytes a rank; peak "
+              f"{[round(p['peak_gb'], 2) for p in per]} GB a rank; loss "
+              f"{run['loss']:.6f} vs the one-device step's "
+              f"{run['unsharded_loss']:.6f}; worst leaf gradient norm "
+              f"{run['worst']['norm'][0]:.3g} relative at "
+              f"{run['worst']['norm'][1]} (limit {SP_GRAD_TOL:g}), worst "
+              f"|dg| / |g| {run['worst']['diff'][0]:.3g} at "
+              f"{run['worst']['diff'][1]} (limit {LM_GRAD_BF16_TOL:g})")
 
 
 def visible_pairs(sq, sk, window, q_base=0):
@@ -6875,70 +7201,81 @@ def time_bodies(run, reps, warmup=1):
 
 def phase_flash_times(dev, results, mhz, sms):
     """The flash kernel at the slice's layers and at prefill_32k's length,
-    the wgmma and the SIMT body on the same inputs, beside the bound, the
-    wgmma design's own floor, the plain version and SDPA as a
-    yardstick."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    from repro_torch.kernels import flash_attention as fa
+    then at the sharded routes' own shapes (FLASH_ROUTE_TIMING: rows at a
+    q_base against longer K/V), the wgmma and the SIMT body on the same
+    inputs, beside the bound, the wgmma design's own floor, the plain
+    version and SDPA as a yardstick."""
     tensor_rate = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
     fma_rate = sms * FMA_FLOPS_PER_SM_CLK * mhz * 1e6
     rng = np.random.default_rng(9)
-    for b, s_, w, h, g, d in FLASH_TIMING:
-        q, k, v = flash_inputs(rng, b, s_, s_, h, g, d, torch.bfloat16, dev)
-        long = s_ > 4096
-        ms, readings = time_bodies(lambda body: fa.flash_attention_fwd_cuda(
-            q, k, v, window=w, body=body), reps=1 if long else 10)
-        plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
-            q, k, v, window=w), reps=1 if long else 3, warmup=1)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if w == 0:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-        else:
-            # a boolean mask for the window.  With enable_gqa and a mask
-            # PyTorch would take its math path, which at S = 32,768 writes
-            # (H, S, S) scores; so k and v are repeated to the query heads
-            # first (outside the timing) and the memory-efficient path is
-            # asked for
-            i = torch.arange(s_, device=dev)
-            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
-            kt, vt = (t.repeat_interleave(h // g, dim=1) for t in (kt, vt))
+    cases = [(b, s_, s_, 0, w, h, g, d) for b, s_, w, h, g, d in FLASH_TIMING]
+    for case in cases + list(FLASH_ROUTE_TIMING):
+        results[FLASH[0]]["times"].append(time_flash_case(
+            dev, rng, *case, tensor_rate, fma_rate))
+        torch.cuda.empty_cache()
 
-            def lib():
-                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-                    return F.scaled_dot_product_attention(qt, kt, vt,
-                                                          attn_mask=mask)
-        lib_ms = time_ms(lib, reps=3 if long else 10, warmup=1)
-        pairs = visible_pairs(s_, s_, w) * b * h
-        flops = 4 * d * pairs
-        nbytes = 2 * (2 * b * s_ * h * d + 2 * b * s_ * g * d)
-        bound_ms, by = bound(nbytes, flops, tensor_rate)
-        # the wgmma design's own floor: p . v twice (hi and lo), 6 D flops
-        floor_ms = bound(nbytes, 6 * d * pairs, tensor_rate)[0]
-        fma_ms = flops / fma_rate * 1e3
-        results[FLASH[0]]["times"].append({
-            "shape": [b, s_, h, g, d], "window": w, "ms": ms["wgmma"],
-            "simt_ms": ms["simt"], "readings": readings,
+
+def time_flash_case(dev, rng, b, sq, sk, qb, w, h, g, d, tensor_rate,
+                    fma_rate):
+    """One shape of ``phase_flash_times``: its record, printed."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = flash_inputs(rng, b, sq, sk, h, g, d, torch.bfloat16, dev)
+    long = max(sq, sk) > 4096
+    ms, readings = time_bodies(lambda body: fa.flash_attention_fwd_cuda(
+        q, k, v, window=w, q_base=qb, body=body), reps=1 if long else 10)
+    plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
+        q, k, v, window=w, q_base=qb), reps=1 if long else 3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    causal = w == 0 and qb == 0 and sq == sk
+    if causal:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        # a boolean mask for the window or the rows' offset.  With
+        # enable_gqa and a mask PyTorch would take its math path, which at
+        # S = 32,768 writes (H, S, S) scores; so k and v are repeated to
+        # the query heads first (outside the timing) and the
+        # memory-efficient path is asked for
+        pos = torch.arange(sq, device=dev)[:, None] + qb
+        key = torch.arange(sk, device=dev)[None, :]
+        mask = key <= pos
+        if w > 0:
+            mask &= key > pos - w
+        kt, vt = (t.repeat_interleave(h // g, dim=1) for t in (kt, vt))
+
+        def lib():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+    lib_ms = time_ms(lib, reps=3 if long else 10, warmup=1)
+    pairs = visible_pairs(sq, sk, w, qb) * b * h
+    flops = 4 * d * pairs
+    nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * g * d)
+    bound_ms, by = bound(nbytes, flops, tensor_rate)
+    # the wgmma design's own floor: p . v twice (hi and lo), 6 D flops
+    floor_ms = bound(nbytes, 6 * d * pairs, tensor_rate)[0]
+    fma_ms = flops / fma_rate * 1e3
+    print(f"time flash_attention_fwd (B, Sq, Sk) = ({b}, {sq}, {sk}) q_base "
+          f"{qb} H/G {h}/{g} D {d} window {w} bf16: wgmma body "
+          f"{ms['wgmma']:.4f} ms, SIMT body {ms['simt']:.4f} ms (in turns: "
+          f"{readings}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}; dense bf16 {tensor_rate / 1e12:.1f} TFLOP/s, "
+          f"{flops / 1e9:.2f} GFLOP at 4 D a pair on {nbytes / 1e6:.1f} MB), "
+          f"the wgmma design's floor (6 D a pair) {floor_ms:.4f} ms, "
+          f"fp32-FMA bound {fma_ms:.4f} ms ({fma_rate / 1e12:.2f} TFLOP/s); "
+          f"library call scaled_dot_product_attention {lib_ms:.4f} ms "
+          + ("(causal, enable_gqa" if causal else
+             "(boolean mask, memory-efficient path, k/v repeated to the "
+             "query heads")
+          + "; a yardstick, the port never calls it)")
+    return {"shape": [b, sq, h, g, d], "sk": sk, "q_base": qb, "window": w,
+            "ms": ms["wgmma"], "simt_ms": ms["simt"], "readings": readings,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "floor_6d_ms": floor_ms, "fp32_fma_bound_ms": fma_ms,
             "library_ms": lib_ms, "visible_pairs": pairs, "flops": flops,
-            "bytes": nbytes})
-        print(f"time flash_attention_fwd (B, S) = ({b}, {s_}) H/G {h}/{g} "
-              f"D {d} window {w} bf16: wgmma body {ms['wgmma']:.4f} ms, SIMT "
-              f"body {ms['simt']:.4f} ms (in turns: {readings}), plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; dense bf16 "
-              f"{tensor_rate / 1e12:.1f} TFLOP/s, {flops / 1e9:.2f} GFLOP at "
-              f"4 D a pair on {nbytes / 1e6:.1f} MB), the wgmma design's "
-              f"floor (6 D a pair) {floor_ms:.4f} ms, fp32-FMA bound "
-              f"{fma_ms:.4f} ms ({fma_rate / 1e12:.2f} TFLOP/s); library call "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms "
-              + ("(causal, enable_gqa" if w == 0 else
-                 "(boolean window mask, memory-efficient path, k/v repeated"
-                 " to the query heads")
-              + "; a yardstick, the port never calls it)")
-        del q, k, v, qt, kt, vt
-        torch.cuda.empty_cache()
+            "bytes": nbytes}
 
 
 def phase_step_times(dev, results, mhz, sms):
@@ -6951,12 +7288,13 @@ def phase_step_times(dev, results, mhz, sms):
     from repro_torch.kernels import flash_attention as fa
     tensor_rate = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
     rng = np.random.default_rng(12)
-    b, s_, h, g, d = STEP_TIMING_SHAPE
-    q, k, v = flash_inputs(rng, b, s_, s_, h, g, d, torch.bfloat16, dev)
-    carry = fa.init_carry(b, s_, h, d, dev)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    for label, shard, w in STEP_TIMING:
-        q_base, k_base = s_, shard * s_
+    s_ = STEP_TIMING_SHAPE[1]
+    cases = [(label, STEP_TIMING_SHAPE, s_, shard * s_, w)
+             for label, shard, w in STEP_TIMING] + list(STEP_ROUTE_TIMING)
+    for label, (b, s_, h, g, d), q_base, k_base, w in cases:
+        q, k, v = flash_inputs(rng, b, s_, s_, h, g, d, torch.bfloat16, dev)
+        carry = fa.init_carry(b, s_, h, d, dev)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         args = dict(q_base=q_base, k_base=k_base, window=w)
         ms, readings = time_bodies(lambda body: fa.flash_attention_step_cuda(
             q, k, v, carry, body=body, **args), reps=10)
@@ -7008,8 +7346,8 @@ def phase_step_times(dev, results, mhz, sms):
               f"library call scaled_dot_product_attention on the same q and "
               f"k shard, no carry ({lib_note}) {lib_ms:.4f} ms (the nearest "
               f"single PyTorch call; the port never calls it)")
-    del q, k, v, qt, kt, vt, carry
-    torch.cuda.empty_cache()
+        del q, k, v, qt, kt, vt, carry
+        torch.cuda.empty_cache()
 
 
 def cws_times(case, reps, plain_reps, peak_ops, counts):
@@ -7395,8 +7733,11 @@ def main():
                         (phase_lm_blocks, (dev, smi, results)),
                         (start_lm_driver, (results,)),
                         (phase_lm_sharded, (dev, smi, results, mhz, sms)),
+                        (start_lm_grouped, (results,)),
                         (phase_lm_driver, (smi, results)),
                         (phase_lm_serve_sharded, (dev, smi, results)),
+                        (phase_lm_grouped_heads, (dev, smi, results, mhz,
+                                                  sms)),
                         (phase_lm_blocks_sharded, (dev, smi, results, mhz,
                                                    sms)),
                         (phase_seq_parallel, (smi, results)),
@@ -7410,6 +7751,8 @@ def main():
             # ranks started ahead would wait for their go for ever
             for st in results.pop("lm_sharded_starts", ([], None))[0]:
                 stop_sharded(st)
+            if "lm_grouped_start" in results:
+                stop_sharded(results.pop("lm_grouped_start"))
             stop_lm_driver(results)
             for fut in results.get("key_sweep", ())[:2]:
                 fut.cancel()
@@ -7476,7 +7819,8 @@ def main():
                  lm_blocks=results["lm_blocks"],
                  lm_sharded=results["lm_sharded"],
                  lm_serve_sharded=results["lm_serve_sharded"],
-                 lm_blocks_sharded=results["lm_blocks_sharded"])
+                 lm_blocks_sharded=results["lm_blocks_sharded"],
+                 lm_grouped_heads=results["lm_grouped_heads"])
     kernels.append(entry)
     r = results[STEP[0]]
     # the main path's most frequent computing launch: a local layer's

@@ -37,17 +37,19 @@ refused launch raises, and neither body gives way to the other.
 
 Under autograd row 8 runs inside ``FlashAttention`` (the reference's
 ``flash_attention`` custom_vjp): the forward is the kernel, the backward
-recomputes the same attention through the plain chunked path and
-differentiates that.  No backward kernel exists, here or in the
-reference.
+recomputes the same attention through the plain chunked path, its rows
+at their global positions ``q_base + i``, and differentiates that.  No
+backward kernel exists, here or in the reference.
 
 The sequence-parallel schedules (the reference's shard_map wrappers) run
 on every rank of a mesh axis with that rank's sequence shard of q, k and
-v: ``sharded_flash_attention`` all-gathers K/V and runs row 8 at the
-shard's ``q_base``; ``ring_flash_attention`` keeps K/V sharded and chains
-row 9 over the ring, rotating the shards with
-``repro_torch.launch.collectives.ring_shift``.  ``use_ring`` is the
-routing predicate between them.
+v: ``sharded_flash_attention`` all-gathers K/V (differentiably: dK/dV are
+reduce-scattered back to their shards) and runs row 8 at the shard's
+``q_base``; ``ring_flash_attention`` keeps K/V sharded and chains row 9
+over the ring, rotating the shards with
+``repro_torch.launch.collectives.ring_shift``, and under autograd runs the
+reference's reverse ring backward (``RingFlashAttention``).  ``use_ring``
+is the routing predicate between them.
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ import torch
 
 from repro_torch.kernels.build import (flash_attention_library,
                                        flash_attention_wgmma_library)
-from repro_torch.launch.collectives import all_gather_dim, ring_shift
+from repro_torch.launch.collectives import all_gather_many, ring_shift
 # the reference's name for launch.mesh.axis_size, as this module exports it
 from repro_torch.launch.mesh import axis_size as axes_size
 
@@ -123,14 +125,14 @@ def flash_attention_step(q, k, v, carry, *, q_base: int, k_base: int,
         q, k, v, carry, q_base=q_base, k_base=k_base, window=window)
 
 
-def _ref_bwd_fn(q, k, v, window: int, chunk: int):
+def _ref_bwd_fn(q, k, v, window: int, chunk: int, q_base: int = 0):
     """The plain chunked attention the backward recomputes through (the
-    reference's ``_ref_bwd_fn``)."""
+    reference's ``_ref_bwd_fn``), q's rows at ``q_base + i``."""
     from repro_torch.models.attention import _chunked_grouped
     b, s, h, d = q.shape
     g = k.shape[2]
     out = _chunked_grouped(q.reshape(b, s, g, h // g, d), k, v,
-                           window=window, chunk=chunk)
+                           window=window, chunk=chunk, q_base=q_base)
     return out.reshape(b, s, h, d)
 
 
@@ -140,26 +142,27 @@ class FlashAttention(torch.autograd.Function):
     tensors, whose output has no graph of its own; the plain version on
     CPU tensors), run without a graph; the backward recomputes the same
     attention through the plain chunked path (``_chunked_grouped`` at
-    ``chunk``, the model's ``attn_chunk``) and differentiates that, as
-    the reference's ``_fa_bwd`` does.  q, k and v are saved only when one
-    of them needs a gradient.  Causal self-attention only (q_base 0,
-    Sq == Sk), which is what the backward recomputes."""
+    ``chunk``, the model's ``attn_chunk``, q's rows at ``q_base + i``
+    against every key of k and v) and differentiates that, as the
+    reference's ``_fa_bwd`` does (and its ``_sfa_bwd`` for a rank's rows
+    of the all-gather schedule).  q, k and v are saved only when one of
+    them needs a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int, chunk: int):
-        ctx.window, ctx.chunk = window, chunk
+    def forward(ctx, q, k, v, window: int, chunk: int, q_base: int):
+        ctx.window, ctx.chunk, ctx.q_base = window, chunk, q_base
         if any(ctx.needs_input_grad[:3]):
             ctx.save_for_backward(q, k, v)
-        return flash_attention_fwd(q, k, v, window=window)
+        return flash_attention_fwd(q, k, v, window=window, q_base=q_base)
 
     @staticmethod
     def backward(ctx, g_out):
         with torch.enable_grad():
             q, k, v = (t.detach().requires_grad_(True)
                        for t in ctx.saved_tensors)
-            out = _ref_bwd_fn(q, k, v, ctx.window, ctx.chunk)
+            out = _ref_bwd_fn(q, k, v, ctx.window, ctx.chunk, ctx.q_base)
             dq, dk, dv = torch.autograd.grad(out, (q, k, v), g_out)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def init_carry(b: int, sq: int, h: int, d: int, device):
@@ -423,16 +426,20 @@ def use_ring(s_k: int, n_shards: int, *, threshold: int | None = None) -> bool:
 
 
 def sharded_flash_attention(q, k, v, *, window: int, mesh,
-                            seq_axes=("model",)):
+                            seq_axes=("model",), chunk: int = 256):
     """The all-gather schedule.  On every rank of ``seq_axes``: q (B, Sq/N,
     H, D), k and v (B, Sk/N, G, D), this rank's sequence shards.  K/V are
     all-gathered to their full length and row 8 runs on the local q rows
     at ``q_base = index * Sq/N``, so the masks compare global positions.
-    Returns this rank's (B, Sq/N, H, D) rows."""
-    kf = all_gather_dim(k, mesh, seq_axes, dim=1)
-    vf = all_gather_dim(v, mesh, seq_axes, dim=1)
+    Returns this rank's (B, Sq/N, H, D) rows.  Differentiable: the
+    backward recomputes the rows' attention against the whole K/V
+    (``FlashAttention`` at ``chunk``) and reduce-scatters dK/dV back to
+    their shards."""
+    from repro_torch.kernels.ops import flash_attention
+    kf, vf = all_gather_many([k, v], [1, 1], mesh, seq_axes)
     q_base = mesh.axis_index(seq_axes) * q.shape[1]
-    return flash_attention_fwd(q, kf, vf, window=window, q_base=q_base)
+    return flash_attention(q, kf, vf, window=window, q_base=q_base,
+                           chunk=chunk)
 
 
 def ring_flash_attention_fwd(q, k, v, *, window: int, mesh,
@@ -443,7 +450,7 @@ def ring_flash_attention_fwd(q, k, v, *, window: int, mesh,
     holds the shard that started s hops upstream, global row 0 at
     ``k_base = ((index - s) mod N) * Sk/N``; the rotation for step s + 1
     starts before step s's kernel and is waited on after it.  Returns
-    (out (B, Sq/N, H, D), lse (B, Sq/N, H)); lse is for a backward."""
+    (out (B, Sq/N, H, D), lse (B, Sq/N, H)); lse is for the backward."""
     n = axes_size(mesh, seq_axes)
     me = mesh.axis_index(seq_axes)
     q_base = me * q.shape[1]
@@ -460,7 +467,88 @@ def ring_flash_attention_fwd(q, k, v, *, window: int, mesh,
     return finalize(carry, q.dtype)
 
 
+def ring_flash_attention_bwd(q, k, v, out, lse, g_out, *, window: int, mesh,
+                             seq_axes=("model",)):
+    """The reverse ring with recompute (the reference's
+    ``_ring_bwd_impl``): q, out, lse and dout stay put; (k, v, dk, dv)
+    rotate the opposite way to the forward, so that at step s the rank
+    holds the shard of index ``(me + s) mod N`` with the dk / dv that the
+    ranks before it added to it, and after N hops dk / dv are home (the
+    last hop moves only them).  Each step recomputes p = exp(s - lse) for
+    the resident shard, in fp32, and adds its terms to dq and to the
+    travelling dk / dv.  Returns (dq, dk, dv) in q's, k's and v's dtypes.
+    Plain PyTorch, in q rows of at most ``_CHUNK_ELEMS`` scores at a
+    time; no backward kernel exists, here or in the reference."""
+    n = axes_size(mesh, seq_axes)
+    me = mesh.axis_index(seq_axes)
+    b, sq, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    r = h // g
+    scale = d ** -0.5
+    q5 = q.float().reshape(b, sq, g, r, d)
+    go5 = g_out.float().reshape(b, sq, g, r, d)
+    lse_t = lse.float().reshape(b, sq, g, r).permute(0, 2, 3, 1)[..., None]
+    delta = (go5 * out.float().reshape(b, sq, g, r, d)).sum(-1).permute(
+        0, 2, 3, 1)[..., None]                          # (b, g, r, sq, 1)
+    iq = me * sq + torch.arange(sq, device=q.device)
+    dq = torch.zeros_like(q5)
+    rows = max(1, _CHUNK_ELEMS // max(b * h * sk, 1))
+    ring = (k.float(), v.float(), torch.zeros((b, sk, g, d),
+                                              dtype=torch.float32,
+                                              device=q.device),
+            torch.zeros((b, sk, g, d), dtype=torch.float32, device=q.device))
+    for s in range(n):
+        kf, vf, dk, dv = ring
+        ik = ((me + s) % n) * sk + torch.arange(sk, device=q.device)
+        for i0 in range(0, sq, rows):
+            sl = slice(i0, i0 + rows)
+            visible = ik[None, :] <= iq[sl, None]
+            if window > 0:
+                visible &= ik[None, :] > iq[sl, None] - window
+            qc, gc = q5[:, sl], go5[:, sl]
+            sc = torch.einsum("bqgrd,bkgd->bgrqk", qc, kf) * scale
+            sc.masked_fill_(~visible, NEG_INF)
+            p = sc.sub_(lse_t[:, :, :, sl]).exp_()
+            dv += torch.einsum("bgrqk,bqgrd->bkgd", p, gc)
+            dp = torch.einsum("bqgrd,bkgd->bgrqk", gc, vf)
+            ds = p.mul_(dp.sub_(delta[:, :, :, sl]))
+            dq[:, sl] += torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) * scale
+            dk += torch.einsum("bgrqk,bqgrd->bkgd", ds, qc) * scale
+        live = (kf, vf, dk, dv) if s < n - 1 else (dk, dv)
+        ring = ring_shift(live, mesh, seq_axes, reverse=True).wait()
+    dk, dv = ring[-2:]
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class RingFlashAttention(torch.autograd.Function):
+    """The ring schedule under autograd (the reference's
+    ``ring_flash_attention`` custom_vjp): the forward chains row 9 over
+    the ring and keeps (q, k, v, out, lse); the backward is
+    ``ring_flash_attention_bwd``, which every rank of ``seq_axes`` runs
+    together."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, mesh, seq_axes):
+        out, lse = ring_flash_attention_fwd(q, k, v, window=window,
+                                            mesh=mesh, seq_axes=seq_axes)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (window, mesh, seq_axes)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        window, mesh, seq_axes = ctx.args
+        return ring_flash_attention_bwd(
+            *ctx.saved_tensors, g_out, window=window, mesh=mesh,
+            seq_axes=seq_axes) + (None, None, None)
+
+
 def ring_flash_attention(q, k, v, *, window: int, mesh, seq_axes=("model",)):
-    """The ring schedule: this rank's (B, Sq/N, H, D) output rows."""
+    """The ring schedule: this rank's (B, Sq/N, H, D) output rows;
+    differentiable (``RingFlashAttention``) when a gradient is wanted."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return RingFlashAttention.apply(q, k, v, window, mesh,
+                                        tuple(seq_axes))
     return ring_flash_attention_fwd(q, k, v, window=window, mesh=mesh,
                                     seq_axes=seq_axes)[0]

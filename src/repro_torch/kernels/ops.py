@@ -67,16 +67,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with ``window > 0``, sliding-window) attention, rows at global
     positions ``q_base + i``.  When a gradient is wanted the call goes
     through ``flash_attention.FlashAttention``, whose backward recomputes
-    through the plain chunked path at ``chunk``; otherwise straight to the
-    registry's route."""
+    through the plain chunked path at ``chunk``, the rows at their global
+    positions; otherwise straight to the registry's route."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         from repro_torch.kernels.flash_attention import FlashAttention
-        if q_base != 0 or q.shape[1] != k.shape[1]:
-            raise NotImplementedError(
-                "the flash backward recomputes causal self-attention only "
-                "(q_base 0, Sq == Sk); the sharded routes' backward is "
-                "ROADMAP A12.4")
-        return FlashAttention.apply(q, k, v, window, chunk)
+        return FlashAttention.apply(q, k, v, window, chunk, q_base)
     return registry.resolve("flash_attention", q.device)(
         q, k, v, window=window, q_base=q_base)
 

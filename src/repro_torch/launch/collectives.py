@@ -94,11 +94,13 @@ class PendingShift:
         return tuple(self._received)
 
 
-def ring_shift(tensors: Sequence[torch.Tensor], mesh, axes) -> PendingShift:
+def ring_shift(tensors: Sequence[torch.Tensor], mesh, axes, *,
+               reverse: bool = False) -> PendingShift:
     """Start sending ``tensors`` to the next rank along ``axes`` (index
-    + 1, mod the ring) and receiving the previous rank's into new tensors
-    of the same shapes (one ``batch_isend_irecv``); a ring of one sends
-    nothing and returns the tensors themselves."""
+    + 1, mod the ring; index - 1 with ``reverse``) and receiving the
+    previous rank's into new tensors of the same shapes (one
+    ``batch_isend_irecv``); a ring of one sends nothing and returns the
+    tensors themselves."""
     tensors = [t.contiguous() for t in tensors]
     ranks = mesh.ranks(axes)
     n = len(ranks)
@@ -108,7 +110,8 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh, axes) -> PendingShift:
     group = mesh.group(axes)
     route = transport(_backend(mesh, axes), device)
     me = mesh.axis_index(axes)
-    nxt, prv = ranks[(me + 1) % n], ranks[(me - 1) % n]
+    step = -1 if reverse else 1
+    nxt, prv = ranks[(me + step) % n], ranks[(me - step) % n]
     if route == "gloo+host":
         tensors = [_to_host(t) for t in tensors]
     received = [torch.empty_like(t) for t in tensors]

@@ -20,10 +20,10 @@
 
     Under ``torchrun`` every rank joins one gloo process group and serves
     its shard under the reference's local mesh and rules
-    (``make_local_mesh()``: data = N, model = 1; ``make_serve_steps(cfg,
-    rules)``): its slices of the weights, its rows of the batch, its
-    shards of the caches.  Each rank's device is ``cuda:{LOCAL_RANK %
-    device_count}``; logs come from rank 0:
+    (``make_local_mesh()``: data = N, model = 1; ``--mesh D M`` for
+    another; ``make_serve_steps(cfg, rules)``): its slices of the weights,
+    its rows of the batch, its shards of the caches.  Each rank's device
+    is ``cuda:{LOCAL_RANK % device_count}``; logs come from rank 0:
 
       torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch \
           gemma3_12b --variant smoke --batch 4 --device cpu
@@ -108,7 +108,7 @@ def serve_lm(args, params=None) -> dict:
     generated ids returned are the whole batch's, gathered."""
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
     from repro_torch.models import cast_params, init_caches, init_model
     from repro_torch.models.model import embed_generated
     from repro_torch.models.sharding import (TrainLayout, gather_params,
@@ -124,7 +124,8 @@ def serve_lm(args, params=None) -> dict:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     rules = layout = None
     if dist.is_initialized() and dist.get_world_size() > 1:
-        rules = make_rules(make_local_mesh())
+        mesh = make_mesh(*args.mesh) if args.mesh else make_local_mesh()
+        rules = make_rules(mesh)
         layout = TrainLayout(rules, param_pspecs(cfg, rules))
     rank0 = rules is None or rules.mesh.rank == 0
     log = print if rank0 else (lambda *a, **k: None)
@@ -223,6 +224,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--attn-impl", default=None,
                     choices=("naive", "chunked", "flash"),
                     help="override the config's attn_impl")
+    ap.add_argument("--mesh", type=int, nargs=2, default=None,
+                    metavar=("DATA", "MODEL"),
+                    help="under torchrun: a (data, model) mesh over the "
+                         "ranks (default: the local mesh, data = the "
+                         "ranks)")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers, a multiple of "
                     "the block pattern (0 = the config's)")

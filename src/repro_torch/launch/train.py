@@ -29,6 +29,7 @@ from rank 0:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -126,6 +127,12 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--variant", default="smoke")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "config's)")
+    ap.add_argument("--attn-impl", default=None,
+                    choices=("naive", "chunked", "flash"),
+                    help="override the config's attention route")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -179,6 +186,10 @@ def _train(args, device):
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
     log = print if rank0 else (lambda *a, **k: None)
     cfg = get_config(args.arch, args.variant)
+    if args.attn_impl is not None:
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     hp = TrainHparams(lr=args.lr, total_steps=args.steps,
                       warmup=max(args.steps // 20, 1),
                       n_microbatches=args.microbatches,

@@ -12,27 +12,33 @@ reference chooses them:
                   path at ``attn_chunk`` (``flash_attention.
                   FlashAttention``, the reference's custom_vjp);
   * ``sharded`` - under axis rules whose sequence axes (``sp``, else
-                  ``tp``) span N > 1 ranks, x is this rank's sequence shard
-                  and the flash route runs a schedule over those ranks: the
-                  ring (``ring_flash_attention``, row 9) when
-                  ``use_ring`` holds for the global k/v length, else the
-                  all-gather (``sharded_flash_attention``, row 8 at the
-                  shard's ``q_base``);
+                  ``tp``) span N > 1 ranks, x is this rank's sequence shard:
+                  the flash route runs a schedule over those ranks, the
+                  ring (``ring_flash_attention``, row 9) when ``use_ring``
+                  holds for the global k/v length, else the all-gather
+                  (``sharded_flash_attention``, row 8 at the shard's
+                  ``q_base``); the naive and chunked routes gather K/V
+                  and run the grouped cores on this rank's q rows at
+                  their global offset (the reference's GSPMD route);
   * ``naive`` / ``chunked`` - scores materialized at once, or an online
                   softmax over ``attn_chunk`` blocks that skips blocks
                   outside the causal/window range; flat heads (k/v
                   repeated to the query heads) without a cache, grouped
-                  (B, S, G, R, Dh) queries with one.
+                  (B, S, G, R, Dh) queries with one or on a rank's rows.
 
 Under sequence sharding the reference's predicates see global arrays; each
 rank here sees S/N rows, so the global length N * S stands in for S in
 each of them.  A global length that does not divide over N never reaches
-this layer: ``sharding.local_shard`` refuses it.  The reference's
-GSPMD-gathered naive/chunked attention under a mesh is not ported on
-that route: it raises (ROADMAP A12.6).
+this layer: ``sharding.local_shard`` refuses it.  Every route is
+differentiable: row 8 at any ``q_base`` recomputes its backward through
+the chunked core (``FlashAttention``), the ring runs the reference's
+reverse ring (``RingFlashAttention``), and the gathers' backward
+reduce-scatters dK/dV to their shards.
 
 Under the train layout (``sharding.TrainLayout``) ``attention_tp`` runs a
-rank's heads over the whole sequence; with a cache (serving,
+rank's heads over the whole sequence where the heads divide over ``tp``,
+and otherwise the reference's sequence-sharded route: every head on this
+rank's rows of the sequence; with a cache (serving,
 ``make_serve_steps(cfg, rules)``) the cache is this rank's shard of the
 reference's ``cache_pspecs``: its KV heads over ``tp``, or its slots over
 ``kv_seq`` / ``long_seq`` (``KVSlice``), and a decode step over a
@@ -48,15 +54,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.launch.collectives import (all_gather_grad, max_nograd,
-                                            sum_forward)
+from repro_torch.launch.collectives import (all_gather_grad,
+                                            all_gather_many, max_nograd,
+                                            reshard_grad, sum_forward)
 from repro_torch.kernels.flash_attention import (ring_flash_attention,
                                                  sharded_flash_attention,
                                                  use_ring)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, trunc_normal
-from repro_torch.models.sharding import (_axes, current_rules, seq_shards,
-                                         shard_bounds)
+from repro_torch.models.sharding import (_axes, current_rules, seq_rows,
+                                         seq_shards, shard_bounds)
 
 NEG_INF = -1e30
 
@@ -130,12 +137,12 @@ def _softmax_pv(scores, v_op, q_dtype):
 # grouped (GQA-native) attention cores
 # ---------------------------------------------------------------------------
 
-def _naive_grouped(q5, k, v, *, window: int) -> torch.Tensor:
-    # q5: (b, sq, g, r, d); k/v: (b, sk, g, d)
+def _naive_grouped(q5, k, v, *, window: int, q_base: int = 0) -> torch.Tensor:
+    # q5: (b, sq, g, r, d), rows at q_base + i; k/v: (b, sk, g, d)
     sq, sk = q5.shape[1], k.shape[1]
     scale = q5.shape[-1] ** -0.5
     scores = torch.einsum("bqgrd,bkgd->bgrqk", q5.float(), k.float()) * scale
-    mask = _block_mask(sq, sk, 0, window, q5.device)
+    mask = _block_mask(sq, sk, q_base, window, q5.device)
     scores = scores.masked_fill(~mask, NEG_INF)
     out = _softmax_pv(scores, lambda p: torch.einsum(
         "bgrqk,bkgd->bqgrd", p, v.float()), q5.dtype)
@@ -143,29 +150,35 @@ def _naive_grouped(q5, k, v, *, window: int) -> torch.Tensor:
 
 
 def _online_blocks(q, k, v, *, window: int, chunk: int, scores_fn, pv_fn,
-                   row_t):
+                   row_t, q_base: int = 0):
     """The reference's chunked online softmax, shared by the grouped and
-    flat layouts: q, k, v padded to a multiple of ``chunk`` along the
-    sequence; for each q block, the kv blocks inside the causal/window
-    range (the others are skipped), with (m, l) in the scores' layout
-    ``(..., chunk, 1)`` and ``row_t`` mapping them to the output layout."""
-    s = q.shape[1]
-    chunk = min(chunk, s)
-    pad = (-s) % chunk
-    if pad:
-        q, k, v = (torch.cat([t, t.new_zeros((t.shape[0], pad) +
-                                             t.shape[2:])], 1)
-                   for t in (q, k, v))
-    n_blk = q.shape[1] // chunk
+    flat layouts: q and k/v each padded to a multiple of ``chunk`` along
+    the sequence; for each q block (rows at global positions ``q_base +
+    i``), the kv blocks inside the causal/window range (the others are
+    skipped), with (m, l) in the scores' layout ``(..., chunk, 1)`` and
+    ``row_t`` mapping them to the output layout.  q_base 0 with equal
+    lengths is causal self-attention, the reference's only case; a rank's
+    rows of the sequence take their offset against the whole K/V (rows
+    within the keys, ``q_base + Sq <= Sk``, so a padded key is visible to
+    padded rows alone)."""
+    sq, sk = q.shape[1], k.shape[1]
+    chunk = min(chunk, max(sq, sk))
+    pad_q, pad_k = (-sq) % chunk, (-sk) % chunk
+    if pad_q:
+        q = torch.cat([q, q.new_zeros((q.shape[0], pad_q) + q.shape[2:])], 1)
+    if pad_k:
+        k, v = (torch.cat([t, t.new_zeros((t.shape[0], pad_k) +
+                                          t.shape[2:])], 1) for t in (k, v))
+    n_q, n_k = q.shape[1] // chunk, k.shape[1] // chunk
     scale = q.shape[-1] ** -0.5
     outs = []
-    for qi in range(n_blk):
-        q_off = qi * chunk
-        qc = q[:, q_off:q_off + chunk]
+    for qi in range(n_q):
+        q_off = q_base + qi * chunk
+        qc = q[:, qi * chunk:(qi + 1) * chunk]
         m = l = o = None
-        for ki in range(n_blk):
+        for ki in range(n_k):
             k_off = ki * chunk
-            needed = k_off <= q_off
+            needed = k_off <= q_off + chunk - 1
             if window > 0:
                 needed &= k_off >= q_off - window - chunk + 1
             if not needed:
@@ -188,12 +201,13 @@ def _online_blocks(q, k, v, *, window: int, chunk: int, scores_fn, pv_fn,
             o = row_t(corr) * o + pv
             m = m_new
         outs.append((o / torch.clamp_min(row_t(l), 1e-30)).to(q.dtype))
-    return torch.cat(outs, 1)[:, :s]
+    return torch.cat(outs, 1)[:, :sq]
 
 
-def _chunked_grouped(q5, k, v, *, window: int, chunk: int) -> torch.Tensor:
+def _chunked_grouped(q5, k, v, *, window: int, chunk: int,
+                     q_base: int = 0) -> torch.Tensor:
     return _online_blocks(
-        q5, k, v, window=window, chunk=chunk,
+        q5, k, v, window=window, chunk=chunk, q_base=q_base,
         scores_fn=lambda qc, kc: torch.einsum(
             "bqgrd,bkgd->bgrqk", qc.float(), kc.float()),
         pv_fn=lambda p, vc: torch.einsum("bgrqk,bkgd->bqgrd", p, vc.float()),
@@ -357,12 +371,6 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     flash_want = (cfg.attn_impl == "flash"
                   and (cache is None or s > 1) and s_global > cfg.attn_chunk)
-    if n_seq > 1 and not flash_want:
-        raise NotImplementedError(
-            f"sequence-parallel attention runs the flash schedules only "
-            f"(attn_impl='flash', a global length {s_global} above "
-            f"attn_chunk {cfg.attn_chunk}); got attn_impl="
-            f"{cfg.attn_impl!r}; the GSPMD routes are ROADMAP A12.6")
     if cache is not None and s == 1:
         # rolling caches enforce the window structurally: no mask needed
         out = _decode_grouped(q.reshape(b, s, g, r, dh), cache,
@@ -372,16 +380,47 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         # each rank masks at its shard's global offsets.  Short sequences
         # all-gather K/V; from attn_ring_min_sk keys on, the ring keeps
         # them sharded and rotates them past the resident q rows.
-        fn = ring_flash_attention if use_ring(
-            s_global, n_seq, threshold=cfg.attn_ring_min_sk or None) \
-            else sharded_flash_attention
-        out = fn(q, k, v, window=window, mesh=current_rules().mesh,
-                 seq_axes=seq_axes)
+        mesh = current_rules().mesh
+        if flash_want and _ring(cfg, s_global, n_seq):
+            out = ring_flash_attention(q, k, v, window=window, mesh=mesh,
+                                       seq_axes=seq_axes)
+        elif flash_want:
+            out = sharded_flash_attention(q, k, v, window=window, mesh=mesh,
+                                          seq_axes=seq_axes,
+                                          chunk=cfg.attn_chunk)
+        else:
+            kf, vf = all_gather_many([k, v], [1, 1], mesh, seq_axes)
+            out = _grouped_rows(q, kf, vf, cfg, window,
+                                q_base=mesh.axis_index(seq_axes) * s,
+                                s_global=s_global)
     else:
         out = _self_attend(q, k, v, cfg, window, grouped=cache is not None)
 
     out = out.to(dt).reshape(b, s, h * dh)
     return out @ params["wo"].to(dt), cache
+
+
+def _ring(cfg: ModelConfig, s_global: int, n: int) -> bool:
+    """The ring schedule for a global k/v length over n ranks."""
+    return use_ring(s_global, n, threshold=cfg.attn_ring_min_sk or None)
+
+
+def _grouped_rows(q, k, v, cfg: ModelConfig, window: int, *, q_base: int,
+                  s_global: int) -> torch.Tensor:
+    """The reference's non-flash route for a rank's rows of the sequence
+    (its GSPMD grouped cores): q (B, Sr, H, Dh) at global positions
+    ``q_base + i`` against the whole K/V (B, S, G, Dh), naive where the
+    config asks for it or the global length is within ``attn_chunk``,
+    else chunked."""
+    b, sr, h, dh = q.shape
+    g = k.shape[2]
+    q5 = q.reshape(b, sr, g, h // g, dh)
+    if cfg.attn_impl == "naive" or s_global <= cfg.attn_chunk:
+        out = _naive_grouped(q5, k, v, window=window, q_base=q_base)
+    else:
+        out = _chunked_grouped(q5, k, v, window=window, chunk=cfg.attn_chunk,
+                               q_base=q_base)
+    return out.reshape(b, sr, h, dh)
 
 
 def _self_attend(q, k, v, cfg: ModelConfig, window: int,
@@ -432,44 +471,35 @@ def attention_tp(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """Attention under the layout (``sharding.TrainLayout``): x is this
     rank's shard of the residual stream (B, S / sp, D), or under
     ``one_token`` the whole decode token; the sequence is gathered over
-    ``sp``, ``wq`` / ``wk`` / ``wv`` run column-parallel to this rank's
-    heads, attention runs over them on the whole sequence (rows at global
-    positions from 0, or ``positions``), and ``wo`` runs row-parallel,
-    its partial sums reduce-scattered back to the sequence shards
-    (``layout.row_reduce``; summed over ``tp`` for one token).  Returns
-    (out, cache).
+    ``sp``, ``wq`` / ``wk`` / ``wv`` run column-parallel, and ``wo`` runs
+    row-parallel, its partial sums reduce-scattered back to the sequence
+    shards (``layout.row_reduce``; summed over ``tp`` for one token).
+    Returns (out, cache).
 
-    ``wk`` / ``wv`` shard their flat G * Dh dim, not heads: where the KV
-    heads divide over ``tp`` this rank's slice holds exactly the KV heads
-    its q heads read; otherwise (G < tp, say) K/V are gathered over
-    ``tp`` before this rank's q heads pick theirs, and a ``wk`` / ``wv``
-    left whole (G * Dh not dividing) projects this rank's own rows, then
-    gathers the sequence.  With ``attn_impl="flash"`` the attention is row
-    8 through ``ops.flash_attention`` (kernel forward, recompute
-    backward).  The reference routes flash under tp > 1 to its
-    sequence-sharded ``shard_map`` schedule instead, whose backward is
-    ROADMAP A12.4; the function computed is the same.
+    Where the heads divide over ``tp`` each rank's columns are its heads,
+    and attention runs over them on the whole sequence (rows at global
+    positions from 0, or ``positions``), with ``attn_impl="flash"`` on row
+    8 through ``ops.flash_attention``.  ``wk`` / ``wv`` shard their flat
+    G * Dh dim, not heads: where the KV heads divide over ``tp`` this
+    rank's slice holds exactly the KV heads its q heads read; otherwise
+    (G < tp, say) K/V are gathered over ``tp`` before this rank's q heads
+    pick theirs, and a ``wk`` / ``wv`` left whole (G * Dh not dividing)
+    projects this rank's own rows, then gathers the sequence.  Heads that
+    do not divide take ``_attention_rows``, the reference's
+    sequence-sharded route; the function computed is the same.
 
     With a cache (this rank's shard, placed by ``kv``): a prefill writes
     its k/v (``_write_cache``: the rank's KV heads, or its slots from k/v
-    gathered to every KV head) and attends as the
-    unsharded layer does with a cache (flash, else the grouped cores); a
-    decode step writes its token, then attends over a head-sharded cache
-    locally, or, over a sequence-sliced one, with q for every head
-    (gathered over ``tp``) against the rank's slots, the partial softmaxes
-    combined over ``kv.axes`` (``_decode_grouped``), before this rank's
-    heads go through ``wo``."""
+    gathered to every KV head) and attends as the unsharded layer does
+    with a cache (flash, else the grouped cores); a decode step writes
+    its token, then attends over a head-sharded cache locally, or, over a
+    sequence-sliced one, with q for every head (gathered over ``tp``)
+    against the rank's slots, the partial softmaxes combined over
+    ``kv.axes`` (``_decode_grouped``), before this rank's heads go
+    through ``wo``."""
     dt = cfg.compute_dtype
     mesh, tp, sp_axes = layout.mesh, layout.tp, layout.sp_axes
     h, g, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    if h % tp:
-        raise NotImplementedError(
-            f"{cfg.name}: {h} heads over tp = {tp}: the layout runs "
-            f"attention over each rank's heads; the reference's "
-            f"sequence-sharded GSPMD route is ROADMAP A12.6")
-    hl = h // tp
-    me = layout.tp_index()
-    heads = range(me * hl, (me + 1) * hl)
     window = cfg.window if kind == "local" else 0
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
     xf = all_gather_grad(x, mesh, sp_axes, 1)
@@ -489,28 +519,37 @@ def attention_tp(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             t = all_gather_grad(xf @ w, mesh, layout.tp_axes, 2)
         return t.reshape(b, s, g, dh), True
 
-    q = (xf @ params["wq"].to(dt)).reshape(b, s, hl, dh)
     (k, whole), (v, _) = project("wk"), project("wv")
-    q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
     if cfg.qk_norm:
-        q = _qknorm(q, dt)
         k = _qknorm(k, dt)
-    if whole:      # this rank's q heads pick theirs
-        kq, vq = (_kv_for_heads(t, heads, h // g) for t in (k, v))
-    else:
-        kq, vq = k, v
-
     if cache is not None:
         if kv.heads:
             gl = g // tp
-            kc, vc = (t[:, :, me * gl:(me + 1) * gl] if whole else t
+            kc, vc = (t[:, :, layout.tp_index() * gl:
+                        (layout.tp_index() + 1) * gl] if whole else t
                       for t in (k, v))
         else:
             kc, vc = (t if whole else all_gather_grad(t, mesh,
                                                       layout.tp_axes, 2)
                       for t in (k, v))
         cache = _write_cache(cache, kc, vc, s, kv.lo, kv.m)
+    if h % tp:
+        return _attention_rows(params, x, xf, k, v, cfg, layout, spec,
+                               window=window, theta=theta,
+                               positions=positions, cache=cache, kv=kv)
+
+    hl = h // tp
+    me = layout.tp_index()
+    heads = range(me * hl, (me + 1) * hl)
+    q = (xf @ params["wq"].to(dt)).reshape(b, s, hl, dh)
+    q = apply_rope(q, positions, theta)
+    if cfg.qk_norm:
+        q = _qknorm(q, dt)
+    if whole:      # this rank's q heads pick theirs
+        kq, vq = (_kv_for_heads(t, heads, h // g) for t in (k, v))
+    else:
+        kq, vq = k, v
     if cache is not None and s == 1:
         win = 0 if window > 0 and kv.m <= window else window
         if kv.heads:
@@ -526,6 +565,75 @@ def attention_tp(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         out = _self_attend(q, kq, vq, cfg, window, grouped=cache is not None)
     out = out.to(dt).reshape(b, s, hl * dh) @ params["wo"].to(dt)
     return layout.row_reduce(out), cache
+
+
+def _attention_rows(params: dict, x, xf, k, v, cfg: ModelConfig, layout,
+                    spec: dict, *, window: int, theta: float, positions,
+                    cache, kv):
+    """``attention_tp`` for heads that do not divide over ``tp``: the
+    reference's sequence-sharded route (its shard_map'd flash schedules
+    and GSPMD's grouped cores on the sequence over ``sp``), for any head
+    count.  K/V (B, S, G, Dh) hold every KV head over the whole sequence
+    (``attention_tp`` gathered them and wrote any cache).  q's columns
+    (``wq`` column-parallel, a rank's slice of them possibly cutting
+    through a head) are resharded to this rank's rows with every head
+    (one all-to-all), where RoPE and the qk-norm act on whole heads;
+    attention runs over those rows at ``q_base = index * S / tp``: row 9
+    around the ring from ``attn_ring_min_sk`` global keys on (K/V this
+    rank's rows of them), else row 8 at ``q_base``, under ``attn_impl=
+    "flash"`` above ``attn_chunk``, else the grouped cores.  The output is
+    resharded back to this rank's columns for ``wo``'s row-parallel
+    product.  A ``wq`` / ``wo`` left whole (H * Dh not dividing) projects
+    this rank's own rows, and its product is then this rank's shard of
+    the residual stream whole.  A decode step (``one_token``) gathers q
+    over ``tp`` for every head and attends over the rank's cache slots
+    (``_decode_grouped``), then keeps this rank's columns of the
+    output."""
+    dt = cfg.compute_dtype
+    mesh, tp_axes = layout.mesh, layout.tp_axes
+    h, g, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    b, s, _ = xf.shape
+    cols = layout.tp_sharded(spec["wq"], -1)
+    wq, wo = params["wq"].to(dt), params["wo"].to(dt)
+    if cache is not None and s == 1:
+        q = xf @ wq
+        if cols:
+            q = all_gather_grad(q, mesh, tp_axes, 2)
+        q = apply_rope(q.reshape(b, 1, h, dh), positions, theta)
+        if cfg.qk_norm:
+            q = _qknorm(q, dt)
+        win = 0 if window > 0 and kv.m <= window else window
+        out = _decode_grouped(q.reshape(b, 1, g, h // g, dh), cache,
+                              window=win, sl=kv, mesh=mesh)
+        out = out.to(dt).reshape(b, 1, h * dh)
+        if cols:
+            n = h * dh // layout.tp
+            out = out[..., layout.tp_index() * n:(layout.tp_index() + 1) * n]
+    else:
+        sr = x.shape[1]
+        q_base = layout.tp_index() * sr
+        q = reshard_grad(xf @ wq, mesh, tp_axes, 1, 2) if cols else x @ wq
+        q = apply_rope(q.reshape(b, sr, h, dh),
+                       positions[..., q_base:q_base + sr], theta)
+        if cfg.qk_norm:
+            q = _qknorm(q, dt)
+        flash = cfg.attn_impl == "flash" and s > cfg.attn_chunk
+        if flash and _ring(cfg, s, layout.tp):
+            out = ring_flash_attention(
+                q, seq_rows(k, mesh, tp_axes, sr),
+                seq_rows(v, mesh, tp_axes, sr), window=window, mesh=mesh,
+                seq_axes=tp_axes)
+        elif flash:
+            out = ops.flash_attention(q, k, v, window=window, q_base=q_base,
+                                      chunk=cfg.attn_chunk)
+        else:
+            out = _grouped_rows(q, k, v, cfg, window, q_base=q_base,
+                                s_global=s)
+        out = out.to(dt).reshape(b, sr, h * dh)
+        if cols:
+            out = reshard_grad(out, mesh, tp_axes, 2, 1)
+    out = out @ wo
+    return (layout.row_reduce(out) if cols else out), cache
 
 
 def _qknorm(q: torch.Tensor, dt) -> torch.Tensor:

@@ -337,6 +337,18 @@ def cross_entropy_sums_tp(embed_params: dict, x: torch.Tensor,
     mesh, axes, n = layout.mesh, layout.tp_axes, layout.tp
     if n == 1:
         return cross_entropy_sums(embed_params, x, labels, cfg)
+    if cfg.padded_vocab % n:
+        # a vocabulary that does not divide over tp: each rank its own rows
+        # of the sequence over the whole vocabulary (a D-sharded tied table
+        # gathered), the sums added over the sequence ranks
+        table = dict(embed_params)
+        if cfg.tie_embeddings and layout.tp_sharded(spec["tokens"], 1):
+            table["tokens"] = all_gather_grad(table["tokens"], mesh, axes, 1)
+        sr = x.shape[1]
+        lo = mesh.axis_index(layout.sp_axes) * sr
+        tot, cnt = cross_entropy_sums(table, x, labels[:, lo:lo + sr], cfg)
+        return (sum_forward(tot, mesh, layout.sp_axes),
+                sum_forward(cnt, mesh, layout.sp_axes))
     dt = cfg.compute_dtype
     vl = cfg.padded_vocab // n
     v0 = layout.tp_index() * vl

@@ -38,7 +38,7 @@ from repro_torch.models.layers import (chunked_cross_entropy,
 from repro_torch.models.sharding import (CacheShards, batch_axes,
                                          current_rules, map_specs,
                                          seq_rows, seq_shards, shard_bounds,
-                                         spec_axes)
+                                         spec_axes, use_rules)
 
 ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_dropped": 0.0}
 KINDS = ("attn", "local", "ssm", "rglru")
@@ -52,8 +52,7 @@ def check_supported(cfg: ModelConfig, layout=None) -> None:
     layout (``layout``: ``make_train_step(rules=)``,
     ``make_serve_steps(cfg, rules)``) for sequence axes other than the
     ``tp`` axes: the layout gathers the sequence over ``tp`` for its
-    tensor-parallel layers.  (Attention heads that do not divide over
-    ``tp`` raise in ``attention.attention_tp``: ROADMAP A12.6.)"""
+    tensor-parallel layers."""
     for kind in cfg.block_pattern:
         if kind not in KINDS:
             raise ValueError(kind)
@@ -478,15 +477,23 @@ def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
         positions = torch.arange(base, base + x.shape[1],
                                  device=x.device)[None, :]
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    # the backward's recompute runs outside this call (and on the autograd
+    # engine's thread): it installs the rules the forward ran under
+    rules = current_rules()
+
+    def unit_remat(x_, p_):
+        with use_rules(rules):
+            return _apply_unit(p_, x_, cfg, positions=positions, caches=None,
+                               update_cache=False)
+
     aux = dict(ZERO_AUX)
     for u in range(cfg.n_units):
         unit_caches = None if caches is None else tuple(
             type(c)(*(f[u] for f in c)) for c in caches)
         unit_params = _unit_slice(params["units"], u)
         if remat:
-            x, aux_u = checkpoint(lambda x_, p_: _apply_unit(
-                p_, x_, cfg, positions=positions, caches=None,
-                update_cache=False), x, unit_params, use_reentrant=False)
+            x, aux_u = checkpoint(unit_remat, x, unit_params,
+                                  use_reentrant=False)
         else:
             x, aux_u = _apply_unit(unit_params, x, cfg, positions=positions,
                                    caches=unit_caches,

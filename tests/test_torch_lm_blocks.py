@@ -308,8 +308,9 @@ def test_sequence_sharding_refuses_the_new_blocks(arch):
     layout at model = 2 and at data = 2 (their sharded forms:
     ``tests/test_torch_lm_sharded_blocks*.py``), as dense attention models
     do.  What still refuses, for every config: a layout whose sequence
-    axes are not its tp axes, and (attention) heads that do not divide
-    over tp, named ROADMAP A12.6."""
+    axes are not its tp axes.  (Attention heads that do not divide over
+    tp run the sequence-sharded route: ``tests/test_torch_grouped_heads.
+    py``.)"""
     _, tc = _cfgs(arch)
     # the check reads the mesh's axis sizes alone: a 2-rank mesh's shape
     # stands in for a process group of 2
@@ -328,14 +329,9 @@ def test_sequence_sharding_refuses_the_new_blocks(arch):
     t_model.check_supported(tc)       # without rules
     with pytest.raises(NotImplementedError, match="tp axes"):
         t_model.check_supported(tc, TrainLayout(other, {}))
-    if "attn" in tc.block_pattern or "local" in tc.block_pattern:
-        odd = AxisRules(mesh=SimpleNamespace(shape={"data": 1, "model": 3}),
-                        rules={"sp": "model", "tp": "model",
-                               "batch": "data"})
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.6"):
-            t_model.attn_lib.attention_tp(
-                {}, torch.zeros(1, 2, tc.d_model), tc, kind="attn",
-                layout=TrainLayout(odd, {}), spec={})
+    odd = AxisRules(mesh=SimpleNamespace(shape={"data": 1, "model": 3}),
+                    rules={"sp": "model", "tp": "model", "batch": "data"})
+    t_model.check_supported(tc, TrainLayout(odd, {}))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

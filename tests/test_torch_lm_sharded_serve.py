@@ -144,12 +144,8 @@ def _oracles(name, impl):
                          ids=[f"{n}-{i}@{m[0]}x{m[1]}" for n, i, m in R.CASES])
 def test_sharded_serving_tracks_the_reference(ranks, name, impl, mesh):
     got = ranks[(name, impl, mesh)]
-    cfg = R.port_cfg(name, impl)
-    if cfg.n_heads % mesh[1]:
-        # starcoder2_smoke's 6 heads over model = 4: the grouped route for
-        # heads that do not divide is not ported (ROADMAP A12.6)
-        assert "A12.6" in got["refused"], got
-        return
+    # (starcoder2_smoke's 6 heads over model = 4 take the sequence-sharded
+    # route for heads that do not divide, ROADMAP A12.6)
     (r_logits, r_ids), (p_logits, p_ids, p_caches) = _oracles(name, impl)
     logits = got["logits"].numpy()
     scale = float(np.abs(r_logits).max())
@@ -193,7 +189,7 @@ def test_cache_shards_are_the_specs_bounds(ranks, arch, mesh):
 def test_refusals_name_their_items(ranks):
     """The MoE, SSM and RG-LRU blocks serve sharded now (ROADMAP A12.8);
     sequence axes other than the tp axes still refuse, naming them.
-    (Heads that do not divide, A12.6: starcoder2's cases above.)"""
+    (Heads that do not divide, A12.6, serve: starcoder2's cases above.)"""
     got = ranks["refusals"]
     for name in ("moe", "ssm", "rglru"):
         assert got[name] == "ran", got[name]

@@ -213,14 +213,13 @@ def test_vocab_sharded_cross_entropy(ranks, world, tied):
 
 def test_refusals_name_their_items(ranks):
     """The MoE (batch split), SSM and RG-LRU (model = 2) blocks take a
-    sharded step now (ROADMAP A12.8); what still refuses names its item:
-    heads that do not divide over model (A12.6), sequence axes other than
-    the tp axes, a sequence that does not divide."""
+    sharded step now (ROADMAP A12.8), and so do heads that do not divide
+    over model (A12.6, the sequence-sharded route); what still refuses
+    names its item: sequence axes other than the tp axes, a sequence that
+    does not divide."""
     got = ranks[2]["refusals"]
-    for name in ("moe", "ssm", "rglru"):
+    for name in ("moe", "ssm", "rglru", "heads"):
         assert got[name] == "ran", got[name]
-    assert got["heads"].startswith("NotImplementedError") and \
-        "A12.6" in got["heads"]
     assert got["sp_axes"].startswith("NotImplementedError") and \
         "tp axes" in got["sp_axes"]
     assert got["ragged"].startswith("ValueError") and \

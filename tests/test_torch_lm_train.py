@@ -196,13 +196,28 @@ def test_flash_autograd_grads_equal_the_reference(window, detached,
 
 def test_flash_without_grad_takes_the_route_alone():
     """Serving: no graph wanted, so no autograd function and nothing
-    saved; a sharded offset under autograd is refused, naming the sharded
-    backward passes (ROADMAP A12.4)."""
+    saved.  A sharded offset under autograd (a rank's rows at q_base
+    against the whole K/V) goes through ``FlashAttention``: its output and
+    gradients are the rows' part of the whole sequence's."""
     q = torch.randn(1, 70, 2, 16)
     k, v = torch.randn(1, 70, 1, 16), torch.randn(1, 70, 1, 16)
     assert ops.flash_attention(q, k, v).grad_fn is None
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A12\.4"):
-        ops.flash_attention(q.requires_grad_(True), k, v, q_base=8)
+    g = torch.randn(1, 70, 2, 16)
+    g[:, :8] = 0
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    whole = ops.flash_attention(*ts, chunk=32)
+    want = torch.autograd.grad(whole, ts, g)
+    rows = [q[:, 8:].clone().requires_grad_(True), k.clone()
+            .requires_grad_(True), v.clone().requires_grad_(True)]
+    out = ops.flash_attention(*rows, q_base=8, chunk=32)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, rows, g[:, 8:])
+    np.testing.assert_allclose(out.detach().numpy(),
+                               whole[:, 8:].detach().numpy(), rtol=1e-6,
+                               atol=1e-6)
+    for a, b in zip(got, (want[0][:, 8:],) + want[1:]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

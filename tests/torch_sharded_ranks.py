@@ -205,10 +205,10 @@ def unit_checks(world, res):
 
 
 def refusals(res):
-    """Under the train layout: the MoE with the batch split and the SSM
-    and RG-LRU with model > 1 train (ROADMAP A12.8, ported); heads that do
-    not divide over model (A12.6), sequence axes other than the tp axes
-    and a sequence that does not divide over model raise."""
+    """Under the train layout: the MoE with the batch split, the SSM and
+    RG-LRU with model > 1 (ROADMAP A12.8) and heads that do not divide
+    over model (A12.6) train; sequence axes other than the tp axes and a
+    sequence that does not divide over model raise."""
     out = {}
     gemma = t_configs.get_config("gemma3_12b", "smoke")
     for name, cfg, (data, model), seq, over in (
