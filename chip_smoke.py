@@ -5313,6 +5313,126 @@ def sh_compress_check(grads, ef, mesh, rules, cfg, hp):
     return out
 
 
+def coll_diff(a, *bs):
+    """``launch.collectives.collectives_snapshot()`` ``a`` less the
+    snapshots ``bs``, kind by kind (counts, bytes, axes; zeros dropped)."""
+    out = {}
+    for kind, rec in a.items():
+        d = {key: rec[key] - sum(b[kind][key] for b in bs)
+             for key in ("count", "bytes", "io_bytes")}
+        axes = {ax: n - sum(b[kind]["axes"].get(ax, 0) for b in bs)
+                for ax, n in rec["axes"].items()}
+        d["axes"] = {ax: n for ax, n in axes.items() if n}
+        out[kind] = d
+    return out
+
+
+def sh_dryrun(out):
+    """The dry run (``repro_torch.launch.dryrun.dry_cell``) of every
+    SH_RUNS run's first step at every rank, on the meta device in a fake
+    process group (a process of its own, started by ``start_lm_sharded``
+    beside the phases it overlaps): writes {label: [each rank's bytes and
+    step counts]} to ``out``."""
+    from repro_torch.launch.dryrun import dry_cell
+    torch.set_num_threads(2)
+    res = {}
+    for label, arch, layers, batch, seq, (data, model), lr in SH_RUNS:
+        res[label] = []
+        for r in range(SH_RANKS):
+            o = dry_cell(sh_config(arch, layers), sh_hparams(lr),
+                         {"data": data, "model": model}, r, kind="train",
+                         seq_len=seq, global_batch=batch)
+            o["graph"] = o["graph"].as_dict()
+            res[label].append(o)
+    pathlib.Path(out).write_text(json.dumps(res))
+
+
+def start_sh_dryrun():
+    """Start ``sh_dryrun`` in a process of its own (spawned: no CUDA
+    context); ``finish_sh_dryrun`` joins it."""
+    import multiprocessing
+    out = ROOT / "build" / "lm_sharded_dryrun.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=sh_dryrun, args=(str(out),))
+    proc.start()
+    return {"proc": proc, "out": out, "t0": time.perf_counter()}
+
+
+def finish_sh_dryrun(start):
+    """``start_sh_dryrun``'s result, and the seconds from its start to the
+    join (the join's own wait)."""
+    t0 = time.perf_counter()
+    start["proc"].join()
+    wait = time.perf_counter() - t0
+    if start["proc"].exitcode != 0:
+        raise AssertionError(f"dryrun: the dry run of SH_RUNS failed "
+                             f"(exit code {start['proc'].exitcode})")
+    res = json.loads(start["out"].read_text())
+    start["out"].unlink()
+    return res, time.perf_counter() - start["t0"], wait
+
+
+def sh_dryrun_check(run, reps, dry, card):
+    """A run's ranks against the dry run of the same run at their ranks:
+    the state's bytes exactly (the allocator's delta at least those bytes
+    and at most 1 MiB a tensor above: it rounds a request up to 512 bytes
+    and may hand a large one an unsplit block up to 1 MiB longer); step
+    1's collectives by kind, their counts, wire bytes and axes exactly.
+    Prints one ``dryrun:`` line."""
+    label, arch, layers, batch, seq, (data, model), lr = run
+    what = f"dryrun ({label}) {arch}"
+    parts = {"params": "param_bytes", "mu": "mu_bytes", "nu": "nu_bytes",
+             "step": "step_bytes"}
+    slack = []
+    for rep, d in zip(reps, dry):
+        mem, graph = d["memory"], d["graph"]
+        for key, dkey in parts.items():
+            if rep["state_bytes"][key] != mem[dkey]:
+                raise AssertionError(
+                    f"{what}: rank {rep['rank']}'s {key} holds "
+                    f"{rep['state_bytes'][key]:,} bytes, the dry run "
+                    f"{mem[dkey]:,}")
+        held = sum(rep["state_bytes"].values())
+        extra = rep["state_alloc_delta"] - held
+        if not 0 <= extra <= rep["state_tensors"] * (1 << 20):
+            raise AssertionError(
+                f"{what}: rank {rep['rank']}'s allocator delta "
+                f"{rep['state_alloc_delta']:,} vs the state's {held:,} "
+                f"bytes ({rep['state_tensors']} tensors)")
+        slack.append(extra)
+        for kind, got in rep["collectives"].items():
+            want = (graph["n_collectives"][kind],
+                    graph["collective_bytes"][kind],
+                    graph["collective_axes"][kind])
+            if (got["count"], got["bytes"], got["axes"]) != want:
+                raise AssertionError(
+                    f"{what}: rank {rep['rank']}'s step 1 ran {kind} "
+                    f"{got['count']} times, {got['bytes']:,} bytes over "
+                    f"{got['axes']}; the dry run {want[0]} times, "
+                    f"{want[1]:,.0f} bytes over {want[2]}")
+    r0, d0 = reps[0], dry[0]
+    counts = {k: v["count"] for k, v in r0["collectives"].items()
+              if v["count"]}
+    print(f"dryrun ({label}) [{card}]: {arch}, {layers} layers over (data, "
+          f"model) = ({data}, {model}): every rank's state "
+          + ", ".join(f"{sum(r['state_bytes'].values()):,}" for r in reps)
+          + " bytes equal the dry run's on meta (the allocator's delta "
+          + ", ".join(f"+{x:,}" for x in slack) + " bytes above them); "
+          f"step 1's collectives a rank by kind equal the dry run's on every "
+          f"rank: rank 0 {counts} calls, "
+          f"{sum(v['bytes'] for v in r0['collectives'].values()) / 1e9:.3f} "
+          f"GB on the wire by the reference's model; the dry run's step "
+          f"{d0['graph']['dot_flops'] / 1e12:.3f} TFLOP a rank, "
+          f"{d0['step_s']:.2f} s on meta (rank 0)")
+    return {"state_bytes": [sum(r["state_bytes"].values()) for r in reps],
+            "alloc_slack": slack,
+            "collectives": r0["collectives"],
+            "dry_dot_flops": d0["graph"]["dot_flops"],
+            "dry_step_s": [d["step_s"] for d in dry]}
+
+
 def sh_rank(rank, world, init_method, spec):
     """One rank of the sharded LM training phase, in a process of its own:
     writes its report to ``spec["outdir"]/rank{rank}.json``."""
@@ -5368,7 +5488,7 @@ def sh_rank_body(rank, dev, run, spec):
     from repro_torch.launch import collectives
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.sharding import make_rules
-    from repro_torch.optim import tree_map
+    from repro_torch.optim import tree_leaves, tree_map
     from repro_torch.training import init_train_state, make_train_step
     from repro_torch.training.trainer import param_pspecs, state_pspecs
     label, arch, layers, batch, seq, (data, model), lr = run
@@ -5381,6 +5501,7 @@ def sh_rank_body(rank, dev, run, spec):
     rep = {"rank": rank, "coords": mesh.coords, "transport":
            collectives.transport("gloo", dev)}
     torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     if spec.get("resume"):
         template = init_train_state(cfg, hp, device="meta")
@@ -5395,11 +5516,24 @@ def sh_rank_body(rank, dev, run, spec):
     torch.cuda.synchronize(dev)
     rep["init_s"] = time.perf_counter() - t0
     rep["state_gb"] = torch.cuda.memory_allocated(dev) / 1e9
-    sq, grads_seen = {}, []
+    # the state's bytes beside the allocator's delta (the dry-run gate)
+    rep["state_bytes"] = {k: sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(getattr(state, k)))
+                          for k in ("params", "mu", "nu")}
+    rep["state_bytes"]["step"] = state.step.numel() * \
+        state.step.element_size()
+    rep["state_tensors"] = sum(len(tree_leaves(getattr(state, k)))
+                               for k in ("params", "mu", "nu")) + 1
+    rep["state_alloc_delta"] = torch.cuda.memory_allocated(dev) - alloc0
+    sq, grads_seen, leaf_coll = {}, [], []
 
     def on_grads(g):
         if int(state.step) == 0:
+            # the leaf norms' own collective is not the step's
+            before = collectives.collectives_snapshot()
             sq.update(sh_leaf_sq(g, mesh, specs))
+            leaf_coll.append(coll_diff(collectives.collectives_snapshot(),
+                                       before))
         if compress_last and int(state.step) == SH_STEPS - 1:
             grads_seen.append(g)
 
@@ -5419,11 +5553,15 @@ def sh_rank_body(rank, dev, run, spec):
                                       device=p.device), state.params))
         before = fa.LAUNCHES[FLASH[0]]
         collectives.reset_host_copies()
+        collectives.reset_collectives()
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
         state, m = fn(state, b)
         torch.cuda.synchronize(dev)
         rep["step_s"].append(time.perf_counter() - t1)
+        if i == 0:
+            rep["collectives"] = coll_diff(
+                collectives.collectives_snapshot(), *leaf_coll)
         rep["losses"].append(float(m["loss"]))
         rep["grad_norms"].append(float(m["grad_norm"]))
         rep["host_bytes"].append(collectives.HOST_COPIES["bytes"])
@@ -5548,6 +5686,7 @@ def start_lm_sharded(results):
     start-up (imports, CUDA contexts, the process groups) overlaps the
     blocks' phase; they hold the card's contexts and nothing else."""
     results["lm_sharded_starts"] = lm_sharded_spawns()
+    results["lm_sharded_dryrun"] = start_sh_dryrun()
 
 
 def start_lm_grouped(results):
@@ -5574,6 +5713,7 @@ def phase_lm_sharded(dev, card, results, mhz, sms):
     # freed before the next
     starts, ckpt = results.pop("lm_sharded_starts", None) or \
         lm_sharded_spawns()
+    dry_start = results.pop("lm_sharded_dryrun", None) or start_sh_dryrun()
     t0 = time.perf_counter()
     try:
         refs = {run[0]: sh_unsharded(run, dev) for run in SH_RUNS}
@@ -5585,10 +5725,15 @@ def phase_lm_sharded(dev, card, results, mhz, sms):
         every, wall, waits = finish_sharded(
             starts[0], serve_after=driver[0] if driver else None)
         again, wall2, waits2 = finish_sharded(starts[1])
+    except BaseException:
+        dry_start["proc"].terminate()
+        raise
     finally:
         for st in starts:
             stop_sharded(st)
         shutil.rmtree(ckpt, ignore_errors=True)
+    dry, dry_s, dry_wait = finish_sh_dryrun(dry_start)
+    out["dryrun"] = {"seconds": dry_s, "join_wait_s": dry_wait}
     serve_wait = max(every["serve_waited_s"])
     train_wall = wall - max(every["serve_s"]) - max(every["blocks_s"]) - \
         serve_wait
@@ -5638,6 +5783,7 @@ def phase_lm_sharded(dev, card, results, mhz, sms):
                                      f"{want} a step, all wgmma")
         launches = sum(sum(rep["flash_launches"]) for rep in reps)
         results[FLASH[0]]["launches"] += launches
+        out["dryrun"][label] = sh_dryrun_check(run, reps, dry[label], card)
         med = float(np.median(r0["step_s"][1:]))
         tokens = batch * seq
         flops = 6 * cfg.param_count() * tokens
@@ -6119,6 +6265,74 @@ def first_dispatch():
         moe.route, moe.dispatch_slots = route, slots
 
 
+@contextlib.contextmanager
+def all_picks():
+    """Record the top-k expert picks (``moe.route``'s top_i) of every
+    routing call, in call order: each forward routes once a MoE block, in
+    layer order."""
+    from repro_torch.models import moe
+    picks = []
+    route = moe.route
+
+    def spy_route(params, x, cfg):
+        out = route(params, x, cfg)
+        picks.append(out[3].detach())
+        return out
+    moe.route = spy_route
+    try:
+        yield picks
+    finally:
+        moe.route = route
+
+
+def bs_pick_flips(label, data, steps, prompt, got, want, want_picks,
+                  out_dir):
+    """ROADMAP C9: the ranks' top-k expert picks in the prefill and the
+    decode steps (saved by the ranks of model index 0, each data rank its
+    batch rows) against the unsharded serving's, block by block: the
+    (token, expert) picks that differ, and the logits' worst |dlogit| over
+    their limit (SV_TOL max |logit| of the step, as ``sv_compare``) over
+    every row, over the rows whose own token's picks agree in every
+    block, and over the rows with no differing pick at or before their
+    position (None where no row is left)."""
+    ranks = [torch.load(out_dir / f"{label}-picks-{i}.pt", weights_only=True)
+             for i in range(data)]
+    calls = len(want_picks)
+    n_blocks = calls // (1 + steps)
+    batch = want.shape[0]
+    flips = [0] * n_blocks
+    picks = [0] * n_blocks
+    flipped = torch.zeros(batch, prompt + steps, dtype=torch.bool)
+    for c in range(calls):
+        a = torch.cat([r[c] for r in ranks])             # (B, S_c, K)
+        b = want_picks[c]
+        diff = (~(a[..., :, None] == b[..., None, :]).any(-1)).sum(-1)
+        t, blk = divmod(c, n_blocks)
+        flips[blk] += int(diff.sum())
+        picks[blk] += a.numel()
+        pos0 = 0 if t == 0 else prompt + t - 1
+        flipped[:, pos0:pos0 + a.shape[1]] |= diff > 0
+    ratio = {"all": None, "own_agree": None, "prefix_agree": None}
+    rows = {"own_flipped": 0, "prefix_flipped": 0, "rows": 0}
+    for t in range(want.shape[1]):
+        pos = prompt - 1 + t
+        w = want[:, t].float()
+        lim = SV_TOL * float(w.abs().max())
+        err = (got[:, t, :w.shape[1]].float() - w).abs().amax(-1)
+        own = flipped[:, pos]
+        prefix = flipped[:, :pos + 1].any(-1)
+        rows["rows"] += batch
+        rows["own_flipped"] += int(own.sum())
+        rows["prefix_flipped"] += int(prefix.sum())
+        for key, keep in (("all", torch.ones_like(own)),
+                          ("own_agree", ~own), ("prefix_agree", ~prefix)):
+            if keep.any():
+                ratio[key] = max(ratio[key] or 0.0,
+                                 float(err[keep].max()) / lim)
+    return {"blocks": n_blocks, "flips": flips, "picks": picks,
+            "rows": rows, "ratio": ratio}
+
+
 def bs_save_dispatch(seen, path):
     router, x = seen["route"]
     slot, valid, cap = seen["slots"]
@@ -6207,6 +6421,8 @@ def bs_rank_body(rank, dev, run, spec):
     # the main path: counts zeroed just before, read just after
     fa.reset_launches()
     collectives.reset_host_copies()
+    serve_picks = contextlib.ExitStack()
+    picks = serve_picks.enter_context(all_picks())
     t1 = time.perf_counter()
     with first_dispatch() as seen:
         logits, caches = pre(params, mine, caches)
@@ -6227,6 +6443,10 @@ def bs_rank_body(rank, dev, run, spec):
         rep["decode_s"].append(time.perf_counter() - t1)
         rep["decode_host_bytes"].append(collectives.HOST_COPIES["bytes"])
         outs.append(logits)
+    serve_picks.close()
+    if routing:
+        torch.save([p.cpu() for p in picks], out / f"{label}-picks-"
+                   f"{mesh.coords['data']}.pt")
     rep["serve_launches"] = fa.LAUNCHES[FLASH[0]]
     rep["serve_step_launches"] = fa.LAUNCHES[STEP[0]]
     rep["serve_body_launches"] = dict(fa.BODY_LAUNCHES)
@@ -6294,17 +6514,20 @@ def bs_unsharded_serve(run, ids, dev):
     fed = torch.as_tensor(ids, device=dev)
     torch.cuda.synchronize()
     out = {"init_s": time.perf_counter() - t0}
-    t0 = time.perf_counter()
-    logits, caches = pre(params, toks, caches)
-    torch.cuda.synchronize()
-    out["prefill_s"] = time.perf_counter() - t0
-    outs = [logits.float().cpu()]
-    t0 = time.perf_counter()
-    for t in range(steps):
-        logits, caches = dec(params, fed[:, t:t + 1], prompt + t, caches)
-        outs.append(logits.float().cpu())
-    torch.cuda.synchronize()
-    out.update(step_s=(time.perf_counter() - t0) / steps,
+    with all_picks() as picks:
+        t0 = time.perf_counter()
+        logits, caches = pre(params, toks, caches)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        outs = [logits.float().cpu()]
+        t0 = time.perf_counter()
+        for t in range(steps):
+            logits, caches = dec(params, fed[:, t:t + 1], prompt + t,
+                                 caches)
+            outs.append(logits.float().cpu())
+        torch.cuda.synchronize()
+    out.update(picks=[p.cpu() for p in picks],
+               step_s=(time.perf_counter() - t0) / steps,
                logits=torch.stack(outs, 1),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     del params, caches, logits
@@ -6594,6 +6817,28 @@ def bs_check(run, reps, dev, card, peak, results,
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{what}: non-finite logits")
     ref = bs_unsharded_serve(run, r0["ids"], dev)
+    flips = None
+    ratio = lambda x: "- (no such row)" if x is None else f"{x:.3f}"  # noqa
+    if cfg.moe is not None:
+        flips = bs_pick_flips(label, data, steps, prompt, got,
+                              ref["logits"][..., :cfg.vocab], ref["picks"],
+                              out_dir)
+        print(f"{what} [{card}] picks (ROADMAP C9): the ranks' top-"
+              f"{cfg.moe.top_k} expert picks against the unsharded "
+              f"serving's in the prefill and {steps} decode steps, by MoE "
+              f"block: " + ", ".join(
+                  f"{f:,} of {n:,}" for f, n in zip(flips["flips"],
+                                                    flips["picks"]))
+              + f" (token, expert) picks differ; logit rows whose own "
+              f"token's picks differ {flips['rows']['own_flipped']} of "
+              f"{flips['rows']['rows']}, with a differing pick at or before "
+              f"their position {flips['rows']['prefix_flipped']}; logits "
+              f"within {ratio(flips['ratio']['all'])} of their limit over "
+              f"every row, {ratio(flips['ratio']['own_agree'])} over the "
+              f"rows whose own picks agree, "
+              f"{ratio(flips['ratio']['prefix_agree'])} over the rows with "
+              f"no differing pick at or before them ({SV_TOL:g} max "
+              f"|logit|)")
     worst, at, checked = sv_compare(label, got, ref["logits"], r0["ids"],
                                     cfg.vocab, what=phase)
     dec_ms = 1e3 * float(np.median(r0["decode_s"]))
@@ -6616,6 +6861,7 @@ def bs_check(run, reps, dev, card, peak, results,
             "peak_gb": ref["peak_gb"]}}
     if cfg.moe is not None:
         o["serve"]["dispatch"] = bs_dispatch(label, "serve", data, cfg, dev)
+        o["serve"]["picks"] = flips
     o["launches"], o["step_launches"] = launches, steps9
     results[FLASH[0]]["launches"] += launches
     results[STEP[0]]["launches"] += steps9
@@ -7751,6 +7997,8 @@ def main():
             # ranks started ahead would wait for their go for ever
             for st in results.pop("lm_sharded_starts", ([], None))[0]:
                 stop_sharded(st)
+            if "lm_sharded_dryrun" in results:
+                results.pop("lm_sharded_dryrun")["proc"].terminate()
             if "lm_grouped_start" in results:
                 stop_sharded(results.pop("lm_grouped_start"))
             stop_lm_driver(results)

@@ -262,13 +262,16 @@ def _loss_fn(params: LinearParams, xb, yb, cfg: TrainCfg,
 def value_and_grad(fn: Callable, params, *args):
     """``jax.value_and_grad(fn)(params, *args)`` for a tree of float
     tensors: the value and the gradient tree, both detached.  ``fn`` may
-    return ``(value, aux)`` (``has_aux``), which comes back whole."""
+    return ``(value, aux)`` (``has_aux``), which comes back whole.  A leaf
+    that the value does not depend on gets a zero gradient, as in JAX (the
+    token table of an LM fed embeddings)."""
     leaves = optim.tree_leaves(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
     it = iter(live)
     out = fn(optim.tree_map(lambda _: next(it), params), *args)
     value = out[0] if isinstance(out, tuple) else out
-    grads = torch.autograd.grad(value, live)
+    grads = torch.autograd.grad(value, live, allow_unused=True,
+                                materialize_grads=True)
     it = iter(grads)
     grads = optim.tree_map(lambda _: next(it), params)
     if isinstance(out, tuple):

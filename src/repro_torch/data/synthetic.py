@@ -7,8 +7,9 @@ heavy-tailed magnitudes, with class structure carried by which
 coordinates are active and by their relative magnitudes; and word-count
 vector pairs over 2^16 documents (Table 2 / Figs 4-5).
 
-``Dataset``, ``make_word_pair``, ``WORD_PAIRS`` and ``word_pair`` are
-numpy-only in the reference too, and these copies give the same bits.
+``Dataset``, ``make_word_pair``, ``WORD_PAIRS``, ``word_pair`` and
+``token_stream`` are numpy-only in the reference too, and these copies
+give the same bits.
 The classification generators draw the reference's own ``jax.random``
 streams through ``repro_torch.core.regen``'s samplers, line by line in
 the reference's order and float32 arithmetic: labels, zero patterns and
@@ -226,3 +227,11 @@ WORD_PAIRS = {
 def word_pair(name: str, n_docs: int = 2 ** 16):
     seed, f1, f2, ov = WORD_PAIRS[name]
     return make_word_pair(seed, n_docs=n_docs, f1=f1, f2=f2, overlap=ov)
+
+
+def token_stream(seed: int, vocab: int, length: int) -> np.ndarray:
+    """Zipfian synthetic token ids (deterministic)."""
+    rng = np.random.default_rng(seed)
+    # Zipf over the vocab via inverse-CDF on ranks
+    ranks = rng.zipf(1.3, size=length).astype(np.int64)
+    return np.asarray((ranks - 1) % vocab, np.int32)

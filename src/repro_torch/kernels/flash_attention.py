@@ -35,6 +35,18 @@ D in ``WGMMA_HEAD_DIMS``, ``"simt"`` (``csrc/flash_attention.cu``, fp32 FMAs)
 for fp32 and every other D.  ``BODY_LAUNCHES`` counts launches by body; a
 refused launch raises, and neither body gives way to the other.
 
+On ``meta`` tensors (the dry run, ``launch.dryrun``) each op has a third
+route, ``*_meta``: no kernel and no arithmetic, the output's shapes alone,
+and the call's work counted in ``META_WORK`` by the formula of the
+kernels' bound: 4 D FLOPs per visible (query, key) pair and head, each
+operand read once and each output written once.  ``FlashAttention``'s
+backward on ``meta`` counts, under ``flash_attention_bwd``, the products
+of the plain chunked recompute and of its autograd backward that it runs
+on real tensors (``chunked_bwd_work``), without running them op by op;
+the reverse ring's backward on ``meta`` rotates its shards as on real
+tensors (the collectives count themselves) and counts each step's
+products the same way (``ring_bwd_step_work``).
+
 Under autograd row 8 runs inside ``FlashAttention`` (the reference's
 ``flash_attention`` custom_vjp): the forward is the kernel, the backward
 recomputes the same attention through the plain chunked path, its rows
@@ -65,6 +77,10 @@ from repro_torch.launch.mesh import axis_size as axes_size
 
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_step": 0}
 BODY_LAUNCHES = {"wgmma": 0, "simt": 0}
+# the meta route's calls, FLOPs and bytes by op (module docstring)
+META_WORK = {op: {"calls": 0, "flops": 0, "bytes": 0}
+             for op in ("flash_attention_fwd", "flash_attention_step",
+                        "flash_attention_bwd")}
 # the head dims the tensor-core body is built for: every full config's
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 
@@ -82,6 +98,12 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, BODY_LAUNCHES):
         for name in counts:
             counts[name] = 0
+
+
+def reset_meta_work() -> None:
+    for rec in META_WORK.values():
+        for key in rec:
+            rec[key] = 0
 
 
 def flash_body(dtype: torch.dtype, d: int) -> str:
@@ -157,6 +179,12 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out):
+        if g_out.device.type == "meta":
+            q, k, v = ctx.saved_tensors
+            _add_work("flash_attention_bwd", *chunked_bwd_work(
+                q.shape, k.shape, ctx.window, ctx.chunk, ctx.q_base))
+            return (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v), None, None, None)
         with torch.enable_grad():
             q, k, v = (t.detach().requires_grad_(True)
                        for t in ctx.saved_tensors)
@@ -273,6 +301,108 @@ def flash_attention_step_plain(q, k, v, carry, *, q_base: int, k_base: int,
         m[:, i0:i0 + n] = back(m_new)
         l[:, i0:i0 + n] = back(l_new)
     return m, l, acc
+
+
+# ---------------------------------------------------------------------------
+# meta route
+# ---------------------------------------------------------------------------
+
+def visible_pairs(sq: int, sk: int, *, q_base: int = 0, k_base: int = 0,
+                  window: int = 0) -> int:
+    """The (query, key) pairs that rows ``q_base + i`` (i < sq) see among
+    keys ``k_base + j`` (j < sk): ``key <= row`` and, with ``window > 0``,
+    ``key > row - window``."""
+    if sq <= 0 or sk <= 0:
+        return 0
+    rows = torch.arange(q_base, q_base + sq, dtype=torch.int64)
+    hi = rows.clamp(max=k_base + sk - 1)
+    lo = (rows - window + 1).clamp(min=k_base) if window > 0 else \
+        torch.full_like(rows, k_base)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def chunked_bwd_work(q_shape, k_shape, window: int, chunk: int,
+                     q_base: int = 0):
+    """(FLOPs, bytes) of the matrix products that ``FlashAttention``'s
+    backward runs on real tensors: the plain chunked recompute
+    (``_ref_bwd_fn``: per q block, the kv blocks its mask needs, each a
+    scores and a p.v product) and autograd's two products for each of
+    them; the bytes are each product's fp32 operands and output, the
+    backward's products moving the same three sizes as their forward's."""
+    b, sq, h, d = q_shape
+    sk, g = k_shape[1], k_shape[2]
+    r = h // g
+    c = min(chunk, max(sq, sk))
+    n_q, n_k = -(-sq // c), -(-sk // c)
+    pairs = 0
+    for qi in range(n_q):
+        q_off = q_base + qi * c
+        hi = min(n_k - 1, (q_off + c - 1) // c)
+        lo = 0
+        if window > 0:
+            lo = max(0, -(-(q_off - window - c + 1) // c))
+        pairs += max(0, hi - lo + 1)
+    # one product (b g, r c, d) x (b g, d, c) and one (b g, r c, c) x
+    # (b g, c, d) a block pair, three times over (forward, two grads)
+    flops = 3 * 2 * (2 * b * g * r * c * c * d)
+    nbytes = 3 * 4 * b * g * (2 * (r * c * d + d * c + r * c * c))
+    return pairs * flops, pairs * nbytes
+
+
+def ring_bwd_step_work(q_shape, k_shape):
+    """(FLOPs, bytes) of one step of ``ring_flash_attention_bwd`` on real
+    tensors: per block of q rows, five fp32 products of (rows x Sk) per
+    head (the scores, dv, dp, dq and dk), each moving its two operands
+    and its output."""
+    b, sq, h, d = q_shape
+    sk, g = k_shape[1], k_shape[2]
+    r = h // g
+    rows = max(1, _CHUNK_ELEMS // max(b * h * sk, 1))
+    flops = nbytes = 0
+    for i0 in range(0, sq, rows):
+        n = min(rows, sq - i0)
+        flops += 5 * 2 * b * g * r * n * sk * d
+        nbytes += 5 * 4 * b * g * (r * n * d + sk * d + r * n * sk)
+    return flops, nbytes
+
+
+def _add_work(op: str, flops: int, nbytes: int) -> None:
+    rec = META_WORK[op]
+    rec["calls"] += 1
+    rec["flops"] += flops
+    rec["bytes"] += nbytes
+
+
+def _count_meta(op: str, b: int, h: int, d: int, pairs: int,
+                tensors) -> None:
+    """One row 8 / 9 call: 4 D FLOPs a visible pair and head, each tensor
+    read or written once."""
+    _add_work(op, 4 * d * b * h * pairs,
+              sum(t.numel() * t.element_size() for t in tensors))
+
+
+def flash_attention_fwd_meta(q, k, v, *, window: int = 0, q_base: int = 0):
+    """Row 8 on ``meta`` tensors: the output's shape, the work counted in
+    ``META_WORK``."""
+    b, sq, sk, h, g, d = _shapes(q, k, v)
+    out = torch.empty_like(q)
+    _count_meta("flash_attention_fwd", b, h, d,
+                visible_pairs(sq, sk, q_base=q_base, window=window),
+                (q, k, v, out))
+    return out
+
+
+def flash_attention_step_meta(q, k, v, carry, *, q_base: int, k_base: int,
+                              window: int = 0):
+    """Row 9 on ``meta`` tensors: the new carry's shapes, the work counted
+    in ``META_WORK`` (the carry read and written)."""
+    b, sq, sk, h, g, d = _shapes(q, k, v)
+    old = _carry(carry, b, sq, h, d, q.device)
+    new = tuple(torch.empty_like(t) for t in old)
+    _count_meta("flash_attention_step", b, h, d,
+                visible_pairs(sq, sk, q_base=q_base, k_base=k_base,
+                              window=window), (q, k, v) + old + new)
+    return new
 
 
 # ---------------------------------------------------------------------------
@@ -497,10 +627,15 @@ def ring_flash_attention_bwd(q, k, v, out, lse, g_out, *, window: int, mesh,
                                               dtype=torch.float32,
                                               device=q.device),
             torch.zeros((b, sk, g, d), dtype=torch.float32, device=q.device))
+    meta = q.device.type == "meta"
     for s in range(n):
         kf, vf, dk, dv = ring
         ik = ((me + s) % n) * sk + torch.arange(sk, device=q.device)
-        for i0 in range(0, sq, rows):
+        if meta:
+            # the products counted, not run (module docstring)
+            _add_work("flash_attention_bwd",
+                      *ring_bwd_step_work(q.shape, k.shape))
+        for i0 in range(0, sq if not meta else 0, rows):
             sl = slice(i0, i0 + rows)
             visible = ik[None, :] <= iq[sl, None]
             if window > 0:

@@ -3,8 +3,11 @@
 
 Each op has two implementations: ``cuda``, the hand-written kernel,
 for CUDA tensors, and ``reference``, its plain PyTorch version, for CPU
-tensors.  The tensor's device alone chooses; there is no fallback from
-one to the other.
+tensors.  Rows 8 and 9 (``flash_attention``, ``flash_attention_step``)
+have a third, ``meta``, for ``meta`` tensors (the dry run): the output's
+shapes and the call's work counted, no arithmetic.  The tensor's device
+alone chooses; there is no fallback from one to the other, and an op
+without a ``meta`` route raises on ``meta`` tensors.
 
 Also here, the reference's two tuning tables in the port's terms:
 
@@ -51,10 +54,12 @@ IMPLS: Dict[str, Dict[str, Callable]] = {
                     "reference": minmax_gram.minmax_gram_plain},
     "flash_attention": {
         "cuda": flash_attention.flash_attention_fwd_cuda,
-        "reference": flash_attention.flash_attention_fwd_plain},
+        "reference": flash_attention.flash_attention_fwd_plain,
+        "meta": flash_attention.flash_attention_fwd_meta},
     "flash_attention_step": {
         "cuda": flash_attention.flash_attention_step_cuda,
-        "reference": flash_attention.flash_attention_step_plain},
+        "reference": flash_attention.flash_attention_step_plain,
+        "meta": flash_attention.flash_attention_step_meta},
 }
 
 _FAMILY_ALIASES = {"cws_encode": "cws", "cws_encode_rng": "cws_rng",
@@ -70,7 +75,8 @@ def family(op: str) -> str:
 
 
 def auto_impl(device: torch.device) -> str:
-    return "cuda" if torch.device(device).type == "cuda" else "reference"
+    kind = torch.device(device).type
+    return kind if kind in ("cuda", "meta") else "reference"
 
 
 def resolve(op: str, device: torch.device):
@@ -78,7 +84,10 @@ def resolve(op: str, device: torch.device):
     table = IMPLS.get(op)
     if table is None:
         raise KeyError(f"no implementations registered for op {op!r}")
-    return table[auto_impl(device)]
+    impl = auto_impl(device)
+    if impl not in table:
+        raise KeyError(f"op {op!r} has no {impl} route")
+    return table[impl]
 
 
 # ---------------------------------------------------------------------------

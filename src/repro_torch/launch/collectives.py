@@ -15,9 +15,24 @@ The group's backend decides how a tensor moves:
     copied to a host buffer before it is sent and back to its card after
     it is received: the transport for several ranks that share one card,
     where NCCL refuses to run (it takes one rank a device).  Those copies
-    are explicit and counted in ``HOST_COPIES``.
+    are explicit and counted in ``HOST_COPIES``;
+  * ``fake`` (the dry run, ``launch.dryrun``): ``meta`` tensors, and no data
+    moves.  Each collective records itself and returns ``meta`` tensors of
+    the shapes the real one returns.
 Nothing retries one transport after another fails, and a tensor that the
-group's backend cannot move raises.
+group's backend cannot move raises: a ``meta`` tensor on a gloo or NCCL
+group, a real one on a fake group.
+
+Every collective, on every backend, is counted in ``COLLECTIVES`` by what
+it computes: ``all_gather``, ``reduce_scatter``, ``all_reduce`` (the sums,
+the maxima and ``axis_mean``), ``all_to_all`` (``reshard_dims``) and
+``send_recv`` (one ring shift), with its calls, its wire bytes a rank by
+the reference's model (``repro.launch.hlo_analysis``: all-reduce 2 x out,
+all-gather out, reduce-scatter out x group, all-to-all out, a shift out)
+and its calls by mesh axes.  The model counts what each computes, not the
+bytes this module's route sends for it: a sum here is an all-gather of N
+parts and a rank-order sum (N x out on the wire), counted as the
+all-reduce it computes.
 """
 from __future__ import annotations
 
@@ -29,17 +44,65 @@ import torch.distributed as dist
 # bytes and tensors copied between a card and the host for a gloo group
 HOST_COPIES = {"bytes": 0, "tensors": 0}
 
+COLLECTIVE_KINDS = ("all_gather", "reduce_scatter", "all_reduce",
+                    "all_to_all", "send_recv")
+# per kind: calls, wire bytes a rank, operand + output bytes a rank, calls
+# by the mesh axes they ran over
+COLLECTIVES = {kind: {"count": 0, "bytes": 0, "io_bytes": 0, "axes": {}}
+               for kind in COLLECTIVE_KINDS}
+
 
 def reset_host_copies() -> None:
     for key in HOST_COPIES:
         HOST_COPIES[key] = 0
 
 
+def reset_collectives() -> None:
+    for rec in COLLECTIVES.values():
+        rec["count"], rec["bytes"], rec["io_bytes"] = 0, 0, 0
+        rec["axes"].clear()
+
+
+def collectives_snapshot() -> dict:
+    """A copy of ``COLLECTIVES`` (axes as ``"data,model"`` strings)."""
+    return {kind: {"count": rec["count"], "bytes": rec["bytes"],
+                   "io_bytes": rec["io_bytes"],
+                   "axes": {",".join(a): n for a, n in
+                            sorted(rec["axes"].items())}}
+            for kind, rec in COLLECTIVES.items()}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _record(kind: str, mesh, axes, in_bytes: int, out_bytes: int) -> None:
+    """Count one collective of ``kind`` over ``axes`` that takes
+    ``in_bytes`` on this rank and gives it ``out_bytes`` (its wire bytes
+    by the module's model)."""
+    n = len(mesh.ranks(axes))
+    wire = {"all_reduce": 2 * out_bytes,
+            "reduce_scatter": out_bytes * n}.get(kind, out_bytes)
+    rec = COLLECTIVES[kind]
+    rec["count"] += 1
+    rec["bytes"] += wire
+    rec["io_bytes"] += in_bytes + out_bytes
+    key = mesh._key(axes)
+    rec["axes"][key] = rec["axes"].get(key, 0) + 1
+
+
 def transport(backend: str, device) -> str:
     """How a tensor on ``device`` moves over a group of ``backend``:
-    ``"nccl"``, ``"gloo"`` (host tensors as they are) or ``"gloo+host"``
-    (a CUDA tensor through host copies)."""
+    ``"nccl"``, ``"gloo"`` (host tensors as they are), ``"gloo+host"``
+    (a CUDA tensor through host copies) or ``"fake"`` (a ``meta`` tensor
+    on a fake group: counted, nothing moved)."""
     device = torch.device(device)
+    if backend == "fake":
+        if device.type == "meta":
+            return "fake"
+        raise ValueError(f"a fake process group counts collectives of meta "
+                         f"tensors and moves no data; got a tensor on "
+                         f"{device}")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"a tensor on {device} but no CUDA device is "
                            f"present")
@@ -107,8 +170,13 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh, axes, *,
     device = tensors[0].device
     if n == 1:
         return PendingShift([], tensors, device, "none")
-    group = mesh.group(axes)
     route = transport(_backend(mesh, axes), device)
+    sent = sum(_nbytes(t) for t in tensors)
+    _record("send_recv", mesh, axes, sent, sent)
+    if route == "fake":
+        return PendingShift([], [torch.empty_like(t) for t in tensors],
+                            device, route)
+    group = mesh.group(axes)
     me = mesh.axis_index(axes)
     step = -1 if reverse else 1
     nxt, prv = ranks[(me + step) % n], ranks[(me - step) % n]
@@ -128,6 +196,9 @@ def all_gather_dim(x: torch.Tensor, mesh, axes,
     if len(ranks) == 1:
         return x
     route = transport(_backend(mesh, axes), x.device)
+    _record("all_gather", mesh, axes, _nbytes(x), len(ranks) * _nbytes(x))
+    if route == "fake":
+        return torch.cat([torch.empty_like(x)] * len(ranks), dim)
     src = _to_host(x) if route == "gloo+host" else x.contiguous()
     parts = [torch.empty_like(src) for _ in ranks]
     dist.all_gather(parts, src, group=mesh.group(axes))
@@ -167,6 +238,10 @@ def axis_mean(tensors: Sequence[torch.Tensor], mesh,
     device = tensors[0].device
     group = mesh.group(axes)
     route = transport(_backend(mesh, axes), device)
+    nbytes = sum(_nbytes(t) for t in tensors)
+    _record("all_reduce", mesh, axes, nbytes, nbytes)
+    if route == "fake":
+        return [torch.empty_like(t) for t in tensors]
     flat = torch.cat([t.reshape(-1) for t in tensors])
     size = flat.numel()
     if size % n:
@@ -218,13 +293,20 @@ def _received(t: torch.Tensor, dtype, device, route: str) -> torch.Tensor:
     return _to_card(t, device) if route == "gloo+host" else t
 
 
-def gather_parts(x: torch.Tensor, mesh, axes) -> List[torch.Tensor]:
+def gather_parts(x: torch.Tensor, mesh, axes, *,
+                 kind: str = "all_gather") -> List[torch.Tensor]:
     """Every rank's ``x`` along ``axes``, in the order of their index
-    (equal shapes on every rank); ``[x]`` on one rank."""
+    (equal shapes on every rank); ``[x]`` on one rank.  ``kind`` is what
+    the caller computes from the parts, as ``COLLECTIVES`` counts it: an
+    ``all_gather`` or an ``all_reduce`` (a sum or a max of them)."""
     ranks = mesh.ranks(axes)
     if len(ranks) == 1:
         return [x]
     route = transport(_backend(mesh, axes), x.device)
+    _record(kind, mesh, axes, _nbytes(x),
+            _nbytes(x) * (len(ranks) if kind == "all_gather" else 1))
+    if route == "fake":
+        return [torch.empty_like(x) for _ in ranks]
     src = _send(x, route)
     # the parts land in one buffer (page-locked for a card's tensors),
     # which goes to the card in one copy
@@ -236,6 +318,8 @@ def gather_parts(x: torch.Tensor, mesh, axes) -> List[torch.Tensor]:
 
 
 def _rank_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    if parts[0].device.type == "meta":
+        return parts[0].clone()      # a sum of meta parts: its shape alone
     total = parts[0].clone()
     for p in parts[1:]:
         total += p
@@ -243,13 +327,20 @@ def _rank_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def _all_to_all(x: torch.Tensor, mesh, axes, split_dim: int,
-                cat_dim: int) -> List[torch.Tensor]:
+                kind: str) -> List[torch.Tensor]:
     """Cut ``x`` into N equal blocks along ``split_dim`` and send block j to
-    the rank of index j; returns the N blocks received, in rank order."""
+    the rank of index j; returns the N blocks received, in rank order.
+    ``kind``: ``all_to_all``, or ``reduce_scatter`` when the caller sums
+    the blocks (``COLLECTIVES``)."""
     n = len(mesh.ranks(axes))
     route = transport(_backend(mesh, axes), x.device)
+    _record(kind, mesh, axes, _nbytes(x),
+            _nbytes(x) // (n if kind == "reduce_scatter" else 1))
     blocks = x.movedim(split_dim, 0)
     blocks = blocks.reshape((n, blocks.shape[0] // n) + blocks.shape[1:])
+    if route == "fake":
+        return [b.movedim(0, split_dim)
+                for b in torch.empty_like(blocks).unbind(0)]
     src = _send(blocks, route)
     recv = torch.empty(src.shape, dtype=src.dtype, device=src.device,
                        pin_memory=route == "gloo+host")
@@ -265,7 +356,7 @@ def reduce_scatter_dim(x: torch.Tensor, mesh, axes,
     order."""
     if len(mesh.ranks(axes)) == 1:
         return x
-    return _rank_sum(_all_to_all(x, mesh, axes, dim, dim))
+    return _rank_sum(_all_to_all(x, mesh, axes, dim, "reduce_scatter"))
 
 
 def axis_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -273,14 +364,15 @@ def axis_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     same bits on every rank; ``x`` itself on one rank."""
     if _one_rank(mesh, axes):
         return x
-    return _rank_sum(gather_parts(x, mesh, axes))
+    return _rank_sum(gather_parts(x, mesh, axes, kind="all_reduce"))
 
 
 def axis_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The elementwise max of ``x`` over the ranks along ``axes``."""
     if len(mesh.ranks(axes)) == 1:
         return x
-    return torch.stack(gather_parts(x, mesh, axes)).amax(0)
+    return torch.stack(gather_parts(x, mesh, axes,
+                                    kind="all_reduce")).amax(0)
 
 
 def reshard_dims(x: torch.Tensor, mesh, axes, split_dim: int,
@@ -290,7 +382,8 @@ def reshard_dims(x: torch.Tensor, mesh, axes, split_dim: int,
     goes to rank j, which puts the blocks together along ``cat_dim``."""
     if len(mesh.ranks(axes)) == 1:
         return x
-    return torch.cat(_all_to_all(x, mesh, axes, split_dim, cat_dim), cat_dim)
+    return torch.cat(_all_to_all(x, mesh, axes, split_dim, "all_to_all"),
+                     cat_dim)
 
 
 class _ReduceScatter(torch.autograd.Function):

@@ -12,7 +12,8 @@ size (``mesh.shape[a]``).
 Nothing here initializes a process group: the caller runs
 ``torch.distributed.init_process_group`` (its backend, address, world size
 and rank) first, and the mesh's groups take that backend; ``host_group``
-is a gloo group over all the mesh's ranks for host-side agreement.
+is a gloo group over all the mesh's ranks for host-side agreement (a fake
+one under the ``fake`` backend of the dry run, ``launch.dryrun``).
 Without an initialized process group the only mesh is the one of a
 single rank, which holds no groups and needs no communication.  Building a mesh
 creates its groups, which is collective: every rank of the default group
@@ -65,11 +66,14 @@ class Mesh:
                 self._build(axes)
         # a gloo group over every rank of the mesh for host-side agreement
         # (checkpoint commits), used from writer threads as well: a group
-        # of its own, so it never interleaves with the axes' collectives
+        # of its own, so it never interleaves with the axes' collectives.
+        # Under a ``fake`` default group (the dry run, which moves no data)
+        # it is a fake group too: a fake group cannot build a gloo one
         self.host_group = None
         if dist.is_initialized():
+            backend = "fake" if dist.get_backend() == "fake" else "gloo"
             self.host_group = dist.new_group(list(range(self.size)),
-                                             backend="gloo")
+                                             backend=backend)
         if self.rank >= self.size:
             raise ValueError(f"rank {self.rank} lies outside a mesh of "
                              f"{self.size} ranks {self.shape}")

@@ -6,7 +6,9 @@ import numpy as np
 import pytest
 
 from repro.data import loader as ref
+from repro.data import synthetic as ref_synthetic
 from repro_torch.data import loader as port
+from repro_torch.data import synthetic as port_synthetic
 
 
 def _take(ld, n):
@@ -77,3 +79,13 @@ def test_feature_batches_and_restore_equal_the_reference(seed):
     b.restore(snap)
     _same(_take(b, 2), rest)
     _same(_take(lr, 2), rest)
+
+
+@pytest.mark.parametrize("seed,vocab,length", [(0, 100, 1000),
+                                               (7, 262144, 4096),
+                                               (2 ** 31 - 1, 49152, 333)])
+def test_token_stream_equals_the_reference(seed, vocab, length):
+    got = port_synthetic.token_stream(seed, vocab, length)
+    want = ref_synthetic.token_stream(seed, vocab, length)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)

@@ -182,6 +182,29 @@ def test_sharded_step_tracks_both_packages(ranks, world, case):
                                    atol=p_atol)
 
 
+@pytest.mark.parametrize("case", [("gemma3-flash", 2, 2),
+                                  ("gemma3-chunked-2micro", 1, 4),
+                                  ("nemotron-bf16", 2, 2)], ids=str)
+def test_collectives_equal_the_dry_runs_count(ranks, case):
+    """Each rank's first step over gloo ran the collectives, kind by kind
+    (calls, wire bytes, operand and output bytes, mesh axes), that the dry
+    run counts for that rank on the meta device (a fake group, the
+    counting route: ``launch.dryrun``)."""
+    from repro_torch.launch import dryrun
+    name, data, model = case
+    got = ranks[data * model][f"{name}@{data}x{model}"]["collectives"]
+    cfg, hp = R.port_cfg(name)
+    for rank, real in enumerate(got):
+        dry = dryrun.dry_cell(cfg, hp, {"data": data, "model": model}, rank,
+                              kind="train", seq_len=R.SEQ,
+                              global_batch=R.BATCH)["graph"]
+        assert sum(r["count"] for r in real.values()) > 0
+        for kind, rec in real.items():
+            assert rec["count"] == dry.n_collectives[kind], (rank, kind)
+            assert rec["bytes"] == dry.collective_bytes[kind], (rank, kind)
+            assert rec["axes"] == dry.collective_axes[kind], (rank, kind)
+
+
 @pytest.mark.parametrize("world", [2, 4])
 def test_collectives_backward_and_shard_units(ranks, world):
     """gradcheck of each differentiable collective; the max; the int8

@@ -359,3 +359,30 @@ def test_sharded_training_raises():
     with pytest.raises(ValueError, match="needs 256 ranks"):
         t_train.main(["--arch", "gemma3_12b", "--production-mesh",
                       "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["pixtral_12b", "musicgen_large"])
+def test_embedding_inputs_train_like_the_reference(arch):
+    """An LM fed embeddings (the vision and audio stub frontends): the loss
+    never reads the token table, whose gradient is then zero, as
+    ``jax.grad`` gives it, and the step only decays it; two steps against
+    the reference's ``make_train_step(cfg, hp, None)``."""
+    rc, tc = _cfgs(arch)
+    hr, ht = _hps()
+    rs = _ref_init(rc, hr)
+    ts = interop.lm_train_state(rs, tc, device="cpu")
+    step_r = jax.jit(ref_trainer.make_train_step(rc, hr, None))
+    step_t = t_trainer.make_train_step(tc, ht)
+    rng = np.random.default_rng(11)
+    for _ in range(2):
+        x = rng.standard_normal((BATCH, SEQ, rc.d_model)).astype(np.float32)
+        y = rng.integers(0, rc.vocab, (BATCH, SEQ)).astype(np.int32)
+        rs, mr = step_r(rs, {"inputs": jnp.asarray(x),
+                             "labels": jnp.asarray(y)})
+        ts, mt = step_t(ts, {"inputs": torch.from_numpy(x),
+                             "labels": torch.from_numpy(y)})
+        for key in ("loss", "grad_norm", "nll"):
+            np.testing.assert_allclose(float(mt[key]), float(mr[key]),
+                                       rtol=FP32_RTOL, err_msg=key)
+    _close_tree(ts.params, rs.params, rtol=0.0, atol=PARAM_ATOL)
+    assert float(ts.mu["embed"]["tokens"].abs().max()) == 0.0

@@ -73,8 +73,9 @@ def batches(vocab, data=1, index=0):
     return out
 
 
-def run_port(name, state, batch_list, rules=None):
-    """(losses, grad norms, first step's gradients, final state)."""
+def run_port(name, state, batch_list, rules=None, colls=None):
+    """(losses, grad norms, first step's gradients, final state); the
+    first step's ``collectives_snapshot`` appended to ``colls``."""
     cfg, hp = port_cfg(name)
     grads = []
     step = t_trainer.make_train_step(
@@ -82,8 +83,11 @@ def run_port(name, state, batch_list, rules=None):
         else None)
     losses, norms = [], []
     for x, y in batch_list:
+        coll.reset_collectives()
         state, m = step(state, {"inputs": torch.from_numpy(x),
                                 "labels": torch.from_numpy(y)})
+        if colls is not None and not losses:
+            colls.append(coll.collectives_snapshot())
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     return losses, norms, grads[0], state
@@ -96,13 +100,17 @@ def rank_case(name, data, model, states, res):
     state = interop.lm_train_state(states[name], tc, device="cpu",
                                    rules=rules)
     mine = batches(tc.vocab, data, mesh.coords["data"])
-    losses, norms, g0, state = run_port(name, state, mine, rules)
+    colls = []
+    losses, norms, g0, state = run_port(name, state, mine, rules, colls)
+    # every rank's first-step collectives, for the dry run's count
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, colls[0])
     specs = t_trainer.param_pspecs(tc, rules)
     g0 = t_sharding.gather_params(g0, rules, specs)
     params = t_sharding.gather_params(state.params, rules, specs)
     res[f"{name}@{data}x{model}"] = {
         "losses": losses, "norms": norms, "grads": tree_leaves(g0),
-        "params": tree_leaves(params)}
+        "params": tree_leaves(params), "collectives": every}
     return mesh, rules, state
 
 
