@@ -61,6 +61,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 0 and 1,024, gemma3's heads at 8,192 rows a shard), fully
                 masked shards handing the carry back unchanged, and each
                 finalized chain against the one-shot row-8 kernel;
+                then the kernel contracts (``phase_contracts``, ROADMAP
+                A13): each library's own dynamic shared-memory bytes
+                against ``registry.SMEM_MODELS`` on every candidate plan,
+                static + dynamic within the card's opt-in limit, each
+                instantiation's occupancy against the plans' claims; rows
+                1-9 at ragged shapes into outputs between guard bands; row
+                1 and row 3 at k = 2^23 (the int32 table bound); the
+                dtype-flow and determinism audits over a fit-A and an LM
+                train step on CUDA tensors;
   4. slice    - the serving path at the paper configuration's full width
                 (D = 256, k = 1024, 10 classes): four bundles (regen,
                 stored, regen+packed b = 8, stored+packed b = 4), each
@@ -7848,6 +7857,460 @@ def phase_gram_times(dev, results, peak_ops, counts, suite, est):
               + f" (in turns: {readings})")
 
 
+# ---------------------------------------------------------------------------
+# the kernel contracts on the card (ROADMAP A13)
+# ---------------------------------------------------------------------------
+
+# Part 1.5's ragged shapes: n x D x k for rows 1-6, m x D x n for row 7,
+# (b, sq, h, g, d, dtype) for rows 8-9 (the wgmma body on two heads a
+# group and on one, the SIMT body at D = 40)
+CONTRACT_CWS = (77, 150, 70)
+CONTRACT_GRAM = (150, 99, 90)
+CONTRACT_FLASH = ((1, 100, 8, 2, 128, torch.bfloat16),
+                  (2, 100, 4, 4, 64, torch.bfloat16),
+                  (1, 100, 6, 2, 40, torch.float32))
+CONTRACT_GUARD = 4096             # guard elements on each side of an output
+CONTRACT_SENTINEL = -0x5A5A5A5B   # int32 bits an untouched element keeps
+# the int32 table bound: row 1's index emit at k = 2^23 hashes, b_i = 8
+# (the top index j 2^8 + 255 = 2^31 - 1), n = 2 rows of D = 64
+TABLE_TOP = (2, 64, 1 << 23, 8)
+# the kernels' shared-memory queries by family: (library, [(emit, t*
+# tracked)] of the family's ops)
+CONTRACT_EMITS = {"cws": ((0, 0), (0, 1), (2, 1)),
+                  "cws_rng": ((0, 0), (0, 1), (2, 1)),
+                  "cws_packed": ((1, 0), (1, 1)),
+                  "cws_rng_packed": ((1, 0), (1, 1))}
+
+
+def guarded(numel, dtype, dev):
+    """(int32 words: two guard bands of the sentinel around room for
+    ``numel`` elements of ``dtype``, also the sentinel's bits; the room as
+    a ``dtype`` tensor)."""
+    g = CONTRACT_GUARD
+    size = torch.empty((), dtype=dtype).element_size()
+    room = -(-numel * size // 4)
+    words = torch.full((2 * g + room,), CONTRACT_SENTINEL,
+                       dtype=torch.int32, device=dev)
+    return words, words[g:g + room].view(dtype)[:numel]
+
+
+def guards_intact(words):
+    """True where both guard bands still hold the sentinel."""
+    g = CONTRACT_GUARD
+    torch.cuda.synchronize()
+    return bool((words[:g] == CONTRACT_SENTINEL).all() and
+                (words[-g:] == CONTRACT_SENTINEL).all())
+
+
+def smem_queries(fam, plans, optin, sms):
+    """Every plan of ``fam``'s audited space against its library: the
+    model's bytes equal the bytes the launcher sets, static + dynamic fit
+    ``optin``, and each instantiation's occupancy at its launch equals
+    what the plans assume.  Returns the family's line of numbers."""
+    import ctypes
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import cws_hash as K
+    from repro_torch.kernels import minmax_gram as G
+    from repro_torch.kernels import registry as R
+    model = R.SMEM_MODELS[fam]
+    attrs = (ctypes.c_int * 5)()
+    blocks = ctypes.c_int()
+    seen, worst, occ, regs, spill = set(), 0.0, {}, 0, 0
+
+    def check(what, rc, got, want):
+        if rc != 0:
+            raise RuntimeError(f"contracts {fam}: {what}: cudaError {rc}")
+        if want is not None and got != want:
+            raise AssertionError(f"contracts {fam}: {what}: the card gives "
+                                 f"{got}, the model {want}")
+
+    for plan in plans:
+        for kl in model.launches(plan):
+            if fam in CONTRACT_EMITS:
+                lib = B.cws_split_library().lib
+                stored = int(fam in R.STORED_FAMILIES)
+                r, w = plan.rows_per_thread, plan.row_warps
+                lib_bytes = lib.cws_split_smem_bytes(r, w, stored)
+                configs = [(f"{kl.kernel} emit {e} t {t} warps {w}",
+                            lambda out, e=e, t=t: lib.cws_split_attributes(
+                                r, e, t, stored, out),
+                            lambda out, e=e, t=t: lib.cws_split_occupancy(
+                                r, e, t, stored, w, out),
+                            K.SPLIT_BLOCKS_PER_SM)
+                           for e, t in CONTRACT_EMITS[fam]]
+            elif fam == "min_sum":
+                lib = B.minmax_gram_library().lib
+                kind = 0 if kl.kernel.startswith("min_sum_tiled") else (
+                    1 if kl.kernel == "min_sum_combine" else 2)
+                tm, tn = plan.tile if kind == 0 else (0, 0)
+                lib_bytes = lib.min_sum_smem_bytes(kind, tm, tn)
+                configs = [(kl.kernel,
+                            lambda out: lib.min_sum_attributes(kind, tm, tn,
+                                                               out),
+                            lambda out: lib.min_sum_occupancy(kind, tm, tn,
+                                                              out),
+                            G.GRAM_OCCUPANCY.get(plan.tile)
+                            if kind == 0 else None)]
+            else:
+                d = plan.d
+                if plan.body == "wgmma":
+                    lib = B.flash_attention_wgmma_library().lib
+                    lib_bytes = lib.flash_wgmma_smem_bytes(d)
+                    configs = [(f"{kl.kernel} carry {c}",
+                                lambda out, c=c: lib.flash_wgmma_attributes(
+                                    d, c, out),
+                                lambda out, c=c: lib.flash_wgmma_occupancy(
+                                    d, c, out), 1) for c in (0, 1)]
+                else:
+                    lib = B.flash_attention_library().lib
+                    lib_bytes = lib.flash_simt_smem_bytes(d)
+                    configs = [(f"{kl.kernel} D {d} bf16 {bf} carry {c}",
+                                lambda out, bf=bf, c=c:
+                                lib.flash_simt_attributes(d, bf, c, out),
+                                lambda out, bf=bf, c=c:
+                                lib.flash_simt_occupancy(d, bf, c, out),
+                                1 if d == 256 else None)
+                               for bf in (0, 1) for c in (0, 1)]
+            check(f"{kl.kernel} bytes", 0, lib_bytes, kl.smem)
+            for name, attr_fn, occ_fn, want_occ in configs:
+                if name in seen:
+                    continue
+                seen.add(name)
+                check(f"{name} attributes", attr_fn(attrs), None, None)
+                total = attrs[0] + kl.smem
+                if total > optin:
+                    raise AssertionError(
+                        f"contracts {fam}: {name}: {attrs[0]} static + "
+                        f"{kl.smem} dynamic bytes exceed the card's "
+                        f"{optin}")
+                worst = max(worst, total / optin)
+                regs, spill = max(regs, attrs[1]), max(spill, attrs[2])
+                check(f"{name} occupancy", occ_fn(ctypes.byref(blocks)),
+                      blocks.value, want_occ)
+                occ[blocks.value] = occ.get(blocks.value, 0) + 1
+    return {"plans": len(plans), "configs": len(seen),
+            "worst_over_optin": worst, "occupancy": occ,
+            "max_registers": regs, "max_local_bytes": spill}
+
+
+def cws_coverage(dev, sms):
+    """Rows 1-6 at ``CONTRACT_CWS`` on their default plan and on a forced
+    one (one row a thread, 16 row warps, eight ranks), straight through
+    their library entry points into guarded outputs: guards untouched,
+    every element equal to the plain version's."""
+    from repro_torch.core.hashing import packed_width
+    from repro_torch.core.regen import key_words, prng_key
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import cws_hash as K
+    lib = B.cws_split_library().lib
+    rng = np.random.default_rng(2040)
+    n, d, k = CONTRACT_CWS
+    x = torch.from_numpy(sparse_rows(rng, n, d, zero_rows=(3,))).to(dev)
+    params = stored_params(rng, d, k, dev)
+    key = prng_key(41)
+    k0, k1 = key_words(key)
+    stream = torch.cuda.current_stream().cuda_stream
+    checked = 0
+    for op, (_, regen, emit) in KERNELS.items():
+        stored = not regen
+        b = 8 if emit != "raw" else 0
+        cols = packed_width(k, b) if emit == "packed" else k
+        forced = K.SplitPlan(n, d, k, 1, 16, 8)
+        for plan in (K.split_plan(n, d, k, sms, stored=stored, op=op),
+                     forced):
+            outs = [guarded(n * cols, torch.int32, dev)
+                    for _ in range(2 if emit == "raw" else 1)]
+            ptrs = [body.data_ptr() for _, body in outs]
+            tiles = (plan.rows_per_thread, plan.row_warps, plan.splits)
+            src = ((x.data_ptr(), params.r.data_ptr(),
+                    params.log_c.data_ptr(), params.beta.data_ptr())
+                   if stored else (x.data_ptr(), k0, k1))
+            copy = (K.stored_copy_bytes(params),) if stored else ()
+            if emit == "raw":
+                fn = (lib.cws_split_stored_hash_launch if stored else
+                      lib.cws_regen_split_hash_launch)
+                rc = fn(*src, n, d, k, *tiles, *copy, *ptrs, stream)
+            elif emit == "index":
+                fn = (lib.cws_split_stored_index_launch if stored else
+                      lib.cws_split_index_launch)
+                rc = fn(*src, n, d, k, b, 0, *tiles, *copy, ptrs[0], stream)
+            else:
+                fn = (lib.cws_split_stored_packed_launch if stored else
+                      lib.cws_regen_split_packed_launch)
+                rc = fn(*src, n, d, k, b, 0, *tiles, *copy, ptrs[0], cols,
+                        stream)
+            if rc != 0:
+                raise RuntimeError(f"contracts coverage {op} {plan}: "
+                                   f"cudaError {rc}")
+            args = (x, params) if stored else (x, key, k)
+            plain = getattr(K, op + "_plain")
+            want = plain(*args) if emit == "raw" else plain(*args, b_i=b)
+            want = want if emit == "raw" else (want,)
+            for (buf, body), w in zip(outs, want):
+                if not guards_intact(buf):
+                    raise AssertionError(f"contracts coverage {op} {plan}: "
+                                         f"a guard band was written")
+                got = body.view(n, cols)
+                w = w.view(torch.int32) if w.dtype == torch.uint32 else w
+                if not torch.equal(got, w):
+                    bad = int((got != w).sum())
+                    raise AssertionError(f"contracts coverage {op} {plan}: "
+                                         f"{bad} element(s) differ from the "
+                                         f"plain version (or were never "
+                                         f"written)")
+            checked += 1
+    return checked
+
+
+def gram_coverage(dev, sms):
+    """Row 7 at ``CONTRACT_GRAM`` on the default plan, forced tiles with
+    S = 2 and 4 (the combine pass) and the small-output mode."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import minmax_gram as G
+    lib = B.minmax_gram_library().lib
+    rng = np.random.default_rng(2041)
+    m, d, n = CONTRACT_GRAM
+    x = torch.from_numpy(sparse_rows(rng, m, d, zero_rows=(5,))).to(dev)
+    y = torch.from_numpy(sparse_rows(rng, n, d)).to(dev)
+    want = G.min_sum_plain(x, y).double()
+    plans = (G.gram_plan(m, n, d, sms), G.gram_plan(m, n, d, sms,
+                                                    tile=(64, 64), splits=4),
+             G.gram_plan(m, n, d, sms, tile=(128, 128), splits=2),
+             G.gram_plan(m, n, d, sms, small=True))
+    stream = torch.cuda.current_stream().cuda_stream
+    for plan in plans:
+        (xs, ldx), (ys, ldy) = ((x, d), (y, d)) if plan.small else \
+            (G.tma_rows(x), G.tma_rows(y))
+        buf, body = guarded(m * n, torch.float32, dev)
+        partials = (torch.empty((plan.splits, m, n), device=dev)
+                    if plan.splits > 1 else None)
+        rc = lib.min_sum_launch(xs.data_ptr(), ys.data_ptr(), m, n, d, ldx,
+                                ldy, *plan.tile, plan.splits, plan.blocks,
+                                int(plan.small),
+                                None if partials is None else
+                                partials.data_ptr(), body.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"contracts coverage min_sum {plan}: "
+                               f"cudaError {rc}")
+        if not guards_intact(buf):
+            raise AssertionError(f"contracts coverage min_sum {plan}: a "
+                                 f"guard band was written")
+        got = body.view(m, n).double()
+        bound = 2 * d * U32 * want + 1e-30
+        if not torch.isfinite(got).all() or \
+                not bool(((got - want).abs() <= bound).all()):
+            raise AssertionError(f"contracts coverage min_sum {plan}: an "
+                                 f"element differs from the plain version "
+                                 f"past its bound (or was never written)")
+    return len(plans)
+
+
+def flash_coverage(dev):
+    """Rows 8 and 9 at ``CONTRACT_FLASH`` through the libraries' entry
+    points into guarded outputs (row 9: m, l and acc)."""
+    import ctypes
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(2042)
+    stream = torch.cuda.current_stream().cuda_stream
+    checked = 0
+    for b, s, h, g, d, dtype in CONTRACT_FLASH:
+        q, k, v = flash_inputs(rng, b, s, s, h, g, d, dtype, dev)
+        body_name = fa.flash_body(dtype, d)
+        scale = ctypes.c_float(d ** -0.5)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        buf, out = guarded(b * s * h * d, dtype, dev)
+        if body_name == "wgmma":
+            lib = B.flash_attention_wgmma_library().lib
+            rc = lib.flash_attention_wgmma_fwd_launch(
+                *ptrs, out.data_ptr(), b, s, s, h, g, d, 0, 0, scale, stream)
+        else:
+            lib = B.flash_attention_library().lib
+            rc = lib.flash_attention_fwd_launch(
+                *ptrs, out.data_ptr(), b, s, s, h, g, d, 0, 0, scale,
+                int(dtype == torch.bfloat16), stream)
+        want = fa.flash_attention_fwd_plain(q, k, v)
+        if rc != 0 or not guards_intact(buf):
+            raise AssertionError(f"contracts coverage row 8 ({body_name}, "
+                                 f"{q.shape}): rc {rc} or a guard written")
+        ratio = out_ratio(out.view(q.shape).float(), want.float(), dtype)
+        if not ratio <= 1.0:
+            raise AssertionError(f"contracts coverage row 8 ({body_name}, "
+                                 f"{tuple(q.shape)}): {ratio:.3g} of its "
+                                 f"tolerance (or an element never written)")
+        carry = fa.init_carry(b, s, h, d, dev)
+        bufs = [guarded(t.numel(), torch.float32, dev) for t in carry]
+        cptrs = [t.data_ptr() for t in carry] + \
+            [body.data_ptr() for _, body in bufs]
+        args = (*ptrs, *cptrs, b, s, s, h, g, d, 0, 0, 0, scale)
+        if body_name == "wgmma":
+            rc = lib.flash_attention_wgmma_step_launch(*args, stream)
+        else:
+            rc = lib.flash_attention_step_launch(
+                *args, int(dtype == torch.bfloat16), stream)
+        got = tuple(body.view(t.shape) for (_, body), t in zip(bufs, carry))
+        if rc != 0 or not all(guards_intact(bf) for bf, _ in bufs):
+            raise AssertionError(f"contracts coverage row 9 ({body_name}, "
+                                 f"{tuple(q.shape)}): rc {rc} or a guard "
+                                 f"written")
+        ratio, _ = carry_ratio(got, fa.flash_attention_step_plain(
+            q, k, v, None, q_base=0, k_base=0), dtype)
+        if not ratio <= 1.0:
+            raise AssertionError(f"contracts coverage row 9 ({body_name}, "
+                                 f"{tuple(q.shape)}): {ratio:.3g} of its "
+                                 f"tolerance (or an element never written)")
+        checked += 2
+    return checked
+
+
+def table_top(dev, sms):
+    """Row 1's index emit and row 3's packed words at ``TABLE_TOP``: hash
+    j's indices in [j 2^8, j 2^8 + 255], the top one 2^31 - 1, none
+    wrapped negative, and both equal to the plain version (whose
+    parameters are regenerated in 2^19-hash blocks: the same bits for
+    any block)."""
+    from repro_torch.core.cws import cws_hash_regen
+    from repro_torch.core.hashing import encode, feature_indices, pack_codes
+    from repro_torch.core.regen import prng_key
+    from repro_torch.kernels import cws_hash as K
+    n, d, k, b = TABLE_TOP
+    rng = np.random.default_rng(2043)
+    x = torch.from_numpy(sparse_rows(rng, n, d, density=0.6)).to(dev)
+    key = prng_key(43)
+    idx = K.cws_encode_rng_cuda(x, key, k, b_i=b)
+    words = K.cws_encode_rng_packed_cuda(x, key, k, b_i=b)
+    i_star, t_star = cws_hash_regen(x, key, k, hash_block=1 << 19)
+    codes = encode(i_star, t_star, b_i=b)
+    del i_star, t_star
+    want_idx = feature_indices(codes, b_i=b)
+    want_words = pack_codes(codes, b=b)
+    torch.cuda.synchronize()
+    j = torch.arange(k, device=dev, dtype=torch.int64)
+    wide = idx.to(torch.int64)
+    top = int(wide.max())
+    if not (bool((wide >= 0).all()) and bool(((wide >> b) == j).all())
+            and top <= 2 ** 31 - 1):
+        raise AssertionError(f"contracts table bound: an index outside its "
+                             f"hash's [j 2^{b}, j 2^{b} + 255] (top {top})")
+    if not torch.equal(idx, want_idx) or not torch.equal(
+            words.view(torch.int32), want_words.view(torch.int32)):
+        raise AssertionError("contracts table bound: the kernels' indices "
+                             "or packed words differ from the plain "
+                             "version at k = 2^23")
+    return top, int(idx[:, -1].min())
+
+
+def contracts_audits(dev):
+    """``dtype_flow`` and ``determinism`` over one fit-A train step (the
+    CWS launch, the bag head, AdamW) and one LM train step at smoke width
+    in bf16, on the card, with the suite's blessings; no finding may
+    remain.  Returns (findings of each, the reduced-precision flags)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.analysis import audit_determinism, audit_dtype_flow
+    from repro_torch.analysis.suite import BAG_SCATTERS, F64_SUMS
+    from repro_torch.core.linear_model import TrainCfg, init_bag, \
+        make_linear_tx
+    from repro_torch.core.regen import prng_key
+    from repro_torch.pipeline import FeaturePipeline, FeatureSpec
+    from repro_torch.training import trainer as T
+    from repro_torch.training.linear_trainer import (_bag_logits_fn,
+                                                     _make_update_step)
+    rng = np.random.default_rng(2044)
+    pipe = FeaturePipeline.create_regen(prng_key(0), DIM,
+                                        FeatureSpec(NUM_HASHES, B_I),
+                                        device=dev)
+    cfg = TrainCfg(n_classes=N_CLASSES, steps=TRAIN_STEPS, lr=CONFIG.lr,
+                   l2=CONFIG.l2, batch_size=TRAIN_BATCH)
+    tx = make_linear_tx(cfg)
+    params = init_bag(pipe.num_features, N_CLASSES, device=dev)
+    step = _make_update_step(cfg, tx, 1, _bag_logits_fn(pipe))
+    x = torch.from_numpy(sparse_rows(rng, TRAIN_BATCH, DIM)).to(dev)
+    y = torch.from_numpy(rng.integers(0, N_CLASSES, TRAIN_BATCH)).to(dev)
+
+    def fit_a_step(p, st, x, y):
+        return step(p, st, pipe.launch_chunk(x), y, 0)
+    args = (params, tx.init(params), x, y)
+    found = {"fit_a": audit_dtype_flow(fit_a_step, args, name="fit-A",
+                                       allow_narrow=F64_SUMS) +
+             audit_determinism(fit_a_step, args, name="fit-A",
+                               allow=BAG_SCATTERS)}
+    lm = dataclasses.replace(configs.get_config("gemma3_12b", "smoke"),
+                             dtype="bfloat16")
+    hp = T.TrainHparams(n_microbatches=2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = T.init_train_state(lm, hp, generator=gen, device=dev)
+    ids = torch.from_numpy(rng.integers(0, lm.vocab, (2, 128))).to(dev)
+    batch = {"inputs": ids, "labels": ids}
+    lm_step = T.make_train_step(lm, hp)
+    narrow = ("float32->bfloat16",) + F64_SUMS   # the bf16 copy of masters
+    found["lm"] = audit_dtype_flow(lm_step, (state, batch), name="lm-train",
+                                   allow_narrow=narrow) + \
+        audit_determinism(lm_step, (state, batch), name="lm-train")
+    m = torch.backends.cuda.matmul
+    flags = (m.allow_bf16_reduced_precision_reduction,
+             m.allow_fp16_reduced_precision_reduction)
+    return found, flags
+
+
+def phase_contracts(dev, card, results):
+    """The kernel contracts only the card can check (ROADMAP A13): every
+    family's shared-memory model against its library's own bytes, over
+    the candidate plans the CPU audit walks, within the card's
+    ``sharedMemPerBlockOptin``, and the plans' occupancy claims against
+    the card's occupancy query; rows 1-9 at ragged shapes into guarded
+    outputs (``analysis.coverage``'s mirrors held to the kernels); the
+    int32 table bound in row 1's index emit; ``dtype_flow`` and
+    ``determinism`` on CUDA tensors over a fit-A and an LM train step."""
+    from repro_torch.analysis.smem import family_plans, model_families
+    from repro_torch.kernels import registry as R
+    t0 = time.perf_counter()
+    props = torch.cuda.get_device_properties(0)
+    optin = props.shared_memory_per_block_optin
+    sms = props.multi_processor_count
+    print(f"contracts: sharedMemPerBlockOptin {optin} B on the card, "
+          f"SMEM_BUDGET {R.SMEM_BUDGET} B [{card}]")
+    if optin < R.SMEM_BUDGET:
+        raise AssertionError(f"contracts: the card's opt-in shared memory "
+                             f"{optin} B is below SMEM_BUDGET")
+    out = {"optin": optin, "families": {}}
+    for fam in model_families():
+        got = smem_queries(fam, family_plans(fam, sms=sms), optin, sms)
+        out["families"][fam] = got
+        occ = ", ".join(f"{n} config(s) at {b}" for b, n in
+                        sorted(got["occupancy"].items()))
+        print(f"contracts: {fam}: {got['plans']} plans, {got['configs']} "
+              f"instantiation configs; model bytes == library bytes on "
+              f"every one; worst (static + dynamic) / optin "
+              f"{got['worst_over_optin']:.4f}; occupancy blocks/SM: {occ} "
+              f"(= the plans' claims where they make one); max registers "
+              f"{got['max_registers']}, max local bytes "
+              f"{got['max_local_bytes']} [{card}]")
+    n_cws, n_gram, n_flash = (cws_coverage(dev, sms), gram_coverage(dev, sms),
+                              flash_coverage(dev))
+    print(f"contracts: coverage: rows 1-6 {n_cws} launches at n x D x k = "
+          f"{CONTRACT_CWS}, row 7 {n_gram} plans at m x D x n = "
+          f"{CONTRACT_GRAM}, rows 8-9 {n_flash} launches at (b, Sq, H, G, "
+          f"D) {[c[:5] for c in CONTRACT_FLASH]}: guard bands untouched, "
+          f"every element equal to the plain version's [{card}]")
+    top, last = table_top(dev, sms)
+    print(f"contracts: int32 table bound: row 1 at (n, D, k, b_i) = "
+          f"{TABLE_TOP}: every index in its hash's range, top {top} "
+          f"(2^31 - 1 = {2 ** 31 - 1}), last hash's least {last}; row 3's "
+          f"words equal the plain version's [{card}]")
+    found, flags = contracts_audits(dev)
+    for what, fs in found.items():
+        print(f"contracts: audits on CUDA tensors, {what} step: "
+              f"{len(fs)} unblessed finding(s); cuBLAS reduced-precision "
+              f"flags (bf16, fp16) after the step {flags}")
+        if fs:
+            raise AssertionError(f"contracts audits ({what}): "
+                                 f"{[str(f) for f in fs]}")
+    out.update(coverage=[n_cws, n_gram, n_flash], table_top=top,
+               seconds=time.perf_counter() - t0)
+    results["contracts"] = out
+
+
 def build_all():
     """Build every kernel library at once, one nvcc per source; return
     the CWS and the Gram libraries."""
@@ -7963,6 +8426,7 @@ def main():
                         (phase_gram_parity, (dev, results)),
                         (phase_flash_parity, (dev, results)),
                         (phase_step_parity, (dev, results)),
+                        (phase_contracts, (dev, smi, results)),
                         (phase_slice, (smi, results)),
                         (phase_train, (dev, smi, results)),
                         (phase_resume, (dev, smi, results)),

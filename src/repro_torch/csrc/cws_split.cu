@@ -419,15 +419,22 @@ struct Problem {
   int out_cols;
 };
 
+// The dynamic shared memory a launch of R rows a thread and row_warps row
+// warps sets: the staging buffers or the partials, whichever is larger.
+size_t dyn_smem_bytes(int rows_per_thread, int row_warps, bool stored) {
+  const int bn = row_warps * rows_per_thread, d_warps = WARPS / row_warps;
+  const size_t floats = staging_floats(bn, stored) > partial_floats(bn, d_warps)
+                            ? staging_floats(bn, stored)
+                            : partial_floats(bn, d_warps);
+  return floats * sizeof(float);
+}
+
 template <int R, int Emit, bool TrackT, bool Stored>
 cudaError_t launch_r(const Problem& p, int row_warps, int splits,
                      cudaStream_t stream) {
   auto kernel = cws_split_kernel<R, Emit, TrackT, Stored>;
-  const int bn = row_warps * R, d_warps = WARPS / row_warps;
-  const size_t floats = staging_floats(bn, Stored) > partial_floats(bn, d_warps)
-                            ? staging_floats(bn, Stored)
-                            : partial_floats(bn, d_warps);
-  const size_t smem = floats * sizeof(float);
+  const int bn = row_warps * R;
+  const size_t smem = dyn_smem_bytes(R, row_warps, Stored);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -497,9 +504,85 @@ cudaError_t launch_code(const Problem& p, int rows_per_thread, int row_warps,
                                      stream);
 }
 
+// The instantiation the launchers run for (R, emit, t* tracked, stored);
+// null for one they never run (a raw emit always tracks t*).  Taking
+// these addresses instantiates nothing the launchers do not.
+template <int Emit, bool TrackT, bool Stored>
+const void* kernel_r(int r) {
+  switch (r) {
+    case 1: return reinterpret_cast<const void*>(cws_split_kernel<1, Emit, TrackT, Stored>);
+    case 2: return reinterpret_cast<const void*>(cws_split_kernel<2, Emit, TrackT, Stored>);
+    case 4: return reinterpret_cast<const void*>(cws_split_kernel<4, Emit, TrackT, Stored>);
+    case 8: return reinterpret_cast<const void*>(cws_split_kernel<8, Emit, TrackT, Stored>);
+    default: return nullptr;
+  }
+}
+
+template <int Emit, bool Stored>
+const void* kernel_t(int r, int track_t) {
+  return track_t ? kernel_r<Emit, true, Stored>(r)
+                 : kernel_r<Emit, false, Stored>(r);
+}
+
+const void* kernel_of(int r, int emit, int track_t, int stored) {
+  switch (emit) {
+    case EMIT_INDEX:
+      return stored ? kernel_t<EMIT_INDEX, true>(r, track_t)
+                    : kernel_t<EMIT_INDEX, false>(r, track_t);
+    case EMIT_PACKED:
+      return stored ? kernel_t<EMIT_PACKED, true>(r, track_t)
+                    : kernel_t<EMIT_PACKED, false>(r, track_t);
+    case EMIT_RAW:
+      if (!track_t) return nullptr;
+      return stored ? kernel_r<EMIT_RAW, true, true>(r)
+                    : kernel_r<EMIT_RAW, true, false>(r);
+    default:
+      return nullptr;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// Queries for the kernel contracts (host code only): the dynamic shared
+// memory a launch sets, an instantiation's attributes, and the blocks of
+// it an SM holds at a launch's block size and shared memory.
+
+int cws_split_smem_bytes(int rows_per_thread, int row_warps, int stored) {
+  if (row_warps <= 0 || row_warps > WARPS || rows_per_thread <= 0) return -1;
+  return static_cast<int>(dyn_smem_bytes(rows_per_thread, row_warps,
+                                         stored != 0));
+}
+
+// out: static shared bytes, registers a thread, local bytes a thread,
+// max threads a block, max dynamic shared bytes (the attribute as set).
+int cws_split_attributes(int rows_per_thread, int emit, int track_t,
+                         int stored, int* out) {
+  const void* kernel = kernel_of(rows_per_thread, emit, track_t, stored);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = static_cast<int>(a.sharedSizeBytes);
+  out[1] = a.numRegs;
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = a.maxDynamicSharedSizeBytes;
+  return cudaSuccess;
+}
+
+int cws_split_occupancy(int rows_per_thread, int emit, int track_t,
+                        int stored, int row_warps, int* blocks) {
+  const void* kernel = kernel_of(rows_per_thread, emit, track_t, stored);
+  const int smem = cws_split_smem_bytes(rows_per_thread, row_warps, stored);
+  if (kernel == nullptr || smem < 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       THREADS, smem);
+}
 
 // Each launcher takes the plan (rows_per_thread, row_warps, splits) of
 // kernels/cws_hash.py:split_plan.

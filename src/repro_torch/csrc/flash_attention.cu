@@ -350,9 +350,68 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
   return cudaErrorInvalidValue;
 }
 
+// The instantiation the launchers run for head dim d, bf16 or fp32 and
+// the carry; null for a d they refuse.
+template <typename T, bool CARRY>
+const void* kernel_cols(int d) {
+  const int cols = (d + TX - 1) / TX;
+#define FLASH_KERNEL(N) \
+  if (cols <= N) return reinterpret_cast<const void*>(flash_fwd_kernel<T, N, CARRY>);
+  FLASH_KERNEL(1)
+  FLASH_KERNEL(2)
+  FLASH_KERNEL(4)
+  FLASH_KERNEL(8)
+  FLASH_KERNEL(12)
+  FLASH_KERNEL(16)
+#undef FLASH_KERNEL
+  return nullptr;
+}
+
+const void* kernel_of(int d, int bf16, int carry) {
+  if (d <= 0 || d > MAX_D) return nullptr;
+  if (bf16)
+    return carry ? kernel_cols<__nv_bfloat16, true>(d)
+                 : kernel_cols<__nv_bfloat16, false>(d);
+  return carry ? kernel_cols<float, true>(d) : kernel_cols<float, false>(d);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Queries for the kernel contracts (host code only): the dynamic shared
+// memory a launch at head dim d sets, the instantiation's attributes (out:
+// static shared bytes, registers, local bytes, max threads, max dynamic
+// shared bytes) and the blocks an SM holds at its launch.
+int flash_simt_smem_bytes(int d) {
+  if (d <= 0 || d > MAX_D) return -1;
+  return static_cast<int>(smem_floats(d) * sizeof(float));
+}
+
+int flash_simt_attributes(int d, int bf16, int carry, int* out) {
+  const void* kernel = kernel_of(d, bf16, carry);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = static_cast<int>(a.sharedSizeBytes);
+  out[1] = a.numRegs;
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = a.maxDynamicSharedSizeBytes;
+  return cudaSuccess;
+}
+
+int flash_simt_occupancy(int d, int bf16, int carry, int* blocks) {
+  const void* kernel = kernel_of(d, bf16, carry);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  const int smem = flash_simt_smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       THREADS, smem);
+}
 
 // Row 8 of the TPU kernel table.  q (b, sq, h, d), k and v (b, sk, g, d)
 // and out (b, sq, h, d), all dense, fp32 (bf16 = 0) or bf16 (bf16 = 1).

@@ -709,9 +709,58 @@ bool bad_args(int b, int sq, int sk, int h, int g, int d, int q_base,
          b > 65535;
 }
 
+// The instantiation the launchers run for head dim d and the carry; null
+// for a d they refuse.
+const void* kernel_of(int d, int carry) {
+#define WGMMA_KERNEL(N)                                                    \
+  if (d == N)                                                              \
+    return carry ? reinterpret_cast<const void*>(flash_wgmma_kernel<N, true>) \
+                 : reinterpret_cast<const void*>(flash_wgmma_kernel<N, false>);
+  WGMMA_KERNEL(64)
+  WGMMA_KERNEL(128)
+  WGMMA_KERNEL(192)
+  WGMMA_KERNEL(256)
+#undef WGMMA_KERNEL
+  return nullptr;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Queries for the kernel contracts (host code only): the dynamic shared
+// memory a launch at head dim d sets, the instantiation's attributes (out:
+// static shared bytes, registers, local bytes, max threads, max dynamic
+// shared bytes) and the blocks an SM holds at its launch.
+int flash_wgmma_smem_bytes(int d) {
+  if (d != 64 && d != 128 && d != 192 && d != 256) return -1;
+  return smem_bytes(d);
+}
+
+int flash_wgmma_attributes(int d, int carry, int* out) {
+  const void* kernel = kernel_of(d, carry);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = static_cast<int>(a.sharedSizeBytes);
+  out[1] = a.numRegs;
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = a.maxDynamicSharedSizeBytes;
+  return cudaSuccess;
+}
+
+int flash_wgmma_occupancy(int d, int carry, int* blocks) {
+  const void* kernel = kernel_of(d, carry);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  const int smem = smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       THREADS, smem);
+}
 
 // Row 8 on the tensor cores.  q (b, sq, h, d), k and v (b, sk, g, d) and
 // out (b, sq, h, d), dense bf16, base pointers 16-byte aligned (TMA).

@@ -320,9 +320,76 @@ cudaError_t launch_tiled(const float* x, const float* y, int m, int n, int d,
   return cudaGetLastError();
 }
 
+// The kernel a query names: kind 0 the tiled kernel of a tile_m x tile_n
+// tile, 1 the combine pass, 2 the small-output mode; with its block size
+// and the dynamic shared memory its launcher sets.  Null for another.
+const void* kernel_of(int kind, int tile_m, int tile_n, int* threads,
+                      int* smem) {
+  *smem = 0;
+  if (kind == 1) {
+    *threads = COMBINE_THREADS;
+    return reinterpret_cast<const void*>(min_sum_combine_kernel);
+  }
+  if (kind == 2) {
+    *threads = SMALL_THREADS;
+    return reinterpret_cast<const void*>(min_sum_small_kernel);
+  }
+  if (kind != 0) return nullptr;
+#define GRAM_TILE(TM, TN, RM, RN, WM, WN)                               \
+  if (tile_m == TM && tile_n == TN) {                                   \
+    *threads = Tile<RM, RN, WM, WN>::THREADS;                           \
+    *smem = Tile<RM, RN, WM, WN>::SMEM;                                 \
+    return reinterpret_cast<const void*>(                               \
+        min_sum_tiled_kernel<RM, RN, WM, WN>);                          \
+  }
+  GRAM_TILE(128, 128, 8, 8, 4, 2)
+  GRAM_TILE(128, 64, 8, 4, 4, 2)
+  GRAM_TILE(64, 64, 4, 8, 4, 1)
+#undef GRAM_TILE
+  return nullptr;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Queries for the kernel contracts (host code only), by the kinds of
+// kernel_of: the dynamic shared memory its launcher sets, its attributes
+// (out: static shared bytes, registers, local bytes, max threads, max
+// dynamic shared bytes) and the blocks an SM holds at its launch.
+int min_sum_smem_bytes(int kind, int tile_m, int tile_n) {
+  int threads = 0, smem = 0;
+  if (kernel_of(kind, tile_m, tile_n, &threads, &smem) == nullptr) return -1;
+  return smem;
+}
+
+int min_sum_attributes(int kind, int tile_m, int tile_n, int* out) {
+  int threads = 0, smem = 0;
+  const void* kernel = kernel_of(kind, tile_m, tile_n, &threads, &smem);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = static_cast<int>(a.sharedSizeBytes);
+  out[1] = a.numRegs;
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = a.maxDynamicSharedSizeBytes;
+  return cudaSuccess;
+}
+
+int min_sum_occupancy(int kind, int tile_m, int tile_n, int* blocks) {
+  int threads = 0, smem = 0;
+  const void* kernel = kernel_of(kind, tile_m, tile_n, &threads, &smem);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       threads, smem);
+}
 
 // Row 7 of the TPU kernel table: x (m, d) and y (n, d) fp32 with row
 // strides ldx and ldy floats -> S (m, n) fp32, on the plan gram_plan made:

@@ -5,7 +5,7 @@ import functools
 
 import torch
 
-__all__ = ["resolve_device", "sm_count"]
+__all__ = ["resolve_device", "sm_count", "pin_fp32_reduction"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,3 +33,14 @@ def resolve_device(device=None) -> torch.device:
 def sm_count(index: int) -> int:
     """The SMs of CUDA device ``index``, read once (the kernels' plans)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def pin_fp32_reduction() -> None:
+    """Have cuBLAS reduce bf16 and fp16 products in fp32: PyTorch lets it
+    reduce them at the inputs' precision by default
+    (``allow_bf16_reduced_precision_reduction`` and its fp16 twin),
+    where the reference pins an fp32 accumulator on every sub-fp32 dot.
+    The LM's entry points call this before their products run."""
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = False
+    matmul.allow_fp16_reduced_precision_reduction = False

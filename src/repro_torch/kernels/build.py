@@ -117,6 +117,10 @@ def cws_split_library() -> BuiltLibrary:
                                            i, i, p, i, p),
         "cws_split_stored_hash_launch": (p, p, p, p, i, i, i, i, i, i, i, p,
                                          p, p),
+        # the contracts' queries (``chip_smoke.py``'s contracts phase)
+        "cws_split_smem_bytes": (i, i, i),
+        "cws_split_attributes": (i, i, i, i, p),
+        "cws_split_occupancy": (i, i, i, i, i, p),
     })
 
 
@@ -131,6 +135,9 @@ def minmax_gram_library() -> BuiltLibrary:
     p, i = ctypes.c_void_p, ctypes.c_int
     return _declare(build("minmax_gram.cu"), {
         "min_sum_launch": (p, p, i, i, i, i, i, i, i, i, i, i, p, p, p),
+        "min_sum_smem_bytes": (i, i, i),
+        "min_sum_attributes": (i, i, i, p),
+        "min_sum_occupancy": (i, i, i, p),
     })
 
 
@@ -147,6 +154,9 @@ def flash_attention_library() -> BuiltLibrary:
                                        f, i, p),
         "flash_attention_step_launch": (p, p, p, p, p, p, p, p, p, i, i, i,
                                         i, i, i, i, i, i, f, i, p),
+        "flash_simt_smem_bytes": (i,),
+        "flash_simt_attributes": (i, i, i, p),
+        "flash_simt_occupancy": (i, i, i, p),
     })
 
 
@@ -162,4 +172,7 @@ def flash_attention_wgmma_library() -> BuiltLibrary:
                                              i, i, f, p),
         "flash_attention_wgmma_step_launch": (p, p, p, p, p, p, p, p, p, i,
                                               i, i, i, i, i, i, i, i, f, p),
+        "flash_wgmma_smem_bytes": (i,),
+        "flash_wgmma_attributes": (i, i, p),
+        "flash_wgmma_occupancy": (i, i, p),
     })

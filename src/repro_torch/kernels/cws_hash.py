@@ -244,6 +244,42 @@ def cws_encode_rng_packed_plain(x, key, num_hashes: int, *, b_i: int,
 
 
 # ---------------------------------------------------------------------------
+# meta route: the outputs' shapes and dtypes, no arithmetic (the dry run and
+# the contract audits of ``repro_torch.analysis``)
+# ---------------------------------------------------------------------------
+
+def _meta_out(x, k: int, cols: int | None = None, dtype=torch.int32):
+    return torch.empty((x.shape[0], k if cols is None else cols),
+                       dtype=dtype, device=x.device)
+
+
+def cws_hash_meta(x, params: CWSParams):
+    return _meta_out(x, params.num_hashes), _meta_out(x, params.num_hashes)
+
+
+def cws_hash_rng_meta(x, key, num_hashes: int):
+    return _meta_out(x, num_hashes), _meta_out(x, num_hashes)
+
+
+def cws_encode_meta(x, params: CWSParams, *, b_i: int, b_t: int = 0):
+    return _meta_out(x, params.num_hashes)
+
+
+def cws_encode_rng_meta(x, key, num_hashes: int, *, b_i: int, b_t: int = 0):
+    return _meta_out(x, num_hashes)
+
+
+def cws_encode_packed_meta(x, params: CWSParams, *, b_i: int, b_t: int = 0):
+    return _meta_out(x, 0, packed_width(params.num_hashes, b_i + b_t),
+                     torch.uint32)
+
+
+def cws_encode_rng_packed_meta(x, key, num_hashes: int, *, b_i: int,
+                               b_t: int = 0):
+    return _meta_out(x, 0, packed_width(num_hashes, b_i + b_t), torch.uint32)
+
+
+# ---------------------------------------------------------------------------
 # CUDA launchers
 # ---------------------------------------------------------------------------
 

@@ -66,6 +66,7 @@ is the routing predicate between them.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -112,6 +113,84 @@ def flash_body(dtype: torch.dtype, d: int) -> str:
     ``"simt"``."""
     return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS \
         else "simt"
+
+
+# The bodies' tiles and block sizes (csrc/flash_attention.cu,
+# csrc/flash_attention_wgmma.cu)
+FLASH_BQ = 64                          # query rows a block (a consumer)
+FLASH_BK = 64                          # keys a tile
+SIMT_TX = 16                           # SIMT threads along D
+SIMT_COLS = (1, 2, 4, 8, 12, 16)       # its instantiations: columns a thread
+SIMT_THREADS = 256
+WGMMA_THREADS = 384                    # producer + two consumer warpgroups
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How a body covers q (B, Sq, H, D) against K/V of G heads: its
+    grid, the block size, and (``block_writes``) the output rows and
+    heads each block writes, as the launcher and the kernel compute
+    them.  The SIMT body: a block of 64 rows of one head, each thread
+    ``cols`` columns of D.  The wgmma body: two consumers a block, 64
+    rows each; with one q head a KV head (``pair_rows``) the two take
+    128 consecutive rows of one head, else one 64-row tile of two heads
+    of one group."""
+
+    body: str
+    b: int
+    sq: int
+    h: int
+    g: int
+    d: int
+
+    @property
+    def pair_rows(self) -> bool:
+        return self.h == self.g
+
+    @property
+    def cols(self) -> int:
+        """The SIMT body's columns a thread (its ``DPT``)."""
+        need = -(-self.d // SIMT_TX)
+        return next((c for c in SIMT_COLS if need <= c), 0)
+
+    @property
+    def threads(self) -> int:
+        return WGMMA_THREADS if self.body == "wgmma" else SIMT_THREADS
+
+    @property
+    def grid(self):
+        r = self.h // self.g
+        if self.body == "simt":
+            return (-(-self.sq // FLASH_BQ), self.h, self.b)
+        if self.pair_rows:
+            return (-(-self.sq // (2 * FLASH_BQ)), self.h, self.b)
+        return (-(-self.sq // FLASH_BQ), self.g * ((r + 1) // 2), self.b)
+
+    def block_writes(self, bx: int, by: int, bz: int):
+        """[(batch, head, first row, end row, D columns written)] of block
+        (bx, by, bz); heaviest tiles first, as both bodies order them."""
+        gx = self.grid[0]
+        if self.body == "simt":
+            q0 = (gx - 1 - bx) * FLASH_BQ
+            cols = min(self.d, SIMT_TX * self.cols)
+            return [(bz, by, q0, min(q0 + FLASH_BQ, self.sq), cols)]
+        if self.pair_rows:
+            q0 = (gx - 1 - bx) * 2 * FLASH_BQ
+            return [(bz, by, r0, min(r0 + FLASH_BQ, self.sq), self.d)
+                    for r0 in (q0, q0 + FLASH_BQ) if r0 < self.sq]
+        r = self.h // self.g
+        pairs = (r + 1) // 2
+        kvh, pair = divmod(by, pairs)
+        q0 = (gx - 1 - bx) * FLASH_BQ
+        return [(bz, kvh * r + 2 * pair + c, q0, min(q0 + FLASH_BQ, self.sq),
+                 self.d) for c in (0, 1) if 2 * pair + c < r]
+
+
+def flash_plan(b: int, sq: int, h: int, g: int, d: int, dtype,
+               body: str | None = None) -> FlashPlan:
+    """The plan rows 8 and 9 launch for q (b, sq, h, d) against g KV
+    heads: ``flash_body``'s body, or ``body`` where it takes the call."""
+    return FlashPlan(_pick_body(body, dtype, d), b, sq, h, g, d)
 
 
 def _shapes(q, k, v):

@@ -239,6 +239,15 @@ def minmax_gram_plain(x, y):
     return _minmax_epilogue(x, y, min_sum_plain(x, y))
 
 
+def min_sum_meta(x, y):
+    """The output's shape and dtype on ``meta`` tensors, no arithmetic."""
+    return torch.empty((x.shape[0], y.shape[0]), dtype=torch.float32,
+                       device=x.device)
+
+
+minmax_gram_meta = min_sum_meta
+
+
 def _nonneg(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x.to(torch.float32), 0.0)
 

@@ -52,6 +52,15 @@ COLLECTIVES = {kind: {"count": 0, "bytes": 0, "io_bytes": 0, "axes": {}}
                for kind in COLLECTIVE_KINDS}
 
 
+# Callables told of each collective (``CALL_HOOKS``: a dict of its kind,
+# axes, group size and, for a ring shift, its (source, destination) pairs
+# of axis indices) and of each sum's inputs and result (``REDUCE_HOOKS``:
+# ``hook(inputs, outputs, axes)``): ``repro_torch.analysis``'s recorders.
+# Empty unless an audit records.
+CALL_HOOKS: list = []
+REDUCE_HOOKS: list = []
+
+
 def reset_host_copies() -> None:
     for key in HOST_COPIES:
         HOST_COPIES[key] = 0
@@ -76,10 +85,12 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _record(kind: str, mesh, axes, in_bytes: int, out_bytes: int) -> None:
+def _record(kind: str, mesh, axes, in_bytes: int, out_bytes: int, *,
+            pairs=None) -> None:
     """Count one collective of ``kind`` over ``axes`` that takes
     ``in_bytes`` on this rank and gives it ``out_bytes`` (its wire bytes
-    by the module's model)."""
+    by the module's model); ``pairs``: a ring shift's (source,
+    destination) axis indices."""
     n = len(mesh.ranks(axes))
     wire = {"all_reduce": 2 * out_bytes,
             "reduce_scatter": out_bytes * n}.get(kind, out_bytes)
@@ -89,6 +100,18 @@ def _record(kind: str, mesh, axes, in_bytes: int, out_bytes: int) -> None:
     rec["io_bytes"] += in_bytes + out_bytes
     key = mesh._key(axes)
     rec["axes"][key] = rec["axes"].get(key, 0) + 1
+    if CALL_HOOKS:
+        call = {"kind": kind, "axes": key, "size": n, "pairs": pairs,
+                "bytes": wire}
+        for hook in tuple(CALL_HOOKS):
+            hook(call)
+
+
+def _summed(inputs, outputs, axes):
+    """Tell ``REDUCE_HOOKS`` that ``outputs`` are sums of ``inputs`` over
+    ``axes``."""
+    for hook in tuple(REDUCE_HOOKS):
+        hook(list(inputs), list(outputs), axes)
 
 
 def transport(backend: str, device) -> str:
@@ -172,13 +195,14 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh, axes, *,
         return PendingShift([], tensors, device, "none")
     route = transport(_backend(mesh, axes), device)
     sent = sum(_nbytes(t) for t in tensors)
-    _record("send_recv", mesh, axes, sent, sent)
+    step = -1 if reverse else 1
+    _record("send_recv", mesh, axes, sent, sent,
+            pairs=[(i, (i + step) % n) for i in range(n)])
     if route == "fake":
         return PendingShift([], [torch.empty_like(t) for t in tensors],
                             device, route)
     group = mesh.group(axes)
     me = mesh.axis_index(axes)
-    step = -1 if reverse else 1
     nxt, prv = ranks[(me + step) % n], ranks[(me - step) % n]
     if route == "gloo+host":
         tensors = [_to_host(t) for t in tensors]
@@ -241,7 +265,9 @@ def axis_mean(tensors: Sequence[torch.Tensor], mesh,
     nbytes = sum(_nbytes(t) for t in tensors)
     _record("all_reduce", mesh, axes, nbytes, nbytes)
     if route == "fake":
-        return [torch.empty_like(t) for t in tensors]
+        out = [torch.empty_like(t) for t in tensors]
+        _summed(tensors, out, axes)
+        return out
     flat = torch.cat([t.reshape(-1) for t in tensors])
     size = flat.numel()
     if size % n:
@@ -263,6 +289,7 @@ def axis_mean(tensors: Sequence[torch.Tensor], mesh,
     for t in tensors:
         out.append(mean[lo:lo + t.numel()].view(t.shape))
         lo += t.numel()
+    _summed(tensors, out, axes)
     return out
 
 
@@ -356,7 +383,9 @@ def reduce_scatter_dim(x: torch.Tensor, mesh, axes,
     order."""
     if len(mesh.ranks(axes)) == 1:
         return x
-    return _rank_sum(_all_to_all(x, mesh, axes, dim, "reduce_scatter"))
+    out = _rank_sum(_all_to_all(x, mesh, axes, dim, "reduce_scatter"))
+    _summed([x], [out], axes)
+    return out
 
 
 def axis_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -364,7 +393,9 @@ def axis_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     same bits on every rank; ``x`` itself on one rank."""
     if _one_rank(mesh, axes):
         return x
-    return _rank_sum(gather_parts(x, mesh, axes, kind="all_reduce"))
+    out = _rank_sum(gather_parts(x, mesh, axes, kind="all_reduce"))
+    _summed([x], [out], axes)
+    return out
 
 
 def axis_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:

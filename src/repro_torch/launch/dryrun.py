@@ -22,7 +22,8 @@ For each cell, at rank 0 and at the mesh's last rank, this:
      ``src/repro_torch/benchmarks/results/dryrun/<arch>__<shape>__<mesh>
      .json``.
 
-Repeated work: a train step of N > 2 microbatches (``N_MICRO``) is run at
+Repeated work: a train step of N > 2 microbatches (``N_MICRO``, or on a
+rank with fewer rows the step's own ``microbatch_count``) is run at
 one and at two microbatches of the same size, and the counts taken as
 ``(2 - N) c1 + (N - 1) c2``: the microbatches repeat the same work and
 the rest of the step runs once (``tests/test_torch_dryrun.py`` holds the
@@ -61,7 +62,8 @@ from repro_torch.models.sharding import (make_rules, named_leaves,
                                          shard_bounds, shard_of, spec_at)
 from repro_torch.training.trainer import (TrainHparams, init_train_state,
                                           input_specs, make_serve_steps,
-                                          make_train_step, param_pspecs)
+                                          make_train_step,
+                                          microbatch_count, param_pspecs)
 
 RESULTS_DIR = pathlib.Path(__file__).resolve().parents[1] / \
     "benchmarks" / "results" / "dryrun"
@@ -138,13 +140,11 @@ def _rows(batch: dict, rows: int) -> dict:
 
 def train_stats(cfg, hp, rules, state, batch: dict):
     """The train step's ``GraphStats`` on ``batch`` (this rank's rows) at
-    ``hp.n_microbatches`` = N: for N > 2 the step at one and at two
+    the step's own count N, ``microbatch_count(rows,
+    hp.n_microbatches)``: for N > 2 the step at one and at two
     microbatches of the same size, extrapolated (module docstring)."""
-    n = hp.n_microbatches
     rows = batch["inputs"].shape[0]
-    if rows % n:
-        raise ValueError(f"this rank's {rows} rows of the batch do not "
-                         f"split into {n} microbatches")
+    n = microbatch_count(rows, hp.n_microbatches)
     if n <= 2:
         return hlo_analysis.analyze(make_train_step(cfg, hp, rules), state,
                                     batch)[1]
@@ -238,6 +238,8 @@ def dry_cell(cfg, hp, mesh_shape: dict, rank: int, *, kind: str,
         out = {"rank": rank, "memory": memory, "build_s": time.time() - t0}
         t1 = time.time()
         if kind == "train":
+            out["rank_microbatches"] = microbatch_count(
+                local["inputs"].shape[0], hp.n_microbatches)
             out["graph"] = train_stats(cfg, hp, rules, held, local)
         else:
             prefill_step, decode_one = make_serve_steps(cfg, rules)

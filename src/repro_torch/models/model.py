@@ -22,7 +22,7 @@ import torch
 
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import pin_fp32_reduction, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
@@ -460,7 +460,9 @@ def forward(params: dict, inputs, cfg: ModelConfig, *, caches=None,
     RG-LRU (width) run tensor-parallel over ``tp``.  Caches are then
     ``init_caches(rules=)``'s shards; a decode step's one token (S = 1
     with caches) stays whole on every rank (``TrainLayout.one_token``),
-    and so does the hidden state returned."""
+    and so does the hidden state returned.  The products reduce in fp32
+    (``device.pin_fp32_reduction``)."""
+    pin_fp32_reduction()
     if layout is not None:
         return _forward_layout(params, inputs, cfg, layout, caches=caches,
                                update_cache=update_cache,

@@ -54,35 +54,15 @@ def parse_shape(s: str):
 
 
 def candidates(op: str, n: int, d: int, k: int):
-    """Every plan entry the family's kernel can launch at this shape."""
-    if registry.family(op) == "min_sum":
-        chunks = -(-d // minmax_gram.GRAM_CHUNK)
-        out = [{"tile": t, "splits": s, "small": False}
-               for t in minmax_gram.GRAM_TILES
-               for s in minmax_gram.GRAM_SPLITS if s <= chunks]
-        return out + [{"tile": (0, 0), "splits": 1, "small": True}]
-    out = []
-    for rows in cws_hash.SPLIT_ROWS_PER_THREAD:
-        for warps in cws_hash.SPLIT_ROW_WARPS:
-            for splits in cws_hash.SPLIT_SIZES:
-                plan = cws_hash.SplitPlan(n, d, k, rows, warps, splits)
-                try:
-                    cws_hash.check_plan(plan)
-                except ValueError:
-                    continue
-                out.append({"rows_per_thread": rows, "row_warps": warps,
-                            "splits": splits})
-    return out
+    """Every plan entry the family's kernel can launch at this shape
+    (``registry.plan_candidates``)."""
+    return registry.plan_candidates(op, (n, d, k))
 
 
 def to_plan(op: str, n: int, d: int, k: int, entry: dict, sms: int):
-    """The kernel's plan object for a table entry."""
-    if registry.family(op) == "min_sum":
-        if entry["small"]:
-            return minmax_gram.gram_plan(n, k, d, sms, small=True)
-        return minmax_gram.gram_plan(n, k, d, sms, tile=tuple(entry["tile"]),
-                                     splits=entry["splits"])
-    return cws_hash.check_plan(cws_hash.SplitPlan(n, d, k, **entry))
+    """The kernel's plan object for a table entry
+    (``registry.plan_of``)."""
+    return registry.plan_of(op, (n, d, k), entry, sms)
 
 
 def default_entry(op: str, n: int, d: int, k: int, sms: int) -> dict:

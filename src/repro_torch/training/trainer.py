@@ -307,6 +307,25 @@ def microbatch_grads(loss_fn: Callable, params, batch: dict, *,
     return loss, metrics, grads
 
 
+def microbatch_count(rows: int, n_micro: int) -> int:
+    """The microbatches a rank's ``rows`` of the batch are cut into under
+    ``n_micro`` (``TrainHparams.n_microbatches``): ``n_micro`` where it
+    divides ``rows``, else the fewest that divide ``rows`` into equal
+    parts of at most ``rows / n_micro`` rows each, one row each where
+    ``rows < n_micro``.  So no microbatch holds more rows than under
+    ``n_micro`` microbatches (or one row, if that is more), and every
+    rank of a sharded step, all holding the same rows, takes the same
+    count.  The mean over equal microbatches is the batch's mean, and the
+    sharded step's loss and gradient stay the global batch's."""
+    if rows < 1 or n_micro < 1:
+        raise ValueError(f"microbatch_count: {rows} rows, {n_micro} "
+                         f"microbatches")
+    count = min(n_micro, rows)
+    while rows % count:
+        count += 1
+    return count
+
+
 def _mean_loss_grads(loss, grads, mesh, axis_name: Optional[str]):
     """(loss, grads) averaged over the mesh axis ``axis_name``, in one
     collective; unchanged without an axis."""
@@ -386,7 +405,10 @@ def make_train_step(cfg: ModelConfig, hp: TrainHparams, rules=None, *,
                     on_grads: Optional[Callable] = None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)`` for ``batch =
     {"inputs", "labels"}`` (tensors on the state's device, a leading dim
-    divisible by ``hp.n_microbatches``); metrics ``loss``, ``grad_norm``,
+    divisible by ``hp.n_microbatches``; under ``rules`` a rank's rows in
+    ``microbatch_count(rows, hp.n_microbatches)`` microbatches, so a rank
+    with fewer rows than ``hp.n_microbatches`` takes one row at a time);
+    metrics ``loss``, ``grad_norm``,
     ``nll``, ``tokens`` and the MoE aux terms (of the last microbatch,
     as the reference's).  The state's tensors are updated in place.
     ``on_grads(grads)`` sees the averaged gradients before compression
@@ -429,8 +451,10 @@ def make_train_step(cfg: ModelConfig, hp: TrainHparams, rules=None, *,
                 else p, params)
         else:
             diff = params
+        n_micro = hp.n_microbatches if layout is None else \
+            microbatch_count(batch["inputs"].shape[0], hp.n_microbatches)
         loss, metrics, grads = microbatch_grads(
-            loss_fn, diff, batch, n_micro=hp.n_microbatches,
+            loss_fn, diff, batch, n_micro=n_micro,
             accum_dtype=accum_dtype,
             constrain=None if layout is None else
             (lambda g: to_param_layout(layout, g)))

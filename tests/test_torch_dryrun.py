@@ -321,11 +321,44 @@ def test_microbatch_extrapolation_equals_the_full_count():
     assert sum(want.n_collectives.values()) > 0
 
 
+@pytest.mark.parametrize("global_batch,rank_micro", [(4, 2), (8, 4)])
+def test_train_stats_take_fewer_rows_than_microbatches(global_batch,
+                                                       rank_micro):
+    """N = 16 microbatches on a rank holding 2 or 4 rows at (2, 2): the
+    step and the dry run both take ``microbatch_count``'s one row a
+    microbatch, and the dry run's count (extrapolated past two) equals
+    the step's own (ROADMAP C11)."""
+    cfg = t_configs.get_config("gemma3_12b", "smoke")
+    hp = t_trainer.TrainHparams(n_microbatches=16)
+    with dryrun.fake_group(4, 0):
+        rules = make_rules(Mesh({"data": 2, "model": 2}))
+        _, _, state, local = dryrun.build(cfg, hp, rules, kind="train",
+                                          seq_len=64,
+                                          global_batch=global_batch)
+        rows = local["inputs"].shape[0]
+        assert rows == rank_micro < hp.n_microbatches
+        assert t_trainer.microbatch_count(rows, 16) == rank_micro
+        got = dryrun.train_stats(cfg, hp, rules, state, local)
+        _, want = hlo_analysis.analyze(
+            t_trainer.make_train_step(cfg, hp, rules), state, local)
+    assert got.as_dict() == want.as_dict()
+
+
+def test_microbatch_count_keeps_the_memory_policy():
+    for rows in range(1, 40):
+        for n in range(1, 20):
+            c = t_trainer.microbatch_count(rows, n)
+            assert rows % c == 0
+            assert rows // c <= max(rows / n, 1)
+            if rows % n == 0:
+                assert c == n
+
+
 # ---------------------------------------------------------------------------
 # the counting route's refusals
 # ---------------------------------------------------------------------------
 
-def test_counting_route_refuses_mixed_devices():
+def test_counting_route_refuses_mixed_devices(monkeypatch):
     for backend, dev, says in (("gloo", "meta", "gloo group moves host"),
                                ("nccl", "meta", "NCCL group moves CUDA"),
                                ("fake", "cpu", "fake process group")):
@@ -348,6 +381,11 @@ def test_counting_route_refuses_mixed_devices():
                        "io_bytes": 2 * 3 * 4 + 2 * 6 * 4,
                        "axes": {"model": 1}}
         assert mesh.host_group is not None
+    # every op has a meta route (shapes alone); one without it raises
+    x = torch.empty(3, 5, device="meta")
+    i_star, t_star = registry.resolve("cws_hash_rng", "meta")(x, (1, 2), 7)
+    assert i_star.shape == t_star.shape == (3, 7)
+    monkeypatch.delitem(registry.IMPLS["cws_hash"], "meta")
     with pytest.raises(KeyError, match="no meta route"):
         registry.resolve("cws_hash", "meta")
 

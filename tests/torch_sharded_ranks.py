@@ -31,6 +31,8 @@ LR, STEPS, BATCH, SEQ = 1e-3, 3, 4, 128
 # name -> (arch, config overrides, hparam overrides)
 CONFIGS = {
     "gemma3-chunked-2micro": ("gemma3_12b", {}, dict(n_microbatches=2)),
+    # more microbatches than a data rank's rows (ROADMAP C11)
+    "gemma3-chunked-4micro": ("gemma3_12b", {}, dict(n_microbatches=4)),
     "gemma3-flash": ("gemma3_12b", dict(attn_impl="flash"), {}),
     "starcoder2-flash": ("starcoder2_7b", dict(attn_impl="flash"), {}),
     "nemotron-bf16": ("nemotron_4_340b", {}, {}),
@@ -43,7 +45,7 @@ CASES = {
     1: [("gemma3-chunked-2micro", 1, 1), ("gemma3-flash", 1, 1)],
     2: [("gemma3-chunked-2micro", 2, 1), ("gemma3-chunked-2micro", 1, 2),
         ("gemma3-flash", 2, 1), ("gemma3-flash", 1, 2), ("mamba2", 2, 1),
-        ("recurrentgemma", 2, 1)],
+        ("recurrentgemma", 2, 1), ("gemma3-chunked-4micro", 2, 1)],
     4: [("gemma3-chunked-2micro", 2, 2), ("gemma3-chunked-2micro", 1, 4),
         ("gemma3-flash", 2, 2), ("gemma3-flash", 1, 4),
         ("starcoder2-flash", 2, 2), ("nemotron-bf16", 2, 2),
