@@ -225,6 +225,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 temporary plan table, the table loaded, both launchers
                 required to take the tuned plans and held against their
                 plain versions, the table cleared;
+ 10b. examples - the port's examples (``repro_torch.examples``), each
+                its own path, counters zeroed just before and read just
+                after: the flagship ``cws_classification`` at its full ks
+                (32 ... 1,024) on the reference's draws, its launches
+                exactly (cws_encode 400 a k plus one evaluation chunk, 2
+                for the full batch; min_sum 2), the k = 1,024 features of
+                its first streamed batch and of its test rows equal to the
+                plain version's, every accuracy line within 2 of 800 test
+                rows of the reference's own run
+                (``benchmarks/reference/cws_classification.json``, its
+                one-decimal print allowed), min-max above linear; then
+                ``quickstart`` (one min_sum), ``serve_lm`` (the CWS head's
+                one cws_encode) and ``train_lm`` (100 steps);
  11. lm       - gemma3_12b at full width and depth, attn_impl "flash":
                 the fp32 prefill + decode logits against one cached forward
                 (prompt 600, 4 steps); then the masters cast once to bf16
@@ -333,6 +346,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                 forward on the same weights; the transport, host bytes and
                 each rank's peak memory.  With four cards, once more over
                 NCCL, one rank a card, at full depth;
+ 14b. roofline - ``roofline``'s constants against the card: a bf16
+                ``torch.matmul`` at 8,192^3 and a 4 GiB device copy, each
+                achieved rate a share of PEAK_FLOPS and HBM_BW, both at or
+                under 1; the card's SMs and clock beside the constants';
+                every whole-step model-FLOPs share (phases 11-13) is
+                ``roofline.model_flops`` over ``roofline.peak_flops``;
  15. times    - each kernel and its plain version timed with CUDA events
                 (rows 8 and 9: the wgmma and the SIMT body on the same
                 inputs, in turns, the wgmma body required to be faster;
@@ -391,6 +410,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # The paper configuration (the port's copy of
 # src/repro/configs/minmax_paper.py:CONFIG).
 from repro_torch.configs.minmax_paper import CONFIG  # noqa: E402
+# the model-FLOPs formula and the card's peaks every whole-step share reads
+from repro_torch.benchmarks import roofline  # noqa: E402
 
 DIM, NUM_HASHES, B_I, N_CLASSES = (CONFIG.dim, CONFIG.num_hashes, CONFIG.b_i,
                                    CONFIG.n_classes)
@@ -829,8 +850,6 @@ BS_DRAW_CHUNK = 1 << 26       # elements a chunk
 # and the one it displaces or lets in): the limit allows 1% of the pairs
 # to move so.
 BS_DROP_TOL = 2e-2
-# NVIDIA's data-sheet dense bf16 rate of an H100 SXM (at 700 W)
-PUBLISHED_BF16_FLOPS = 989e12
 # The sequence-parallel slice: gemma3_12b at full width, depth cut from 48
 # to 6 layers (one 5 local : 1 global period: four replicated copies of 48
 # layers do not fit one card), its sequence sharded over SP_RANKS ranks of
@@ -895,7 +914,6 @@ STEP_ROUTE_TIMING = (("rg diagonal", (2, 1024, 10, 1, 256), 1024, 1024,
 # (diagonal), rank 0's (earlier, fully visible), its own under the window
 STEP_TIMING_SHAPE = (1, 8192, 16, 8, 256)
 STEP_TIMING = (("diagonal", 1, 0), ("earlier", 0, 0), ("window", 1, 1024))
-TENSOR_FLOPS_PER_SM_CLK = 4096    # dense bf16 tensor-core flops per SM clock
 FMA_FLOPS_PER_SM_CLK = 2 * LANES_PER_SM
 
 # Tolerances.  Flash kernel vs its plain version: both sum in fp32 (the
@@ -4258,7 +4276,251 @@ def lm_breakdown(params, cfg, prompts, dev, decode_wall_s):
     return out
 
 
-def phase_lm(dev, card, results):
+# The flagship example (examples/cws_classification.py's port) on the card
+# at its full ks, held to the reference's own run of it on the CPU
+# (src/repro_torch/benchmarks/reference/cws_classification.json, whose
+# accuracies are printed to one decimal: +-0.05 pp, 0.4 of 800 rows).
+EXAMPLE_ROWS_TOL = 2          # test rows of 800 (0.25 pp) an accuracy line
+EXAMPLE_PRINT_ROWS = 0.4      # the record's one-decimal rounding, in rows
+# phase_roofline: a bf16 product of ROOF_MATMUL^3 and a device copy of
+# ROOF_COPY_BYTES, each rate a share of roofline's constants
+ROOF_MATMUL = 8192
+ROOF_COPY_BYTES = 4 << 30
+
+
+def phase_examples(dev, card, results):
+    """The port's examples on the card (``repro_torch.examples``), each
+    with the counts zeroed just before and read just after: the flagship
+    ``cws_classification`` at its full ks (``example_flagship``), then
+    ``quickstart``, ``serve_lm`` and ``train_lm`` at the reference's sizes
+    (``example_others``)."""
+    out = {"cws_classification": example_flagship(dev, card, results)}
+    out.update(example_others(dev, card, results))
+    results["examples"] = out
+
+
+def example_flagship(dev, card, results):
+    """The flagship: rows 2 and 7 at their exact launches, the k = 1,024
+    features of the first streamed batch and of the test rows equal to the
+    plain version's, every accuracy line within EXAMPLE_ROWS_TOL test rows
+    of the reference's record, min-max above linear."""
+    from repro_torch.core.regen import fold_in, permutation, prng_key
+    from repro_torch.examples import cws_classification
+    from repro_torch.kernels.cws_hash import cws_encode_plain
+    from repro_torch.pipeline import FeaturePipeline, FeatureSpec
+    ref = json.loads((ROOT / "src" / "repro_torch" / "benchmarks" /
+                      "reference" / "cws_classification.json").read_text())
+    ks, b_i = tuple(ref["ks"]), ref["b_i"]
+    ds = cws_classification.dataset()
+    n, n_test = ds.x_train.shape[0], ds.x_test.shape[0]
+    say = lambda line: print(f"examples cws_classification [{card}]: "
+                             f"{line}")
+
+    # the flagship, counters zeroed just before and read just after
+    t0 = time.perf_counter()
+    reset_all_launches()
+    acc = cws_classification.run(ds, ks, b_i, DEVICE, log=say)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    pipe = FeaturePipeline(cws_classification.cws_params(
+        ds.x_train.shape[1], max(ks), dev), FeatureSpec(max(ks), b_i=b_i))
+    chunks = lambda rows: -(-rows // pipe.row_chunk)
+    want = dict.fromkeys(launches, 0)
+    want["cws_encode"] = sum(cws_classification.STEPS + chunks(n_test)
+                             for _ in ks) + chunks(n) + chunks(n_test)
+    want["min_sum"] = 2        # the min-max machine's train and test Grams
+    if launches != want:
+        raise AssertionError(f"examples: the flagship's launches {launches}, "
+                             f"expected {want} (each k's streamed steps and "
+                             f"evaluation chunks, the full batch's train and "
+                             f"test rows; the min-max machine's two Grams)")
+    require_launched("examples", launches, ("cws_encode", "min_sum"))
+    for k in ("cws_encode", "min_sum"):
+        results[k]["launches"] += launches[k]
+
+    # row 2 at the k = 1,024 path's shapes against its plain version
+    first = permutation(fold_in(prng_key(0), 0), n)[
+        :min(cws_classification.BATCH, n)]
+    xtr, xte = (torch.from_numpy(a).to(dev) for a in (ds.x_train,
+                                                       ds.x_test))
+    for x in (xtr.index_select(0, first.to(dev)), xte):
+        got = pipe.launch_chunk(x)
+        plain = cws_encode_plain(x, pipe.params, b_i=b_i)
+        results["cws_encode"]["checked"] += 1
+        bad = int((got != plain).sum()) if got.shape == plain.shape else -1
+        if bad:
+            raise AssertionError(f"examples: cws_encode at the flagship's "
+                                 f"{tuple(x.shape)} rows: {bad} features "
+                                 f"differ from the plain version")
+
+    # every accuracy line against the reference's record, in test rows
+    pairs = [("exact linear", acc["exact"]["linear"], ref["exact_linear"]),
+             ("exact min-max", acc["exact"]["min-max"],
+              ref["exact_min-max"])]
+    pairs += [(f"streamed k={k}", acc["streamed"][k], ref["streamed"][str(k)])
+              for k in ks]
+    pairs.append((f"full batch k={max(ks)}", acc["full_batch"],
+                  ref["full_batch"]["accuracy"]))
+    rows = {name: (round(a * n_test), r * n_test / 100)
+            for name, a, r in pairs}
+    off = {name: got - want_rows for name, (got, want_rows) in rows.items()}
+    print(f"examples cws_classification [{card}]: the flagship at ks {ks} in "
+          f"{wall:.1f} s; launches {launches['cws_encode']} cws_encode and "
+          f"{launches['min_sum']} min_sum (exactly as expected); the k = "
+          f"{max(ks)} features of the first streamed batch ({len(first)} "
+          f"rows) and the {n_test} test rows equal the plain version's; test "
+          f"rows right (card vs the reference record's printed share x "
+          f"{n_test}): " + ", ".join(
+              f"{name} {got} vs {want_rows:.1f}" for name, (got, want_rows)
+              in rows.items()) + f" (limit {EXAMPLE_ROWS_TOL} + "
+          f"{EXAMPLE_PRINT_ROWS} for the record's rounding)")
+    failed = [f"{name}: {rows[name][0]} test rows right on the card, the "
+              f"reference's record {rows[name][1]:.1f}"
+              for name, d in off.items()
+              if abs(d) > EXAMPLE_ROWS_TOL + EXAMPLE_PRINT_ROWS]
+    if not acc["exact"]["min-max"] > acc["exact"]["linear"]:
+        failed.append(f"exact min-max {acc['exact']['min-max']} not above "
+                      f"linear {acc['exact']['linear']}")
+    if failed:
+        raise AssertionError("examples: " + "; ".join(failed))
+    return {"wall_s": wall, "launches": {
+                k: launches[k] for k in ("cws_encode", "min_sum")},
+            "accuracy": {name: a for name, a, _ in pairs},
+            "rows_off": off, "streamed_s": {str(k): s for k, s in
+                                            acc["seconds"].items()}}
+
+
+def example_others(dev, card, results):
+    """quickstart (one min_sum launch, its Gram against the plain
+    version's), serve_lm (the CWS head's one cws_encode, its codes against
+    the plain version's) and train_lm (100 steps), each a path of its
+    own."""
+    from repro_torch.examples import quickstart, serve_lm, train_lm
+    from repro_torch.kernels.cws_hash import cws_encode_plain
+    from repro_torch.kernels.minmax_gram import minmax_gram_plain
+    from repro_torch.models.cws_head import head_pipeline
+    out = {}
+
+    def drive(name, fn):
+        t0 = time.perf_counter()
+        reset_all_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in read_launches().items() if v}
+        for k, v in launched.items():
+            results[k]["launches"] += v
+        out[name] = {"wall_s": time.perf_counter() - t0,
+                     "launches": launched}
+        return got
+
+    arrays = quickstart.inputs()
+    q = drive("quickstart", lambda: quickstart.run(arrays, DEVICE,
+                                                   log=lambda *a: None))
+    # the Gram against the plain version on the same rows, at gram_worst's
+    # bound for K (4·D·2^-24·|K|)
+    batch = torch.from_numpy(arrays["batch"]).to(dev)
+    plain = minmax_gram_plain(batch, batch).double().cpu().numpy()
+    gram_ratio = float((np.abs(q["gram"].astype(np.float64) - plain) / (
+        4 * batch.shape[1] * U32 * np.abs(plain) + 1e-30)).max()) if (
+        q["gram"].shape == plain.shape) else math.inf
+    results["min_sum"]["checked"] += 1
+    if out["quickstart"]["launches"] != {"min_sum": 1} or not (
+            0 < q["k_true"] < 1 and gram_ratio <= 1.0):
+        raise AssertionError(f"examples: quickstart launches "
+                             f"{out['quickstart']['launches']} (want one "
+                             f"min_sum), K {q['k_true']}, Gram {q['gram']} "
+                             f"at {gram_ratio:.3g} of its bound from the "
+                             f"plain version's")
+    out["quickstart"].update({k: q[k] for k in ("k_true", "est_full",
+                                                "est_0bit", "est_8bit")},
+                             gram_worst_ratio=gram_ratio)
+    s = drive("serve_lm", lambda: serve_lm.run(DEVICE, log=lambda *a: None))
+    gen = s["generated"]
+    if out["serve_lm"]["launches"] != {"cws_encode": 1} or gen.shape != (
+            serve_lm.BATCH, serve_lm.GEN) or not (
+            (gen >= 0) & (gen < s["vocab"])).all() or not np.isfinite(
+            s["route_logits"]).all():
+        raise AssertionError(f"examples: serve_lm launches "
+                             f"{out['serve_lm']['launches']} (want the CWS "
+                             f"head's one cws_encode), ids {gen.shape}")
+    # the head's codes on the example's pooled hidden state, the kernel's
+    # against the plain version's, exactly
+    feats = torch.relu(s["pooled"].float())
+    head_idx = head_pipeline(s["head"], b_i=serve_lm.HEAD_B_I).features(
+        feats)
+    head_plain = cws_encode_plain(feats, s["head"].cws, b_i=serve_lm.HEAD_B_I)
+    results["cws_encode"]["checked"] += 1
+    if not torch.equal(head_idx, head_plain):
+        raise AssertionError(f"examples: serve_lm's CWS head at "
+                             f"{tuple(feats.shape)}: codes differ from the "
+                             f"plain version's")
+    del s
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        state = drive("train_lm", lambda: train_lm.main(
+            ["--arch", "starcoder2_7b", "--steps", "100", "--log-every",
+             "100", "--device", DEVICE]))
+    if int(state.step) != 100:
+        raise AssertionError(f"examples: train_lm stopped at step "
+                             f"{int(state.step)} of 100")
+    del state
+    torch.cuda.empty_cache()
+    print(f"examples [{card}]: quickstart {out['quickstart']['wall_s']:.2f} s "
+          f"(K {q['k_true']:.4f}, 0-bit estimate {q['est_0bit']:.4f}; "
+          f"launches {out['quickstart']['launches']}), serve_lm gemma3_12b "
+          f"smoke {out['serve_lm']['wall_s']:.2f} s (launches "
+          f"{out['serve_lm']['launches']}), train_lm starcoder2_7b smoke 100 "
+          f"steps {out['train_lm']['wall_s']:.2f} s (launches "
+          f"{out['train_lm']['launches'] or 'none: chunked attention'})")
+    return out
+
+
+def phase_roofline(dev, card, results, mhz, sms):
+    """The roofline's constants against the card: a bf16 product at
+    ROOF_MATMUL^3 (``torch.matmul``, cuBLAS) and a device-to-device copy
+    of ROOF_COPY_BYTES, each achieved rate a share of ``roofline.
+    PEAK_FLOPS`` and ``HBM_BW``, both at or under 1 (a constant the card
+    beats would let a later share read above 100%); the card-read SMs and
+    clock beside the constants'.  A measurement, not a kernel port."""
+    m = ROOF_MATMUL
+    gen = torch.Generator(dev).manual_seed(2033)
+    a, b = (torch.randn((m, m), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    c = torch.empty((m, m), device=dev, dtype=torch.bfloat16)
+    mm_ms = time_ms(lambda: torch.matmul(a, b, out=c), reps=20, warmup=3)
+    del a, b, c
+    n = ROOF_COPY_BYTES
+    src = torch.empty(n, device=dev, dtype=torch.uint8)
+    src.fill_(1)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), reps=10, warmup=2)
+    del src, dst
+    torch.cuda.empty_cache()
+    flops_s = 2.0 * m ** 3 / (mm_ms / 1e3)
+    bytes_s = 2.0 * n / (copy_ms / 1e3)       # each byte read and written
+    out = {"matmul_ms": mm_ms, "matmul_flops_s": flops_s,
+           "matmul_share": flops_s / roofline.PEAK_FLOPS,
+           "copy_ms": copy_ms, "copy_bytes_s": bytes_s,
+           "copy_share": bytes_s / roofline.HBM_BW,
+           "card_sms": sms, "card_mhz": mhz}
+    results["roofline"] = out
+    print(f"roofline [{card}]: bf16 torch.matmul {m}^3 {mm_ms:.4f} ms = "
+          f"{flops_s / 1e12:.1f} TFLOP/s, {out['matmul_share']:.4f} of "
+          f"PEAK_FLOPS {roofline.PEAK_FLOPS / 1e12:.1f}; device copy "
+          f"{n / 2 ** 30:.0f} GiB {copy_ms:.4f} ms = {bytes_s / 1e12:.3f} TB/s "
+          f"read + write, {out['copy_share']:.4f} of HBM_BW "
+          f"{roofline.HBM_BW / 1e12:.2f}; the card reads {sms} SMs at "
+          f"{mhz:.0f} MHz (peak_flops "
+          f"{roofline.peak_flops(sms, mhz) / 1e12:.1f}"
+          f" TFLOP/s), the constants assume {roofline.H100_SMS} at "
+          f"{roofline.H100_MAX_MHZ}")
+    if not (0 < out["matmul_share"] <= 1.0 and 0 < out["copy_share"] <= 1.0):
+        raise AssertionError(f"roofline: the card beat a constant: matmul "
+                             f"{out['matmul_share']:.4f}, copy "
+                             f"{out['copy_share']:.4f} of it")
+
+
+def phase_lm(dev, card, results, mhz, sms):
     """gemma3_12b at full width and depth: the fp32 decode/forward check,
     then the main path (``serve_lm``: flash prefill + greedy decode), the
     same prefill with the plain attention, and the CWS head on the pooled
@@ -4347,6 +4609,8 @@ def phase_lm(dev, card, results):
                              f"{err:.4g} > {LM_BF16_TOL:g} x {scale:.4g}")
     breakdown = lm_breakdown(params, cfg, prompts, dev, out["decode_s"])
     warm_ms = breakdown["prefill_warm_ms"]
+    share = step_share(cfg, "prefill", LM_BATCH, LM_PROMPT, warm_ms / 1e3,
+                       sms, mhz)
 
     # the paper's head on the pooled hidden state (cws_encode kernel)
     hidden, _, _ = forward(params, prompts, cfg)
@@ -4392,11 +4656,11 @@ def phase_lm(dev, card, results):
         cws_launches, "peak_gb": peak_gb,
         "masters_gb": masters_gb,
         "init_s": init_s, "first_ids": gen[0].tolist(),
-        "breakdown": breakdown}
+        "breakdown": breakdown, "warm_prefill_mfu": share["mfu"]}
     print(f"slice lm [{card}]: {LM_ARCH} full width and depth, attn_impl "
           f"flash, bf16 weights cast once at load; prefill {LM_BATCH}x"
-          f"{LM_PROMPT} {out['prefill_ms']:.1f} ms (warm {warm_ms:.1f} ms),"
-          f" decode {LM_GEN - 1} steps {out['decode_tok_s']:.1f} tok/s; "
+          f"{LM_PROMPT} {out['prefill_ms']:.1f} ms (warm {warm_ms:.1f} ms: "
+          f"{share_text(share)}), decode {LM_GEN - 1} steps {out['decode_tok_s']:.1f} tok/s; "
           f"flash launches {launches[FLASH[0]]} (= {n_attn} attention "
           f"layers; by body {bodies}); prefill logits vs the plain "
           f"attention: max |dlogit| "
@@ -4710,6 +4974,26 @@ def lm_train_bf16_masters(dev, card, results):
     return out
 
 
+def step_share(cfg, kind, batch, seq, seconds, sms, mhz):
+    """A whole step's model-FLOPs share: ``roofline.model_flops`` (the
+    active parameters and the attention term) over the step's seconds and
+    the card-read dense bf16 peak (``roofline.peak_flops``)."""
+    flops, attn = roofline.model_flops_parts(cfg, kind, batch, seq)
+    peak = roofline.peak_flops(sms, mhz)
+    return {"model_flops": flops, "attention_flops": attn,
+            "peak_flops_s": peak, "mfu": flops / seconds / peak}
+
+
+def share_text(share):
+    return (f"model FLOPs {share['model_flops'] / 1e12:.2f} T a step "
+            f"(roofline.model_flops; attention term "
+            f"{share['attention_flops'] / 1e12:.2f} T, "
+            f"{100 * share['attention_flops'] / share['model_flops']:.1f}%) "
+            f"= {100 * share['mfu']:.3f}% of "
+            f"{share['peak_flops_s'] / 1e12:.1f} TFLOP/s (roofline."
+            f"peak_flops: SMs x 4,096 x the maximum SM clock)")
+
+
 def phase_lm_train(dev, card, results, mhz, sms):
     """gemma3_12b's train step at full width and 6 layers: (a) fp32
     gradients through the flash kernel against the plain route, (c) the
@@ -4822,13 +5106,11 @@ def phase_lm_train(dev, card, results, mhz, sms):
     results[FLASH[0]]["launches"] += launches[FLASH[0]]
     med = float(np.median(step_s[1:]))
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
-    flops = 6 * out["params"] * tokens
-    peak = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
+    share = step_share(cfg, "train", LM_TRAIN_BATCH, LM_TRAIN_SEQ, med, sms,
+                       mhz)
     out.update(losses=losses, grad_norms=norms, step_s=step_s,
                median_step_s=med, tokens_s=tokens / med,
-               model_flops=flops, peak_flops_s=peak,
-               mfu=flops / med / peak,
-               mfu_published=flops / med / PUBLISHED_BF16_FLOPS,
+               mfu=share["mfu"],
                flash_launches=launches[FLASH[0]],
                body_launches=bodies,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -4841,11 +5123,8 @@ def phase_lm_train(dev, card, results, mhz, sms):
           + ", ".join(f"{x:.3f}" for x in norms) + "; step seconds "
           + ", ".join(f"{x:.3f}" for x in step_s)
           + f"; median of steps 2-{LM_TRAIN_STEPS} {med:.4f} s, "
-          f"{out['tokens_s']:,.0f} tokens/s, model FLOPs (6 N tokens) "
-          f"{flops / 1e12:.1f} T a step = {100 * out['mfu']:.2f}% of the "
-          f"dense bf16 peak {peak / 1e12:.1f} TFLOP/s (SMs x 4,096 x the "
-          f"maximum SM clock; {100 * out['mfu_published']:.2f}% of the "
-          f"data sheet's {PUBLISHED_BF16_FLOPS / 1e12:.0f}); flash launches "
+          f"{out['tokens_s']:,.0f} tokens/s, {share_text(share)}; flash "
+          f"launches "
           f"{launches[FLASH[0]]} ({want} a step, by body {bodies}); peak "
           f"memory {out['peak_gb']:.2f} GB (torch.cuda.max_memory_allocated)")
     out["breakdown"] = train_breakdown(cfg, state, step_fn, batch, med,
@@ -5715,7 +5994,6 @@ def phase_lm_sharded(dev, card, results, mhz, sms):
     uninterrupted third step's bits, and its compressed third step's int8
     slices must equal the slices of the whole leaves' compression."""
     out = {}
-    peak = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
     # one spawn takes the three runs in turn, a fresh one resumes (b);
     # both were started ahead (``start_lm_sharded``, before the blocks'
     # phase) and wait while every run's unsharded steps run here, each
@@ -5795,14 +6073,14 @@ def phase_lm_sharded(dev, card, results, mhz, sms):
         out["dryrun"][label] = sh_dryrun_check(run, reps, dry[label], card)
         med = float(np.median(r0["step_s"][1:]))
         tokens = batch * seq
-        flops = 6 * cfg.param_count() * tokens
+        share = step_share(cfg, "train", batch, seq, med, sms, mhz)
         o = {"arch": arch, "layers": layers, "mesh": [data, model], "lr": lr,
              "params": cfg.param_count(), "unsharded": {
                  k: v for k, v in ref.items() if k != "leaf_sq"},
              "losses": losses, "grad_norms": r0["grad_norms"],
              "step_s": [rep["step_s"] for rep in reps],
              "median_step_s": med, "tokens_s": tokens / med,
-             "mfu": flops / med / peak,
+             "mfu": share["mfu"],
              "peak_gb": [rep["peak_gb"] for rep in reps],
              "state_gb": [rep["state_gb"] for rep in reps],
              "host_bytes": [rep["host_bytes"] for rep in reps],
@@ -5847,8 +6125,7 @@ def phase_lm_sharded(dev, card, results, mhz, sms):
               + "; step seconds rank 0 " + ", ".join(
                   f"{x:.3f}" for x in r0["step_s"])
               + f", median of steps 2-{SH_STEPS} {med:.3f} s, "
-              f"{o['tokens_s']:,.0f} tokens/s, model FLOPs share "
-              f"{100 * o['mfu']:.3f}% of {peak / 1e12:.1f} TFLOP/s; peak GB "
+              f"{o['tokens_s']:,.0f} tokens/s, {share_text(share)}; peak GB "
               f"a rank " + ", ".join(f"{x:.2f}" for x in o["peak_gb"])
               + " (max_memory_allocated); host-copy bytes a step rank 0 "
               + ", ".join(f"{x / 1e9:.3f} GB" for x in r0["host_bytes"])
@@ -6588,13 +6865,12 @@ def phase_lm_blocks_sharded(dev, card, results, mhz, sms):
     forward with attention, on the wgmma body, and (c)'s step-1 loss
     within GH_LOSS_TOL."""
     ranks = results.pop("lm_blocks_ranks")
-    peak = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
     out = {}
     t_phase = time.perf_counter()
     try:
         for run in BS_RUNS:
             out[run[0]] = bs_check(run, ranks["blocks-" + run[0]], dev,
-                                   card, peak, results)
+                                   card, (sms, mhz), results)
     finally:
         shutil.rmtree(ROOT / "build" / "lm_blocks_sharded",
                       ignore_errors=True)
@@ -6633,7 +6909,6 @@ def phase_lm_grouped_heads(dev, card, results, mhz, sms):
     which holds step 1's loss within GH_LOSS_TOL for heads that do not
     divide): row 8 at the rank's q_base under autograd in the train
     steps, row 9 around the ring in the prefill, on the wgmma body."""
-    peak = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
     start = results.pop("lm_grouped_start", None) or grouped_heads_spawn()
     out_dir = ROOT / "build" / "lm_grouped_heads"
     t0 = time.perf_counter()
@@ -6645,8 +6920,8 @@ def phase_lm_grouped_heads(dev, card, results, mhz, sms):
     finally:
         stop_sharded(start)
     try:
-        o = bs_check(GH_RUN, every["blocks-" + GH_RUN[0]], dev, card, peak,
-                     results, out_dir=out_dir, what="lm-grouped-heads",
+        o = bs_check(GH_RUN, every["blocks-" + GH_RUN[0]], dev, card,
+                     (sms, mhz), results, out_dir=out_dir, what="lm-grouped-heads",
                      train_ref=ref)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -6660,7 +6935,7 @@ def phase_lm_grouped_heads(dev, card, results, mhz, sms):
           f"the phase {o['phase_s']:.1f} s")
 
 
-def bs_check(run, reps, dev, card, peak, results,
+def bs_check(run, reps, dev, card, clock, results,
              out_dir=ROOT / "build" / "lm_blocks_sharded",
              what="lm-blocks-sharded", train_ref=None):
     """One run of ``phase_lm_blocks_sharded`` (see there), or of
@@ -6747,7 +7022,7 @@ def bs_check(run, reps, dev, card, peak, results,
         steps9 += sum(sum(rep["step_launches"]) for rep in reps)
         med = float(np.median(r0["step_s"][1:]))
         tokens = batch * seq
-        flops = 6 * cfg.active_param_count() * tokens
+        share = step_share(cfg, "train", batch, seq, med, *clock)
         o["train"] = {
             "batch": batch, "seq": seq, "lr": BS_LR[label],
             "losses": losses,
@@ -6755,7 +7030,7 @@ def bs_check(run, reps, dev, card, peak, results,
             "unsharded": {k: v for k, v in ref.items() if k != "leaf_sq"},
             "step_s": [rep["step_s"] for rep in reps],
             "median_step_s": med, "tokens_s": tokens / med,
-            "mfu": flops / med / peak,
+            "mfu": share["mfu"],
             "peak_gb": [rep["train_peak_gb"] for rep in reps],
             "host_bytes": [rep["host_bytes"] for rep in reps],
             "flash_launches": [rep["flash_launches"] for rep in reps],
@@ -6790,9 +7065,8 @@ def bs_check(run, reps, dev, card, peak, results,
             + ", ".join(f"{x:.3f}" for x in r0["step_s"])
             + f", median of steps 2-{SH_STEPS} {med:.3f} s (unsharded "
             + ", ".join(f"{x:.3f}" for x in ref["step_s"])
-            + f"), {tokens / med:,.0f} tokens/s, model FLOPs share "
-            f"{100 * o['train']['mfu']:.3f}% of {peak / 1e12:.1f} TFLOP/s "
-            f"(active parameters); peak GB a rank "
+            + f"), {tokens / med:,.0f} tokens/s, {share_text(share)}; "
+            f"peak GB a rank "
             + ", ".join(f"{x:.2f}" for x in o["train"]["peak_gb"])
             + f" (unsharded {ref['peak_gb']:.2f}); host-copy bytes a step "
             f"rank 0 " + ", ".join(f"{x / 1e9:.3f} GB"
@@ -7460,7 +7734,7 @@ def phase_flash_times(dev, results, mhz, sms):
     q_base against longer K/V), the wgmma and the SIMT body on the same
     inputs, beside the bound, the wgmma design's own floor, the plain
     version and SDPA as a yardstick."""
-    tensor_rate = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
+    tensor_rate = roofline.peak_flops(sms, mhz)
     fma_rate = sms * FMA_FLOPS_PER_SM_CLK * mhz * 1e6
     rng = np.random.default_rng(9)
     cases = [(b, s_, s_, 0, w, h, g, d) for b, s_, w, h, g, d in FLASH_TIMING]
@@ -7541,7 +7815,7 @@ def phase_step_times(dev, results, mhz, sms):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import flash_attention as fa
-    tensor_rate = sms * TENSOR_FLOPS_PER_SM_CLK * mhz * 1e6
+    tensor_rate = roofline.peak_flops(sms, mhz)
     rng = np.random.default_rng(12)
     s_ = STEP_TIMING_SHAPE[1]
     cases = [(label, STEP_TIMING_SHAPE, s_, shard * s_, w)
@@ -8437,7 +8711,8 @@ def main():
                         (phase_estimator, (dev, smi, results)),
                         (phase_benchmarks, (dev, smi, results)),
                         (phase_autotune, (dev, smi, results)),
-                        (phase_lm, (dev, smi, results)),
+                        (phase_examples, (dev, smi, results)),
+                        (phase_lm, (dev, smi, results, mhz, sms)),
                         (phase_lm_train, (dev, smi, results, mhz, sms)),
                         (start_lm_sharded, (results,)),
                         (phase_lm_blocks, (dev, smi, results)),
@@ -8451,6 +8726,7 @@ def main():
                         (phase_lm_blocks_sharded, (dev, smi, results, mhz,
                                                    sms)),
                         (phase_seq_parallel, (smi, results)),
+                        (phase_roofline, (dev, smi, results, mhz, sms)),
                         (phase_times, (dev, results, peak_ops, counts)),
                         (phase_flash_times, (dev, results, mhz, sms)),
                         (phase_step_times, (dev, results, mhz, sms))):
@@ -8547,7 +8823,9 @@ def main():
                  seq_parallel=results["seq_parallel"])
     kernels.append(entry)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "lane_rate_ops_s": peak_ops}))
+    print(json.dumps({"kernels": kernels, "lane_rate_ops_s": peak_ops,
+                      "roofline": results["roofline"],
+                      "examples": results["examples"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,11 +5,12 @@ Prints ``name,us_per_call,derived`` CSV rows and writes each suite's JSON
 records under ``--out`` (default ``src/repro_torch/benchmarks/results``),
 then checks the suite's paper claims; a failed claim fails the run, as
 the reference's asserts do.  ``--fast`` runs the reference's reduced
-sizes.  Runs on the card unless ``--device cpu``.
+sizes.  Runs on the card unless ``--device cpu``; ``roofline`` reads the
+dry run's records and runs where it is called.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [--fast]
       [--only table1|table2|fig45|fig6|fig78|fault_tolerance|
-              packed_features|serve|cws_kernel|ring_attention]
+              packed_features|serve|cws_kernel|ring_attention|roofline]
       [--device cuda|cpu]
       [--out DIR]
 """
@@ -23,8 +24,8 @@ from repro_torch.benchmarks import (bench_cws_kernel, bench_fault_tolerance,
                                     bench_packed_features,
                                     bench_ring_attention, bench_serve,
                                     fig45_cws_mse, fig6_tstar_only,
-                                    fig78_linear_svm, table1_kernel_svm,
-                                    table2_wordpairs)
+                                    fig78_linear_svm, roofline,
+                                    table1_kernel_svm, table2_wordpairs)
 from repro_torch.device import resolve_device
 
 SUITES = {
@@ -38,6 +39,7 @@ SUITES = {
     "serve": bench_serve,
     "cws_kernel": bench_cws_kernel,
     "ring_attention": bench_ring_attention,
+    "roofline": roofline,
 }
 
 
@@ -48,12 +50,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
+    chosen = {n: m for n, m in SUITES.items()
+              if not args.only or args.only == n}
+    # a suite without tensor work (USES_DEVICE False) needs no card
+    dev = (resolve_device(args.device) if any(
+        getattr(m, "USES_DEVICE", True) for m in chosen.values())
+        else args.device)
 
     records, failures, failed_claims = {}, [], {}
-    for name, mod in SUITES.items():
-        if args.only and args.only != name:
-            continue
+    for name, mod in chosen.items():
         print(f"# === {name} ===", flush=True)
         t0 = time.perf_counter()
         try:
